@@ -1,0 +1,330 @@
+"""Smoke test of the PyTorch + CUDA port on one GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path (rend3_tpu_torch) on the card through the
+entry points a user calls (TestRunner / Renderer scene calls,
+swap_instruction_buffers, evaluate_instructions, BaseRenderGraph.render_frame)
+on the flat city-block scene of `bench.py --flat` at 1920x1080, and checks
+every hand-written kernel of that path against its plain PyTorch version.
+Phases (each raises on failure; any failure exits nonzero):
+
+1. environment: torch, CUDA and nvcc versions, the card's name and power limit;
+2. build: compile csrc/*.cu with nvcc (timed);
+3. slice: three frames (build the shadow map, reuse it, move a building so
+   it is rebuilt) with launch counters zeroed just before and read just
+   after; per-frame stage times (CUDA events), frame time and peak memory;
+4. kernels: K1, K2 and K3 on the inputs captured in the 1080p frame against
+   their plain versions on the card, with median times;
+5. parity: the shadow golden scene at 256x256 on the card and on the CPU.
+
+The last two lines are the card (nvidia-smi) and one JSON object
+{"ok": true, "device": {...}}; the line before them lists the kernels.
+Without a CUDA device it prints why and exits 2.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+WIDTH, HEIGHT = 1920, 1080
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def nvidia_smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase_environment():
+    import torch
+
+    from rend3_tpu_torch.ops import cuda_kernels
+
+    nvcc = subprocess.run([cuda_kernels._nvcc(), "--version"], capture_output=True, text=True)
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
+    log("nvcc: " + nvcc.stdout.strip().splitlines()[-1])
+    log(f"device: {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()})")
+    log("nvidia-smi: " + nvidia_smi_line())
+
+
+def phase_build():
+    from rend3_tpu_torch.ops import cuda_kernels
+
+    t0 = time.perf_counter()
+    cuda_kernels.build(verbose=True)
+    cuda_kernels.library()
+    log(f"build: {time.perf_counter() - t0:.2f} s ({cuda_kernels.last_build['path']})")
+    for line in cuda_kernels.last_build["log"].splitlines()[:40]:
+        log("  nvcc: " + line.strip())
+
+
+def _launch_counts():
+    from rend3_tpu_torch.ops import deferred, samplers
+
+    return {
+        "raster_resolve": deferred.launches["raster_resolve"],
+        "raster_depth": deferred.launches["raster_depth"],
+        "pcf5": samplers.launches["pcf5"],
+    }
+
+
+def _reset_launch_counts():
+    from rend3_tpu_torch.ops import deferred, samplers
+
+    for d in (deferred.launches, samplers.launches):
+        for k in d:
+            d[k] = 0
+
+
+def phase_slice(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
+    """Three frames of the flat bench scene; returns (graph, counts, image)."""
+    import numpy as np
+    import torch
+
+    from rend3_tpu_torch import scenes
+    from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget, StageTimer
+    from rend3_tpu_torch.testing import TestRunner
+    from rend3_tpu_torch.utils import math as m3
+
+    runner = TestRunner(device=device)
+    keep = scenes.build_city_scene(runner, n_buildings=n_buildings, representative=False)
+    scenes.set_bench_camera(runner, width, height)
+    graph = runner.base_graph
+    graph.captured = {}
+    target = FrameRenderTarget(width, height, 1)
+    settings = BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0))
+    building = [h for h in keep if getattr(h, "kind", None) == "object"][-1]
+    cuda = torch.device(device).type == "cuda"
+
+    def frame(label):
+        runner.renderer.swap_instruction_buffers()
+        ev = runner.renderer.evaluate_instructions()
+        graph.timer = StageTimer(device)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+        t0 = time.perf_counter()
+        img = graph.render_frame(ev, target, settings)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        dev_ms = None
+        if cuda:
+            e1.record()
+            torch.cuda.synchronize()
+            dev_ms = e0.elapsed_time(e1)
+        stages = graph.timer.ms()
+        graph.timer = None
+        peak = torch.cuda.max_memory_allocated() / 2**20 if cuda else float("nan")
+        log(
+            f"frame {label}: host {host_ms:.3f} ms, device events {dev_ms} ms, peak {peak:.1f} MiB, "
+            f"stats {graph.last_stats}"
+        )
+        log("  stages (ms): " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+        return img
+
+    _reset_launch_counts()
+    img1 = frame("1 (builds the shadow map)")
+    k2_after_1 = _launch_counts()["raster_depth"]
+    state1 = graph._shadow_cache[0]
+    img2 = frame("2 (cached shadow map)")
+    if _launch_counts()["raster_depth"] != k2_after_1 or graph._shadow_cache[0] != state1:
+        raise AssertionError("frame 2 did not reuse the cached shadow map")
+    # A 50-unit tower halfway along the bench camera's line of sight.
+    runner.renderer.set_object_transform(building, m3.translation([24.0, 25.0, -40.0]) @ m3.scale([3.0, 25.0, 3.0]))
+    img3 = frame("3 (a building moved)")
+    counts = _launch_counts()
+    if graph._shadow_cache[0] == state1 or (cuda and counts["raster_depth"] == k2_after_1):
+        raise AssertionError("moving a building did not invalidate the shadow map")
+    log(f"launches during the three frames: {counts}")
+    if cuda:
+        for name, n in counts.items():
+            if n == 0:
+                raise AssertionError(f"kernel {name} was never launched by the main path")
+    for img in (img1, img2, img3):
+        if img.shape != (height, width, 4) or img.dtype != np.uint8:
+            raise AssertionError(f"image {img.shape} {img.dtype}")
+        lit = (img[..., :3] != 0).any(-1).mean()
+        if lit < 0.5:
+            raise AssertionError(f"only {lit:.3f} of the pixels differ from the background")
+    if not np.array_equal(img1, img2):
+        raise AssertionError("two frames of a static scene differ")
+    if np.array_equal(img1, img3):
+        raise AssertionError("moving a building changed nothing")
+    log(f"image: {img1.shape}, non-background {(img1[..., :3] != 0).any(-1).mean():.4f}, mean {img1.mean():.3f}")
+    del keep
+    return graph, counts, img1
+
+
+def _median_ms(fn, reps):
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def _ulps(a, b):
+    import torch
+
+    ia = a.contiguous().view(torch.int32).long()
+    ib = b.contiguous().view(torch.int32).long()
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return (ia - ib).abs()
+
+
+def phase_kernels(graph, counts, timed=True):
+    """Each kernel against its plain version on the captured 1080p inputs."""
+    import torch
+
+    from rend3_tpu_torch.ops import deferred as D
+    from rend3_tpu_torch.ops import samplers as S
+
+    cap = graph.captured
+    rows = []
+
+    # K1: depth, hit and material bit-exact; the other channels exact too
+    # (kernel and plain version evaluate the same expressions), reported in ulps.
+    tris, planes, binned, wp, hp = cap["raster_resolve"]
+    k = D.raster_resolve(tris, planes, binned, wp, hp).data
+    p = D.raster_resolve_plain(tris, planes, binned, wp, hp)
+    for ch in (D.G_DEPTH, D.G_HIT, D.G_MAT):
+        if not torch.equal(k[ch], p[ch]):
+            n = int((k[ch] != p[ch]).sum())
+            raise AssertionError(f"K1 channel {ch} differs from the plain version at {n} pixels")
+    ulps = _ulps(k, p)
+    max_ulp = int(ulps.max())
+    err1 = float((k - p).abs().max())
+    log(f"K1: {int((ulps > 0).sum())} of {k.numel()} values differ; max {max_ulp} ulp, max abs {err1:.3g}")
+    if max_ulp > 1:
+        raise AssertionError(f"K1 differs from its plain version by {max_ulp} ulp")
+    rows.append(("raster_resolve", "rend3_tpu_torch/csrc/raster.cu", "rend3_tpu/ops/deferred.py:505",
+                 lambda: D.raster_resolve(tris, planes, binned, wp, hp),
+                 lambda: D.raster_resolve_plain(tris, planes, binned, wp, hp), err1))
+
+    # K2: bit-exact.
+    stris, sbinned, swp, shp = cap["raster_depth"]
+    k = D.raster_depth(stris, sbinned, swp, shp)
+    p = D.raster_depth_plain(stris, sbinned, swp, shp)
+    if not torch.equal(k, p):
+        raise AssertionError(f"K2 differs from the plain version at {int((k != p).sum())} texels")
+    log(f"K2: bit-exact over {k.numel()} texels, {int((k > 0).sum())} covered")
+    rows.append(("raster_depth", "rend3_tpu_torch/csrc/raster.cu", "rend3_tpu/ops/deferred.py:382",
+                 lambda: D.raster_depth(stris, sbinned, swp, shp),
+                 lambda: D.raster_depth_plain(stris, sbinned, swp, shp), 0.0))
+
+    # K3: abs <= 1e-6.
+    args = cap["pcf5"]
+    k = S.sample_grid_pcf5(*args)
+    p = S.sample_grid_pcf5_plain(*args)
+    err3 = float((k - p).abs().max())
+    log(f"K3: max abs err {err3:.3g} over {k.numel()} pixels, {int(args[-1].sum())} valid")
+    if not err3 <= 1e-6:
+        raise AssertionError(f"K3 differs from the plain version by {err3}")
+    rows.append(("pcf5", "rend3_tpu_torch/csrc/pcf5.cu", "rend3_tpu/ops/mxu_gather.py:424",
+                 lambda: S.sample_grid_pcf5(*args), lambda: S.sample_grid_pcf5_plain(*args), err3))
+
+    kernels = []
+    for name, src, repl, kfn, pfn, err in rows:
+        ms = _median_ms(kfn, 20) if timed else None
+        plain_ms = _median_ms(pfn, 5) if timed else None
+        log(f"{name}: kernel {ms} ms, plain {plain_ms} ms (median)")
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "launches": counts[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        })
+    return kernels
+
+
+def shadow_scene(runner):
+    """The scene of tests/test_shadow.py (plane + cube, one light)."""
+    import numpy as np
+
+    from rend3_tpu_torch.types import Camera, Orthographic
+    from rend3_tpu_torch.utils import math as m3
+
+    keep = [runner.add_directional_light(np.array([-1.0, -1.0, 1.0], np.float32))]
+    mat1 = runner.add_lit_material([0.25, 0.5, 0.75, 1.0])
+    keep += [mat1, runner.plane(mat1, m3.rotation_x(-np.pi / 2))]
+    runner.set_camera_data(
+        Camera(
+            projection=Orthographic(size=np.array([2.5, 2.5, 5.0], np.float32)),
+            view=m3.look_at_lh([0.0, 1.0, -1.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]),
+        )
+    )
+    mat2 = runner.add_lit_material([0.75, 0.5, 0.25, 1.0])
+    keep += [mat2, runner.cube(mat2, m3.translation([0.25, 0.25, -0.25]) @ m3.scale(0.25))]
+    return keep
+
+
+def phase_parity(device="cuda"):
+    import numpy as np
+
+    from rend3_tpu_torch.testing import FrameRenderSettings, TestRunner
+
+    imgs = []
+    for dev in (device, "cpu"):
+        runner = TestRunner(device=dev)
+        keep = shadow_scene(runner)
+        imgs.append(runner.render_frame(FrameRenderSettings(size=256)))
+        del keep
+    diff = int(np.abs(imgs[0].astype(np.int32) - imgs[1].astype(np.int32)).max())
+    log(f"parity: shadow scene 256x256, {device} vs cpu max u8 diff {diff}")
+    if diff > 1:
+        raise AssertionError(f"card and CPU renders differ by {diff}")
+
+
+def main():
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: torch is not importable: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import rend3_tpu_torch  # noqa: F401
+
+        phase_environment()
+        phase_build()
+        graph, counts, _img = phase_slice()
+        kernels = phase_kernels(graph, counts)
+        phase_parity()
+        smi = nvidia_smi_line()
+    except Exception:  # noqa: BLE001 - any failed phase fails the run
+        traceback.print_exc()
+        return 1
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,129 @@
+"""Time and trace the port's frame on a CUDA device.
+
+    python -m rend3_tpu_torch.frame_profile [--frames N] [--trace-dir DIR]
+
+Renders the flat city scene of `bench.py --flat` (600 buildings, one 2048²
+shadow map) at 1920x1080 on the card and prints one JSON line with:
+
+- static_ms: median frame time (host clock around render_frame_tensor plus a
+  synchronize) when the shadow map is cached;
+- dynamic_ms: the same when a building moves every frame, so the shadow map
+  is re-rasterized (the reference re-renders shadows every frame);
+- stages_ms: the per-stage CUDA-event split of one static frame;
+- device_busy_ms / device_busy_share: summed kernel time over the frame
+  time in a torch.profiler trace of static frames, and the kernels that
+  take the most of it (with --trace-dir, the chrome trace is written to
+  DIR/frame_trace.json).
+
+Needs a CUDA device; there is no CPU fall-back.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import time
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=10)
+    ap.add_argument("--trace-dir", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("frame_profile needs a CUDA device")
+
+    from . import scenes
+    from .routine.base import BaseRenderGraphSettings, FrameRenderTarget, StageTimer
+    from .testing import TestRunner
+    from .utils import math as m3
+
+    width, height = 1920, 1080
+    runner = TestRunner(device="cuda")
+    keep = scenes.build_city_scene(runner, n_buildings=600, representative=False)
+    scenes.set_bench_camera(runner, width, height)
+    building = [h for h in keep if getattr(h, "kind", None) == "object"][-1]
+    graph = runner.base_graph
+    target = FrameRenderTarget(width, height, 1)
+    settings = BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0))
+
+    def frame():
+        runner.renderer.swap_instruction_buffers()
+        ev = runner.renderer.evaluate_instructions()
+        return graph.render_frame_tensor(ev, target, settings)
+
+    def timed(n, move=False):
+        out = []
+        for i in range(n):
+            if move:
+                runner.renderer.set_object_transform(
+                    building, m3.translation([24.0 + 0.01 * i, 25.0, -40.0]) @ m3.scale([3.0, 25.0, 3.0])
+                )
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for _ in range(3):
+        frame()
+    static = timed(args.frames)
+    dynamic = timed(args.frames, move=True)
+    frame()
+    graph.timer = StageTimer("cuda")
+    frame()
+    stages = graph.timer.ms()
+    graph.timer = None
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n_prof = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            frame()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
+    if args.trace_dir:
+        os.makedirs(args.trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.trace_dir, "frame_trace.json"))
+    kernels = []
+    busy_us = 0.0
+    for e in prof.key_averages():
+        # Device-side events only: the CPU ops that launched them report
+        # the same time again as their self device time.
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = e.self_device_time_total
+        busy_us += dev_us
+        kernels.append((dev_us / n_prof / 1e3, e.count // n_prof, e.key))
+    kernels.sort(reverse=True)
+    busy_ms = busy_us / n_prof / 1e3
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "static_ms": statistics.median(static),
+        "static_all_ms": static,
+        "dynamic_ms": statistics.median(dynamic),
+        "dynamic_all_ms": dynamic,
+        "stages_ms": stages,
+        "profiled_frame_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / wall_ms,
+        "top_device_ops": [
+            {"ms_per_frame": round(ms, 4), "calls_per_frame": c, "name": k[:90]} for ms, c, k in kernels[:25]
+        ],
+        "stats": graph.last_stats,
+    }))
+    del keep
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

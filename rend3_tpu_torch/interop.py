@@ -1,0 +1,88 @@
+"""Carry the JAX package's tables into the port's tensors.
+
+The parity tests run a stage in both packages from the same numbers: they
+turn the JAX side's arrays into numpy (`np.asarray`) and hand them to the
+functions here, which build the port's structures. Nothing here imports
+jax; the inputs are numpy arrays or anything `np.asarray` accepts.
+
+- geometry arenas, triangle / object / material tables: `tensor`,
+  `geometry_arrays`;
+- light arrays: `dir_lights`, `point_lights`;
+- the setup table (`TriSetup`, padding rows past `count` dropped) and
+  attribute planes (`planes`);
+- per-tile lists: `binned` turns JAX's (n_tiles, K) -1-padded `BinnedTris`
+  ids into CSR;
+- shadow maps: `tensor`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.framestate import GeometryArrays
+from .ops.geometry import BinnedTris, TriSetup
+from .ops.shade import DirLightArrays, PointLightArrays
+
+__all__ = ["tensor", "geometry_arrays", "tri_setup", "planes", "binned", "dir_lights", "point_lights"]
+
+
+def tensor(a, device="cpu", dtype=None) -> torch.Tensor:
+    """numpy (or array-like) -> contiguous tensor on `device`."""
+    t = torch.from_numpy(np.array(a, copy=True, order="C"))
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def geometry_arrays(geo, device="cpu") -> GeometryArrays:
+    """Any object with GeometryArrays' fields (the JAX NamedTuple)."""
+    return GeometryArrays(**{f: tensor(getattr(geo, f), device) for f in GeometryArrays._fields})
+
+
+def tri_setup(setup, bbox, count, src, flip, device="cpu") -> TriSetup:
+    """The JAX TriSetup's arrays, cut to its `count` survivor rows."""
+    n = int(count)
+    return TriSetup(
+        setup=tensor(np.asarray(setup)[:n], device, torch.float32),
+        bbox=tensor(np.asarray(bbox)[:n], device, torch.float32),
+        src=tensor(np.asarray(src)[:n], device, torch.int64),
+        flip=tensor(np.asarray(flip)[:n], device, torch.bool),
+    )
+
+
+def planes(planes_arr, count, device="cpu") -> torch.Tensor:
+    return tensor(np.asarray(planes_arr)[: int(count)], device, torch.float32)
+
+
+def binned(ids, device="cpu") -> BinnedTris:
+    """(n_tiles, K) per-tile ids, -1 padded -> CSR (padding stripped, the
+    order of each list kept)."""
+    ids = np.asarray(ids)
+    keep = ids >= 0
+    counts = keep.sum(axis=1)
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return BinnedTris(
+        offsets=tensor(offsets, device), ids=tensor(ids[keep].astype(np.int32), device)
+    )
+
+
+def dir_lights(arrays, device="cpu") -> DirLightArrays:
+    """From the JAX DirLightArrays (or the evaluation output's dict)."""
+    get = arrays.__getitem__ if isinstance(arrays, dict) else lambda k: getattr(arrays, k)
+    return DirLightArrays(
+        **{
+            k: tensor(get(k), device, torch.bool if k == "mask" else torch.float32)
+            for k in DirLightArrays._fields
+        }
+    )
+
+
+def point_lights(arrays, device="cpu") -> PointLightArrays:
+    get = arrays.__getitem__ if isinstance(arrays, dict) else lambda k: getattr(arrays, k)
+    return PointLightArrays(
+        **{
+            k: tensor(get(k), device, torch.bool if k == "mask" else torch.float32)
+            for k in PointLightArrays._fields
+        }
+    )

@@ -1,0 +1,132 @@
+"""Build, load and call the hand-written CUDA kernels (csrc/*.cu).
+
+The sources are compiled with nvcc into one shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
+         -shared -Xcompiler -fPIC -o _build/librend3_kernels_<hash>.so csrc/*.cu
+
+The library is built at first use into rend3_tpu_torch/_build/ (listed in
+.gitignore); its name carries a hash of the sources and flags, so editing a
+source rebuilds it. --fmad=false keeps nvcc from contracting a*b + c into an
+fma anywhere the kernels do not ask for one explicitly; division and sqrt
+stay IEEE (no --use_fast_math).
+
+Each C function takes a `c_void_p` per tensor, then ints, then floats, then
+the CUDA stream, launches on that stream and returns cudaGetLastError();
+`call` raises on a nonzero code. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Optional
+
+import torch
+
+__all__ = ["build", "library", "call", "SOURCES", "NVCC_FLAGS"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC_DIR = os.path.join(_PKG, "csrc")
+_BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("raster.cu", "pcf5.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+# name -> (tensor args, int args, float args); every function ends with the stream.
+_SIGNATURES = {
+    "k1_raster_resolve": (6, 2, 2),
+    "k2_raster_depth": (5, 2, 2),
+    "k3_pcf5": (8, 3, 0),
+}
+
+_lib: Optional[ctypes.CDLL] = None
+last_build: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit (set CUDA_HOME)")
+    return path
+
+
+def _library_path() -> str:
+    h = hashlib.sha1()
+    for name in SOURCES:
+        with open(os.path.join(_SRC_DIR, name), "rb") as fh:
+            h.update(fh.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(_BUILD_DIR, f"librend3_kernels_{h.hexdigest()[:16]}.so")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the kernels if the library for the current sources is
+    missing; returns its path. `verbose` adds -Xptxas -v (registers, shared
+    memory and spills per kernel) and keeps the compiler's output in
+    `last_build["log"]`."""
+    path = _library_path()
+    if os.path.exists(path) and not verbose:
+        return path
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-o", tmp]
+    cmd += [os.path.join(_SRC_DIR, s) for s in SOURCES]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, path)
+    last_build.update(
+        path=path, seconds=time.perf_counter() - t0, built=True, log=proc.stdout + proc.stderr
+    )
+    return path
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, (n_t, n_i, n_f) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = (
+                [ctypes.c_void_p] * n_t + [ctypes.c_int] * n_i + [ctypes.c_float] * n_f + [ctypes.c_void_p]
+            )
+            fn.restype = ctypes.c_int
+        lib.rend3_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.rend3_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def call(name: str, *tensors: torch.Tensor, ints=(), floats=()) -> None:
+    """Launch kernel `name` on the current stream of the tensors' device."""
+    n_t, n_i, n_f = _SIGNATURES[name]
+    if len(tensors) != n_t or len(ints) != n_i or len(floats) != n_f:
+        raise TypeError(f"{name}: expected {n_t} tensors, {n_i} ints, {n_f} floats")
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: CUDA kernel called with tensors on {dev}")
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, name)(
+            *[ctypes.c_void_p(t.data_ptr()) for t in tensors],
+            *[ctypes.c_int(int(i)) for i in ints],
+            *[ctypes.c_float(float(f)) for f in floats],
+            ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}: {lib.rend3_cuda_error_string(rc).decode()}")

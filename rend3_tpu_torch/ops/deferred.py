@@ -1,0 +1,419 @@
+"""Per-triangle attribute planes, and the raster kernels K1 and K2.
+
+Port of rend3_tpu/ops/deferred.py. Every surviving triangle gets
+screen-space interpolation planes for each vertex attribute (attr/w and 1/w
+are linear in screen space); the fused raster + resolve kernel (K1) walks
+each 32x128 tile's triangle list, keeps the nearest triangle per pixel and
+evaluates the winner's planes into the 25-channel G-buffer. K2 is the same
+walk keeping only the depth (shadow maps).
+
+The TPU kernels' chunk packing, band masks, 1D step queue and phase-B
+one-hot matmul are gone: the CUDA kernels (csrc/raster.cu) read the CSR tile
+lists directly and gather the winner's plane row. Each wrapper runs the
+kernel for CUDA tensors and the plain PyTorch version, in this module, for
+CPU tensors.
+
+Arithmetic contract shared by the kernels and their plain versions: an edge,
+depth or attribute plane a*px + b*py + c is evaluated as fma(a, px, b*py) + c.
+That is what the JAX kernels compute under XLA:CPU (the reference the parity
+tests run), where LLVM contracts the first product into an fma. The form is
+symmetric under negation, so the watertight shared-edge scheme
+(geometry.py:226-239) still holds. The plain versions emulate the fma
+exactly in float64 (`fma32`).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from .geometry import S_EA, S_EB, S_EC, S_TL, S_TL1, S_TL2, S_ZA, S_ZB, S_ZC, BinnedTris, TriSetup
+
+__all__ = [
+    "DTILE_H",
+    "DTILE_W",
+    "PLANES_W",
+    "GB_CH",
+    "GBuffer",
+    "attribute_planes",
+    "raster_resolve",
+    "raster_depth",
+    "fma32",
+]
+
+DTILE_H = 32
+DTILE_W = 128
+
+# Plane-table lanes (PLANES_W per surviving triangle), as deferred.py:52-62.
+PLANES_W = 64
+P_DEN = 0    # 3: 1/w plane
+P_VP = 3     # 9: view-space position (3 ch x 3 coefs)
+P_NRM = 12   # 9
+P_TAN = 21   # 9
+P_UV0 = 30   # 6
+P_UV1 = 36   # 6
+P_COL = 42   # 12
+P_MAT = 54   # 1: material slot as float value
+
+# G-buffer channels, as deferred.py:64-84.
+GB_CH = 25
+G_DEPTH = 0
+G_DEN = 1
+G_VP = 2     # 3
+G_NRM = 5    # 3
+G_TAN = 8    # 3
+G_UV0 = 11   # 2
+G_UV1 = 13   # 2
+G_COL = 15   # 4
+G_MAT = 19
+G_HIT = 20
+G_DUV = 21   # 4: du/dx, dv/dx, du/dy, dv/dy (analytic, post-divide)
+
+# Launch counts of the CUDA kernels (plain-version runs do not count).
+launches = {"raster_resolve": 0, "raster_depth": 0}
+
+
+class GBuffer(NamedTuple):
+    """Raw (numerator-space) G-buffer: (CH, H, W) float32."""
+
+    data: torch.Tensor
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Exactly rounded float32 fma(a, b, c), emulated in float64.
+
+    a*b is exact in float64 and the sum's rounding error is recovered
+    exactly (TwoSum); the only case where rounding the float64 sum to
+    float32 differs from rounding the exact value is a sum that lands on a
+    float32 tie, which the error then breaks."""
+    a, b, c = torch.broadcast_tensors(a, b, c)
+    p = a.double() * b.double()
+    c64 = c.double()
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    r = s.float()
+    r64 = r.double()
+    d = s - r64
+    toward = torch.where(d > 0, torch.full_like(r, float("inf")), torch.full_like(r, float("-inf")))
+    nb = torch.nextafter(r, toward)
+    tie = (d != 0) & (2.0 * d == nb.double() - r64)
+    fix = tie & (err != 0) & ((err > 0) == (d > 0))
+    return torch.where(fix, nb, r)
+
+
+def plane_eval(a, b, c, px, py):
+    """fma(a, px, b*py) + c in float32 (the kernels' plane evaluation)."""
+    return fma32(a, px, b * py) + c
+
+
+def attribute_planes(
+    tris: TriSetup,
+    ctri_clip: torch.Tensor,    # (Tc, 3, 4)
+    ctri_bary: torch.Tensor,    # (Tc, 3, 3)
+    ctri_orig: torch.Tensor,    # (Tc,)
+    tri_vlocal: torch.Tensor,
+    tri_obj: torch.Tensor,
+    bases: torch.Tensor,
+    geo,
+    model_view: torch.Tensor,   # (O, 4, 4)
+    obj_material: torch.Tensor,
+    width: int,
+    height: int,
+) -> torch.Tensor:
+    """The (V, PLANES_W) plane table for the surviving triangles (the
+    vertex-stage math of opaque.wgsl vs_main), as deferred.py:101-220.
+    Sums over the three corners are written out left to right."""
+    from .geometry import _opp, _swap12
+
+    V = tris.count
+    src = tris.src
+    c = _swap12(ctri_clip[src], tris.flip)       # (V, 3, 4)
+    b = _swap12(ctri_bary[src], tris.flip)       # (V, 3, 3)
+    o = ctri_orig[src]
+
+    w = c[..., 3]
+    inv_w = 1.0 / torch.where(w == 0.0, torch.ones_like(w), w)   # (V, 3)
+    x = (c[..., 0] * inv_w * 0.5 + 0.5) * width
+    y = (0.5 - c[..., 1] * inv_w * 0.5) * height
+
+    xn = torch.roll(x, -1, dims=1)
+    yn = torch.roll(y, -1, dims=1)
+    ea = -(yn - y)
+    eb = xn - x
+    ec = (yn - y) * x - (xn - x) * y
+    area = (x[:, 1] - x[:, 0]) * (y[:, 2] - y[:, 0]) - (x[:, 2] - x[:, 0]) * (y[:, 1] - y[:, 0])
+    inv_area = 1.0 / torch.where(area == 0.0, torch.ones_like(area), area)
+    oa = _opp(ea) * inv_area[:, None]
+    ob = _opp(eb) * inv_area[:, None]
+    oc = _opp(ec) * inv_area[:, None]
+
+    obj = tri_obj[o].clamp_min(0).long()
+    vloc = tri_vlocal[o].long()                  # (V, 3)
+    bs = bases[obj].long()                       # (V, n_attrs)
+
+    def sum3(t, dim):
+        return t.select(dim, 0) + t.select(dim, 1) + t.select(dim, 2)
+
+    def gattr(arena, ai, default):
+        base = bs[:, ai]
+        has = base >= 0
+        ids = (vloc + base[:, None]).clamp(0, arena.shape[0] - 1)
+        vals = arena[ids]                        # (V, 3src, C)
+        dflt = torch.tensor(default, dtype=torch.float32, device=vals.device)
+        vals = torch.where(has[:, None, None], vals, dflt)
+        # per-CLIPPED-corner values: sum_k b[v,j,k] * vals[v,k,c]
+        return sum3(b[:, :, :, None] * vals[:, None, :, :], 2)
+
+    mv = model_view[obj]
+    mv3 = mv[:, :3, :3]
+
+    def mv3_apply(t):  # sum_b mv3[v,a,b] * t[v,j,b] -> (V, j, a)
+        return sum3(mv3[:, None, :, :] * t[:, :, None, :], 3)
+
+    pos_c = gattr(geo.position, 0, [0.0, 0.0, 0.0])
+    vp_c = mv3_apply(pos_c) + mv[:, None, :3, 3]
+    inv_scale_sq = 1.0 / torch.clamp_min(sum3(mv3 * mv3, 1), 1e-30)   # (V, 3)
+    nrm_c = mv3_apply(gattr(geo.normal, 1, [0.0, 0.0, 0.0]) * inv_scale_sq[:, None, :])
+    tan_c = mv3_apply(gattr(geo.tangent, 2, [0.0, 0.0, 0.0]) * inv_scale_sq[:, None, :])
+
+    def _norm(v):
+        n = torch.sqrt(sum3(v * v, 2))[..., None]
+        return v / torch.where(n == 0.0, torch.ones_like(n), n)
+
+    nrm_c = _norm(nrm_c)
+    tan_c = _norm(tan_c)
+    uv0_c = gattr(geo.uv0, 3, [0.0, 0.0])
+    uv1_c = gattr(geo.uv1, 4, [0.0, 0.0])
+    col_c = gattr(geo.color0, 5, [1.0, 1.0, 1.0, 1.0])
+
+    def num_planes(vals_c):
+        """(V, 3, C) -> (V, C, 3) plane coefs of sum_j (A_j/w_j) lam_j."""
+        aw = vals_c * inv_w[:, :, None]
+        pa = sum3(aw * oa[:, :, None], 1)
+        pb = sum3(aw * ob[:, :, None], 1)
+        pc = sum3(aw * oc[:, :, None], 1)
+        return torch.stack([pa, pb, pc], dim=-1)
+
+    den = num_planes(torch.ones_like(inv_w)[..., None])[:, 0]
+    planes = torch.zeros(V, PLANES_W, dtype=torch.float32, device=c.device)
+    planes[:, P_DEN : P_DEN + 3] = den
+    planes[:, P_VP : P_VP + 9] = num_planes(vp_c).reshape(V, 9)
+    planes[:, P_NRM : P_NRM + 9] = num_planes(nrm_c).reshape(V, 9)
+    planes[:, P_TAN : P_TAN + 9] = num_planes(tan_c).reshape(V, 9)
+    planes[:, P_UV0 : P_UV0 + 6] = num_planes(uv0_c).reshape(V, 6)
+    planes[:, P_UV1 : P_UV1 + 6] = num_planes(uv1_c).reshape(V, 6)
+    planes[:, P_COL : P_COL + 12] = num_planes(col_c).reshape(V, 12)
+    planes[:, P_MAT] = obj_material[obj].float()
+    return planes
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of K1 and K2
+# ---------------------------------------------------------------------------
+
+# Fragments evaluated per batch by the plain versions (bounds their memory).
+_PLAIN_BATCH = 1 << 22
+
+
+def _fragments(tris: TriSetup, binned: BinnedTris, width: int, sofs):
+    """Yield (tri ids, pixel index, px, py) for every pixel the kernels
+    test a binned triangle against and that could be covered: the pixels
+    of the triangle's tiles inside its bbox grown by one pixel (rounding
+    can put a covered pixel center a hair outside the float bbox, never a
+    whole pixel)."""
+    dev = tris.setup.device
+    n_cols = width // DTILE_W
+    offs = binned.offsets.long()
+    counts = offs[1:] - offs[:-1]
+    tile = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev), counts)
+    tri = binned.ids.long()
+    if tri.numel() == 0:
+        return
+    bb = tris.bbox[tri]
+    tx0 = (tile % n_cols) * DTILE_W
+    ty0 = (tile // n_cols) * DTILE_H
+    x0 = torch.maximum(torch.floor(bb[:, 0]).clamp(-2, 1 << 20).long() - 1, tx0)
+    x1 = torch.minimum(torch.ceil(bb[:, 2]).clamp(-2, 1 << 20).long() + 1, tx0 + DTILE_W)
+    y0 = torch.maximum(torch.floor(bb[:, 1]).clamp(-2, 1 << 20).long() - 1, ty0)
+    y1 = torch.minimum(torch.ceil(bb[:, 3]).clamp(-2, 1 << 20).long() + 1, ty0 + DTILE_H)
+    nx = (x1 - x0).clamp_min(0)
+    ny = (y1 - y0).clamp_min(0)
+    npx = nx * ny
+    # Batches of whole pairs, each about _PLAIN_BATCH fragments (a pair
+    # holds at most one tile, DTILE_H * DTILE_W fragments).
+    csum = torch.cumsum(npx, 0)
+    total = int(csum[-1])  # host read: fragment count
+    marks = torch.tensor(list(range(_PLAIN_BATCH, total, _PLAIN_BATCH)), dtype=csum.dtype, device=dev)
+    cuts = [0] + sorted(set(torch.searchsorted(csum, marks).tolist())) + [tri.shape[0]]
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        if hi <= lo:
+            continue
+        n = npx[lo:hi]
+        rep = lambda t: torch.repeat_interleave(t, n)
+        local = torch.arange(int(n.sum()), device=dev) - rep(torch.cumsum(n, 0) - n)
+        nxr = rep(nx[lo:hi])
+        xs = rep(x0[lo:hi]) + local % nxr
+        ys = rep(y0[lo:hi]) + local // nxr
+        px = xs.float() + float(sofs[0])
+        py = ys.float() + float(sofs[1])
+        yield rep(tri[lo:hi]), ys * width + xs, px, py
+
+
+def _coverage(s: torch.Tensor, px, py):
+    """Top-left edge tests and the depth plane (deferred.py:601-610);
+    returns (covered, z)."""
+    cov = None
+    for k, tlk in ((0, S_TL), (1, S_TL1), (2, S_TL2)):
+        e = plane_eval(s[:, S_EA + k], s[:, S_EB + k], s[:, S_EC + k], px, py)
+        ck = (e > 0.0) | ((e == 0.0) & (s[:, tlk] > 0.0))
+        cov = ck if cov is None else cov & ck
+    z = plane_eval(s[:, S_ZA], s[:, S_ZB], s[:, S_ZC], px, py)
+    return cov & (z >= 0.0) & (z <= 1.0), z
+
+
+def raster_depth_plain(tris: TriSetup, binned: BinnedTris, width: int, height: int, sofs=(0.5, 0.5)):
+    """Plain version of K2: per pixel the greatest reverse-Z depth over the
+    covering triangles of its tile list, 0 where none covers."""
+    depth = torch.zeros(height * width, dtype=torch.float32, device=tris.setup.device)
+    for tri, pix, px, py in _fragments(tris, binned, width, sofs):
+        cov, z = _coverage(tris.setup[tri], px, py)
+        depth.scatter_reduce_(0, pix[cov], z[cov], reduce="amax")
+    return depth.reshape(height, width)
+
+
+def _winners_plain(tris: TriSetup, binned: BinnedTris, width: int, height: int, sofs):
+    """Per pixel the winning setup row (-1 = none): greatest depth, and on
+    equal depth the later list entry, i.e. the higher row id. Packs
+    (depth bits, row) into one int64 key and takes the max."""
+    key = torch.full((height * width,), -1, dtype=torch.int64, device=tris.setup.device)
+    for tri, pix, px, py in _fragments(tris, binned, width, sofs):
+        cov, z = _coverage(tris.setup[tri], px, py)
+        zbits = (z[cov] + 0.0).view(torch.int32).long()   # z >= 0: bits are monotone
+        key.scatter_reduce_(0, pix[cov], (zbits << 32) | tri[cov], reduce="amax")
+    win = torch.where(key >= 0, key & 0xFFFFFFFF, torch.full_like(key, -1))
+    zb = torch.where(key >= 0, key >> 32, torch.zeros_like(key)).to(torch.int32)
+    return win, zb.view(torch.float32)
+
+
+def resolve_channels(planes_w: torch.Tensor, depth, px, py) -> torch.Tensor:
+    """The finalize of deferred.py:676-711: the winners' plane rows
+    (N, PLANES_W) evaluated at (px, py) into (GB_CH, N) channels."""
+
+    def plane(off):
+        return plane_eval(planes_w[:, off], planes_w[:, off + 1], planes_w[:, off + 2], px, py)
+
+    chans = [depth, plane(P_DEN)]
+    chans += [plane(P_VP + 3 * k) for k in range(3)]
+    chans += [plane(P_NRM + 3 * k) for k in range(3)]
+    chans += [plane(P_TAN + 3 * k) for k in range(3)]
+    chans += [plane(P_UV0 + 3 * k) for k in range(2)]
+    chans += [plane(P_UV1 + 3 * k) for k in range(2)]
+    chans += [plane(P_COL + 3 * k) for k in range(4)]
+    chans.append(planes_w[:, P_MAT])
+    chans.append(torch.ones_like(depth))
+    # Analytic uv screen derivatives (quotient rule): du/dx = (a_u - u a_d)/Dn.
+    dn = plane(P_DEN)
+    invd = torch.where(dn.abs() < 1e-30, torch.ones_like(dn), 1.0 / dn)
+    for coef in (P_DEN, P_DEN + 1):   # d/dx uses the a coefficients, d/dy the b
+        for k in range(2):
+            off = P_UV0 + 3 * k
+            uvv = plane(off) * invd
+            a = planes_w[:, off + (coef - P_DEN)]
+            chans.append(fma32(-uvv, planes_w[:, coef], a) * invd)
+    return torch.stack(chans)
+
+
+def raster_resolve_plain(tris, planes, binned, width, height, sofs=(0.5, 0.5)):
+    """Plain version of K1: (GB_CH, H, W) G-buffer."""
+    win, depth = _winners_plain(tris, binned, width, height, sofs)
+    out = torch.zeros(GB_CH, height * width, dtype=torch.float32, device=planes.device)
+    pix = torch.nonzero(win >= 0).flatten()
+    px = (pix % width).float() + float(sofs[0])
+    py = (pix // width).float() + float(sofs[1])
+    out[:, pix] = resolve_channels(planes[win[pix]], depth[pix], px, py)
+    return out.reshape(GB_CH, height, width)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(tris: TriSetup, binned: BinnedTris, width: int, height: int, planes=None):
+    dev = tris.setup.device
+    if width % DTILE_W or height % DTILE_H:
+        raise ValueError(f"target {width}x{height} is not a multiple of the {DTILE_W}x{DTILE_H} tile")
+    n_tiles = (width // DTILE_W) * (height // DTILE_H)
+    if binned.offsets.shape != (n_tiles + 1,):
+        raise ValueError(f"offsets {tuple(binned.offsets.shape)} != ({n_tiles + 1},)")
+    tensors = [tris.setup, tris.bbox, binned.offsets, binned.ids]
+    if planes is not None:
+        tensors.append(planes)
+        if planes.shape != (tris.count, PLANES_W) or planes.dtype != torch.float32:
+            raise ValueError(f"planes {tuple(planes.shape)} {planes.dtype}")
+    if tris.setup.dtype != torch.float32 or tris.setup.shape[1:] != (16,):
+        raise ValueError(f"setup {tuple(tris.setup.shape)} {tris.setup.dtype}")
+    if binned.offsets.dtype != torch.int32 or binned.ids.dtype != torch.int32:
+        raise ValueError("tile lists must be int32")
+    for t in tensors:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError("raster inputs must be contiguous and on one device")
+    if tris.bbox.shape[1:] != (4,) or tris.bbox.dtype != torch.float32 or tris.bbox.data_ptr() % 16:
+        raise ValueError("bbox must be (V, 4) f32 rows aligned to 16 bytes")
+    return dev
+
+
+def raster_resolve(
+    tris: TriSetup,
+    planes: torch.Tensor,
+    binned: BinnedTris,
+    width: int,
+    height: int,
+    *,
+    sofs: Tuple[float, float] = (0.5, 0.5),
+) -> GBuffer:
+    """K1, the fused raster + G-buffer resolve over CSR tile lists (the
+    counterpart of deferred.raster_resolve_packed with no bound / floor):
+    (GB_CH, H, W) numerator-space G-buffer. CUDA tensors launch the kernel
+    in csrc/raster.cu; CPU tensors run raster_resolve_plain."""
+    dev = _check(tris, binned, width, height, planes)
+    if dev.type == "cpu":
+        return GBuffer(raster_resolve_plain(tris, planes, binned, width, height, sofs))
+    from . import cuda_kernels
+
+    out = torch.empty(GB_CH, height, width, dtype=torch.float32, device=dev)
+    cuda_kernels.call(
+        "k1_raster_resolve",
+        tris.setup, tris.bbox, planes, binned.offsets, binned.ids, out,
+        ints=(width, height), floats=sofs,
+    )
+    launches["raster_resolve"] += 1
+    return GBuffer(out)
+
+
+def raster_depth(
+    tris: TriSetup,
+    binned: BinnedTris,
+    width: int,
+    height: int,
+    *,
+    sofs: Tuple[float, float] = (0.5, 0.5),
+) -> torch.Tensor:
+    """K2, the depth-only raster (the counterpart of deferred._depth_launch):
+    (H, W) f32, 0 where no triangle covers. CUDA tensors launch the kernel
+    in csrc/raster.cu; CPU tensors run raster_depth_plain."""
+    dev = _check(tris, binned, width, height)
+    if dev.type == "cpu":
+        return raster_depth_plain(tris, binned, width, height, sofs)
+    from . import cuda_kernels
+
+    out = torch.empty(height, width, dtype=torch.float32, device=dev)
+    cuda_kernels.call(
+        "k2_raster_depth",
+        tris.setup, tris.bbox, binned.offsets, binned.ids, out,
+        ints=(width, height), floats=sofs,
+    )
+    launches["raster_depth"] += 1
+    return out

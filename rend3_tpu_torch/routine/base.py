@@ -1,0 +1,422 @@
+"""BaseRenderGraph: the canonical deferred frame, one plain function per stage.
+
+Port of rend3_tpu/routine/base.py for the opaque, shadowed, single-sample
+slice. In the JAX package `render_frame` traces one closure into one XLA
+program (base.py:1147-2110); here each stage is a function over torch
+tensors on the renderer's device:
+
+    upload -> shadow maps (K2, cached) -> clip -> setup -> planes -> bin ->
+    G-buffer (K1) -> shadow coordinates -> PCF (K3) -> lighting -> blit
+
+Every buffer is sized from the frame's real counts, so the TPU build's
+survivor / flat-list / queue caps, their growth and re-render loop and the
+program cache have no counterpart. The counts are read on the host where a
+`nonzero` or a pair total sizes a table (transform.clip_triangles,
+geometry.cull_and_setup, geometry.bin_triangles, and the plain raster
+versions' fragment count).
+
+Features outside the slice raise NotImplementedError at frame time, naming
+the ROADMAP item that will port them.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.renderer import InstructionEvaluationOutput, Renderer
+from ..ops import blit as blit_ops
+from ..ops import deferred as def_ops
+from ..ops import geometry as geom_ops
+from ..ops import lighting as light_ops
+from ..ops import shade as shade_ops
+from ..ops import shadow as shadow_ops
+from ..ops import transform as transform_ops
+from ..types import Handedness
+
+__all__ = ["BaseRenderGraph", "BaseRenderGraphSettings", "FrameRenderTarget", "StageTimer"]
+
+
+@dataclass(frozen=True)
+class BaseRenderGraphSettings:
+    """reference: base.rs:94-98."""
+
+    ambient_color: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 0.0)
+    clear_color: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 0.0)
+
+
+@dataclass(frozen=True)
+class FrameRenderTarget:
+    width: int
+    height: int
+    samples: int = 1  # the port renders 1; MSAA 4 is not ported yet
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1: {item})")
+
+
+class StageTimer:
+    """Per-stage times of the frames rendered while it is installed
+    (graph.timer): CUDA events on a card, the host clock after a
+    synchronize on the CPU. `ms()` sums each stage's time in milliseconds."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = torch.device(device).type == "cuda"
+        self._spans = []
+
+    @contextmanager
+    def __call__(self, name: str):
+        if self.cuda:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            yield
+            e1.record()
+            self._spans.append((name, e0, e1))
+        else:
+            t0 = time.perf_counter()
+            yield
+            self._spans.append((name, (time.perf_counter() - t0) * 1e3))
+
+    def ms(self) -> Dict[str, float]:
+        if self.cuda:
+            torch.cuda.synchronize()
+        out: Dict[str, float] = {}
+        for span in self._spans:
+            t = span[1].elapsed_time(span[2]) if self.cuda else span[1]
+            out[span[0]] = out.get(span[0], 0.0) + t
+        return out
+
+
+@contextmanager
+def _no_timer(_name):
+    yield
+
+
+class _Frame:
+    """One frame's device inputs (the upload stage's output)."""
+
+
+class BaseRenderGraph:
+    def __init__(self, renderer: Renderer):
+        self.renderer = renderer
+        # Two-phase Hi-Z occlusion culling is image-neutral (base.py:156-160)
+        # and not ported yet, so the port's default is off.
+        self.occlusion_culling = False
+        self.timer: Optional[StageTimer] = None
+        # When a dict, each kernel's inputs of the last frame are kept here
+        # (for comparing a kernel with its plain version on real inputs).
+        self.captured: Optional[dict] = None
+        self.last_stats: Dict[str, int] = {}
+        self._tri_cache = None
+        self._tri_dev = None
+        self._obj_tbl_key = None
+        self._shadow_cache = None
+
+    def register_routine(self, routine) -> None:
+        raise _not_ported("registered material routines", "Off the main path, in the frame")
+
+    def register_pass(self, fn, stage: str = "srgb") -> None:
+        raise _not_ported("register_pass", "Off the main path, in the frame")
+
+    # -- checks ----------------------------------------------------------------
+
+    def _check_slice(self, target: FrameRenderTarget, skybox_slot) -> None:
+        r = self.renderer
+        if self.occlusion_culling:
+            raise _not_ported("occlusion_culling=True", "Two-phase occlusion")
+        if target.samples != 1:
+            raise _not_ported(f"samples={target.samples}", "MSAA")
+        if skybox_slot is not None:
+            raise _not_ported("the skybox", "Off the main path, in the frame")
+        if r.skeleton_manager.data:
+            raise _not_ported("skinned and animated meshes", "Off the main path, in the frame")
+
+    # -- stages ----------------------------------------------------------------
+
+    def _upload(self, eval_output, target, settings) -> _Frame:
+        """Host scene state -> device tables (static tables cached against
+        the managers' versions, as the JAX build does)."""
+        from .pbr.material import PbrMaterial
+
+        r = self.renderer
+        dev = r.device
+        om = r.object_manager
+        cam = r.camera
+        f = _Frame()
+
+        if om.topology_dirty or self._tri_cache is None:
+            self._tri_cache = om.build_tri_tables(r.mesh_manager)
+            om.topology_dirty = False
+            self._tri_dev = None
+        opaque, blend_items = self._tri_cache
+        if blend_items:
+            raise _not_ported("alpha-blended materials", "Blend peels")
+        if self._tri_dev is None:
+            self._tri_dev = (
+                torch.from_numpy(np.ascontiguousarray(opaque[:, :3])).to(dev),
+                torch.from_numpy(np.ascontiguousarray(opaque[:, 3])).to(dev),
+            )
+        f.tri_vlocal, f.tri_obj = self._tri_dev
+
+        if self._obj_tbl_key != om.version:
+            self._obj_tbl = (
+                torch.from_numpy(np.ascontiguousarray(om.transforms)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(om.bases)).to(dev),
+            )
+            self._obj_tbl_key = om.version
+        f.transforms, f.bases = self._obj_tbl
+
+        # Materials: the PBR archetype draws; objects of archetypes with no
+        # registered routine do not (reference material.rs:43-61), and the
+        # port has no routine registry yet.
+        mm = r.material_manager
+        mm.ensure_archetype(PbrMaterial)
+        arch = PbrMaterial.__name__
+        obj_pbr = np.ones(om.cap, bool)
+        if any(n != arch and a.next_slot > 0 for n, a in mm.archetypes.items()):
+            for oidx, rec in om.data.items():
+                obj_pbr[oidx] = rec.material_arch == arch
+        live = om.enabled & obj_pbr
+        host = mm.archetypes[arch]
+        slots = np.unique(om.material_slots[live])
+        if host.textures[slots].any():
+            raise _not_ported("textured materials", "Textures")
+        if (host.data[slots, shade_ops.PBR_ALPHA_CUTOUT] > 0.0).any():
+            raise _not_ported("alpha-cutout materials", "Cutout peels")
+        data, flags, textures = mm.evaluate(arch)
+        f.materials = shade_ops.PbrMaterialTable(data=data, flags=flags, textures=textures)
+        f.material_slots = torch.from_numpy(om.material_slots.astype(np.int32)).to(dev)
+
+        spheres = om.world_spheres
+        visible = live & cam.world_frustum.contains_spheres(spheres)
+        f.visible = torch.from_numpy(visible).to(dev)
+        plan = eval_output.shadow_plan
+        shadow_visible = np.zeros((max(1, len(plan)), om.cap), dtype=bool)
+        for k, (li, _off, _sz) in enumerate(plan):
+            sc = eval_output.shadow_cameras[li]
+            shadow_visible[k] = live & sc.world_frustum.contains_spheres(spheres)
+        f.shadow_visible_host = shadow_visible
+        f.shadow_visible = torch.from_numpy(shadow_visible).to(dev)
+
+        def t(a, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+        f.view, f.proj = t(cam.view), t(cam.proj)
+        f.uniforms = shade_ops.FrameUniformsArrays(
+            view=f.view,
+            view_proj=t(cam.view_proj()),
+            origin_view_proj=t(cam.origin_view_proj()),
+            inv_view=t(cam.inv_view),
+            inv_origin_view_proj=t(np.linalg.inv(cam.origin_view_proj()).astype(np.float32)),
+            ambient=t(settings.ambient_color),
+        )
+        dl = eval_output.dir_light_arrays
+        f.dir_lights = shade_ops.DirLightArrays(
+            **{k: t(dl[k], torch.bool if k == "mask" else torch.float32) for k in shade_ops.DirLightArrays._fields}
+        )
+        pl = eval_output.point_light_arrays
+        f.point_lights = shade_ops.PointLightArrays(
+            **{k: t(pl[k], torch.bool if k == "mask" else torch.float32) for k in shade_ops.PointLightArrays._fields}
+        )
+        f.clear_color = t(settings.clear_color)
+        f.geo = r.mesh_manager.evaluate()
+        f.front_cw = r.handedness == Handedness.LEFT
+        tri_gid = transform_ops.tri_global_ids(
+            f.tri_vlocal, f.tri_obj, f.bases[:, 0], f.geo.position.shape[0]
+        )
+        f.tri_pos = f.geo.position[tri_gid]
+        return f
+
+    def _ensure_shadow_maps(self, eval_output, f: _Frame):
+        """Per-light depth maps (K2) and their PCF stack, cached across
+        frames on everything that can change them (base.py:650-735): the
+        shadow plan, object / mesh / skeleton versions, light matrices and
+        per-light visibility. A static frame re-rasters nothing."""
+        plan = eval_output.shadow_plan
+        r = self.renderer
+        dl_vp = np.ascontiguousarray(eval_output.dir_light_arrays["view_proj"])
+        state = (
+            plan,
+            r.object_manager.version,
+            r.mesh_manager.version,
+            r.skeleton_manager.version,
+            hashlib.sha1(dl_vp.tobytes()).hexdigest(),
+            hashlib.sha1(np.ascontiguousarray(f.shadow_visible_host).tobytes()).hexdigest(),
+            f.tri_vlocal.shape[0],
+        )
+        if self._shadow_cache is not None and self._shadow_cache[0] == state:
+            return self._shadow_cache[1]
+        eye = torch.eye(4, dtype=torch.float32, device=f.view.device)
+        smaps = []
+        for k, (_li, _off, size) in enumerate(plan):
+            _, smvp = transform_ops.object_uniforms(f.transforms, f.dir_lights.view_proj[k], eye)
+            svalid = f.shadow_visible[k][f.tri_obj.long()]
+            sclip = transform_ops.gather_tri_clip(
+                f.geo.position, f.tri_vlocal, f.tri_obj, f.bases[:, 0], smvp, tri_pos=f.tri_pos
+            )
+            sclipped = transform_ops.clip_triangles(sclip, svalid)
+            swp = _round_up(size, def_ops.DTILE_W)
+            shp = _round_up(size, def_ops.DTILE_H)
+            stris = geom_ops.cull_and_setup(
+                sclipped.clip, sclipped.valid, size, size,
+                cull_mode=geom_ops.CullMode.FRONT, front_is_cw=f.front_cw,
+                subpixel=True,  # sub-texel casters can't mark any texel center
+            )
+            sbinned = geom_ops.bin_triangles(
+                stris, swp, shp, tile_h=def_ops.DTILE_H, tile_w=def_ops.DTILE_W
+            )
+            if self.captured is not None and k == 0:
+                self.captured["raster_depth"] = (stris, sbinned, swp, shp)
+            smaps.append(def_ops.raster_depth(stris, sbinned, swp, shp)[:size, :size])
+            self.last_stats[f"shadow_survivors_{k}"] = stris.count
+        bundle = (smaps, shadow_ops.stack_shadow_maps(smaps))
+        self._shadow_cache = (state, bundle)
+        return bundle
+
+    def _clip(self, f: _Frame) -> transform_ops.ClippedTris:
+        f.mv, mvp = transform_ops.object_uniforms(f.transforms, f.view, f.proj)
+        valid = f.visible[f.tri_obj.long()]
+        clip = transform_ops.gather_tri_clip(
+            f.geo.position, f.tri_vlocal, f.tri_obj, f.bases[:, 0], mvp, tri_pos=f.tri_pos
+        )
+        return transform_ops.clip_triangles(clip, valid)
+
+    def _shadow_coords(self, gbuf: torch.Tensor, f: _Frame, plan):
+        """Per plan entry (map index, sx, sy, ref, hit, in_bounds) at the
+        padded G-buffer's fragments: world reconstruct -> light NDC, with
+        the reference's atlas-space bounds expressions including the any()
+        quirk (opaque.wgsl:509-514, base.py:1642-1680)."""
+
+        def mat_img(m, rows, img):  # matrix x image channels, left to right
+            out = []
+            for a in range(rows):
+                acc = m[a, 0] * img[0]
+                for b in range(1, img.shape[0]):
+                    acc = acc + m[a, b] * img[b]
+                out.append(acc)
+            return torch.stack(out)
+
+        den = gbuf[def_ops.G_DEN]
+        invden = torch.where(den.abs() < 1e-30, torch.ones_like(den), 1.0 / den)
+        vp_img = gbuf[def_ops.G_VP : def_ops.G_VP + 3] * invden[None]
+        hitp = gbuf[def_ops.G_HIT] > 0.0
+        iv = f.uniforms.inv_view
+        world = mat_img(iv[:3, :3], 3, vp_img) + iv[:3, 3][:, None, None]
+        world4 = torch.cat([world, torch.ones_like(world[:1])], dim=0)
+        dl = f.dir_lights
+        out = []
+        for k, (_li, _off, size) in enumerate(plan):
+            ndc = mat_img(dl.view_proj[k], 4, world4)
+            ndcw = torch.where(ndc[3] == 0.0, torch.ones_like(ndc[3]), ndc[3])
+            ndc_xyz = ndc[:3] / ndcw[None]
+            sx = (ndc_xyz[0] * 0.5 + 0.5) * size
+            sy = (0.5 - ndc_xyz[1] * 0.5) * size
+            ref = ndc_xyz[2]
+            flipped_x = ndc_xyz[0] * 0.5 + 0.5
+            flipped_y = ndc_xyz[1] * 0.5 + 0.5
+            border = dl.inv_resolution[k] * 1.5
+            tl_b = dl.atlas_offset[k] + border
+            tr_b = dl.atlas_offset[k] + dl.atlas_size[k] - border
+            in_bounds = (
+                ((flipped_x >= tl_b[0]) | (flipped_y >= tl_b[1]))
+                & ((flipped_x <= tr_b[0]) | (flipped_y <= tr_b[1]))
+                & (ref >= 0.0)
+                & (ref <= 1.0)
+            )
+            out.append((k, sx, sy, ref, hitp, in_bounds))
+        return out
+
+    def _shadow_values(self, coords, smaps, stacked, L: int, height: int, width: int):
+        """(L, H, W) shadow factors through one K3 launch; 1.0 outside the
+        light's bounds and for light slots without a map."""
+        entries = [(k, sx, sy, ref, hitp) for (k, sx, sy, ref, hitp, _ib) in coords]
+        pcfs = shadow_ops.resolve_shadow_pcf5(smaps, entries, stacked=stacked, capture=self.captured)
+        svals = [torch.where(ib, p, torch.ones_like(p)) for p, (*_c, ib) in zip(pcfs, coords)]
+        while len(svals) < L:
+            svals.append(torch.ones_like(svals[0]))
+        return torch.stack(svals)[:, :height, :width]
+
+    # -- the frame ---------------------------------------------------------------
+
+    def render_frame(
+        self,
+        eval_output: InstructionEvaluationOutput,
+        target: FrameRenderTarget,
+        settings: BaseRenderGraphSettings = BaseRenderGraphSettings(),
+        skybox_slot: Optional[int] = None,
+    ) -> np.ndarray:
+        """Renders and returns an (H, W, 4) u8 sRGB image."""
+        return self.render_frame_tensor(eval_output, target, settings, skybox_slot).cpu().numpy()
+
+    def render_frame_tensor(
+        self,
+        eval_output: InstructionEvaluationOutput,
+        target: FrameRenderTarget,
+        settings: BaseRenderGraphSettings = BaseRenderGraphSettings(),
+        skybox_slot: Optional[int] = None,
+    ) -> torch.Tensor:
+        """render_frame without the copy to the host: (H, W, 4) u8 on the
+        renderer's device."""
+        self._check_slice(target, skybox_slot)
+        stage = self.timer if self.timer is not None else _no_timer
+        width, height = target.width, target.height
+        plan = eval_output.shadow_plan
+        with stage("upload"):
+            f = self._upload(eval_output, target, settings)
+        if plan:
+            with stage("shadow_maps"):
+                smaps, stacked = self._ensure_shadow_maps(eval_output, f)
+        with stage("clip"):
+            clipped = self._clip(f)
+        with stage("setup"):
+            tris = geom_ops.cull_and_setup(
+                clipped.clip, clipped.valid, width, height,
+                cull_mode=geom_ops.CullMode.BACK, front_is_cw=f.front_cw, subpixel=True,
+            )
+        with stage("planes"):
+            planes = def_ops.attribute_planes(
+                tris, clipped.clip, clipped.bary, clipped.orig, f.tri_vlocal, f.tri_obj,
+                f.bases, f.geo, f.mv, f.material_slots, width, height,
+            )
+        wp = _round_up(width, def_ops.DTILE_W)
+        hp = _round_up(height, def_ops.DTILE_H)
+        with stage("bin"):
+            binned = geom_ops.bin_triangles(
+                tris, wp, hp, tile_h=def_ops.DTILE_H, tile_w=def_ops.DTILE_W
+            )
+        if self.captured is not None:
+            self.captured["raster_resolve"] = (tris, planes, binned, wp, hp)
+        with stage("gbuffer"):
+            gbuf = def_ops.raster_resolve(tris, planes, binned, wp, hp, sofs=(0.5, 0.5)).data
+        self.last_stats["main_survivors"] = tris.count
+        self.last_stats["main_pairs"] = int(binned.ids.shape[0])
+        L = f.dir_lights.mask.shape[0]
+        if plan:
+            with stage("shadow_coords"):
+                coords = self._shadow_coords(gbuf, f, plan)
+            with stage("pcf"):
+                shadow_values = self._shadow_values(coords, smaps, stacked, L, height, width)
+        else:
+            shadow_values = torch.ones(L, height, width, dtype=torch.float32, device=gbuf.device)
+        with stage("lighting"):
+            background = f.clear_color.expand(height, width, 4)
+            img = light_ops.light_gbuffer(
+                def_ops.GBuffer(gbuf[:, :height, :width]), f.materials, f.dir_lights,
+                f.point_lights, f.uniforms, background, shadow_values,
+            )
+        with stage("blit"):
+            img = blit_ops.f16_roundtrip(img[None])
+            out = blit_ops.hdr_to_srgb_u8(blit_ops.resolve_samples(img))
+        return out

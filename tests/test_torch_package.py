@@ -1,0 +1,70 @@
+"""Package rules of the PyTorch port (rend3_tpu_torch): it never pulls in
+jax or the JAX package, a CUDA renderer needs a card, and features outside
+the ported slice refuse loudly."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import rend3_tpu_torch as P
+from rend3_tpu_torch.routine.base import BaseRenderGraph
+from rend3_tpu_torch.testing import FrameRenderSettings, TestRunner
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, rend3_tpu_torch, rend3_tpu_torch.routine.base, rend3_tpu_torch.interop, "
+        "rend3_tpu_torch.scenes, rend3_tpu_torch.ops.cuda_kernels; "
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'rend3_tpu' or m.startswith('rend3_tpu.')); print(bad)"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_tf32_off():
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def test_cuda_renderer_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        P.Renderer(device="cuda")
+
+
+def test_multi_device_not_ported():
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+        P.Renderer(device=["cuda:0", "cuda:1"])
+
+
+@pytest.mark.parametrize("call", ["register_routine", "register_pass"])
+def test_graph_extension_points_not_ported(call):
+    graph = BaseRenderGraph(P.Renderer())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        getattr(graph, call)(lambda *a: a[0])
+
+
+def test_cuda_kernel_rejects_cpu_tensors():
+    from rend3_tpu_torch.ops import cuda_kernels
+
+    t = torch.zeros(4)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        cuda_kernels.call("k3_pcf5", *([t] * 8), ints=(1, 1, 1))
+
+
+def test_empty_scene_renders_clear_color():
+    runner = TestRunner()
+    img = runner.render_frame(FrameRenderSettings(size=64))
+    assert img.shape == (64, 64, 4) and img.dtype == np.uint8
+    assert not img.any()
