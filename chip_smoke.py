@@ -2,21 +2,31 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (rend3_tpu_torch) on the card through the
+Drives the port's two paths (rend3_tpu_torch) on the card through the
 entry points a user calls (TestRunner / Renderer scene calls,
 swap_instruction_buffers, evaluate_instructions, BaseRenderGraph.render_frame)
-on the flat city-block scene of `bench.py --flat` at 1920x1080, and checks
-every hand-written kernel of that path against its plain PyTorch version.
+at 1920x1080: the flat city-block scene of `bench.py --flat`, and the
+textured city (the representative bench scene without its alpha-tested
+foliage and alpha-blended glass) with two-phase occlusion culling. It checks
+every hand-written kernel of those paths against its plain PyTorch version.
 Phases (each raises on failure; any failure exits nonzero):
 
 1. environment: torch, CUDA and nvcc versions, the card's name and power limit;
-2. build: compile csrc/*.cu with nvcc (timed);
-3. slice: three frames (build the shadow map, reuse it, move a building so
-   it is rebuilt) with launch counters zeroed just before and read just
-   after; per-frame stage times (CUDA events), frame time and peak memory;
-4. kernels: K1, K2 and K3 on the inputs captured in the 1080p frame against
-   their plain versions on the card, with median times;
-5. parity: the shadow golden scene at 256x256 on the card and on the CPU.
+2. build: compile csrc/*.cu with nvcc, one process per source (timed);
+3. flat: three frames with occlusion culling off, as the first slice ran
+   them (build the shadow map, reuse it, move a building so it is rebuilt),
+   with launch counters zeroed just before and read just after;
+   per-frame stage times (CUDA events), frame time and peak memory;
+4. textured: an occlusion-off reference frame, then (counters zeroed) three
+   frames with occlusion culling on: the first predicts every triangle, the
+   second renders the carried mask, the third moves a building. Frames 1
+   and 2 must equal the reference bit for bit, and frame 2 must rasterize
+   fewer triangles than the reference;
+5. kernels: K1, K2 and K3 on the inputs captured in the flat frames, K4 and
+   K5 on those of the textured frames, against their plain versions on the
+   card, with median times;
+6. parity: the shadow golden scene and the textured-planes scene at
+   256x256 on the card and on the CPU.
 
 The last two lines are the card (nvidia-smi) and one JSON object
 {"ok": true, "device": {...}}; the line before them lists the kernels.
@@ -78,6 +88,8 @@ def _launch_counts():
         "raster_resolve": deferred.launches["raster_resolve"],
         "raster_depth": deferred.launches["raster_depth"],
         "pcf5": samplers.launches["pcf5"],
+        "bilinear": samplers.launches["bilinear"],
+        "gather": samplers.launches["gather"],
     }
 
 
@@ -89,24 +101,14 @@ def _reset_launch_counts():
             d[k] = 0
 
 
-def phase_slice(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
-    """Three frames of the flat bench scene; returns (graph, counts, image)."""
-    import numpy as np
+def _frame_fn(runner, target, settings, device):
+    """frame(label) renders one frame through the user's entry points and
+    logs its host time, CUDA-event time, peak memory, stats and stages."""
     import torch
 
-    from rend3_tpu_torch import scenes
-    from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget, StageTimer
-    from rend3_tpu_torch.testing import TestRunner
-    from rend3_tpu_torch.utils import math as m3
+    from rend3_tpu_torch.routine.base import StageTimer
 
-    runner = TestRunner(device=device)
-    keep = scenes.build_city_scene(runner, n_buildings=n_buildings, representative=False)
-    scenes.set_bench_camera(runner, width, height)
     graph = runner.base_graph
-    graph.captured = {}
-    target = FrameRenderTarget(width, height, 1)
-    settings = BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0))
-    building = [h for h in keep if getattr(h, "kind", None) == "object"][-1]
     cuda = torch.device(device).type == "cuda"
 
     def frame(label):
@@ -136,30 +138,67 @@ def phase_slice(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
         log("  stages (ms): " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
         return img
 
+    return frame
+
+
+def _check_image(img, width, height):
+    import numpy as np
+
+    if img.shape != (height, width, 4) or img.dtype != np.uint8:
+        raise AssertionError(f"image {img.shape} {img.dtype}")
+    lit = (img[..., :3] != 0).any(-1).mean()
+    if lit < 0.5:
+        raise AssertionError(f"only {lit:.3f} of the pixels differ from the background")
+
+
+def _check_launched(counts, names):
+    for name in names:
+        if counts[name] == 0:
+            raise AssertionError(f"kernel {name} was never launched by the main path")
+
+
+def phase_slice(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
+    """Three frames of the flat bench scene, occlusion culling off; returns
+    (graph, counts, image)."""
+    import numpy as np
+    import torch
+
+    from rend3_tpu_torch import scenes
+    from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget
+    from rend3_tpu_torch.testing import TestRunner
+    from rend3_tpu_torch.utils import math as m3
+
+    runner = TestRunner(device=device)
+    keep = scenes.build_city_scene(runner, n_buildings=n_buildings, representative=False)
+    scenes.set_bench_camera(runner, width, height)
+    graph = runner.base_graph
+    graph.occlusion_culling = False
+    graph.captured = {}
+    frame = _frame_fn(
+        runner, FrameRenderTarget(width, height, 1), BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0)),
+        device,
+    )
+    building = [h for h in keep if getattr(h, "kind", None) == "object"][-1]
+    cuda = torch.device(device).type == "cuda"
+
     _reset_launch_counts()
-    img1 = frame("1 (builds the shadow map)")
+    img1 = frame("flat 1 (builds the shadow map)")
     k2_after_1 = _launch_counts()["raster_depth"]
     state1 = graph._shadow_cache[0]
-    img2 = frame("2 (cached shadow map)")
+    img2 = frame("flat 2 (cached shadow map)")
     if _launch_counts()["raster_depth"] != k2_after_1 or graph._shadow_cache[0] != state1:
         raise AssertionError("frame 2 did not reuse the cached shadow map")
     # A 50-unit tower halfway along the bench camera's line of sight.
     runner.renderer.set_object_transform(building, m3.translation([24.0, 25.0, -40.0]) @ m3.scale([3.0, 25.0, 3.0]))
-    img3 = frame("3 (a building moved)")
+    img3 = frame("flat 3 (a building moved)")
     counts = _launch_counts()
     if graph._shadow_cache[0] == state1 or (cuda and counts["raster_depth"] == k2_after_1):
         raise AssertionError("moving a building did not invalidate the shadow map")
-    log(f"launches during the three frames: {counts}")
+    log(f"launches during the three flat frames: {counts}")
     if cuda:
-        for name, n in counts.items():
-            if n == 0:
-                raise AssertionError(f"kernel {name} was never launched by the main path")
+        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5"))
     for img in (img1, img2, img3):
-        if img.shape != (height, width, 4) or img.dtype != np.uint8:
-            raise AssertionError(f"image {img.shape} {img.dtype}")
-        lit = (img[..., :3] != 0).any(-1).mean()
-        if lit < 0.5:
-            raise AssertionError(f"only {lit:.3f} of the pixels differ from the background")
+        _check_image(img, width, height)
     if not np.array_equal(img1, img2):
         raise AssertionError("two frames of a static scene differ")
     if np.array_equal(img1, img3):
@@ -167,6 +206,65 @@ def phase_slice(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
     log(f"image: {img1.shape}, non-background {(img1[..., :3] != 0).any(-1).mean():.4f}, mean {img1.mean():.3f}")
     del keep
     return graph, counts, img1
+
+
+def phase_textured(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
+    """The textured city with two-phase occlusion culling: an occlusion-off
+    reference frame, then three counted frames; returns (graph, counts,
+    image)."""
+    import numpy as np
+    import torch
+
+    from rend3_tpu_torch import scenes
+    from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget
+    from rend3_tpu_torch.testing import TestRunner
+    from rend3_tpu_torch.utils import math as m3
+
+    t0 = time.perf_counter()
+    runner = TestRunner(device=device)
+    keep = scenes.textured_city(runner, n_buildings=n_buildings)
+    scenes.set_bench_camera(runner, width, height)
+    tm = runner.renderer.d2_texture_manager
+    log(f"textured city built in {time.perf_counter() - t0:.2f} s: {len(tm.data)} textures")
+    graph = runner.base_graph
+    graph.captured = {}
+    frame = _frame_fn(
+        runner, FrameRenderTarget(width, height, 1), BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0)),
+        device,
+    )
+    building = [h for h in keep if getattr(h, "kind", None) == "object"][-1]
+    cuda = torch.device(device).type == "cuda"
+
+    graph.occlusion_culling = False
+    ref = frame("textured 0 (occlusion off, the reference)")
+    s_off = graph.last_stats["main_survivors"]
+    log(f"texture atlas {tuple(tm.evaluate().atlas.shape)} {tm.evaluate().atlas.dtype}")
+    graph.occlusion_culling = True
+    _reset_launch_counts()
+    img1 = frame("textured 1 (occlusion on, predicts every triangle)")
+    img2 = frame("textured 2 (occlusion on, the carried mask)")
+    st = graph.last_stats
+    s_on2 = st["main_survivors"] + st["resid_survivors"]
+    runner.renderer.set_object_transform(building, m3.translation([24.0, 25.0, -40.0]) @ m3.scale([3.0, 25.0, 3.0]))
+    img3 = frame("textured 3 (occlusion on, a building moved)")
+    counts = _launch_counts()
+    log(f"launches during the three textured frames: {counts}")
+    log(f"frame 2 survivors: main + resid = {s_on2} vs {s_off} with occlusion off")
+    if cuda:
+        _check_launched(counts, tuple(counts))
+    for img in (ref, img1, img2, img3):
+        _check_image(img, width, height)
+    if not s_on2 < s_off:
+        raise AssertionError(f"occlusion culling did not cut the survivors ({s_on2} vs {s_off})")
+    for k, img in ((1, img1), (2, img2)):
+        if not np.array_equal(img, ref):
+            n = int((img != ref).any(-1).sum())
+            raise AssertionError(f"textured frame {k} differs from the occlusion-off frame at {n} pixels")
+    if np.array_equal(img2, img3):
+        raise AssertionError("moving a building changed nothing")
+    log(f"image: {ref.shape}, non-background {(ref[..., :3] != 0).any(-1).mean():.4f}, mean {ref.mean():.3f}")
+    del keep
+    return graph, counts, ref
 
 
 def _median_ms(fn, reps):
@@ -194,8 +292,9 @@ def _ulps(a, b):
     return (ia - ib).abs()
 
 
-def phase_kernels(graph, counts, timed=True):
-    """Each kernel against its plain version on the captured 1080p inputs."""
+def phase_kernels(graph, counts, tex_graph, tex_counts, timed=True):
+    """Each kernel against its plain version on the captured 1080p inputs:
+    K1-K3 from the flat frames, K4 and K5 from the textured ones."""
     import torch
 
     from rend3_tpu_torch.ops import deferred as D
@@ -245,6 +344,31 @@ def phase_kernels(graph, counts, timed=True):
     rows.append(("pcf5", "rend3_tpu_torch/csrc/pcf5.cu", "rend3_tpu/ops/mxu_gather.py:424",
                  lambda: S.sample_grid_pcf5(*args), lambda: S.sample_grid_pcf5_plain(*args), err3))
 
+    # K4: exact or at most 1 ulp.
+    tcap = tex_graph.captured
+    a4 = tcap["bilinear"]
+    k = S.sample_grid_bilinear(*a4)
+    p = S.sample_grid_bilinear_plain(*a4)
+    ulps = _ulps(k, p)
+    err4 = float((k - p).abs().max())
+    log(f"K4: {int(a4[1].numel())} queries ({int(a4[-1].sum())} valid), atlas {tuple(a4[0].shape)}; "
+        f"{int((ulps > 0).sum())} of {k.numel()} values differ, max {int(ulps.max())} ulp, max abs {err4:.3g}")
+    if int(ulps.max()) > 1:
+        raise AssertionError(f"K4 differs from its plain version by {int(ulps.max())} ulp")
+    rows.append(("bilinear", "rend3_tpu_torch/csrc/bilinear.cu", "rend3_tpu/ops/mxu_gather.py:645",
+                 lambda: S.sample_grid_bilinear(*a4), lambda: S.sample_grid_bilinear_plain(*a4), err4))
+
+    # K5: bit-exact.
+    a5 = tcap["gather"]
+    k = S.sample_grid(*a5)
+    p = S.sample_grid_plain(*a5)
+    if not torch.equal(k, p):
+        raise AssertionError(f"K5 differs from the plain version at {int((k != p).sum())} values")
+    log(f"K5: bit-exact over {int(a5[1].numel())} queries ({int(a5[3].sum())} live) x {len(a5[4])} taps, "
+        f"mip atlas {tuple(a5[0].shape)}")
+    rows.append(("gather", "rend3_tpu_torch/csrc/gather.cu", "rend3_tpu/ops/mxu_gather.py:279",
+                 lambda: S.sample_grid(*a5), lambda: S.sample_grid_plain(*a5), 0.0))
+
     kernels = []
     for name, src, repl, kfn, pfn, err in rows:
         ms = _median_ms(kfn, 20) if timed else None
@@ -252,7 +376,7 @@ def phase_kernels(graph, counts, timed=True):
         log(f"{name}: kernel {ms} ms, plain {plain_ms} ms (median)")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": counts[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "launches": counts[name] + tex_counts[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         })
     return kernels
 
@@ -281,18 +405,20 @@ def shadow_scene(runner):
 def phase_parity(device="cuda"):
     import numpy as np
 
+    from rend3_tpu_torch import scenes
     from rend3_tpu_torch.testing import FrameRenderSettings, TestRunner
 
-    imgs = []
-    for dev in (device, "cpu"):
-        runner = TestRunner(device=dev)
-        keep = shadow_scene(runner)
-        imgs.append(runner.render_frame(FrameRenderSettings(size=256)))
-        del keep
-    diff = int(np.abs(imgs[0].astype(np.int32) - imgs[1].astype(np.int32)).max())
-    log(f"parity: shadow scene 256x256, {device} vs cpu max u8 diff {diff}")
-    if diff > 1:
-        raise AssertionError(f"card and CPU renders differ by {diff}")
+    for name, build in (("shadow", shadow_scene), ("textured planes", scenes.textured_planes)):
+        imgs = []
+        for dev in (device, "cpu"):
+            runner = TestRunner(device=dev)
+            keep = build(runner)
+            imgs.append(runner.render_frame(FrameRenderSettings(size=256)))
+            del keep
+        diff = int(np.abs(imgs[0].astype(np.int32) - imgs[1].astype(np.int32)).max())
+        log(f"parity: {name} scene 256x256, {device} vs cpu max u8 diff {diff}")
+        if diff > 1:
+            raise AssertionError(f"card and CPU renders of the {name} scene differ by {diff}")
 
 
 def main():
@@ -311,7 +437,8 @@ def main():
         phase_environment()
         phase_build()
         graph, counts, _img = phase_slice()
-        kernels = phase_kernels(graph, counts)
+        tex_graph, tex_counts, _img = phase_textured()
+        kernels = phase_kernels(graph, counts, tex_graph, tex_counts)
         phase_parity()
         smi = nvidia_smi_line()
     except Exception:  # noqa: BLE001 - any failed phase fails the run

@@ -3,8 +3,13 @@
 Port of rend3_tpu/core/managers/texture.py. Reference:
 rend3/src/managers/texture.rs — slot vector of textures, 1-based shader
 indices with 0 = null. The host side (decode to linear f32, box mip chains,
-slots) carries across; the device atlas and its sampler are not ported yet
-(ROADMAP queue 1, item 6 "Textures"), so `evaluate` raises.
+slots) carries across unchanged. The device side of the 2D manager is a
+mip-chained texture atlas (ops/texture.py): a full shelf pack on the first
+`evaluate`, later adds placed incrementally into the resident atlas, removes
+clearing only the rect table. The atlas lives on the renderer's device in
+bf16, (AH, AW, 4) interleaved, the texel type kernel K4 reads. The cube
+manager's device side (the skybox) is not ported yet (ROADMAP queue 1,
+item 12), so its `evaluate` raises.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ...types.texture import Texture, TextureFormat, MipmapCount, MipmapSource
 
@@ -59,10 +65,20 @@ class InternalTexture:
 class TextureManager:
     """One instance per dimensionality (d2 / cube), like the reference."""
 
-    def __init__(self, kind: str = "d2"):
+    def __init__(self, kind: str = "d2", device="cpu"):
         self.kind = kind
+        self.device = torch.device(device)
         self.data: Dict[int, InternalTexture] = {}
         self.dirty = True
+        self._device_arrays = None
+        # Incremental atlas state: pending adds are shelf-placed into the
+        # resident device atlas instead of rebuilding it; removes only clear
+        # the rect table (holes are reclaimed by the next full pack).
+        self._pending_adds: list = []
+        self._shelf = None
+        self._rects = None
+        self._mip_counts = None
+        self._atlas_dev = None
 
     def add(self, idx: int, tex: Texture) -> None:
         f = _decode_to_linear_f32(tex)
@@ -88,6 +104,7 @@ class TextureManager:
             else:
                 levels = 1
             self.data[idx] = InternalTexture(size=(h, w), mips=_mip_chain(f, levels))
+            self._pending_adds.append(idx)
         self.dirty = True
 
     def add_from(self, idx: int, src_idx: int, start_mip: int, mip_count) -> None:
@@ -99,10 +116,16 @@ class TextureManager:
         mips = [m.copy() for m in src.mips[start_mip:end]]
         assert mips, "TextureFromTexture: empty mip range"
         self.data[idx] = InternalTexture(size=(mips[0].shape[0], mips[0].shape[1]), mips=mips)
+        self._pending_adds.append(idx)
         self.dirty = True
 
     def remove(self, idx: int) -> None:
         self.data.pop(idx, None)
+        if idx in self._pending_adds:
+            self._pending_adds.remove(idx)
+        elif self.kind == "d2" and self._rects is not None and idx + 1 < len(self._rects):
+            self._rects[idx + 1] = 0.0
+            self._mip_counts[idx + 1] = 0
         self.dirty = True
 
     def shader_index(self, handle) -> int:
@@ -110,7 +133,63 @@ class TextureManager:
         (reference: texture.rs translation_fn)."""
         return handle.idx + 1
 
+    def _block(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device).to(torch.bfloat16)
+
+    def _full_pack(self, tex_ops) -> None:
+        atlas, rects, mip_counts, shelf = tex_ops.build_texture_atlas_state(self.data)
+        self._rects = rects
+        self._mip_counts = mip_counts
+        self._shelf = shelf
+        self._atlas_dev = self._block(atlas)
+        self._pending_adds.clear()
+
+    def _try_incremental(self, tex_ops) -> bool:
+        """Place pending adds into the resident atlas; False -> repack."""
+        n_slots = (max(self.data.keys()) + 1) if self.data else 0
+        if n_slots + 1 > len(self._rects):
+            grown_r = np.zeros((n_slots + 1, tex_ops.MAX_MIPS, 4), np.float32)
+            grown_r[: len(self._rects)] = self._rects
+            self._rects = grown_r
+            grown_m = np.zeros(n_slots + 1, np.int32)
+            grown_m[: len(self._mip_counts)] = self._mip_counts
+            self._mip_counts = grown_m
+        placements = []
+        for idx in self._pending_adds:
+            t = self.data.get(idx)
+            if t is None:
+                continue
+            for mi, mip in enumerate(t.mips[: tex_ops.MAX_MIPS]):
+                h, w = mip.shape[0], mip.shape[1]
+                pos = self._shelf.place(w + 2, h + 2)
+                if pos is None:
+                    return False
+                placements.append((idx, mi, mip, pos))
+        for idx, mi, mip, (x, y) in placements:
+            h, w = mip.shape[0], mip.shape[1]
+            self._atlas_dev[y : y + h + 2, x : x + w + 2] = self._block(tex_ops.gutter_block(mip))
+            self._rects[idx + 1, mi] = (x + 1, y + 1, w, h)
+            self._mip_counts[idx + 1] = max(self._mip_counts[idx + 1], mi + 1)
+        self._pending_adds.clear()
+        return True
+
     def evaluate(self):
-        raise NotImplementedError(
-            "texture sampling is not ported yet (ROADMAP queue 1, item 6 'Textures', kernel K4)"
+        """The device texture arrays (ops/texture.TextureArrays), rebuilt
+        only when textures changed since the last call."""
+        if self.kind == "cube":
+            raise NotImplementedError(
+                "cube textures are not ported yet (ROADMAP queue 1, item 12 'Off the main path, in the frame')"
+            )
+        if not self.dirty and self._device_arrays is not None:
+            return self._device_arrays
+        from ...ops import texture as tex_ops
+
+        if self._atlas_dev is None or not self._try_incremental(tex_ops):
+            self._full_pack(tex_ops)
+        self._device_arrays = tex_ops.TextureArrays(
+            atlas=self._atlas_dev,
+            rects=torch.from_numpy(self._rects.copy()).to(self.device),
+            mip_counts=torch.from_numpy(self._mip_counts.copy()).to(self.device),
         )
+        self.dirty = False
+        return self._device_arrays

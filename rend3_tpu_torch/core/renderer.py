@@ -111,8 +111,8 @@ class Renderer:
 
         self.mesh_manager = MeshManager(self.device)
         self.skeleton_manager = SkeletonManager()
-        self.d2_texture_manager = TextureManager("d2")
-        self.d2c_texture_manager = TextureManager("cube")
+        self.d2_texture_manager = TextureManager("d2", self.device)
+        self.d2c_texture_manager = TextureManager("cube", self.device)
         self.material_manager = MaterialManager(self.device)
         self.object_manager = ObjectManager()
         self.directional_light_manager = DirectionalLightManager()

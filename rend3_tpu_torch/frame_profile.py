@@ -1,19 +1,25 @@
 """Time and trace the port's frame on a CUDA device.
 
-    python -m rend3_tpu_torch.frame_profile [--frames N] [--trace-dir DIR]
+    python -m rend3_tpu_torch.frame_profile [--scene flat|textured] [--frames N] [--trace-dir DIR]
 
-Renders the flat city scene of `bench.py --flat` (600 buildings, one 2048²
-shadow map) at 1920x1080 on the card and prints one JSON line with:
+Renders a 600-building city at 1920x1080 on the card and prints one JSON
+line. The scene is `flat` (`bench.py --flat`: flat materials, one 2048²
+shadow map, occlusion culling off, as the first slice timed it) or
+`textured` (scenes.textured_city: 24 albedo + 24 AO/metallic/roughness
+textures with mips, 2048² and 1024² shadow maps, two-phase occlusion
+culling on). The line holds:
 
 - static_ms: median frame time (host clock around render_frame_tensor plus a
   synchronize) when the shadow map is cached;
 - dynamic_ms: the same when a building moves every frame, so the shadow map
   is re-rasterized (the reference re-renders shadows every frame);
-- stages_ms: the per-stage CUDA-event split of one static frame;
+- stages_ms / peak_mib: the per-stage CUDA-event split and the peak device
+  memory of one static frame; dynamic_stages_ms / dynamic_peak_mib /
+  dynamic_stats: the same for one frame with a moved building;
 - device_busy_ms / device_busy_share: summed kernel time over the frame
   time in a torch.profiler trace of static frames, and the kernels that
   take the most of it (with --trace-dir, the chrome trace is written to
-  DIR/frame_trace.json).
+  DIR/frame_trace_<scene>.json).
 
 Needs a CUDA device; there is no CPU fall-back.
 """
@@ -31,6 +37,7 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=("flat", "textured"), default="flat")
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
@@ -44,10 +51,14 @@ def main() -> int:
 
     width, height = 1920, 1080
     runner = TestRunner(device="cuda")
-    keep = scenes.build_city_scene(runner, n_buildings=600, representative=False)
+    if args.scene == "flat":
+        keep = scenes.build_city_scene(runner, n_buildings=600, representative=False)
+    else:
+        keep = scenes.textured_city(runner, n_buildings=600)
     scenes.set_bench_camera(runner, width, height)
     building = [h for h in keep if getattr(h, "kind", None) == "object"][-1]
     graph = runner.base_graph
+    graph.occlusion_culling = args.scene == "textured"
     target = FrameRenderTarget(width, height, 1)
     settings = BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0))
 
@@ -56,13 +67,16 @@ def main() -> int:
         ev = runner.renderer.evaluate_instructions()
         return graph.render_frame_tensor(ev, target, settings)
 
-    def timed(n, move=False):
+    def move(i):
+        runner.renderer.set_object_transform(
+            building, m3.translation([24.0 + 0.01 * i, 25.0, -40.0]) @ m3.scale([3.0, 25.0, 3.0])
+        )
+
+    def timed(n, moving=False):
         out = []
         for i in range(n):
-            if move:
-                runner.renderer.set_object_transform(
-                    building, m3.translation([24.0 + 0.01 * i, 25.0, -40.0]) @ m3.scale([3.0, 25.0, 3.0])
-                )
+            if moving:
+                move(i)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             frame()
@@ -73,12 +87,20 @@ def main() -> int:
     for _ in range(3):
         frame()
     static = timed(args.frames)
-    dynamic = timed(args.frames, move=True)
+    dynamic = timed(args.frames, moving=True)
+
+    def staged():
+        graph.timer = StageTimer("cuda")
+        torch.cuda.reset_peak_memory_stats()
+        frame()
+        out = graph.timer.ms(), torch.cuda.max_memory_allocated() / 2**20, dict(graph.last_stats)
+        graph.timer = None
+        return out
+
+    move(args.frames)
+    dynamic_stages, dynamic_peak_mib, dynamic_stats = staged()
     frame()
-    graph.timer = StageTimer("cuda")
-    frame()
-    stages = graph.timer.ms()
-    graph.timer = None
+    stages, peak_mib, _ = staged()
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -93,7 +115,7 @@ def main() -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
     if args.trace_dir:
         os.makedirs(args.trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.trace_dir, "frame_trace.json"))
+        prof.export_chrome_trace(os.path.join(args.trace_dir, f"frame_trace_{args.scene}.json"))
     kernels = []
     busy_us = 0.0
     for e in prof.key_averages():
@@ -108,11 +130,16 @@ def main() -> int:
     busy_ms = busy_us / n_prof / 1e3
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "scene": args.scene,
         "static_ms": statistics.median(static),
         "static_all_ms": static,
         "dynamic_ms": statistics.median(dynamic),
         "dynamic_all_ms": dynamic,
         "stages_ms": stages,
+        "peak_mib": peak_mib,
+        "dynamic_stages_ms": dynamic_stages,
+        "dynamic_peak_mib": dynamic_peak_mib,
+        "dynamic_stats": dynamic_stats,
         "profiled_frame_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,

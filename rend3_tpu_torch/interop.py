@@ -12,7 +12,9 @@ jax; the inputs are numpy arrays or anything `np.asarray` accepts.
   attribute planes (`planes`);
 - per-tile lists: `binned` turns JAX's (n_tiles, K) -1-padded `BinnedTris`
   ids into CSR;
-- shadow maps: `tensor`.
+- shadow maps: `tensor`;
+- the texture atlas and its tables (`texture_arrays`), from the JAX
+  `TextureArrays`.
 """
 
 from __future__ import annotations
@@ -23,8 +25,12 @@ import torch
 from .core.framestate import GeometryArrays
 from .ops.geometry import BinnedTris, TriSetup
 from .ops.shade import DirLightArrays, PointLightArrays
+from .ops.texture import TextureArrays
 
-__all__ = ["tensor", "geometry_arrays", "tri_setup", "planes", "binned", "dir_lights", "point_lights"]
+__all__ = [
+    "tensor", "geometry_arrays", "tri_setup", "planes", "binned", "dir_lights", "point_lights",
+    "texture_arrays",
+]
 
 
 def tensor(a, device="cpu", dtype=None) -> torch.Tensor:
@@ -85,4 +91,14 @@ def point_lights(arrays, device="cpu") -> PointLightArrays:
             k: tensor(get(k), device, torch.bool if k == "mask" else torch.float32)
             for k in PointLightArrays._fields
         }
+    )
+
+
+def texture_arrays(atlas, rects, mip_counts, device="cpu") -> TextureArrays:
+    """From the JAX TextureArrays' fields: the (AH, AW, 4) f32 atlas is
+    rounded to the port's bf16 texels (the JAX sampler's own bf16 cast)."""
+    return TextureArrays(
+        atlas=tensor(atlas, device, torch.float32).to(torch.bfloat16),
+        rects=tensor(rects, device, torch.float32),
+        mip_counts=tensor(mip_counts, device, torch.int32),
     )

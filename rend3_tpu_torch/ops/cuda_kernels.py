@@ -1,10 +1,13 @@
 """Build, load and call the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled with nvcc into one shared library with a plain C
-interface, loaded with ctypes (no PyTorch headers, so a build takes seconds):
+The sources are compiled with nvcc, one process per source started
+together, and linked into one shared library with a plain C interface,
+loaded with ctypes (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -o _build/librend3_kernels_<hash>.so csrc/*.cu
+         -lineinfo -Xcompiler -fPIC -c -o _build/<hash>/<name>.o csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o _build/librend3_kernels_<hash>.so _build/<hash>/*.o
 
 The library is built at first use into rend3_tpu_torch/_build/ (listed in
 .gitignore); its name carries a hash of the sources and flags, so editing a
@@ -34,18 +37,17 @@ __all__ = ["build", "library", "call", "SOURCES", "NVCC_FLAGS"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("raster.cu", "pcf5.cu")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false", "-lineinfo",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+SOURCES = ("raster.cu", "pcf5.cu", "bilinear.cu", "gather.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-lineinfo", "-Xcompiler", "-fPIC")
 
 # name -> (tensor args, int args, float args); every function ends with the stream.
 _SIGNATURES = {
     "k1_raster_resolve": (6, 2, 2),
     "k2_raster_depth": (5, 2, 2),
     "k3_pcf5": (8, 3, 0),
+    "k4_bilinear": (8, 3, 0),
+    "k5_gather": (6, 4, 0),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -80,18 +82,31 @@ def build(verbose: bool = False) -> str:
     path = _library_path()
     if os.path.exists(path) and not verbose:
         return path
-    os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-o", tmp]
-    cmd += [os.path.join(_SRC_DIR, s) for s in SOURCES]
+    obj_dir = f"{tmp}.d"
+    os.makedirs(obj_dir, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
-    last_build.update(
-        path=path, seconds=time.perf_counter() - t0, built=True, log=proc.stdout + proc.stderr
+    procs = []
+    for s in SOURCES:
+        cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-c"]
+        cmd += ["-o", os.path.join(obj_dir, s + ".o"), os.path.join(_SRC_DIR, s)]
+        procs.append((s, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = []
+    for s, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"[{s}]\n{out}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {s} ({proc.returncode}):\n{out}")
+    link = subprocess.run(
+        [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *(os.path.join(obj_dir, s + ".o") for s in SOURCES)],
+        capture_output=True, text=True,
     )
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+    os.replace(tmp, path)
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    last_build.update(path=path, seconds=time.perf_counter() - t0, built=True, log="".join(log))
     return path
 
 

@@ -16,11 +16,14 @@ from typing import NamedTuple
 
 import torch
 
+from .hi_z import occlusion_test
+
 __all__ = [
     "TriSetup",
     "BinnedTris",
     "CullMode",
     "cull_and_setup",
+    "visibility_mask",
     "bin_triangles",
     "SETUP_W",
 ]
@@ -77,9 +80,11 @@ def _opp(a: torch.Tensor) -> torch.Tensor:
     return torch.stack([a[:, 1], a[:, 2], a[:, 0]], dim=1)
 
 
-def _screen_tests(clip, valid, width, height, *, cull_mode, front_is_cw, subpixel):
-    """Degenerate / winding / viewport / sub-pixel culls (cull.wgsl).
-    Returns (keep, x, y, z, area2)."""
+def _screen_tests(clip, valid, width, height, *, cull_mode, front_is_cw, subpixel, hiz=None, capture=None):
+    """Degenerate / winding / viewport / sub-pixel culls (cull.wgsl), and
+    the Hi-Z occlusion test against `hiz` (a hi_z.build_pyramid list) when
+    given; `capture` as in hi_z.occlusion_test. Returns (keep, x, y, z,
+    area2)."""
     w = clip[..., 3]
     inv_w = 1.0 / torch.where(w == 0.0, torch.ones_like(w), w)
     x = (clip[..., 0] * inv_w * 0.5 + 0.5) * width
@@ -102,7 +107,25 @@ def _screen_tests(clip, valid, width, height, *, cull_mode, front_is_cw, subpixe
         cx = torch.floor(xmin - 0.5) + 1.5
         cy = torch.floor(ymin - 0.5) + 1.5
         keep = keep & (cx <= xmax) & (cy <= ymax)
+    if hiz is not None:
+        # Only triangles that passed every other test are queried.
+        keep = keep & ~occlusion_test(
+            hiz, xmin, ymin, xmax, ymax, z.amax(dim=1), live=keep, capture=capture
+        )
     return keep, x, y, z, area2
+
+
+def visibility_mask(clip, valid, width, height, *, cull_mode, front_is_cw, subpixel, hiz, capture=None):
+    """Per-row potentially-visible mask: the tests of cull_and_setup,
+    including the Hi-Z query, without building a setup table. Drives the
+    two-phase predicted-visible set (cull.wgsl phase-2 result stores): the
+    next frame predicts exactly the rows that pass against this frame's
+    occluder depth."""
+    keep, *_ = _screen_tests(
+        clip, valid, width, height, cull_mode=cull_mode, front_is_cw=front_is_cw,
+        subpixel=subpixel, hiz=hiz, capture=capture,
+    )
+    return keep
 
 
 def cull_and_setup(
@@ -115,7 +138,9 @@ def cull_and_setup(
     front_is_cw: bool,
     subpixel: bool = False,
 ) -> TriSetup:
-    """Cull, compute edge/depth planes, compact to the survivors.
+    """Cull, compute edge/depth planes, compact to the survivors. (The
+    Hi-Z test runs in visibility_mask: the JAX frame never passes a pyramid
+    to cull_and_setup, base.py:1331-1339.)
 
     Host read: `nonzero` sizes the survivor table (one device sync)."""
     keep, x, y, z, area2 = _screen_tests(

@@ -1,18 +1,22 @@
 """Deferred lighting over the G-buffer.
 
-Port of rend3_tpu/ops/lighting.py light_gbuffer (lighting.py:50-142) with
-textures=None: perspective divide of the numerator G-buffer, material table
-lookup, then the opaque.wgsl lighting math (shade._shade_pixels). The TPU
-build looks materials up with a one-hot matmul on the MXU
-(lighting.py:23-47); here it is an index gather.
+Port of rend3_tpu/ops/lighting.py light_gbuffer (lighting.py:50-142):
+perspective divide of the numerator G-buffer, material table lookup, texture
+sampling of the active slots at the hit pixels (texture.sample_textures_grid
+on kernel K4, with the analytic uv gradients of the G_DUV channels), then the
+opaque.wgsl lighting math (shade._shade_pixels). The TPU build looks
+materials up with one-hot matmuls on the MXU (lighting.py:23-47); here they
+are index gathers.
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import torch
 
 from . import deferred as D
-from .shade import DirLightArrays, FrameUniformsArrays, PbrMaterialTable, PointLightArrays, _shade_pixels
+from .shade import PBR_UVT0, DirLightArrays, FrameUniformsArrays, PbrMaterialTable, PointLightArrays, _shade_pixels
 
 __all__ = ["light_gbuffer"]
 
@@ -25,26 +29,51 @@ def light_gbuffer(
     uniforms: FrameUniformsArrays,
     background: torch.Tensor,       # (H, W, 4)
     shadow_values: torch.Tensor,    # (L, H, W) precomputed factors
+    textures=None,                  # texture.TextureArrays, or None
+    active_tex_slots=(),            # slots any material samples this frame
+    stage=None,                     # optional stage timer (routine.base.StageTimer)
+    capture=None,                   # optional dict for the K4 launch's inputs
 ) -> torch.Tensor:
     """Returns the (H, W, 4) linear HDR image: shaded where the G-buffer
-    hit, the background elsewhere."""
-    CH, H, W = gbuf.data.shape
-    N = H * W
-    g = gbuf.data.reshape(CH, N)
-    hit = g[D.G_HIT] > 0.0
-    den = g[D.G_DEN]
-    inv_den = torch.where(den.abs() < 1e-30, torch.ones_like(den), 1.0 / den)
+    hit, the background elsewhere. With a `stage` timer, texture sampling
+    is timed as "textures" and the rest as "lighting"."""
+    timed = stage if stage is not None else (lambda _name: nullcontext())
+    with timed("lighting"):
+        CH, H, W = gbuf.data.shape
+        N = H * W
+        g = gbuf.data.reshape(CH, N)
+        hit = g[D.G_HIT] > 0.0
+        den = g[D.G_DEN]
+        inv_den = torch.where(den.abs() < 1e-30, torch.ones_like(den), 1.0 / den)
 
-    def ch(off, n):
-        return g[off : off + n] * inv_den[None]
+        def ch(off, n):
+            return g[off : off + n] * inv_den[None]
 
-    midx = torch.round(g[D.G_MAT]).long().clamp(0, materials.data.shape[0] - 1)
-    mdata = materials.data[midx].T           # (D, N)
-    mflags = materials.flags[midx]
-    out_rgb, out_a = _shade_pixels(
-        mdata, mflags, ch(D.G_COL, 4), ch(D.G_NRM, 3), ch(D.G_VP, 3),
-        dir_lights, point_lights, uniforms, shadow_values.reshape(shadow_values.shape[0], N),
-    )
-    rgba = torch.cat([out_rgb, out_a], dim=0)  # (4, N)
-    rgba = torch.where(hit[None, :], rgba, background.reshape(N, 4).T)
-    return rgba.reshape(4, H, W).permute(1, 2, 0)
+        midx = torch.round(g[D.G_MAT]).long().clamp(0, materials.data.shape[0] - 1)
+        mdata = materials.data[midx].T           # (D, N)
+        mflags = materials.flags[midx]
+    mtex = None
+    tex_samples = None
+    if textures is not None and active_tex_slots:
+        from . import texture as tex_ops
+
+        with timed("textures"):
+            mtex = materials.textures[midx].T    # (NSLOT, N)
+            uv0 = ch(D.G_UV0, 2)
+            u, vv = uv0[0:1], uv0[1:2]
+            t = mdata[PBR_UVT0 : PBR_UVT0 + 6]
+            coords = torch.cat([t[0:1] * u + t[1:2] * vv + t[2:3], t[3:4] * u + t[4:5] * vv + t[5:6]])
+            # Analytic uv screen derivatives, already divided (deferred.G_DUV).
+            duv = g[D.G_DUV : D.G_DUV + 4]
+            tex_samples = tex_ops.sample_textures_grid(
+                textures, mtex, coords, duv, mflags, tuple(active_tex_slots), hit=hit, capture=capture
+            )
+    with timed("lighting"):
+        out_rgb, out_a = _shade_pixels(
+            mdata, mflags, mtex, ch(D.G_COL, 4), ch(D.G_NRM, 3), ch(D.G_TAN, 3), ch(D.G_VP, 3),
+            dir_lights, point_lights, uniforms, shadow_values.reshape(shadow_values.shape[0], N),
+            tex_samples=tex_samples,
+        )
+        rgba = torch.cat([out_rgb, out_a], dim=0)  # (4, N)
+        rgba = torch.where(hit[None, :], rgba, background.reshape(N, 4).T)
+        return rgba.reshape(4, H, W).permute(1, 2, 0)

@@ -1,13 +1,15 @@
 """PBR shading math (opaque.wgsl), planar over pixels.
 
 Port of rend3_tpu/ops/shade.py: the material flags and data layout, the
-frame's light and uniform tables, and `_shade_pixels` (shade.py:443-707) for
-untextured materials. Texture sampling is not ported yet (ROADMAP queue 1,
-item 6 "Textures"); the frame refuses textured materials before it gets here.
+frame's light and uniform tables, and `_shade_pixels` (shade.py:443-707).
 
-Matched math: material decode, Lambert diffuse + GGX/Smith/Schlick specular
-(math/brdf.wgsl), directional lights with precomputed shadow factors, point
-lights with the smooth-radius falloff, final max(ambient * albedo, shaded).
+Matched math: material decode with every texture branch (albedo, the normal
+map in its three encodings with tangent and bitangent, the three AO /
+metallic / roughness packings, reflectance, clear coat, emissive), Lambert
+diffuse + GGX/Smith/Schlick specular (math/brdf.wgsl), directional lights
+with precomputed shadow factors, point lights with the smooth-radius
+falloff, final max(ambient * albedo, shaded). Textures arrive as per-slot
+samples taken by lighting.light_gbuffer (texture.sample_textures_grid).
 """
 
 from __future__ import annotations
@@ -64,6 +66,10 @@ PBR_ANISOTROPY = 30
 PBR_AMBIENT_OCCLUSION = 31
 PBR_ALPHA_CUTOUT = 32
 PBR_DATA_SIZE = 33
+
+# Texture slot order (reference: PbrMaterial::to_textures, pbr/material.rs:497-510).
+TEX_ALBEDO, TEX_NORMAL, TEX_ROUGHNESS, TEX_METALLIC, TEX_REFLECTANCE = 0, 1, 2, 3, 4
+TEX_CLEAR_COAT, TEX_CLEAR_COAT_ROUGHNESS, TEX_EMISSIVE, TEX_ANISOTROPY, TEX_AO = 5, 6, 7, 8, 9
 
 
 class PbrMaterialTable(NamedTuple):
@@ -131,6 +137,16 @@ def _normalize_p(v):
     return v / torch.where(n == 0.0, torch.ones_like(n), n)
 
 
+def _cross_p(a, b):
+    return torch.stack(
+        [
+            a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0],
+        ]
+    )
+
+
 def _saturate(v):
     return torch.clamp(v, 0.0, 1.0)
 
@@ -175,22 +191,39 @@ def _finite_or_zero(t):
 
 
 def _shade_pixels(
-    mdata, mflags, vcol, nrm, view_pos,
+    mdata, mflags, mtex, vcol, nrm, tan, view_pos,
     dir_lights: DirLightArrays, point_lights: PointLightArrays,
-    uniforms: FrameUniformsArrays, shadow_values,
+    uniforms: FrameUniformsArrays, shadow_values, tex_samples=None,
 ):
-    """get_pixel_data + the lighting loop for untextured materials, planar
-    over N pixels: mdata (D, N), mflags (N,), vcol (4, N), nrm/view_pos
-    (3, N), shadow_values (L, N). Returns ((3, N) rgb, (1, N) alpha). The
-    uv and tangent inputs of the JAX function feed only texture sampling."""
+    """get_pixel_data + the lighting loop, planar over N pixels: mdata
+    (D, N), mflags (N,), mtex (NSLOT, N) 1-based texture ids or None,
+    vcol (4, N), nrm/tan/view_pos (3, N), shadow_values (L, N), tex_samples
+    None or a list of NSLOT (4, N) samples / None (a slot no material
+    samples this frame reads as a white texture). Returns ((3, N) rgb,
+    (1, N) alpha)."""
     dev = mdata.device
     N = mdata.shape[1]
 
     def fl(bit):
         return ((mflags & bit) != 0)[None, :]
 
+    def sample(slot):
+        if tex_samples is None:
+            return None
+        s = tex_samples[slot]
+        return s if s is not None else torch.ones(4, N, dtype=torch.float32, device=dev)
+
+    def has(slot):
+        return (mtex[slot] != 0)[None, :]
+
+    def vec3(a, b, c):
+        return torch.tensor([a, b, c], dtype=torch.float32, device=dev)[:, None]
+
     # --- albedo (opaque.wgsl get_pixel_data_inner) ---
     albedo = torch.ones(4, N, dtype=torch.float32, device=dev)
+    tex_albedo = sample(TEX_ALBEDO)
+    if tex_albedo is not None:
+        albedo = torch.where(has(TEX_ALBEDO), tex_albedo, albedo)
     blend_col = torch.where(
         fl(MF.ALBEDO_VERTEX_SRGB),
         torch.cat([srgb_display_to_scene(vcol[:3]), vcol[3:]], dim=0),
@@ -202,14 +235,78 @@ def _shade_pixels(
     )
     albedo = albedo * mdata[PBR_ALBEDO : PBR_ALBEDO + 4]
 
+    # --- normals ---
     normal = _normalize_p(nrm)
-    ao = mdata[PBR_AMBIENT_OCCLUSION : PBR_AMBIENT_OCCLUSION + 1]
-    rough = mdata[PBR_ROUGHNESS : PBR_ROUGHNESS + 1]
-    metal = mdata[PBR_METALLIC : PBR_METALLIC + 1]
+    tex_normal = sample(TEX_NORMAL)
+    if tex_normal is not None:
+        bicomp2 = torch.where(
+            fl(MF.SWIZZLED_NORMAL), torch.cat([tex_normal[3:4], tex_normal[1:2]], dim=0), tex_normal[:2]
+        ) * 2.0 - 1.0
+        bz = torch.sqrt(torch.clamp_min(1.0 - _sum_rows(bicomp2 ** 2), 0.0))
+        n_bi = torch.cat([bicomp2, bz], dim=0)
+        n_tri = _normalize_p(tex_normal[:3] * 2.0 - 1.0)
+        n_tex = torch.where(fl(MF.BICOMPONENT_NORMAL), n_bi, n_tri)
+        n_tex = n_tex * torch.where(fl(MF.YDOWN_NORMAL), vec3(1.0, -1.0, 1.0), vec3(1.0, 1.0, 1.0))
+        t_norm = _normalize_p(tan)
+        bitangent = _cross_p(normal, t_norm)
+        mapped = t_norm * n_tex[0:1] + bitangent * n_tex[1:2] + normal * n_tex[2:3]
+        normal = torch.where(has(TEX_NORMAL), _normalize_p(mapped), normal)
+
+    # --- AO / metallic / roughness (three packing modes) ---
+    base_ao = mdata[PBR_AMBIENT_OCCLUSION : PBR_AMBIENT_OCCLUSION + 1]
+    base_rough = mdata[PBR_ROUGHNESS : PBR_ROUGHNESS + 1]
+    base_metal = mdata[PBR_METALLIC : PBR_METALLIC + 1]
+    ao, rough, metal = base_ao, base_rough, base_metal
+    tex_rough = sample(TEX_ROUGHNESS)
+    tex_metal = sample(TEX_METALLIC)
+    tex_ao = sample(TEX_AO)
+    if tex_rough is not None:
+        has_r, has_m, has_a = has(TEX_ROUGHNESS), has(TEX_METALLIC), has(TEX_AO)
+        combined = fl(MF.AOMR_COMBINED)
+        bw_split = fl(MF.AOMR_BW_SPLIT)
+        swz = fl(MF.AOMR_SWIZZLED_SPLIT)
+        # combined: one texture; ao = r, rough = g, metal = b
+        ao_c = torch.where(has_r, base_ao * tex_rough[0:1], base_ao)
+        ro_c = torch.where(has_r, base_rough * tex_rough[1:2], base_rough)
+        me_c = torch.where(has_r, base_metal * tex_rough[2:3], base_metal)
+        # bw split: each from its own texture's r
+        ro_b = torch.where(has_r, base_rough * tex_rough[0:1], base_rough)
+        me_b = torch.where(has_m, base_metal * tex_metal[0:1], base_metal)
+        ao_b = torch.where(has_a, base_ao * tex_ao[0:1], base_ao)
+        # split / swizzled split: rm from the rough texture's rg or gb; ao from r
+        rm_r = torch.where(swz, tex_rough[1:2], tex_rough[0:1])
+        rm_m = torch.where(swz, tex_rough[2:3], tex_rough[1:2])
+        ro_s = torch.where(has_r, base_rough * rm_r, base_rough)
+        me_s = torch.where(has_r, base_metal * rm_m, base_metal)
+        ao_s = torch.where(has_a, base_ao * tex_ao[0:1], base_ao)
+        ao = torch.where(combined, ao_c, torch.where(bw_split, ao_b, ao_s))
+        rough = torch.where(combined, ro_c, torch.where(bw_split, ro_b, ro_s))
+        metal = torch.where(combined, me_c, torch.where(bw_split, me_b, me_s))
+
+    # --- reflectance / clear coat / emissive ---
     reflectance = mdata[PBR_REFLECTANCE : PBR_REFLECTANCE + 1]
+    tex_refl = sample(TEX_REFLECTANCE)
+    if tex_refl is not None:
+        reflectance = torch.where(has(TEX_REFLECTANCE), reflectance * tex_refl[0:1], reflectance)
+
     clear_coat = mdata[PBR_CLEAR_COAT : PBR_CLEAR_COAT + 1]
     cc_rough = mdata[PBR_CLEAR_COAT_ROUGHNESS : PBR_CLEAR_COAT_ROUGHNESS + 1]
+    tex_cc = sample(TEX_CLEAR_COAT)
+    tex_ccr = sample(TEX_CLEAR_COAT_ROUGHNESS)
+    if tex_cc is not None:
+        has_cc, has_ccr = has(TEX_CLEAR_COAT), has(TEX_CLEAR_COAT_ROUGHNESS)
+        ccr_comb = torch.where(has_cc, cc_rough * tex_cc[1:2], cc_rough)
+        ccr_src = torch.where(fl(MF.CC_GLTF_SPLIT), tex_ccr[1:2], tex_ccr[0:1])
+        ccr_sep = torch.where(has_ccr, cc_rough * ccr_src, cc_rough)
+        # Every packing reads the clear-coat factor from the clear-coat
+        # texture's r (the JAX branches cc_comb and cc_sep are one expression).
+        clear_coat = torch.where(has_cc, clear_coat * tex_cc[0:1], clear_coat)
+        cc_rough = torch.where(fl(MF.CC_GLTF_COMBINED), ccr_comb, ccr_sep)
+
     emissive = mdata[PBR_EMISSIVE : PBR_EMISSIVE + 3]
+    tex_emis = sample(TEX_EMISSIVE)
+    if tex_emis is not None:
+        emissive = torch.where(has(TEX_EMISSIVE), emissive * tex_emis[:3], emissive)
 
     diffuse_color = albedo[:3] * (1.0 - metal)
     dielectric_f0 = 0.16 * reflectance * reflectance

@@ -1,12 +1,15 @@
 """BaseRenderGraph: the canonical deferred frame, one plain function per stage.
 
-Port of rend3_tpu/routine/base.py for the opaque, shadowed, single-sample
-slice. In the JAX package `render_frame` traces one closure into one XLA
-program (base.py:1147-2110); here each stage is a function over torch
-tensors on the renderer's device:
+Port of rend3_tpu/routine/base.py for the opaque, textured, shadowed,
+single-sample slice with two-phase Hi-Z occlusion culling. In the JAX
+package `render_frame` traces one closure into one XLA program
+(base.py:1147-2110); here each stage is a function over torch tensors on the
+renderer's device:
 
     upload -> shadow maps (K2, cached) -> clip -> setup -> planes -> bin ->
-    G-buffer (K1) -> shadow coordinates -> PCF (K3) -> lighting -> blit
+    G-buffer (K1) -> [occlusion on: Hi-Z pyramid + visibility test (K5) ->
+    residual setup / planes / bin / G-buffer (K1) and merge] ->
+    shadow coordinates -> PCF (K3) -> textures (K4) -> lighting -> blit
 
 Every buffer is sized from the frame's real counts, so the TPU build's
 survivor / flat-list / queue caps, their growth and re-render loop and the
@@ -34,6 +37,7 @@ from ..core.renderer import InstructionEvaluationOutput, Renderer
 from ..ops import blit as blit_ops
 from ..ops import deferred as def_ops
 from ..ops import geometry as geom_ops
+from ..ops import hi_z as hiz_ops
 from ..ops import lighting as light_ops
 from ..ops import shade as shade_ops
 from ..ops import shadow as shadow_ops
@@ -111,9 +115,12 @@ class _Frame:
 class BaseRenderGraph:
     def __init__(self, renderer: Renderer):
         self.renderer = renderer
-        # Two-phase Hi-Z occlusion culling is image-neutral (base.py:156-160)
-        # and not ported yet, so the port's default is off.
-        self.occlusion_culling = False
+        # Two-phase Hi-Z occlusion culling (reference base.rs:155-172),
+        # image-neutral, on by default as in the JAX package (base.py:156-161).
+        # The predicted-visible mask over the triangle table is carried from
+        # frame to frame.
+        self.occlusion_culling = True
+        self._prev_visible_mask: Optional[torch.Tensor] = None
         self.timer: Optional[StageTimer] = None
         # When a dict, each kernel's inputs of the last frame are kept here
         # (for comparing a kernel with its plain version on real inputs).
@@ -134,8 +141,6 @@ class BaseRenderGraph:
 
     def _check_slice(self, target: FrameRenderTarget, skybox_slot) -> None:
         r = self.renderer
-        if self.occlusion_culling:
-            raise _not_ported("occlusion_culling=True", "Two-phase occlusion")
         if target.samples != 1:
             raise _not_ported(f"samples={target.samples}", "MSAA")
         if skybox_slot is not None:
@@ -191,13 +196,15 @@ class BaseRenderGraph:
         live = om.enabled & obj_pbr
         host = mm.archetypes[arch]
         slots = np.unique(om.material_slots[live])
-        if host.textures[slots].any():
-            raise _not_ported("textured materials", "Textures")
         if (host.data[slots, shade_ops.PBR_ALPHA_CUTOUT] > 0.0).any():
             raise _not_ported("alpha-cutout materials", "Cutout peels")
         data, flags, textures = mm.evaluate(arch)
         f.materials = shade_ops.PbrMaterialTable(data=data, flags=flags, textures=textures)
         f.material_slots = torch.from_numpy(om.material_slots.astype(np.int32)).to(dev)
+        # Texture slots any material references (base.py:976-980); slots no
+        # material uses are never sampled.
+        f.textures = r.d2_texture_manager.evaluate() if r.d2_texture_manager.data else None
+        f.active_tex_slots = tuple(int(q) for q in np.nonzero(host.textures.any(axis=0))[0])
 
         spheres = om.world_spheres
         visible = live & cam.world_frustum.contains_spheres(spheres)
@@ -380,28 +387,74 @@ class BaseRenderGraph:
                 smaps, stacked = self._ensure_shadow_maps(eval_output, f)
         with stage("clip"):
             clipped = self._clip(f)
-        with stage("setup"):
-            tris = geom_ops.cull_and_setup(
-                clipped.clip, clipped.valid, width, height,
-                cull_mode=geom_ops.CullMode.BACK, front_is_cw=f.front_cw, subpixel=True,
-            )
-        with stage("planes"):
-            planes = def_ops.attribute_planes(
-                tris, clipped.clip, clipped.bary, clipped.orig, f.tri_vlocal, f.tri_obj,
-                f.bases, f.geo, f.mv, f.material_slots, width, height,
-            )
         wp = _round_up(width, def_ops.DTILE_W)
         hp = _round_up(height, def_ops.DTILE_H)
-        with stage("bin"):
-            binned = geom_ops.bin_triangles(
-                tris, wp, hp, tile_h=def_ops.DTILE_H, tile_w=def_ops.DTILE_W
-            )
-        if self.captured is not None:
-            self.captured["raster_resolve"] = (tris, planes, binned, wp, hp)
-        with stage("gbuffer"):
-            gbuf = def_ops.raster_resolve(tris, planes, binned, wp, hp, sofs=(0.5, 0.5)).data
+
+        def cull(valid, name):
+            with stage(name):
+                return geom_ops.cull_and_setup(
+                    clipped.clip, valid, width, height,
+                    cull_mode=geom_ops.CullMode.BACK, front_is_cw=f.front_cw, subpixel=True,
+                )
+
+        def raster(tris, names, capture=False):
+            """planes -> bin -> G-buffer (K1), each step timed under its name."""
+            with stage(names[0]):
+                planes = def_ops.attribute_planes(
+                    tris, clipped.clip, clipped.bary, clipped.orig, f.tri_vlocal, f.tri_obj,
+                    f.bases, f.geo, f.mv, f.material_slots, width, height,
+                )
+            with stage(names[1]):
+                binned = geom_ops.bin_triangles(
+                    tris, wp, hp, tile_h=def_ops.DTILE_H, tile_w=def_ops.DTILE_W
+                )
+            if capture and self.captured is not None:
+                self.captured["raster_resolve"] = (tris, planes, binned, wp, hp)
+            with stage(names[2]):
+                gbuf = def_ops.raster_resolve(tris, planes, binned, wp, hp, sofs=(0.5, 0.5)).data
+            return binned, gbuf
+
+        T = f.tri_vlocal.shape[0]
+        pm = None
+        if self.occlusion_culling:
+            # Two-phase Hi-Z occlusion culling (base.py:1376-1472, reference
+            # base.rs:155-172, cull.wgsl:243-324), deferred-style: phase 1
+            # renders the carried predicted set for real.
+            pm_tri = self._prev_visible_mask
+            if pm_tri is None or pm_tri.shape[0] != T:
+                # First frame, or the triangle table changed size: predict all.
+                pm_tri = torch.ones(T, dtype=torch.bool, device=clipped.valid.device)
+            pm = pm_tri[clipped.orig.long()]
+        tris = cull(clipped.valid if pm is None else clipped.valid & pm, "setup")
+        binned, gbuf = raster(tris, ("planes", "bin", "gbuffer"), capture=True)
         self.last_stats["main_survivors"] = tris.count
         self.last_stats["main_pairs"] = int(binned.ids.shape[0])
+        if pm is not None:
+            # Phase 1's depth is the occluder pyramid; every opaque row is
+            # tested against it. The passers are the next frame's predicted
+            # set; those not predicted (the residual set) are rendered and
+            # merged on top by depth.
+            with stage("hiz"):
+                pyramid = hiz_ops.build_pyramid(gbuf[def_ops.G_DEPTH, :height, :width])
+                vis = geom_ops.visibility_mask(
+                    clipped.clip, clipped.valid, width, height,
+                    cull_mode=geom_ops.CullMode.BACK, front_is_cw=f.front_cw, subpixel=True,
+                    hiz=pyramid, capture=self.captured,
+                )
+                new_mask = torch.zeros(T, dtype=torch.bool, device=vis.device)
+                new_mask[clipped.orig.long()[vis]] = True
+            tris_r = cull(vis & ~pm, "resid")
+            self.last_stats["resid_survivors"] = tris_r.count
+            if tris_r.count:
+                _binned_r, gbuf_r = raster(tris_r, ("resid",) * 3)
+                with stage("resid"):
+                    # Merge on the hit flags, not bare depth (reverse-Z depth
+                    # 0 is a valid farthest fragment); the residual wins ties.
+                    take_r = (gbuf_r[def_ops.G_HIT] > 0.0) & (
+                        (gbuf[def_ops.G_HIT] <= 0.0) | (gbuf_r[def_ops.G_DEPTH] >= gbuf[def_ops.G_DEPTH])
+                    )
+                    gbuf = torch.where(take_r[None], gbuf_r, gbuf)
+            self._prev_visible_mask = new_mask
         L = f.dir_lights.mask.shape[0]
         if plan:
             with stage("shadow_coords"):
@@ -410,12 +463,15 @@ class BaseRenderGraph:
                 shadow_values = self._shadow_values(coords, smaps, stacked, L, height, width)
         else:
             shadow_values = torch.ones(L, height, width, dtype=torch.float32, device=gbuf.device)
-        with stage("lighting"):
-            background = f.clear_color.expand(height, width, 4)
-            img = light_ops.light_gbuffer(
-                def_ops.GBuffer(gbuf[:, :height, :width]), f.materials, f.dir_lights,
-                f.point_lights, f.uniforms, background, shadow_values,
-            )
+        # Lighting (timed as "textures" and "lighting") on the cropped
+        # G-buffer: the padding pixels are never hit, so lighting them (as the
+        # JAX package's texture path does) changes nothing.
+        img = light_ops.light_gbuffer(
+            def_ops.GBuffer(gbuf[:, :height, :width]), f.materials, f.dir_lights,
+            f.point_lights, f.uniforms, f.clear_color.expand(height, width, 4), shadow_values,
+            textures=f.textures, active_tex_slots=f.active_tex_slots,
+            stage=self.timer, capture=self.captured,
+        )
         with stage("blit"):
             img = blit_ops.f16_roundtrip(img[None])
             out = blit_ops.hdr_to_srgb_u8(blit_ops.resolve_samples(img))

@@ -5,11 +5,14 @@ the runner in the same order from the same seed, so the JAX package and the
 port render the same scene. `representative=False` is the flat variant that
 `bench.py --flat` times: subdivided-cube buildings with flat lit PBR
 materials, a ground plane and one shadowed directional light.
+`textured_city` cuts the representative scene down to its textured, opaque
+part; `textured_planes` is a small scene that drives every texture branch
+of the shader.
 """
 
 import numpy as np
 
-__all__ = ["build_city_scene", "set_bench_camera"]
+__all__ = ["build_city_scene", "textured_city", "textured_planes", "set_bench_camera"]
 
 
 def _subdivided_cube(g: int) -> tuple:
@@ -241,6 +244,103 @@ def build_city_scene(runner, n_buildings=600, seed=7, subdiv=3, representative=T
                 )
             )
         )
+    return keep
+
+
+def textured_city(runner, n_buildings=600, seed=7, build=None):
+    """The textured city: build_city_scene(representative=True) without its
+    alpha-tested foliage and alpha-blended glass objects (the object handles
+    that follow the quad mesh). Dropping those handles deletes the objects
+    through the handle API; two instruction rounds apply the deletes and
+    reclaim the slots (one frame late, as the reference does), so the first
+    rendered frame already sees the final triangle table. The leaf textures,
+    the leaf and glass materials and both lights stay registered, so the
+    texture atlas is the representative scene's. `build` may be the JAX
+    package's bench.build_city_scene, for the same scene there. Returns the
+    handles to keep."""
+    keep = (build or build_city_scene)(runner, n_buildings=n_buildings, seed=seed, representative=True)
+    kinds = [getattr(h, "kind", None) for h in keep]
+    quad = max(i for i, k in enumerate(kinds) if k == "mesh")
+    keep = [h for i, (h, k) in enumerate(zip(keep, kinds)) if i <= quad or k != "object"]
+    for _ in range(2):
+        runner.renderer.swap_instruction_buffers()
+        runner.renderer.evaluate_instructions()
+    return keep
+
+
+def textured_planes(runner, seed=3, package="rend3_tpu_torch"):
+    """Two textured lit quads under one shadowed light, seen at a slant so
+    the sampler walks several mips: one with albedo, a tricomponent normal
+    map and a combined AO/metallic/roughness texture; one with a swizzled
+    bicomponent y-down normal map, bw-split AO / metallic / roughness, and
+    emissive and reflectance textures. `package` names the package whose
+    types build the scene ("rend3_tpu" builds the same scene through the JAX
+    package). Returns the handles to keep."""
+    import importlib
+
+    mat = importlib.import_module(package + ".routine.pbr.material")
+    types = importlib.import_module(package + ".types")
+    m3 = importlib.import_module(package + ".utils.math")
+
+    rng = np.random.default_rng(seed)
+    r = runner.renderer
+    yy, xx = np.mgrid[0:64, 0:64] / 64.0
+
+    def tex(rgb, srgb=False, alpha=255):
+        data = np.empty((64, 64, 4), np.uint8)
+        data[..., :3] = np.clip(rgb * 255.0, 0, 255).astype(np.uint8)
+        data[..., 3] = alpha
+        fmt = types.TextureFormat.RGBA8_UNORM_SRGB if srgb else types.TextureFormat.RGBA8_UNORM
+        return r.add_texture_2d(types.Texture(label="t", data=data, format=fmt, mip_count=types.MipmapCount.MAXIMUM))
+
+    checker = ((np.floor(xx * 8) + np.floor(yy * 8)) % 2)[..., None]
+    noise = rng.uniform(0.0, 1.0, (64, 64, 3))
+    bump = np.stack([0.5 + 0.4 * np.sin(xx * 25.0), 0.5 + 0.4 * np.cos(yy * 19.0), np.full_like(xx, 0.8)], -1)
+    keep = [runner.add_directional_light(np.array([-1.0, -1.0, 1.0], np.float32))]
+    albedo = tex(0.3 + 0.5 * checker * noise, srgb=True)
+    normal = tex(bump)
+    aomr = tex(np.stack([1.0 - 0.5 * checker[..., 0], 0.2 + 0.7 * yy, xx], -1))
+    normal2 = tex(np.stack([np.full_like(xx, 0.5), bump[..., 1], bump[..., 0]], -1), alpha=(bump[..., 0] * 255).astype(np.uint8))
+    grey = [tex(np.repeat(v[..., None], 3, -1)) for v in (0.3 + 0.7 * xx, yy, 1.0 - 0.6 * checker[..., 0], 0.5 * yy)]
+    keep += [albedo, normal, aomr, normal2, *grey]
+    mats = [
+        r.add_material(mat.PbrMaterial(
+            albedo=mat.AlbedoComponent.new_texture(albedo),
+            normal=mat.NormalTexture(texture=normal),
+            aomr_textures=mat.AoMRTextures(mode="combined", aomr_texture=aomr),
+            metallic_factor=0.6,
+        )),
+        r.add_material(mat.PbrMaterial(
+            albedo=mat.AlbedoComponent.new_value(np.array([0.8, 0.6, 0.4, 1.0], np.float32)),
+            normal=mat.NormalTexture(texture=normal2, swizzled=True, y_down=True),
+            aomr_textures=mat.AoMRTextures(
+                mode="bw_split", roughness_texture=grey[0], metallic_texture=grey[1], ao_texture=grey[2],
+            ),
+            metallic_factor=1.0,
+            emissive=mat.MaterialComponent(value=np.array([0.2, 0.1, 0.05], np.float32), texture=grey[3]),
+            reflectance=mat.MaterialComponent(value=0.7, texture=grey[1]),
+        )),
+    ]
+    keep += mats
+    quad_v = np.array([[-1, 0, 1], [1, 0, 1], [1, 0, -1], [-1, 0, -1]], np.float32)
+    quad_uv = np.array([[0, 0], [3, 0], [3, 3], [0, 3]], np.float32)
+    quad = r.add_mesh(
+        types.MeshBuilder(quad_v, types.Handedness.LEFT)
+        .with_vertex_uv0(quad_uv)
+        .with_indices(np.array([0, 1, 2, 2, 3, 0], np.uint32))
+        .build()
+    )
+    keep.append(quad)
+    caster = runner.add_lit_material([0.7, 0.7, 0.7, 1.0])
+    keep += [caster, runner.cube(caster, m3.translation([0.0, 0.5, 0.3]) @ m3.scale(0.2))]
+    for m, x in zip(mats, (-1.05, 1.05)):
+        keep.append(r.add_object(types.Object(
+            mesh_kind=types.StaticMeshKind(quad), material=m, transform=m3.translation([x, 0.0, 0.0]),
+        )))
+    runner.set_camera_data(types.Camera(
+        projection=types.Perspective(vfov=60.0, near=0.1),
+        view=m3.look_at_lh([0.0, 1.6, -2.0], [0.0, 0.0, 0.3], [0.0, 1.0, 0.0]),
+    ))
     return keep
 
 

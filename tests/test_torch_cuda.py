@@ -5,7 +5,8 @@ On the card, where jax is not installed, skip the suite's conftest:
 python -m pytest tests/test_torch_cuda.py --noconftest -q. Each kernel runs
 on the same inputs as its plain version; tolerance: K1's depth, hit and
 material channels and all of K2 bit-exact, the other K1 channels within
-1 ulp, K3 abs <= 1e-6.
+1 ulp, K3 abs <= 1e-6, K4 and K5 bit-exact (random queries, including
+footprints off the grid and invalid ones).
 """
 
 import numpy as np
@@ -56,6 +57,44 @@ def test_k3_matches_plain(captured):
     args = captured[0]["pcf5"]
     err = (S.sample_grid_pcf5(*args) - S.sample_grid_pcf5_plain(*args)).abs().max()
     assert float(err) <= 1e-6
+
+
+def _k4_inputs(seed, q=20000, ah=300, aw=260):
+    """Random K4 queries, some with a footprint off the atlas or invalid."""
+    g = torch.Generator().manual_seed(seed)
+    atlas = torch.rand(ah, aw, 4, generator=g).to(torch.bfloat16)
+    bx = torch.randint(-3, aw + 3, (q,), generator=g, dtype=torch.int32)
+    by = torch.randint(-3, ah + 3, (q,), generator=g, dtype=torch.int32)
+    fx, fy, wt = (torch.rand(q, generator=g) for _ in range(3))
+    valid = torch.rand(q, generator=g) > 0.2
+    return [t.cuda() for t in (atlas, bx, by, fx, fy, wt, valid)]
+
+
+def test_k4_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _k4_inputs(4)
+    k = S.sample_grid_bilinear(*args)
+    p = S.sample_grid_bilinear_plain(*args)
+    assert k.shape == (4, args[1].numel())
+    assert torch.equal(k, p)
+    assert bool((k == 0).all(0)[~args[-1]].all())  # invalid queries read 0
+
+
+@pytest.mark.parametrize("offsets", [((0, 0), (1, 0), (0, 1), (1, 1)), S.PCF5_OFFSETS])
+def test_k5_matches_plain(offsets):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(5)
+    hs, ws, q = 200, 150, 30000
+    img = torch.randn(hs, ws, generator=g)
+    bx = torch.randint(-10, ws + 10, (q,), generator=g, dtype=torch.int32)
+    by = torch.randint(-10, hs + 10, (q,), generator=g, dtype=torch.int32)
+    valid = torch.rand(q, generator=g) > 0.2
+    args = [t.cuda() for t in (img, bx, by, valid)]
+    k = S.sample_grid(*args, offsets)
+    assert k.shape == (len(offsets), q)
+    assert torch.equal(k, S.sample_grid_plain(*args, offsets))
 
 
 def test_card_frame_matches_cpu(captured):
