@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths (rend3_tpu_torch) on the card through the
+Drives the port's three paths (rend3_tpu_torch) on the card through the
 entry points a user calls (TestRunner / Renderer scene calls,
 swap_instruction_buffers, evaluate_instructions, BaseRenderGraph.render_frame)
-at 1920x1080: the flat city-block scene of `bench.py --flat`, and the
-textured city (the representative bench scene without its alpha-tested
-foliage and alpha-blended glass) with two-phase occlusion culling. It checks
-every hand-written kernel of those paths against its plain PyTorch version.
+at 1920x1080: the flat city-block scene of `bench.py --flat`, the textured
+city (the representative bench scene without its alpha-tested foliage and
+alpha-blended glass), and the whole representative bench frame (foliage
+through the cutout peels, glass through the blend peels), both with
+two-phase occlusion culling. It checks every hand-written kernel of those
+paths, K1 in each of its modes, against its plain PyTorch version.
 Phases (each raises on failure; any failure exits nonzero):
 
 1. environment: torch, CUDA and nvcc versions, the card's name and power limit;
@@ -22,11 +24,19 @@ Phases (each raises on failure; any failure exits nonzero):
    second renders the carried mask, the third moves a building. Frames 1
    and 2 must equal the reference bit for bit, and frame 2 must rasterize
    fewer triangles than the reference;
-5. kernels: K1, K2 and K3 on the inputs captured in the flat frames, K4 and
-   K5 on those of the textured frames, against their plain versions on the
-   card, with median times;
-6. parity: the shadow golden scene and the textured-planes scene at
-   256x256 on the card and on the CPU.
+5. representative: the whole bench frame, as phase 4: an occlusion-off
+   reference frame, then (counters zeroed) three occlusion-on frames;
+   frames 1 and 2 must equal the reference bit for bit, frame 2 must
+   rasterize fewer opaque triangles than the reference, and the frames must
+   run cutout peels and at least two blend peels over blend pixels;
+6. kernels: K1, K2 and K3 on the inputs captured in the flat frames, K4 and
+   K5 on those of the textured frames, K1's count and bound modes and K4
+   on the cutout alpha test on those of the representative frames, against
+   their plain versions on the card, with median times, the bound each
+   kernel's bytes or operations set on the card, and the time of one
+   PyTorch call computing the same function where there is one;
+7. parity: the shadow golden scene, the textured-planes scene, the stacked
+   cutout scene and the glass stack at 256x256 on the card and on the CPU.
 
 The last two lines are the card (nvidia-smi) and one JSON object
 {"ok": true, "device": {...}}; the line before them lists the kernels.
@@ -42,6 +52,11 @@ import time
 import traceback
 
 WIDTH, HEIGHT = 1920, 1080
+# The H100 SXM's published peaks (NVIDIA's data sheet, at its 700 W limit):
+# device memory 3.35 TB/s, f32 outside the tensor cores 67 TFLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+KERNEL_NAMES = ("raster_resolve", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather")
 
 
 def log(msg):
@@ -84,13 +99,8 @@ def phase_build():
 def _launch_counts():
     from rend3_tpu_torch.ops import deferred, samplers
 
-    return {
-        "raster_resolve": deferred.launches["raster_resolve"],
-        "raster_depth": deferred.launches["raster_depth"],
-        "pcf5": samplers.launches["pcf5"],
-        "bilinear": samplers.launches["bilinear"],
-        "gather": samplers.launches["gather"],
-    }
+    counts = {**deferred.launches, **samplers.launches}
+    return {name: counts[name] for name in KERNEL_NAMES}
 
 
 def _reset_launch_counts():
@@ -251,7 +261,7 @@ def phase_textured(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
     log(f"launches during the three textured frames: {counts}")
     log(f"frame 2 survivors: main + resid = {s_on2} vs {s_off} with occlusion off")
     if cuda:
-        _check_launched(counts, tuple(counts))
+        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", "bilinear", "gather"))
     for img in (ref, img1, img2, img3):
         _check_image(img, width, height)
     if not s_on2 < s_off:
@@ -260,6 +270,66 @@ def phase_textured(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
         if not np.array_equal(img, ref):
             n = int((img != ref).any(-1).sum())
             raise AssertionError(f"textured frame {k} differs from the occlusion-off frame at {n} pixels")
+    if np.array_equal(img2, img3):
+        raise AssertionError("moving a building changed nothing")
+    log(f"image: {ref.shape}, non-background {(ref[..., :3] != 0).any(-1).mean():.4f}, mean {ref.mean():.3f}")
+    del keep
+    return graph, counts, ref
+
+
+def phase_representative(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
+    """The whole representative bench frame with two-phase occlusion
+    culling: an occlusion-off reference frame, then three counted frames;
+    returns (graph, counts, image)."""
+    import numpy as np
+    import torch
+
+    from rend3_tpu_torch import scenes
+    from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget
+    from rend3_tpu_torch.testing import TestRunner
+    from rend3_tpu_torch.utils import math as m3
+
+    t0 = time.perf_counter()
+    runner = TestRunner(device=device)
+    keep = scenes.build_city_scene(runner, n_buildings=n_buildings, representative=True)
+    scenes.set_bench_camera(runner, width, height)
+    log(f"representative city built in {time.perf_counter() - t0:.2f} s")
+    graph = runner.base_graph
+    graph.captured = {}
+    frame = _frame_fn(
+        runner, FrameRenderTarget(width, height, 1), BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0)),
+        device,
+    )
+    # Objects: the ground, then the buildings; move the last building.
+    building = [h for h in keep if getattr(h, "kind", None) == "object"][n_buildings]
+    cuda = torch.device(device).type == "cuda"
+
+    graph.occlusion_culling = False
+    ref = frame("representative 0 (occlusion off, the reference)")
+    s_off = graph.last_stats["main_survivors"]
+    graph.occlusion_culling = True
+    _reset_launch_counts()
+    img1 = frame("representative 1 (occlusion on, predicts every triangle)")
+    img2 = frame("representative 2 (occlusion on, the carried mask)")
+    st = dict(graph.last_stats)
+    s_on2 = st["main_survivors"] + st["resid_survivors"]
+    runner.renderer.set_object_transform(building, m3.translation([24.0, 25.0, -40.0]) @ m3.scale([3.0, 25.0, 3.0]))
+    img3 = frame("representative 3 (occlusion on, a building moved)")
+    counts = _launch_counts()
+    log(f"launches during the three representative frames: {counts}")
+    log(f"frame 2 opaque survivors: main + resid = {s_on2} vs {s_off} with occlusion off")
+    if cuda:
+        _check_launched(counts, KERNEL_NAMES)
+    for img in (ref, img1, img2, img3):
+        _check_image(img, width, height)
+    if not s_on2 < s_off:
+        raise AssertionError(f"occlusion culling did not cut the survivors ({s_on2} vs {s_off})")
+    if not (st["cut_survivors"] > 0 and st["cut_peels"] >= 1 and st["blend_px"] > 0 and st["blend_peels"] >= 2):
+        raise AssertionError(f"frame 2 did not run the cutout and blend peels: {st}")
+    for k, img in ((1, img1), (2, img2)):
+        if not np.array_equal(img, ref):
+            n = int((img != ref).any(-1).sum())
+            raise AssertionError(f"representative frame {k} differs from the occlusion-off frame at {n} pixels")
     if np.array_equal(img2, img3):
         raise AssertionError("moving a building changed nothing")
     log(f"image: {ref.shape}, non-background {(ref[..., :3] != 0).any(-1).mean():.4f}, mean {ref.mean():.3f}")
@@ -292,35 +362,125 @@ def _ulps(a, b):
     return (ia - ib).abs()
 
 
-def phase_kernels(graph, counts, tex_graph, tex_counts, timed=True):
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _bound(bytes_moved, ops):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the f32 operations over the f32 rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _raster_fragments(tris, binned, width):
+    """Pixels the raster kernels must test this run: per listed
+    (tile, triangle) pair, the tile's pixels inside the triangle's bbox."""
+    import torch
+
+    from rend3_tpu_torch.ops import deferred as D
+
+    offs = binned.offsets.long()
+    tile = torch.repeat_interleave(torch.arange(offs.numel() - 1, device=offs.device), offs[1:] - offs[:-1])
+    bb = tris.bbox[binned.ids.long()]
+    n_cols = width // D.DTILE_W
+    tx0 = (tile % n_cols) * D.DTILE_W
+    ty0 = (tile // n_cols) * D.DTILE_H
+    nx = (torch.minimum(torch.ceil(bb[:, 2]).long(), tx0 + D.DTILE_W) - torch.maximum(torch.floor(bb[:, 0]).long(), tx0))
+    ny = (torch.minimum(torch.ceil(bb[:, 3]).long(), ty0 + D.DTILE_H) - torch.maximum(torch.floor(bb[:, 1]).long(), ty0))
+    return int((nx.clamp_min(0) * ny.clamp_min(0)).sum())
+
+
+# f32 operations per tested (pixel, triangle): three edge planes and the
+# depth plane (a multiply, an fma and an add each), their sign and top-left
+# tests and the depth range; per covered pixel K1's finalize evaluates 21
+# planes (three operations each) and the four uv derivatives (about six).
+RASTER_TEST_OPS = 24
+K1_FINALIZE_OPS = 21 * 3 + 4 * 6
+
+
+def _k1_bound(tris, planes, binned, w, h, extra_in=(), extra_out=()):
+    import torch
+
+    from rend3_tpu_torch.ops import deferred as D
+
+    frags = _raster_fragments(tris, binned, w)
+    bytes_moved = _nbytes(tris.setup, tris.bbox, planes, binned.offsets, binned.ids, *extra_in, *extra_out)
+    bytes_moved += D.GB_CH * w * h * 4
+    return _bound(bytes_moved, frags * RASTER_TEST_OPS + w * h * K1_FINALIZE_OPS)
+
+
+def _k1_check(name, k, p, kc=None, pc=None):
+    """K1 against its plain version: depth, hit, material (and counts)
+    bit-exact, the other channels within 1 ulp. Returns the max abs error."""
+    import torch
+
+    from rend3_tpu_torch.ops import deferred as D
+
+    for ch in (D.G_DEPTH, D.G_HIT, D.G_MAT):
+        if not torch.equal(k[ch], p[ch]):
+            n = int((k[ch] != p[ch]).sum())
+            raise AssertionError(f"{name}: channel {ch} differs from the plain version at {n} pixels")
+    if kc is not None and not torch.equal(kc, pc):
+        raise AssertionError(f"{name}: counts differ from the plain version at {int((kc != pc).sum())} pixels")
+    ulps = _ulps(k, p)
+    max_ulp = int(ulps.max())
+    err = float((k - p).abs().max())
+    extra = "" if kc is None else f"; counts bit-exact, max {int(kc.max())}, {int((kc > 0).sum())} pixels counted"
+    log(f"{name}: {int((ulps > 0).sum())} of {k.numel()} values differ; max {max_ulp} ulp, max abs {err:.3g}"
+        f"; {int((k[D.G_HIT] > 0).sum())} hit pixels{extra}")
+    if max_ulp > 1:
+        raise AssertionError(f"{name} differs from its plain version by {max_ulp} ulp")
+    return err
+
+
+def phase_kernels(paths, timed=True):
     """Each kernel against its plain version on the captured 1080p inputs:
-    K1-K3 from the flat frames, K4 and K5 from the textured ones."""
+    K1-K3 from the flat frames, K4 and K5 from the textured ones, K1's
+    count and bound modes and K4 on the cutout alpha test from the
+    representative ones. `paths` maps each path's name to its (graph,
+    launch counts)."""
     import torch
 
     from rend3_tpu_torch.ops import deferred as D
     from rend3_tpu_torch.ops import samplers as S
 
-    cap = graph.captured
+    cap = paths["flat"][0].captured
+    tcap = paths["textured"][0].captured
+    rcap = paths["representative"][0].captured
     rows = []
 
-    # K1: depth, hit and material bit-exact; the other channels exact too
-    # (kernel and plain version evaluate the same expressions), reported in ulps.
+    # K1, opaque mode.
     tris, planes, binned, wp, hp = cap["raster_resolve"]
-    k = D.raster_resolve(tris, planes, binned, wp, hp).data
-    p = D.raster_resolve_plain(tris, planes, binned, wp, hp)
-    for ch in (D.G_DEPTH, D.G_HIT, D.G_MAT):
-        if not torch.equal(k[ch], p[ch]):
-            n = int((k[ch] != p[ch]).sum())
-            raise AssertionError(f"K1 channel {ch} differs from the plain version at {n} pixels")
-    ulps = _ulps(k, p)
-    max_ulp = int(ulps.max())
-    err1 = float((k - p).abs().max())
-    log(f"K1: {int((ulps > 0).sum())} of {k.numel()} values differ; max {max_ulp} ulp, max abs {err1:.3g}")
-    if max_ulp > 1:
-        raise AssertionError(f"K1 differs from its plain version by {max_ulp} ulp")
+    err1 = _k1_check("K1", D.raster_resolve(tris, planes, binned, wp, hp).data,
+                     D.raster_resolve_plain(tris, planes, binned, wp, hp))
     rows.append(("raster_resolve", "rend3_tpu_torch/csrc/raster.cu", "rend3_tpu/ops/deferred.py:505",
                  lambda: D.raster_resolve(tris, planes, binned, wp, hp),
-                 lambda: D.raster_resolve_plain(tris, planes, binned, wp, hp), err1))
+                 lambda: D.raster_resolve_plain(tris, planes, binned, wp, hp), err1,
+                 _k1_bound(tris, planes, binned, wp, hp), None))
+
+    # K1, count mode: the cutout peel 0 (strict floor).
+    c_tris, c_planes, c_binned, c_wp, c_hp, floor, strict = rcap["raster_count"]
+    kg, kc = D.raster_resolve(c_tris, c_planes, c_binned, c_wp, c_hp, count_floor=floor, count_strict=strict)
+    pg, pc = D.raster_resolve_plain(c_tris, c_planes, c_binned, c_wp, c_hp, count_floor=floor, count_strict=strict)
+    errc = _k1_check(f"K1 count mode (strict={strict}, {c_tris.count} triangles)", kg.data, pg, kc, pc)
+    rows.append(("raster_count", "rend3_tpu_torch/csrc/raster.cu", "rend3_tpu/ops/deferred.py:505",
+                 lambda: D.raster_resolve(c_tris, c_planes, c_binned, c_wp, c_hp, count_floor=floor,
+                                          count_strict=strict),
+                 lambda: D.raster_resolve_plain(c_tris, c_planes, c_binned, c_wp, c_hp, count_floor=floor,
+                                                count_strict=strict),
+                 errc, _k1_bound(c_tris, c_planes, c_binned, c_wp, c_hp, (floor,), (kc,)), None))
+
+    # K1, bound mode: the first later peel of the frame (cutout, or blend).
+    b_tris, b_planes, b_binned, b_wp, b_hp, bnd = rcap["raster_bound"]
+    errb = _k1_check(f"K1 bound mode ({b_tris.count} triangles)",
+                     D.raster_resolve(b_tris, b_planes, b_binned, b_wp, b_hp, bound=bnd).data,
+                     D.raster_resolve_plain(b_tris, b_planes, b_binned, b_wp, b_hp, bound=bnd))
+    rows.append(("raster_bound", "rend3_tpu_torch/csrc/raster.cu", "rend3_tpu/ops/deferred.py:505",
+                 lambda: D.raster_resolve(b_tris, b_planes, b_binned, b_wp, b_hp, bound=bnd),
+                 lambda: D.raster_resolve_plain(b_tris, b_planes, b_binned, b_wp, b_hp, bound=bnd),
+                 errb, _k1_bound(b_tris, b_planes, b_binned, b_wp, b_hp, (bnd,)), None))
 
     # K2: bit-exact.
     stris, sbinned, swp, shp = cap["raster_depth"]
@@ -329,54 +489,82 @@ def phase_kernels(graph, counts, tex_graph, tex_counts, timed=True):
     if not torch.equal(k, p):
         raise AssertionError(f"K2 differs from the plain version at {int((k != p).sum())} texels")
     log(f"K2: bit-exact over {k.numel()} texels, {int((k > 0).sum())} covered")
+    b2 = _bound(_nbytes(stris.setup, stris.bbox, sbinned.offsets, sbinned.ids, k),
+                _raster_fragments(stris, sbinned, swp) * RASTER_TEST_OPS)
     rows.append(("raster_depth", "rend3_tpu_torch/csrc/raster.cu", "rend3_tpu/ops/deferred.py:382",
                  lambda: D.raster_depth(stris, sbinned, swp, shp),
-                 lambda: D.raster_depth_plain(stris, sbinned, swp, shp), 0.0))
+                 lambda: D.raster_depth_plain(stris, sbinned, swp, shp), 0.0, b2, None))
 
-    # K3: abs <= 1e-6.
+    # K3: abs <= 1e-6. The maps are read only around valid queries (12 texels each).
     args = cap["pcf5"]
     k = S.sample_grid_pcf5(*args)
     p = S.sample_grid_pcf5_plain(*args)
     err3 = float((k - p).abs().max())
-    log(f"K3: max abs err {err3:.3g} over {k.numel()} pixels, {int(args[-1].sum())} valid")
+    n_valid = int(args[-1].sum())
+    log(f"K3: max abs err {err3:.3g} over {k.numel()} pixels, {n_valid} valid")
     if not err3 <= 1e-6:
         raise AssertionError(f"K3 differs from the plain version by {err3}")
+    b3 = _bound(_nbytes(*args[1:], k) + min(_nbytes(args[0]), n_valid * 12 * 4), n_valid * 60)
     rows.append(("pcf5", "rend3_tpu_torch/csrc/pcf5.cu", "rend3_tpu/ops/mxu_gather.py:424",
-                 lambda: S.sample_grid_pcf5(*args), lambda: S.sample_grid_pcf5_plain(*args), err3))
+                 lambda: S.sample_grid_pcf5(*args), lambda: S.sample_grid_pcf5_plain(*args), err3, b3, None))
 
-    # K4: exact or at most 1 ulp.
-    tcap = tex_graph.captured
+    # K4: exact or at most 1 ulp, on the textured frame's textures and on
+    # the representative frame's cutout alpha test.
+    def k4_check(label, a):
+        k = S.sample_grid_bilinear(*a)
+        p = S.sample_grid_bilinear_plain(*a)
+        ulps = _ulps(k, p)
+        err = float((k - p).abs().max())
+        log(f"K4 ({label}): {int(a[1].numel())} queries ({int(a[-1].sum())} valid), atlas {tuple(a[0].shape)}; "
+            f"{int((ulps > 0).sum())} of {k.numel()} values differ, max {int(ulps.max())} ulp, max abs {err:.3g}")
+        if int(ulps.max()) > 1:
+            raise AssertionError(f"K4 ({label}) differs from its plain version by {int(ulps.max())} ulp")
+        return err
+
     a4 = tcap["bilinear"]
-    k = S.sample_grid_bilinear(*a4)
-    p = S.sample_grid_bilinear_plain(*a4)
-    ulps = _ulps(k, p)
-    err4 = float((k - p).abs().max())
-    log(f"K4: {int(a4[1].numel())} queries ({int(a4[-1].sum())} valid), atlas {tuple(a4[0].shape)}; "
-        f"{int((ulps > 0).sum())} of {k.numel()} values differ, max {int(ulps.max())} ulp, max abs {err4:.3g}")
-    if int(ulps.max()) > 1:
-        raise AssertionError(f"K4 differs from its plain version by {int(ulps.max())} ulp")
+    err4 = k4_check("textures", a4)
+    k4_check("cutout alpha test", rcap["bilinear_cutout"])
+    n_valid = int(a4[-1].sum())
+    b4 = _bound(_nbytes(*a4[1:]) + 16 * a4[1].numel() + min(_nbytes(a4[0]), n_valid * 4 * 8), n_valid * 40)
     rows.append(("bilinear", "rend3_tpu_torch/csrc/bilinear.cu", "rend3_tpu/ops/mxu_gather.py:645",
-                 lambda: S.sample_grid_bilinear(*a4), lambda: S.sample_grid_bilinear_plain(*a4), err4))
+                 lambda: S.sample_grid_bilinear(*a4), lambda: S.sample_grid_bilinear_plain(*a4), err4, b4, None))
 
-    # K5: bit-exact.
+    # K5: bit-exact. Its library yardstick is advanced indexing of the same
+    # taps (every Hi-Z tap lies inside the padded mip atlas, checked here).
     a5 = tcap["gather"]
     k = S.sample_grid(*a5)
     p = S.sample_grid_plain(*a5)
     if not torch.equal(k, p):
         raise AssertionError(f"K5 differs from the plain version at {int((k != p).sum())} values")
-    log(f"K5: bit-exact over {int(a5[1].numel())} queries ({int(a5[3].sum())} live) x {len(a5[4])} taps, "
-        f"mip atlas {tuple(a5[0].shape)}")
+    img5, bx5, by5, valid5, offs5 = a5
+    dx = torch.tensor([o[0] for o in offs5], device=bx5.device, dtype=torch.long)
+    dy = torch.tensor([o[1] for o in offs5], device=bx5.device, dtype=torch.long)
+    ys, xs = by5.long()[:, None] + dy, bx5.long()[:, None] + dx
+    if int(ys.min()) < 0 or int(xs.min()) < 0 or int(ys.max()) >= img5.shape[0] or int(xs.max()) >= img5.shape[1]:
+        raise AssertionError("a K5 tap lies outside the mip atlas; the indexing yardstick would not apply")
+    lib = img5[ys, xs].T
+    if not torch.equal(torch.where(valid5[None], lib, torch.zeros_like(lib)) + 0.0, k):
+        raise AssertionError("K5's indexing yardstick does not compute the same taps")
+    n_valid = int(valid5.sum())
+    log(f"K5: bit-exact over {int(bx5.numel())} queries ({n_valid} live) x {len(offs5)} taps, "
+        f"mip atlas {tuple(img5.shape)}")
+    b5 = _bound(_nbytes(bx5, by5, valid5, k) + min(_nbytes(img5), n_valid * len(offs5) * 4), 0)
     rows.append(("gather", "rend3_tpu_torch/csrc/gather.cu", "rend3_tpu/ops/mxu_gather.py:279",
-                 lambda: S.sample_grid(*a5), lambda: S.sample_grid_plain(*a5), 0.0))
+                 lambda: S.sample_grid(*a5), lambda: S.sample_grid_plain(*a5), 0.0, b5,
+                 lambda: img5[by5.long()[:, None] + dy, bx5.long()[:, None] + dx]))
 
     kernels = []
-    for name, src, repl, kfn, pfn, err in rows:
+    for name, src, repl, kfn, pfn, err, (bound_ms, bound_by), libfn in rows:
         ms = _median_ms(kfn, 20) if timed else None
         plain_ms = _median_ms(pfn, 5) if timed else None
-        log(f"{name}: kernel {ms} ms, plain {plain_ms} ms (median)")
+        library_ms = _median_ms(libfn, 20) if timed and libfn is not None else None
+        launches = sum(counts[name] for _g, counts in paths.values())
+        log(f"{name}: kernel {ms} ms, plain {plain_ms} ms, library {library_ms} ms (median); "
+            f"bound {bound_ms:.6f} ms ({bound_by}); {launches} launches on the three paths")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": counts[name] + tex_counts[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         })
     return kernels
 
@@ -408,7 +596,12 @@ def phase_parity(device="cuda"):
     from rend3_tpu_torch import scenes
     from rend3_tpu_torch.testing import FrameRenderSettings, TestRunner
 
-    for name, build in (("shadow", shadow_scene), ("textured planes", scenes.textured_planes)):
+    for name, build in (
+        ("shadow", shadow_scene),
+        ("textured planes", scenes.textured_planes),
+        ("stacked cutout", scenes.stacked_cutout),
+        ("glass stack", scenes.glass_stack),
+    ):
         imgs = []
         for dev in (device, "cpu"):
             runner = TestRunner(device=dev)
@@ -436,9 +629,12 @@ def main():
 
         phase_environment()
         phase_build()
-        graph, counts, _img = phase_slice()
-        tex_graph, tex_counts, _img = phase_textured()
-        kernels = phase_kernels(graph, counts, tex_graph, tex_counts)
+        paths = {}
+        for name, phase in (("flat", phase_slice), ("textured", phase_textured),
+                            ("representative", phase_representative)):
+            graph, counts, _img = phase()
+            paths[name] = (graph, counts)
+        kernels = phase_kernels(paths)
         phase_parity()
         smi = nvidia_smi_line()
     except Exception:  # noqa: BLE001 - any failed phase fails the run

@@ -80,8 +80,9 @@ class GraphStorage:
 
 
 def _resolve_device(device) -> torch.device:
-    """One device per renderer. A CUDA device needs a card: there is no CPU
-    fall-back, so a missing card raises here instead of rendering slowly."""
+    """One device per renderer, the card unless the caller asks for "cpu".
+    A CUDA device needs a card: there is no CPU fall-back, so a missing card
+    raises here instead of rendering slowly."""
     if isinstance(device, (list, tuple)):
         raise NotImplementedError(
             "multi-device rendering is not ported yet (ROADMAP queue 1, item 14 'Multi-GPU row bands')"
@@ -102,7 +103,7 @@ class Renderer:
         self,
         handedness: Handedness = Handedness.LEFT,
         aspect_ratio: Optional[float] = None,
-        device="cpu",
+        device="cuda",
     ):
         self.device = _resolve_device(device)
         self.handedness = handedness

@@ -1,7 +1,8 @@
 // K1 (fused raster + G-buffer resolve) and K2 (depth-only raster) for Hopper.
 //
 // Replace: rend3_tpu/ops/deferred.py raster_resolve_packed (K1, kernel
-// deferred.py:555-721) and _depth_launch (K2, deferred.py:382-469).
+// deferred.py:555-721, in every mode but MSAA's sample offsets loop) and
+// _depth_launch (K2, deferred.py:382-469).
 //
 // What they compute. For each 32x128 pixel tile, walk the tile's triangle
 // list (CSR, ascending setup-row id) and per pixel keep the covering
@@ -13,6 +14,16 @@
 // deferred.py:676-711, including the analytic uv derivatives; a pixel that
 // no triangle covers gets the cleared (all-zero) channels. K2 keeps only
 // the depth (0 where nothing covers).
+//
+// K1's peel modes (deferred.py:548-553, 611-618, 739-764, 780-790), for the
+// cutout and blend depth peels. `bound` (H, W): a fragment also needs
+// z < bound, a strict test, read once per pixel row into a register.
+// `count_floor` (H, W): every covered fragment at z >= floor (z > floor
+// when strict) is counted over the whole tile list, before the bound and
+// whatever the depth test decides; the count stays in an int register and
+// is written as f32 (H, W) at the end (exact below 2^24). The per-warp bbox
+// skip stays valid for both: a skipped triangle covers no pixel of the
+// warp, so it neither wins nor counts anywhere there.
 //
 // Numerics. Every plane a*px + b*py + c is fma(a, px, b*py) + c, written
 // with explicit __fmaf_rn / __fmul_rn / __fadd_rn and built with
@@ -34,7 +45,11 @@
 // 25 channels, coalesced along the tile's columns. A tile is one CTA, so
 // the 510 tiles of a 1088x1920 target are about two waves of 264 resident
 // CTAs; making it faster (binning in the kernel, coarse hierarchical tests,
-// TMA staging) is later work.
+// TMA staging) is later work. In the peel modes the cutout and blend sets
+// are a few hundred triangles, so a launch is bound by the G-buffer write
+// plus one read of the bound or floor image and one write of the counts;
+// the extra per-row registers cost the 1024-thread CTA (64 registers a
+// thread) a few bytes of spill.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,13 +82,16 @@ struct Staged {
 };
 
 // Walk the tile's list; per pixel row r of this thread: greatest covered
-// depth d[r] and (WINNER) the setup row win[r] that reached it last.
-template <bool WINNER>
+// depth d[r] and (WINNER) the setup row win[r] that reached it last. With
+// BOUND a fragment also needs z < bnd[r]; with COUNT, cnt[r] counts the
+// covered fragments above flr[r] before the bound is applied.
+template <bool WINNER, bool BOUND, bool COUNT>
 __device__ __forceinline__ void walk(
     const float* __restrict__ setup, const float4* __restrict__ bbox,
     const int* __restrict__ offs, const int* __restrict__ ids,
     int tile, float px, const float (&py)[ROWS], float wx0, float wy0,
-    float (&d)[ROWS], int (&win)[ROWS], Staged& sm)
+    const float (&bnd)[ROWS], const float (&flr)[ROWS], bool strict,
+    float (&d)[ROWS], int (&win)[ROWS], int (&cnt)[ROWS], Staged& sm)
 {
     const int tid = threadIdx.y * TILE_W + threadIdx.x;
     const int nthreads = TILE_W * GROUPS;
@@ -107,7 +125,9 @@ __device__ __forceinline__ void walk(
                 const bool c1 = (e1 > 0.0f) || ((e1 == 0.0f) && (s[S_TL1] > 0.0f));
                 const bool c2 = (e2 > 0.0f) || ((e2 == 0.0f) && (s[S_TL2] > 0.0f));
                 const float z = plane(s[S_ZA], s[S_ZB], s[S_ZC], px, py[r]);
-                const bool cov = c0 && c1 && c2 && (z >= 0.0f) && (z <= 1.0f);
+                bool cov = c0 && c1 && c2 && (z >= 0.0f) && (z <= 1.0f);
+                if (COUNT && cov && (strict ? (z > flr[r]) : (z >= flr[r]))) ++cnt[r];
+                if (BOUND) cov = cov && (z < bnd[r]);
                 if (WINNER) {
                     if (cov && z >= d[r]) {
                         d[r] = z;
@@ -121,11 +141,13 @@ __device__ __forceinline__ void walk(
     }
 }
 
-template <bool WINNER>
+template <bool WINNER, bool BOUND, bool COUNT>
 __global__ void __launch_bounds__(TILE_W * GROUPS) raster_kernel(
     const float* __restrict__ setup, const float4* __restrict__ bbox,
     const float* __restrict__ planes, const int* __restrict__ offs,
     const int* __restrict__ ids, float* __restrict__ out,
+    const float* __restrict__ bound, const float* __restrict__ cfloor,
+    float* __restrict__ counts, int strict,
     int width, int height, float sofs_x, float sofs_y)
 {
     __shared__ Staged sm;
@@ -135,21 +157,27 @@ __global__ void __launch_bounds__(TILE_W * GROUPS) raster_kernel(
     const int x = tcol * TILE_W + threadIdx.x;
     const int y0 = trow * TILE_H + threadIdx.y * ROWS;
     const float px = __fadd_rn(float(x), sofs_x);
-    float py[ROWS], d[ROWS];
-    int win[ROWS];
+    float py[ROWS], d[ROWS], bnd[ROWS], flr[ROWS];
+    int win[ROWS], cnt[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
+        const size_t pix = (size_t)(y0 + r) * width + x;
         py[r] = __fadd_rn(float(y0 + r), sofs_y);
         d[r] = 0.0f;
         win[r] = -1;
+        bnd[r] = BOUND ? bound[pix] : 0.0f;
+        flr[r] = COUNT ? cfloor[pix] : 0.0f;
+        cnt[r] = 0;
     }
     const float wx0 = float(tcol * TILE_W + (threadIdx.x & ~31));
-    walk<WINNER>(setup, bbox, offs, ids, tile, px, py, wx0, float(y0), d, win, sm);
+    walk<WINNER, BOUND, COUNT>(setup, bbox, offs, ids, tile, px, py, wx0, float(y0), bnd, flr, strict != 0,
+                               d, win, cnt, sm);
 
     const size_t hw = (size_t)width * height;
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
         const size_t pix = (size_t)(y0 + r) * width + x;
+        if (COUNT) counts[pix] = float(cnt[r]);
         if (!WINNER) {
             out[pix] = d[r];
             continue;
@@ -186,37 +214,56 @@ __global__ void __launch_bounds__(TILE_W * GROUPS) raster_kernel(
     }
 }
 
+template <bool WINNER, bool BOUND, bool COUNT>
+int launch(const void* setup, const void* bbox, const void* planes, const void* offs, const void* ids,
+           void* out, const void* bound, const void* cfloor, void* counts, int strict,
+           int width, int height, float sofs_x, float sofs_y, void* stream)
+{
+    const int n_tiles = (width / TILE_W) * (height / TILE_H);
+    if (n_tiles > 0) {
+        raster_kernel<WINNER, BOUND, COUNT><<<n_tiles, dim3(TILE_W, GROUPS), 0, (cudaStream_t)stream>>>(
+            (const float*)setup, (const float4*)bbox, (const float*)planes, (const int*)offs,
+            (const int*)ids, (float*)out, (const float*)bound, (const float*)cfloor, (float*)counts,
+            strict, width, height, sofs_x, sofs_y);
+    }
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // K1: out (25, height, width) f32. setup (V, 16), bbox (V, 4), planes
 // (V, 64) f32; offs (n_tiles + 1) and ids (P) int32; width % 128 == 0,
-// height % 32 == 0. Returns cudaGetLastError() after the launch.
+// height % 32 == 0. Peel modes: an optional (height, width) f32 exclusive
+// upper bound, and an optional (height, width) f32 count floor whose
+// per-pixel counts go to `counts` (height, width) f32; a null pointer leaves
+// a mode off. strict != 0 counts z > floor, else z >= floor. Returns
+// cudaGetLastError() after the launch.
 int k1_raster_resolve(const void* setup, const void* bbox, const void* planes,
                       const void* offs, const void* ids, void* out,
-                      int width, int height, float sofs_x, float sofs_y, void* stream)
+                      const void* bound, const void* cfloor, void* counts,
+                      int width, int height, int strict, float sofs_x, float sofs_y, void* stream)
 {
-    const int n_tiles = (width / TILE_W) * (height / TILE_H);
-    if (n_tiles > 0) {
-        raster_kernel<true><<<n_tiles, dim3(TILE_W, GROUPS), 0, (cudaStream_t)stream>>>(
-            (const float*)setup, (const float4*)bbox, (const float*)planes, (const int*)offs,
-            (const int*)ids, (float*)out, width, height, sofs_x, sofs_y);
-    }
-    return (int)cudaGetLastError();
+    if (bound && cfloor)
+        return launch<true, true, true>(setup, bbox, planes, offs, ids, out, bound, cfloor, counts, strict,
+                                        width, height, sofs_x, sofs_y, stream);
+    if (bound)
+        return launch<true, true, false>(setup, bbox, planes, offs, ids, out, bound, nullptr, nullptr, 0,
+                                         width, height, sofs_x, sofs_y, stream);
+    if (cfloor)
+        return launch<true, false, true>(setup, bbox, planes, offs, ids, out, nullptr, cfloor, counts, strict,
+                                         width, height, sofs_x, sofs_y, stream);
+    return launch<true, false, false>(setup, bbox, planes, offs, ids, out, nullptr, nullptr, nullptr, 0,
+                                      width, height, sofs_x, sofs_y, stream);
 }
 
 // K2: out (height, width) f32; inputs as K1 without the planes.
 int k2_raster_depth(const void* setup, const void* bbox, const void* offs, const void* ids,
                     void* out, int width, int height, float sofs_x, float sofs_y, void* stream)
 {
-    const int n_tiles = (width / TILE_W) * (height / TILE_H);
-    if (n_tiles > 0) {
-        raster_kernel<false><<<n_tiles, dim3(TILE_W, GROUPS), 0, (cudaStream_t)stream>>>(
-            (const float*)setup, (const float4*)bbox, nullptr, (const int*)offs,
-            (const int*)ids, (float*)out, width, height, sofs_x, sofs_y);
-    }
-    return (int)cudaGetLastError();
+    return launch<false, false, false>(setup, bbox, nullptr, offs, ids, out, nullptr, nullptr, nullptr, 0,
+                                       width, height, sofs_x, sofs_y, stream);
 }
 
 const char* rend3_cuda_error_string(int code)

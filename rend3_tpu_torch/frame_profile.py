@@ -1,13 +1,16 @@
 """Time and trace the port's frame on a CUDA device.
 
-    python -m rend3_tpu_torch.frame_profile [--scene flat|textured] [--frames N] [--trace-dir DIR]
+    python -m rend3_tpu_torch.frame_profile [--scene flat|textured|representative] [--frames N] [--trace-dir DIR]
 
 Renders a 600-building city at 1920x1080 on the card and prints one JSON
 line. The scene is `flat` (`bench.py --flat`: flat materials, one 2048²
-shadow map, occlusion culling off, as the first slice timed it) or
+shadow map, occlusion culling off, as the first slice timed it),
 `textured` (scenes.textured_city: 24 albedo + 24 AO/metallic/roughness
 textures with mips, 2048² and 1024² shadow maps, two-phase occlusion
-culling on). The line holds:
+culling on) or `representative` (the whole bench frame,
+build_city_scene(representative=True): the textured city plus 340
+alpha-tested foliage objects and 16 glass panes, occlusion culling on).
+The line holds:
 
 - static_ms: median frame time (host clock around render_frame_tensor plus a
   synchronize) when the shadow map is cached;
@@ -37,7 +40,7 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("flat", "textured"), default="flat")
+    ap.add_argument("--scene", choices=("flat", "textured", "representative"), default="flat")
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
@@ -51,14 +54,15 @@ def main() -> int:
 
     width, height = 1920, 1080
     runner = TestRunner(device="cuda")
-    if args.scene == "flat":
-        keep = scenes.build_city_scene(runner, n_buildings=600, representative=False)
-    else:
+    if args.scene == "textured":
         keep = scenes.textured_city(runner, n_buildings=600)
+    else:
+        keep = scenes.build_city_scene(runner, n_buildings=600, representative=args.scene == "representative")
     scenes.set_bench_camera(runner, width, height)
-    building = [h for h in keep if getattr(h, "kind", None) == "object"][-1]
+    # Objects: the ground, then the buildings; the last building moves.
+    building = [h for h in keep if getattr(h, "kind", None) == "object"][600]
     graph = runner.base_graph
-    graph.occlusion_culling = args.scene == "textured"
+    graph.occlusion_culling = args.scene != "flat"
     target = FrameRenderTarget(width, height, 1)
     settings = BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0))
 

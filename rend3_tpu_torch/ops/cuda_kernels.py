@@ -15,9 +15,10 @@ source rebuilds it. --fmad=false keeps nvcc from contracting a*b + c into an
 fma anywhere the kernels do not ask for one explicitly; division and sqrt
 stay IEEE (no --use_fast_math).
 
-Each C function takes a `c_void_p` per tensor, then ints, then floats, then
-the CUDA stream, launches on that stream and returns cudaGetLastError();
-`call` raises on a nonzero code. Nothing here runs at import time.
+Each C function takes a `c_void_p` per tensor (None passes a null pointer,
+for an optional input or output), then ints, then floats, then the CUDA
+stream, launches on that stream and returns cudaGetLastError(); `call`
+raises on a nonzero code. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-lineinfo", "-X
 
 # name -> (tensor args, int args, float args); every function ends with the stream.
 _SIGNATURES = {
-    "k1_raster_resolve": (6, 2, 2),
+    "k1_raster_resolve": (9, 3, 2),
     "k2_raster_depth": (5, 2, 2),
     "k3_pcf5": (8, 3, 0),
     "k4_bilinear": (8, 3, 0),
@@ -127,7 +128,8 @@ def library() -> ctypes.CDLL:
 
 
 def call(name: str, *tensors: torch.Tensor, ints=(), floats=()) -> None:
-    """Launch kernel `name` on the current stream of the tensors' device."""
+    """Launch kernel `name` on the current stream of the tensors' device
+    (the first tensor's); a tensor given as None passes a null pointer."""
     n_t, n_i, n_f = _SIGNATURES[name]
     if len(tensors) != n_t or len(ints) != n_i or len(floats) != n_f:
         raise TypeError(f"{name}: expected {n_t} tensors, {n_i} ints, {n_f} floats")
@@ -138,7 +140,7 @@ def call(name: str, *tensors: torch.Tensor, ints=(), floats=()) -> None:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, name)(
-            *[ctypes.c_void_p(t.data_ptr()) for t in tensors],
+            *[ctypes.c_void_p(None if t is None else t.data_ptr()) for t in tensors],
             *[ctypes.c_int(int(i)) for i in ints],
             *[ctypes.c_float(float(f)) for f in floats],
             ctypes.c_void_p(stream),

@@ -5,7 +5,10 @@ screen-space interpolation planes for each vertex attribute (attr/w and 1/w
 are linear in screen space); the fused raster + resolve kernel (K1) walks
 each 32x128 tile's triangle list, keeps the nearest triangle per pixel and
 evaluates the winner's planes into the 25-channel G-buffer. K2 is the same
-walk keeping only the depth (shadow maps).
+walk keeping only the depth (shadow maps). K1's peel modes serve the cutout
+and blend depth peels: `bound` keeps only fragments strictly in front of a
+per-pixel bound, and `count_floor` also counts, per pixel, the covered
+fragments above a floor (the exact layer count of a peel loop).
 
 The TPU kernels' chunk packing, band masks, 1D step queue and phase-B
 one-hot matmul are gone: the CUDA kernels (csrc/raster.cu) read the CSR tile
@@ -24,7 +27,7 @@ exactly in float64 (`fma32`).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -70,8 +73,10 @@ G_MAT = 19
 G_HIT = 20
 G_DUV = 21   # 4: du/dx, dv/dx, du/dy, dv/dy (analytic, post-divide)
 
-# Launch counts of the CUDA kernels (plain-version runs do not count).
-launches = {"raster_resolve": 0, "raster_depth": 0}
+# Launch counts of the CUDA kernels (plain-version runs do not count). K1
+# counts its modes apart: plain (opaque and residual G-buffers), with a
+# count floor (peel 0 of a peel loop), with a bound only (later peels).
+launches = {"raster_resolve": 0, "raster_count": 0, "raster_bound": 0, "raster_depth": 0}
 
 
 class GBuffer(NamedTuple):
@@ -283,18 +288,38 @@ def raster_depth_plain(tris: TriSetup, binned: BinnedTris, width: int, height: i
     return depth.reshape(height, width)
 
 
-def _winners_plain(tris: TriSetup, binned: BinnedTris, width: int, height: int, sofs):
+def _winners_plain(
+    tris: TriSetup, binned: BinnedTris, width: int, height: int, sofs,
+    bound=None, count_floor=None, count_strict=False,
+):
     """Per pixel the winning setup row (-1 = none): greatest depth, and on
     equal depth the later list entry, i.e. the higher row id. Packs
-    (depth bits, row) into one int64 key and takes the max."""
-    key = torch.full((height * width,), -1, dtype=torch.int64, device=tris.setup.device)
+    (depth bits, row) into one int64 key and takes the max. With `bound`
+    (H, W) a fragment also needs z < bound (deferred.py:617-618). With
+    `count_floor` (H, W), counts per pixel every covered fragment at
+    z >= floor (z > floor when count_strict), before the bound and whatever
+    the depth test decides (deferred.py:611-616). Returns (win, depth,
+    counts or None)."""
+    dev = tris.setup.device
+    key = torch.full((height * width,), -1, dtype=torch.int64, device=dev)
+    bnd = None if bound is None else bound.reshape(-1)
+    flr = None if count_floor is None else count_floor.reshape(-1)
+    counts = None if flr is None else torch.zeros(height * width, dtype=torch.int64, device=dev)
     for tri, pix, px, py in _fragments(tris, binned, width, sofs):
         cov, z = _coverage(tris.setup[tri], px, py)
+        if flr is not None:
+            above = (z > flr[pix]) if count_strict else (z >= flr[pix])
+            hits = pix[cov & above]
+            counts.index_add_(0, hits, torch.ones_like(hits))
+        if bnd is not None:
+            cov = cov & (z < bnd[pix])
         zbits = (z[cov] + 0.0).view(torch.int32).long()   # z >= 0: bits are monotone
         key.scatter_reduce_(0, pix[cov], (zbits << 32) | tri[cov], reduce="amax")
     win = torch.where(key >= 0, key & 0xFFFFFFFF, torch.full_like(key, -1))
     zb = torch.where(key >= 0, key >> 32, torch.zeros_like(key)).to(torch.int32)
-    return win, zb.view(torch.float32)
+    if counts is not None:
+        counts = counts.float().reshape(height, width)
+    return win, zb.view(torch.float32), counts
 
 
 def resolve_channels(planes_w: torch.Tensor, depth, px, py) -> torch.Tensor:
@@ -325,15 +350,19 @@ def resolve_channels(planes_w: torch.Tensor, depth, px, py) -> torch.Tensor:
     return torch.stack(chans)
 
 
-def raster_resolve_plain(tris, planes, binned, width, height, sofs=(0.5, 0.5)):
-    """Plain version of K1: (GB_CH, H, W) G-buffer."""
-    win, depth = _winners_plain(tris, binned, width, height, sofs)
+def raster_resolve_plain(
+    tris, planes, binned, width, height, sofs=(0.5, 0.5), bound=None, count_floor=None, count_strict=False,
+):
+    """Plain version of K1: the (GB_CH, H, W) G-buffer, and with
+    `count_floor` also the (H, W) f32 counts: (gbuf, counts)."""
+    win, depth, counts = _winners_plain(tris, binned, width, height, sofs, bound, count_floor, count_strict)
     out = torch.zeros(GB_CH, height * width, dtype=torch.float32, device=planes.device)
     pix = torch.nonzero(win >= 0).flatten()
     px = (pix % width).float() + float(sofs[0])
     py = (pix // width).float() + float(sofs[1])
     out[:, pix] = resolve_channels(planes[win[pix]], depth[pix], px, py)
-    return out.reshape(GB_CH, height, width)
+    out = out.reshape(GB_CH, height, width)
+    return out if counts is None else (out, counts)
 
 
 # ---------------------------------------------------------------------------
@@ -373,23 +402,45 @@ def raster_resolve(
     height: int,
     *,
     sofs: Tuple[float, float] = (0.5, 0.5),
-) -> GBuffer:
+    bound: Optional[torch.Tensor] = None,
+    count_floor: Optional[torch.Tensor] = None,
+    count_strict: bool = False,
+):
     """K1, the fused raster + G-buffer resolve over CSR tile lists (the
-    counterpart of deferred.raster_resolve_packed with no bound / floor):
-    (GB_CH, H, W) numerator-space G-buffer. CUDA tensors launch the kernel
-    in csrc/raster.cu; CPU tensors run raster_resolve_plain."""
+    counterpart of deferred.raster_resolve_packed): the (GB_CH, H, W)
+    numerator-space G-buffer.
+
+    bound: optional (H, W) f32 exclusive reverse-Z upper bound (depth
+    peels: a fragment needs z < bound). count_floor: optional (H, W) f32
+    floor; the kernel then also counts, per pixel, every covered fragment at
+    z >= floor (z > floor with count_strict), before the bound, and the
+    call returns (GBuffer, counts (H, W) f32). JAX returns (GBuffer,
+    overflow, counts); the port has no overflow, so counts come second.
+    CUDA tensors launch the kernel in csrc/raster.cu; CPU tensors run
+    raster_resolve_plain."""
     dev = _check(tris, binned, width, height, planes)
+    for name, img in (("bound", bound), ("count_floor", count_floor)):
+        if img is not None and (
+            img.shape != (height, width) or img.dtype != torch.float32 or img.device != dev
+            or not img.is_contiguous()
+        ):
+            raise ValueError(f"{name} must be a contiguous ({height}, {width}) f32 image on {dev}")
     if dev.type == "cpu":
-        return GBuffer(raster_resolve_plain(tris, planes, binned, width, height, sofs))
+        out = raster_resolve_plain(tris, planes, binned, width, height, sofs, bound, count_floor, count_strict)
+        return (GBuffer(out[0]), out[1]) if count_floor is not None else GBuffer(out)
     from . import cuda_kernels
 
     out = torch.empty(GB_CH, height, width, dtype=torch.float32, device=dev)
+    counts = None if count_floor is None else torch.empty(height, width, dtype=torch.float32, device=dev)
     cuda_kernels.call(
         "k1_raster_resolve",
-        tris.setup, tris.bbox, planes, binned.offsets, binned.ids, out,
-        ints=(width, height), floats=sofs,
+        tris.setup, tris.bbox, planes, binned.offsets, binned.ids, out, bound, count_floor, counts,
+        ints=(width, height, int(count_strict)), floats=sofs,
     )
-    launches["raster_resolve"] += 1
+    if counts is not None:
+        launches["raster_count"] += 1
+        return GBuffer(out), counts
+    launches["raster_bound" if bound is not None else "raster_resolve"] += 1
     return GBuffer(out)
 
 

@@ -137,15 +137,19 @@ def cull_and_setup(
     cull_mode: int,
     front_is_cw: bool,
     subpixel: bool = False,
+    hiz=None,
+    capture=None,
 ) -> TriSetup:
-    """Cull, compute edge/depth planes, compact to the survivors. (The
-    Hi-Z test runs in visibility_mask: the JAX frame never passes a pyramid
-    to cull_and_setup, base.py:1331-1339.)
+    """Cull, compute edge/depth planes, compact to the survivors. With
+    `hiz` (a hi_z.build_pyramid list) the survivors also pass the Hi-Z
+    occlusion test, as the JAX frame's cutout geometry pass does against the
+    opaque phase-1 depth (base.py:1487-1489 into geom_pass, :1334-1339);
+    `capture` as in hi_z.occlusion_test.
 
     Host read: `nonzero` sizes the survivor table (one device sync)."""
     keep, x, y, z, area2 = _screen_tests(
         clip, valid, width, height, cull_mode=cull_mode, front_is_cw=front_is_cw,
-        subpixel=subpixel,
+        subpixel=subpixel, hiz=hiz, capture=capture,
     )
     g = torch.nonzero(keep).flatten()
     x, y, z, area2 = x[g], y[g], z[g], area2[g]

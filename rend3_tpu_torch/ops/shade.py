@@ -27,6 +27,7 @@ __all__ = [
     "FrameUniformsArrays",
     "srgb_scene_to_display",
     "srgb_display_to_scene",
+    "albedo_alpha",
 ]
 
 PI = 3.14159265358979
@@ -354,3 +355,14 @@ def _shade_pixels(
     out_rgb = torch.where(unlit, albedo[:3], lit_rgb)
     out_a = torch.where(unlit, albedo[3:4], lit_a)
     return out_rgb, out_a
+
+
+def albedo_alpha(mdata, mflags, vcol, tex_a):
+    """Alpha of get_pixel_data's albedo for the cutout discard (shade.py:708-717;
+    depth.wgsl:105-124, opaque.wgsl:231): texture alpha x vertex-color alpha
+    (when blended) x factor alpha. Planar: mdata (D, N), vcol (4, N), tex_a
+    the sampled albedo texture's alpha (N,) or None; returns (N,)."""
+    a = torch.ones_like(vcol[3]) if tex_a is None else tex_a
+    a = torch.where((mflags & MF.ALBEDO_BLEND) != 0, a * vcol[3], a)
+    a = torch.where((mflags & MF.ALBEDO_ACTIVE) != 0, a, torch.ones_like(a))
+    return a * mdata[PBR_ALBEDO + 3]

@@ -45,50 +45,36 @@ def resolve_shadow_pcf5(smaps, entries, stacked=None, capture=None):
     """All PCF5 shadow resolves of a frame in one K3 launch.
 
     smaps: list of (size, size) maps; entries: list of (map index, sx, sy,
-    ref, hit) per (G-buffer, light), each (H, W). stacked: optional
-    (stacked, bases) from stack_shadow_maps, built once with cached maps.
-    capture: optional dict that receives the K3 launch's inputs.
-    Returns a list of (H, W) factors, 1.0 where the pixel is invalid."""
+    ref, hit) per (G-buffer, light), each of one shape per entry (a padded
+    frame, or compacted pixels). stacked: optional (stacked, bases) from
+    stack_shadow_maps, built once with cached maps. capture: optional dict
+    that receives the K3 launch's inputs. The entries' queries are
+    flattened into one vector, so entries of any shapes share the launch.
+    Returns a list of factors shaped like each entry, 1.0 where the pixel
+    is invalid."""
     if not entries:
         return []
     stacked, bases = stacked if stacked is not None else stack_shadow_maps(smaps)
-    maxW = max(int(e[1].shape[1]) for e in entries)
-
-    def padw(a, fill):
-        w = int(a.shape[1])
-        if w == maxW:
-            return a
-        return torch.nn.functional.pad(a, (0, maxW - w), value=fill)
-
     bxs, bys, fxs, fys, refs, oks = [], [], [], [], [], []
     for mi, sx, sy, ref, hit in entries:
         h_m, w_m = smaps[mi].shape
+        sx, sy = sx.flatten(), sy.flatten()
         xb = torch.floor(sx - 0.5)
         yb = torch.floor(sy - 0.5)
         bx = xb.to(torch.int32)
         by = yb.to(torch.int32)
-        ok = hit & (bx >= 0) & (bx < w_m) & (by >= 0) & (by < h_m)
-        bxs.append(padw(bx, 0))
-        bys.append(padw(by + bases[mi], 0))
-        fxs.append(padw((sx - 0.5) - xb, 0.0))
-        fys.append(padw((sy - 0.5) - yb, 0.0))
-        refs.append(padw(ref, 0.0))
-        oks.append(padw(ok, False))
+        bxs.append(bx)
+        bys.append(by + bases[mi])
+        fxs.append((sx - 0.5) - xb)
+        fys.append((sy - 0.5) - yb)
+        refs.append(ref.flatten())
+        oks.append(hit.flatten() & (bx >= 0) & (bx < w_m) & (by >= 0) & (by < h_m))
 
-    def cat(xs):
-        return torch.cat(xs, dim=0).contiguous()
-
-    args = (stacked, cat(bxs), cat(bys), cat(fxs), cat(fys), cat(refs), cat(oks))
+    args = (stacked, *(torch.cat(xs).contiguous() for xs in (bxs, bys, fxs, fys, refs, oks)))
     if capture is not None:
         capture["pcf5"] = args
     ok_all = args[-1]
     pcf_all = sample_grid_pcf5(*args)
     # Invalid pixels read 0 from the sampler; they are lit (1.0).
     pcf_all = torch.where(ok_all, pcf_all, torch.ones_like(pcf_all))
-    outs = []
-    row = 0
-    for _mi, sx, _sy, _ref, _hit in entries:
-        h_e, w_e = int(sx.shape[0]), int(sx.shape[1])
-        outs.append(pcf_all[row : row + h_e, :w_e])
-        row += h_e
-    return outs
+    return [p.reshape(e[1].shape) for p, e in zip(torch.split(pcf_all, [e[1].numel() for e in entries]), entries)]

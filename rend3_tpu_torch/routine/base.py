@@ -1,22 +1,27 @@
 """BaseRenderGraph: the canonical deferred frame, one plain function per stage.
 
-Port of rend3_tpu/routine/base.py for the opaque, textured, shadowed,
-single-sample slice with two-phase Hi-Z occlusion culling. In the JAX
-package `render_frame` traces one closure into one XLA program
-(base.py:1147-2110); here each stage is a function over torch tensors on the
-renderer's device:
+Port of rend3_tpu/routine/base.py for the single-sample deferred frame:
+opaque, cutout (alpha-tested) and alpha-blended materials, textures, shadows
+and two-phase Hi-Z occlusion culling. In the JAX package `render_frame`
+traces one closure into one XLA program (base.py:1147-2110); here each stage
+is a function over torch tensors on the renderer's device:
 
     upload -> shadow maps (K2, cached) -> clip -> setup -> planes -> bin ->
     G-buffer (K1) -> [occlusion on: Hi-Z pyramid + visibility test (K5) ->
     residual setup / planes / bin / G-buffer (K1) and merge] ->
-    shadow coordinates -> PCF (K3) -> textures (K4) -> lighting -> blit
+    [cutout peels: Hi-Z-tested setup (K5), planes, bin, K1 count and bound
+    modes, alpha test (K4)] -> [blend peels: K1 count and bound modes,
+    compacted hit pixels] -> shadow coordinates -> PCF (K3, opaque and blend
+    pixels in one launch) -> textures (K4) -> lighting -> blend shading and
+    compositing -> blit
 
 Every buffer is sized from the frame's real counts, so the TPU build's
-survivor / flat-list / queue caps, their growth and re-render loop and the
-program cache have no counterpart. The counts are read on the host where a
-`nonzero` or a pair total sizes a table (transform.clip_triangles,
-geometry.cull_and_setup, geometry.bin_triangles, and the plain raster
-versions' fragment count).
+survivor / flat-list / queue / peel caps, their growth and re-render loop
+and the program cache have no counterpart. The counts are read on the host
+where a `nonzero` or a pair total sizes a table (transform.clip_triangles,
+geometry.cull_and_setup, geometry.bin_triangles, the plain raster versions'
+fragment count) and where a peel loop sizes itself (_cutout_peels and
+_blend_peels count theirs).
 
 Features outside the slice raise NotImplementedError at frame time, naming
 the ROADMAP item that will port them.
@@ -129,6 +134,8 @@ class BaseRenderGraph:
         self._tri_cache = None
         self._tri_dev = None
         self._obj_tbl_key = None
+        self._cut_key = None
+        self._cut_dev = None
         self._shadow_cache = None
 
     def register_routine(self, routine) -> None:
@@ -165,9 +172,8 @@ class BaseRenderGraph:
             self._tri_cache = om.build_tri_tables(r.mesh_manager)
             om.topology_dirty = False
             self._tri_dev = None
+            self._cut_key = None
         opaque, blend_items = self._tri_cache
-        if blend_items:
-            raise _not_ported("alpha-blended materials", "Blend peels")
         if self._tri_dev is None:
             self._tri_dev = (
                 torch.from_numpy(np.ascontiguousarray(opaque[:, :3])).to(dev),
@@ -195,9 +201,6 @@ class BaseRenderGraph:
                 obj_pbr[oidx] = rec.material_arch == arch
         live = om.enabled & obj_pbr
         host = mm.archetypes[arch]
-        slots = np.unique(om.material_slots[live])
-        if (host.data[slots, shade_ops.PBR_ALPHA_CUTOUT] > 0.0).any():
-            raise _not_ported("alpha-cutout materials", "Cutout peels")
         data, flags, textures = mm.evaluate(arch)
         f.materials = shade_ops.PbrMaterialTable(data=data, flags=flags, textures=textures)
         f.material_slots = torch.from_numpy(om.material_slots.astype(np.int32)).to(dev)
@@ -205,6 +208,44 @@ class BaseRenderGraph:
         # material uses are never sampled.
         f.textures = r.d2_texture_manager.evaluate() if r.d2_texture_manager.data else None
         f.active_tex_slots = tuple(int(q) for q in np.nonzero(host.textures.any(axis=0))[0])
+
+        # Cutout triangles: PBR objects whose material has an alpha cutoff
+        # (base.py:990-1022); the mask over the triangle table is cached
+        # against the topology, object and material versions. None when the
+        # frame has no cutout triangle.
+        cut_key = (om.version, host.version)
+        if self._cut_key != cut_key:
+            cutout_mat = host.data[:, shade_ops.PBR_ALPHA_CUTOUT] > 0.0
+            obj_cut = obj_pbr & cutout_mat[np.clip(om.material_slots, 0, len(cutout_mat) - 1)]
+            cutout_tri = obj_cut[opaque[:, 3]]
+            self._cut_dev = torch.from_numpy(cutout_tri).to(dev) if cutout_tri.any() else None
+            self._cut_key = cut_key
+        f.cutout_tri = self._cut_dev
+
+        # Blend triangles, sorted far first by object distance every frame
+        # (base.py:780-814: a stable argsort of -distance, then one
+        # concatenate). The order decides equal-depth ties in the peels (the
+        # later entry wins), so it is kept exactly; nothing is padded.
+        f.blend_vlocal = f.blend_obj = None
+        f.blend_tex_slots = ()
+        if blend_items:
+            oidxs = np.fromiter((oidx for _t, oidx in blend_items), np.int64, len(blend_items))
+            dists = np.linalg.norm(om.world_spheres[oidxs, :3] - cam.location()[None, :], axis=1)
+            order = np.argsort(-dists, kind="stable")
+            blend = np.concatenate([
+                np.concatenate(
+                    [blend_items[i][0], np.full((len(blend_items[i][0]), 1), blend_items[i][1], dtype=np.int32)],
+                    axis=1,
+                )
+                for i in order
+            ]).astype(np.int32)
+            f.blend_vlocal = torch.from_numpy(np.ascontiguousarray(blend[:, :3])).to(dev)
+            f.blend_obj = torch.from_numpy(np.ascontiguousarray(blend[:, 3])).to(dev)
+            if f.textures is not None:
+                # Only the slots blend materials reference (base.py:984-989).
+                bslots = np.unique(om.material_slots[np.unique(blend[:, 3])])
+                bl_tex = host.textures[np.clip(bslots, 0, len(host.textures) - 1)]
+                f.blend_tex_slots = tuple(int(q) for q in np.nonzero(bl_tex.any(axis=0))[0])
 
         spheres = om.world_spheres
         visible = live & cam.world_frustum.contains_spheres(spheres)
@@ -293,17 +334,171 @@ class BaseRenderGraph:
         return bundle
 
     def _clip(self, f: _Frame) -> transform_ops.ClippedTris:
-        f.mv, mvp = transform_ops.object_uniforms(f.transforms, f.view, f.proj)
+        f.mv, f.mvp = transform_ops.object_uniforms(f.transforms, f.view, f.proj)
         valid = f.visible[f.tri_obj.long()]
         clip = transform_ops.gather_tri_clip(
-            f.geo.position, f.tri_vlocal, f.tri_obj, f.bases[:, 0], mvp, tri_pos=f.tri_pos
+            f.geo.position, f.tri_vlocal, f.tri_obj, f.bases[:, 0], f.mvp, tri_pos=f.tri_pos
         )
         return transform_ops.clip_triangles(clip, valid)
 
+    def _cull(self, f: _Frame, stage, table, valid, name: str, hiz=None) -> geom_ops.TriSetup:
+        with stage(name):
+            return geom_ops.cull_and_setup(
+                table.clip, valid, f.width, f.height,
+                cull_mode=geom_ops.CullMode.BACK, front_is_cw=f.front_cw, subpixel=True, hiz=hiz,
+            )
+
+    def _planes_bin(self, f: _Frame, stage, tris, table, tri_vlocal, tri_obj, names):
+        """Attribute planes and CSR tile lists of a survivor table, timed
+        under names[0] and names[1]."""
+        with stage(names[0]):
+            planes = def_ops.attribute_planes(
+                tris, table.clip, table.bary, table.orig, tri_vlocal, tri_obj,
+                f.bases, f.geo, f.mv, f.material_slots, f.width, f.height,
+            )
+        with stage(names[1]):
+            binned = geom_ops.bin_triangles(tris, f.wp, f.hp, tile_h=def_ops.DTILE_H, tile_w=def_ops.DTILE_W)
+        return planes, binned
+
+    def _capture(self, key: str, value) -> None:
+        """Keeps the first of this frame's inputs under `key`."""
+        if self.captured is not None and key not in self.captured:
+            self.captured[key] = value
+
+    def _cutout_peels(self, f: _Frame, stage, cmask, pyramid, gbuf):
+        """Cutout (alpha-tested) depth peels over the opaque G-buffer
+        (base.py:1480-1557): raster the cutout set front to back, alpha-test
+        each peel's candidate pixels, and take the first passing fragment in
+        front of the opaque result.
+
+        The cutout set is Hi-Z-tested against the opaque phase-1 depth when
+        occlusion culling is on. Peel 0 also counts, per pixel, the cutout
+        fragments strictly in front of the opaque result; the largest count
+        bounds the peels a frame needs (no pixel needs more), so the loop
+        has no cap, unlike the JAX build's 8 (base.py:492-498): past it the
+        port keeps the wgpu discard semantics at any depth. The loop also
+        stops once no pixel is still searching behind a failed fragment.
+
+        Host reads: cull and binning one each, the count's maximum one, and
+        per peel the `nonzero` of its candidate pixels plus, when there are
+        any, the count of those that failed the test."""
+        tris = self._cull(f, stage, f.clipped, f.clipped.valid & cmask, "cut_setup", hiz=pyramid)
+        st = self.last_stats
+        st["cut_survivors"] = tris.count
+        if tris.count == 0:
+            return gbuf
+        planes, binned = self._planes_bin(f, stage, tris, f.clipped, f.tri_vlocal, f.tri_obj, ("cut_planes", "cut_bin"))
+        wp, hp = f.wp, f.hp
+        odepth = gbuf[def_ops.G_DEPTH]
+        ohit = gbuf[def_ops.G_HIT] > 0.0
+        done = torch.zeros_like(ohit)
+        bound = None
+        peels = layers = 0
+        while True:
+            with stage("cut_raster"):
+                if peels == 0:
+                    # Strict, matching `nearer` below.
+                    floor = torch.where(ohit, odepth, torch.full_like(odepth, -1.0))
+                    self._capture("raster_count", (tris, planes, binned, wp, hp, floor, True))
+                    g, counts = def_ops.raster_resolve(
+                        tris, planes, binned, wp, hp, count_floor=floor, count_strict=True
+                    )
+                    layers = int(torch.round(counts.max()))
+                else:
+                    self._capture("raster_bound", (tris, planes, binned, wp, hp, bound))
+                    g = def_ops.raster_resolve(tris, planes, binned, wp, hp, bound=bound)
+                gc = g.data
+            peels += 1
+            with stage("cut_alpha"):
+                chit = gc[def_ops.G_HIT] > 0.0
+                cdepth = gc[def_ops.G_DEPTH]
+                nearer = ~ohit | (cdepth > odepth)
+                # The alpha test decides only where a pixel still searches
+                # and the fragment is nearer than the opaque one.
+                pix = torch.nonzero((~done & chit & nearer).flatten()).flatten()
+                passed = torch.zeros(hp * wp, dtype=torch.bool, device=gc.device)
+                searching = 0
+                if pix.numel():
+                    cap = {} if self.captured is not None else None
+                    ok = light_ops.cutout_alpha_pass(
+                        def_ops.GBuffer(gc.reshape(def_ops.GB_CH, -1)[:, pix][:, None]),
+                        f.materials, f.textures, f.active_tex_slots, capture=cap,
+                    ).flatten()
+                    if cap:
+                        self._capture("bilinear_cutout", cap["bilinear"])
+                    passed[pix] = ok
+                    searching = pix.numel() - int(ok.sum())
+                passed = passed.reshape(hp, wp)
+                # replace = ~done & chit & pass & nearer, which is `passed`.
+                gbuf = torch.where(passed[None], gc, gbuf)
+                done = done | ~chit | passed | (chit & ~nearer)
+                bound = torch.where(done, torch.zeros_like(cdepth), cdepth)
+            if searching == 0 or peels >= layers:
+                break
+        st["cut_peels"] = peels
+        st["cut_layers"] = layers
+        return gbuf
+
+    def _blend_peels(self, f: _Frame, stage, gbuf):
+        """Blend geometry and depth-peel rasters (base.py:1730-1792): the
+        blend triangles (far-first object order, from _upload) are culled
+        without Hi-Z, and peeled front to back over the final opaque depth.
+        Peel 0 counts every blend fragment at or in front of the opaque
+        result; the largest count is the number of peels needed (no cap,
+        unlike the JAX build's 16), and a peel with no hit pixel ends the
+        loop early (every later one would be empty). Returns, per peel, the
+        hit pixels' flat ids and their (GB_CH, n) G-buffer columns.
+
+        Host reads: clip, cull and binning one each, the count's maximum
+        one, and per peel the `nonzero` of its hit pixels."""
+        with stage("blend_geom"):
+            bclip = transform_ops.gather_tri_clip(
+                f.geo.position, f.blend_vlocal, f.blend_obj, f.bases[:, 0], f.mvp
+            )
+            table = transform_ops.clip_triangles(bclip, f.visible[f.blend_obj.long()])
+            # Timed as a whole under "blend_geom".
+            tris = self._cull(f, _no_timer, table, table.valid, "blend_geom")
+            planes, binned = self._planes_bin(
+                f, _no_timer, tris, table, f.blend_vlocal, f.blend_obj, ("blend_geom",) * 2
+            )
+        st = self.last_stats
+        st["blend_survivors"] = tris.count
+        peels = []
+        if tris.count == 0:
+            return peels
+        wp, hp = f.wp, f.hp
+        odepth = gbuf[def_ops.G_DEPTH]
+        ohit = gbuf[def_ops.G_HIT] > 0.0
+        bound = None
+        need = n = 0
+        while True:
+            with stage("blend_raster"):
+                if n == 0:
+                    floor = torch.where(ohit, odepth, torch.full_like(odepth, -1.0))
+                    g, counts = def_ops.raster_resolve(tris, planes, binned, wp, hp, count_floor=floor)
+                    need = int(torch.round(counts.max()))
+                else:
+                    self._capture("raster_bound", (tris, planes, binned, wp, hp, bound))
+                    g = def_ops.raster_resolve(tris, planes, binned, wp, hp, bound=bound)
+                g = g.data
+                n += 1
+                bdepth = g[def_ops.G_DEPTH]
+                bhit = (g[def_ops.G_HIT] > 0.0) & (~ohit | (bdepth >= odepth))
+                pix = torch.nonzero(bhit.flatten()).flatten()
+                if pix.numel():
+                    peels.append((pix, g.reshape(def_ops.GB_CH, -1)[:, pix]))
+                    bound = torch.where(bhit, bdepth, torch.zeros_like(bdepth))
+            if not pix.numel() or n >= need:
+                break
+        st["blend_peels"] = n
+        st["blend_px"] = sum(int(p.numel()) for p, _g in peels)
+        return peels
+
     def _shadow_coords(self, gbuf: torch.Tensor, f: _Frame, plan):
         """Per plan entry (map index, sx, sy, ref, hit, in_bounds) at the
-        padded G-buffer's fragments: world reconstruct -> light NDC, with
-        the reference's atlas-space bounds expressions including the any()
+        fragments of a (CH, H, W) G-buffer (the padded frame, or compacted
+        pixels as (CH, 1, N)): world reconstruct -> light NDC, with the
+        reference's atlas-space bounds expressions including the any()
         quirk (opaque.wgsl:509-514, base.py:1642-1680)."""
 
         def mat_img(m, rows, img):  # matrix x image channels, left to right
@@ -345,15 +540,22 @@ class BaseRenderGraph:
             out.append((k, sx, sy, ref, hitp, in_bounds))
         return out
 
-    def _shadow_values(self, coords, smaps, stacked, L: int, height: int, width: int):
-        """(L, H, W) shadow factors through one K3 launch; 1.0 outside the
-        light's bounds and for light slots without a map."""
-        entries = [(k, sx, sy, ref, hitp) for (k, sx, sy, ref, hitp, _ib) in coords]
-        pcfs = shadow_ops.resolve_shadow_pcf5(smaps, entries, stacked=stacked, capture=self.captured)
-        svals = [torch.where(ib, p, torch.ones_like(p)) for p, (*_c, ib) in zip(pcfs, coords)]
-        while len(svals) < L:
-            svals.append(torch.ones_like(svals[0]))
-        return torch.stack(svals)[:, :height, :width]
+    def _shadow_values(self, coord_sets, smaps, stacked, L: int):
+        """(L, H, W) shadow factors for each G-buffer of `coord_sets` (one
+        _shadow_coords list each, any shape) through one K3 launch; 1.0
+        outside the light's bounds and for light slots without a map."""
+        entries = [(k, sx, sy, ref, hitp) for coords in coord_sets for (k, sx, sy, ref, hitp, _ib) in coords]
+        pcfs = iter(shadow_ops.resolve_shadow_pcf5(smaps, entries, stacked=stacked, capture=self.captured))
+        out = []
+        for coords in coord_sets:
+            svals = []
+            for *_c, ib in coords:
+                p = next(pcfs)
+                svals.append(torch.where(ib, p, torch.ones_like(p)))
+            while len(svals) < L:
+                svals.append(torch.ones_like(svals[0]))
+            out.append(torch.stack(svals))
+        return out
 
     # -- the frame ---------------------------------------------------------------
 
@@ -380,6 +582,12 @@ class BaseRenderGraph:
         stage = self.timer if self.timer is not None else _no_timer
         width, height = target.width, target.height
         plan = eval_output.shadow_plan
+        if self.captured is not None:
+            for key in ("raster_count", "raster_bound", "bilinear_cutout"):
+                self.captured.pop(key, None)
+        st = self.last_stats
+        for key in ("cut_survivors", "cut_peels", "cut_layers", "blend_survivors", "blend_peels", "blend_px"):
+            st[key] = 0
         with stage("upload"):
             f = self._upload(eval_output, target, settings)
         if plan:
@@ -387,27 +595,18 @@ class BaseRenderGraph:
                 smaps, stacked = self._ensure_shadow_maps(eval_output, f)
         with stage("clip"):
             clipped = self._clip(f)
-        wp = _round_up(width, def_ops.DTILE_W)
-        hp = _round_up(height, def_ops.DTILE_H)
-
-        def cull(valid, name):
-            with stage(name):
-                return geom_ops.cull_and_setup(
-                    clipped.clip, valid, width, height,
-                    cull_mode=geom_ops.CullMode.BACK, front_is_cw=f.front_cw, subpixel=True,
-                )
+        f.clipped = clipped
+        f.width, f.height = width, height
+        f.wp = wp = _round_up(width, def_ops.DTILE_W)
+        f.hp = hp = _round_up(height, def_ops.DTILE_H)
+        # Cutout triangles go through the peel loop; the opaque passes, the
+        # Hi-Z pyramid and the carried mask see only the rest (base.py:1312-1316).
+        cmask = None if f.cutout_tri is None else f.cutout_tri[clipped.orig.long()]
+        opaque_valid = clipped.valid if cmask is None else clipped.valid & ~cmask
 
         def raster(tris, names, capture=False):
             """planes -> bin -> G-buffer (K1), each step timed under its name."""
-            with stage(names[0]):
-                planes = def_ops.attribute_planes(
-                    tris, clipped.clip, clipped.bary, clipped.orig, f.tri_vlocal, f.tri_obj,
-                    f.bases, f.geo, f.mv, f.material_slots, width, height,
-                )
-            with stage(names[1]):
-                binned = geom_ops.bin_triangles(
-                    tris, wp, hp, tile_h=def_ops.DTILE_H, tile_w=def_ops.DTILE_W
-                )
+            planes, binned = self._planes_bin(f, stage, tris, clipped, f.tri_vlocal, f.tri_obj, names[:2])
             if capture and self.captured is not None:
                 self.captured["raster_resolve"] = (tris, planes, binned, wp, hp)
             with stage(names[2]):
@@ -425,10 +624,11 @@ class BaseRenderGraph:
                 # First frame, or the triangle table changed size: predict all.
                 pm_tri = torch.ones(T, dtype=torch.bool, device=clipped.valid.device)
             pm = pm_tri[clipped.orig.long()]
-        tris = cull(clipped.valid if pm is None else clipped.valid & pm, "setup")
+        tris = self._cull(f, stage, clipped, opaque_valid if pm is None else opaque_valid & pm, "setup")
         binned, gbuf = raster(tris, ("planes", "bin", "gbuffer"), capture=True)
-        self.last_stats["main_survivors"] = tris.count
-        self.last_stats["main_pairs"] = int(binned.ids.shape[0])
+        st["main_survivors"] = tris.count
+        st["main_pairs"] = int(binned.ids.shape[0])
+        pyramid = None
         if pm is not None:
             # Phase 1's depth is the occluder pyramid; every opaque row is
             # tested against it. The passers are the next frame's predicted
@@ -437,14 +637,14 @@ class BaseRenderGraph:
             with stage("hiz"):
                 pyramid = hiz_ops.build_pyramid(gbuf[def_ops.G_DEPTH, :height, :width])
                 vis = geom_ops.visibility_mask(
-                    clipped.clip, clipped.valid, width, height,
+                    clipped.clip, opaque_valid, width, height,
                     cull_mode=geom_ops.CullMode.BACK, front_is_cw=f.front_cw, subpixel=True,
                     hiz=pyramid, capture=self.captured,
                 )
                 new_mask = torch.zeros(T, dtype=torch.bool, device=vis.device)
                 new_mask[clipped.orig.long()[vis]] = True
-            tris_r = cull(vis & ~pm, "resid")
-            self.last_stats["resid_survivors"] = tris_r.count
+            tris_r = self._cull(f, stage, clipped, vis & ~pm, "resid")
+            st["resid_survivors"] = tris_r.count
             if tris_r.count:
                 _binned_r, gbuf_r = raster(tris_r, ("resid",) * 3)
                 with stage("resid"):
@@ -455,14 +655,25 @@ class BaseRenderGraph:
                     )
                     gbuf = torch.where(take_r[None], gbuf_r, gbuf)
             self._prev_visible_mask = new_mask
+        if cmask is not None:
+            gbuf = self._cutout_peels(f, stage, cmask, pyramid, gbuf)
+        peels = self._blend_peels(f, stage, gbuf) if f.blend_obj is not None else []
+        # The blend peels' hit pixels, compacted into one (CH, 1, N) G-buffer
+        # that shares the opaque pixels' K3 launch and is lit in one pass.
+        bgbuf = torch.cat([g for _pix, g in peels], dim=1)[:, None] if peels else None
         L = f.dir_lights.mask.shape[0]
         if plan:
             with stage("shadow_coords"):
-                coords = self._shadow_coords(gbuf, f, plan)
+                coord_sets = [self._shadow_coords(gbuf, f, plan)]
+                if bgbuf is not None:
+                    coord_sets.append(self._shadow_coords(bgbuf, f, plan))
             with stage("pcf"):
-                shadow_values = self._shadow_values(coords, smaps, stacked, L, height, width)
+                svals = self._shadow_values(coord_sets, smaps, stacked, L)
+            shadow_values = svals[0][:, :height, :width]
+            blend_sv = svals[1] if bgbuf is not None else None
         else:
             shadow_values = torch.ones(L, height, width, dtype=torch.float32, device=gbuf.device)
+            blend_sv = None if bgbuf is None else torch.ones(L, *bgbuf.shape[1:], device=gbuf.device)
         # Lighting (timed as "textures" and "lighting") on the cropped
         # G-buffer: the padding pixels are never hit, so lighting them (as the
         # JAX package's texture path does) changes nothing.
@@ -472,7 +683,36 @@ class BaseRenderGraph:
             textures=f.textures, active_tex_slots=f.active_tex_slots,
             stage=self.timer, capture=self.captured,
         )
+        if peels:
+            with stage("blend_shade"):
+                img = self._blend_composite(f, peels, bgbuf, blend_sv, img)
         with stage("blit"):
             img = blit_ops.f16_roundtrip(img[None])
             out = blit_ops.hdr_to_srgb_u8(blit_ops.resolve_samples(img))
         return out
+
+    def _blend_composite(self, f: _Frame, peels, bgbuf, blend_sv, img):
+        """Light the compacted blend pixels (blend materials' texture slots,
+        zero background), scatter each peel back, under-composite the peels
+        front to back and the result over the opaque image
+        (base.py:1931-2002)."""
+        n_all = bgbuf.shape[2]
+        rgba = light_ops.light_gbuffer(
+            def_ops.GBuffer(bgbuf), f.materials, f.dir_lights, f.point_lights, f.uniforms,
+            torch.zeros(1, n_all, 4, device=bgbuf.device), blend_sv,
+            textures=f.textures, active_tex_slots=f.blend_tex_slots,
+        ).reshape(n_all, 4)
+        npx = f.hp * f.wp
+        C = torch.zeros(npx, 3, device=bgbuf.device)
+        A = torch.zeros(npx, device=bgbuf.device)
+        off = 0
+        for pix, _g in peels:
+            full = torch.zeros(npx, 4, device=bgbuf.device)
+            full[pix] = rgba[off : off + pix.numel()]
+            off += pix.numel()
+            a = full[:, 3]   # alpha x the peel's hit flag (0 off its pixels)
+            C = C + ((1.0 - A) * a)[:, None] * full[:, :3]
+            A = A + (1.0 - A) * a
+        C = C.reshape(f.hp, f.wp, 3)[: f.height, : f.width]
+        A = A.reshape(f.hp, f.wp)[: f.height, : f.width]
+        return torch.cat([C + (1.0 - A)[..., None] * img[..., :3], (A + (1.0 - A) * img[..., 3])[..., None]], dim=-1)

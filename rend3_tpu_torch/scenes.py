@@ -7,12 +7,18 @@ port render the same scene. `representative=False` is the flat variant that
 materials, a ground plane and one shadowed directional light.
 `textured_city` cuts the representative scene down to its textured, opaque
 part; `textured_planes` is a small scene that drives every texture branch
-of the shader.
+of the shader; `stacked_cutout`, `glass_stack` and `peel_slice` are small
+cutout, blend and whole-slice scenes (the first two those of
+tests/test_caps.py and tests/test_blend.py). The small scenes take the
+modules they build with, so another package can build the same scene.
 """
 
 import numpy as np
 
-__all__ = ["build_city_scene", "textured_city", "textured_planes", "set_bench_camera"]
+__all__ = [
+    "build_city_scene", "textured_city", "textured_planes", "stacked_cutout", "glass_stack", "peel_slice",
+    "set_bench_camera",
+]
 
 
 def _subdivided_cube(g: int) -> tuple:
@@ -268,20 +274,173 @@ def textured_city(runner, n_buildings=600, seed=7, build=None):
     return keep
 
 
-def textured_planes(runner, seed=3, package="rend3_tpu_torch"):
+def _modules(mat, types, m3):
+    """The material, types and math modules a scene is built with: the
+    port's own unless another package's are given."""
+    if mat is None:
+        from .routine.pbr import material as mat
+    if types is None:
+        from . import types
+    if m3 is None:
+        from .utils import math as m3
+    return mat, types, m3
+
+
+def _quad_mesh(r, types, double_sided=False, z=0.0, s=1.0):
+    """A [-s, s] quad at depth z facing a camera at -z, with uv0."""
+    v = np.array([[-s, s, z], [s, s, z], [s, -s, z], [-s, -s, z]], np.float32)
+    idx = [0, 1, 2, 2, 3, 0] + ([0, 2, 1, 2, 0, 3] if double_sided else [])
+    return r.add_mesh(
+        types.MeshBuilder(v, types.Handedness.LEFT)
+        .with_vertex_uv0(np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32))
+        .with_indices(np.array(idx, np.uint32))
+        .build()
+    )
+
+
+def stacked_cutout(runner, mat=None, types=None, m3=None):
+    """tests/test_caps.py:248-318's scene: two fully alpha-failing lit
+    cutout quads in front of a passing red one, a blue lit backdrop and
+    one shadowed light (three cutout peels). Modules as in textured_planes.
+    Returns the handles to keep."""
+    mat, types, m3 = _modules(mat, types, m3)
+    r = runner.renderer
+    keep = [runner.add_directional_light(np.array([0.0, -1.0, 0.5], np.float32))]
+    mat_bg = runner.add_lit_material([0.0, 0.0, 1.0, 1.0])
+    keep += [mat_bg, runner.plane(mat_bg, m3.translation([0.0, 0.0, 1.0]))]
+    mats = []
+    for alpha in (0, 255):
+        data = np.zeros((8, 8, 4), np.uint8)
+        data[..., 0] = 255
+        data[..., 3] = alpha
+        t = r.add_texture_2d(types.Texture(
+            label=f"a{alpha}", data=data, format=types.TextureFormat.RGBA8_UNORM_SRGB,
+            mip_count=types.MipmapCount.ONE,
+        ))
+        mats.append(r.add_material(mat.PbrMaterial(
+            albedo=mat.AlbedoComponent.new_texture(t), transparency=mat.Transparency.cutout_at(0.5),
+        )))
+        keep.append(t)
+    quad = _quad_mesh(r, types)
+    keep += mats + [quad]
+    for z, m in ((-1.0, mats[0]), (-0.6, mats[0]), (-0.2, mats[1])):
+        keep.append(r.add_object(types.Object(
+            mesh_kind=types.StaticMeshKind(quad), material=m, transform=m3.translation([0.0, 0.0, z]),
+        )))
+    runner.set_camera_data(types.Camera(
+        projection=types.Orthographic(size=np.array([2.5, 2.5, 8.0], np.float32)),
+        view=m3.look_at_lh([0.0, 0.0, -2.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]),
+    ))
+    return keep
+
+
+GLASS_LAYERS = (
+    (0.4, 1.0, (1.0, 0.1, 0.1, 0.5)),
+    (0.6, 0.6, (0.1, 1.0, 0.1, 0.4)),
+    (0.8, 0.35, (0.1, 0.1, 1.0, 0.7)),
+)
+
+
+def glass_stack(runner, layers=GLASS_LAYERS, mat=None, types=None, m3=None):
+    """tests/test_blend.py's scene: unlit alpha-blended quads given as
+    (z, half size, rgba), in front of an opaque backstop over the lower
+    half, seen orthographically. Modules as in textured_planes. Returns the
+    handles to keep."""
+    mat, types, m3 = _modules(mat, types, m3)
+    r = runner.renderer
+    keep = []
+    for z, s, rgba in layers:
+        m = r.add_material(mat.PbrMaterial(
+            albedo=mat.AlbedoComponent.new_value(np.array(rgba, np.float32)), unlit=True,
+            transparency=mat.Transparency.blend(),
+        ))
+        mesh = _quad_mesh(r, types, z=z, s=s)
+        keep += [m, mesh, r.add_object(types.Object(
+            mesh_kind=types.StaticMeshKind(mesh), material=m, transform=np.eye(4, dtype=np.float32),
+        ))]
+    solid = r.add_material(mat.PbrMaterial(
+        albedo=mat.AlbedoComponent.new_value(np.array([0.8, 0.8, 0.2, 1.0], np.float32)), unlit=True,
+    ))
+    mesh = _quad_mesh(r, types, z=0.95, s=0.8)
+    keep += [solid, mesh, r.add_object(types.Object(
+        mesh_kind=types.StaticMeshKind(mesh), material=solid, transform=m3.translation([0.0, -0.8, 0.0]),
+    ))]
+    runner.set_camera_data(types.Camera(
+        projection=types.Orthographic(size=np.array([2.0, 2.0, 8.0], np.float32)),
+        view=m3.look_at_lh([0.0, 0.0, -2.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]),
+    ))
+    return keep
+
+
+def peel_slice(runner, mat=None, types=None, m3=None):
+    """A small scene of the whole bench slice: a lit ground, two crossing
+    double-sided leaf quads (textured, alpha cutout at 0.5), two glass panes
+    that overlap from the camera (one with a textured albedo) and two
+    shadowed directional lights, in perspective. Modules as in
+    textured_planes. Returns the handles to keep."""
+    mat, types, m3 = _modules(mat, types, m3)
+    r = runner.renderer
+    keep = [
+        runner.add_directional_light(np.array([-0.7, -1.0, 0.4], np.float32)),
+        runner.add_directional_light(np.array([0.5, -0.8, -0.6], np.float32)),
+    ]
+    ground = runner.add_lit_material([0.35, 0.35, 0.33, 1.0])
+    keep += [ground, runner.plane(ground, m3.rotation_x(-np.pi / 2) @ m3.scale(3.0))]
+
+    yy, xx = np.mgrid[0:32, 0:32]
+    rad = np.sqrt((xx - 16.0) ** 2 + (yy - 16.0) ** 2) / 16.0
+    leaf_px = np.zeros((32, 32, 4), np.uint8)
+    leaf_px[..., 0], leaf_px[..., 1], leaf_px[..., 2] = 30, 160, 25
+    leaf_px[..., 3] = np.where(rad + 0.35 * np.sin(np.arctan2(yy - 16.0, xx - 16.0) * 7.0) < 0.9, 255, 0)
+    glass_px = np.zeros((32, 32, 4), np.uint8)
+    glass_px[..., 0] = 200
+    glass_px[..., 1] = np.where((xx // 4) % 2 == 0, 220, 60)
+    glass_px[..., 2] = 120
+    glass_px[..., 3] = np.where((yy // 8) % 2 == 0, 160, 70)
+    texs = [
+        r.add_texture_2d(types.Texture(
+            label=label, data=px, format=types.TextureFormat.RGBA8_UNORM_SRGB, mip_count=types.MipmapCount.MAXIMUM,
+        ))
+        for label, px in (("leaf", leaf_px), ("glass", glass_px))
+    ]
+    leaf = r.add_material(mat.PbrMaterial(
+        albedo=mat.AlbedoComponent.new_texture(texs[0]), transparency=mat.Transparency.cutout_at(0.5),
+    ))
+    glass = r.add_material(mat.PbrMaterial(
+        albedo=mat.AlbedoComponent.new_value(np.array([0.4, 0.7, 0.9, 0.35], np.float32)),
+        transparency=mat.Transparency.blend(),
+    ))
+    glass_t = r.add_material(mat.PbrMaterial(
+        albedo=mat.AlbedoComponent.new_texture(texs[1]), transparency=mat.Transparency.blend(),
+    ))
+    quad = _quad_mesh(r, types, double_sided=True)
+    keep += texs + [leaf, glass, glass_t, quad]
+    base = m3.translation([0.0, 0.8, 0.2]) @ m3.scale(0.8)
+    for rot in (0.0, np.pi / 2):
+        keep.append(r.add_object(types.Object(
+            mesh_kind=types.StaticMeshKind(quad), material=leaf, transform=base @ m3.rotation_y(rot),
+        )))
+    for m, pos, sc in ((glass, [0.35, 0.75, -0.9], 0.55), (glass_t, [-0.1, 0.6, -1.3], 0.5)):
+        keep.append(r.add_object(types.Object(
+            mesh_kind=types.StaticMeshKind(quad), material=m, transform=m3.translation(pos) @ m3.scale(sc),
+        )))
+    runner.set_camera_data(types.Camera(
+        projection=types.Perspective(vfov=60.0, near=0.1),
+        view=m3.look_at_lh([0.4, 1.6, -3.2], [0.0, 0.6, 0.0], [0.0, 1.0, 0.0]),
+    ))
+    return keep
+
+
+def textured_planes(runner, seed=3, mat=None, types=None, m3=None):
     """Two textured lit quads under one shadowed light, seen at a slant so
     the sampler walks several mips: one with albedo, a tricomponent normal
     map and a combined AO/metallic/roughness texture; one with a swizzled
     bicomponent y-down normal map, bw-split AO / metallic / roughness, and
-    emissive and reflectance textures. `package` names the package whose
-    types build the scene ("rend3_tpu" builds the same scene through the JAX
-    package). Returns the handles to keep."""
-    import importlib
-
-    mat = importlib.import_module(package + ".routine.pbr.material")
-    types = importlib.import_module(package + ".types")
-    m3 = importlib.import_module(package + ".utils.math")
-
+    emissive and reflectance textures. `mat`, `types` and `m3` are the
+    material, types and math modules the scene is built with, the port's
+    own by default; another package's modules build the same scene there.
+    Returns the handles to keep."""
+    mat, types, m3 = _modules(mat, types, m3)
     rng = np.random.default_rng(seed)
     r = runner.renderer
     yy, xx = np.mgrid[0:64, 0:64] / 64.0

@@ -121,7 +121,7 @@ def compare_to_golden(test_img: np.ndarray, golden_path: str, threshold: Thresho
 class TestRunner:
     __test__ = False  # not a pytest class
 
-    def __init__(self, handedness: Handedness = Handedness.LEFT, device="cpu"):
+    def __init__(self, handedness: Handedness = Handedness.LEFT, device="cuda"):
         self.renderer = Renderer(handedness=handedness, device=device)
         self.base_graph = BaseRenderGraph(self.renderer)
 

@@ -6,7 +6,9 @@ python -m pytest tests/test_torch_cuda.py --noconftest -q. Each kernel runs
 on the same inputs as its plain version; tolerance: K1's depth, hit and
 material channels and all of K2 bit-exact, the other K1 channels within
 1 ulp, K3 abs <= 1e-6, K4 and K5 bit-exact (random queries, including
-footprints off the grid and invalid ones).
+footprints off the grid and invalid ones). K1's count mode (strict and not)
+and bound mode run on inputs captured from scenes.peel_slice, with the
+counts bit-exact too.
 """
 
 import numpy as np
@@ -17,7 +19,7 @@ from rend3_tpu_torch import scenes
 from rend3_tpu_torch.ops import deferred as D
 from rend3_tpu_torch.ops import samplers as S
 from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget
-from rend3_tpu_torch.testing import TestRunner
+from rend3_tpu_torch.testing import FrameRenderSettings, TestRunner
 
 pytestmark = pytest.mark.cuda
 
@@ -46,6 +48,44 @@ def test_k1_matches_plain(captured):
     for ch in (D.G_DEPTH, D.G_HIT, D.G_MAT):
         assert torch.equal(k[ch], p[ch])
     np.testing.assert_array_max_ulp(k.cpu().numpy(), p.cpu().numpy(), maxulp=1)
+
+
+@pytest.fixture(scope="module")
+def peel_captured():
+    """K1's peel-mode inputs captured from scenes.peel_slice on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    runner = TestRunner(device="cuda")
+    keep = scenes.peel_slice(runner)
+    runner.base_graph.captured = {}
+    runner.render_frame(FrameRenderSettings(size=256))
+    del keep
+    return runner.base_graph.captured
+
+
+def _k1_modes_match(k, p, kc=None, pc=None):
+    for ch in (D.G_DEPTH, D.G_HIT, D.G_MAT):
+        assert torch.equal(k[ch], p[ch])
+    np.testing.assert_array_max_ulp(k.cpu().numpy(), p.cpu().numpy(), maxulp=1)
+    if kc is not None:
+        assert torch.equal(kc, pc)
+
+
+def test_k1_count_mode_matches_plain(peel_captured):
+    tris, planes, binned, wp, hp, floor, strict = peel_captured["raster_count"]
+    for s in (strict, not strict):
+        kg, kc = D.raster_resolve(tris, planes, binned, wp, hp, count_floor=floor, count_strict=s)
+        pg, pc = D.raster_resolve_plain(tris, planes, binned, wp, hp, count_floor=floor, count_strict=s)
+        _k1_modes_match(kg.data, pg, kc, pc)
+        assert int(kc.max()) >= 1
+
+
+def test_k1_bound_mode_matches_plain(peel_captured):
+    tris, planes, binned, wp, hp, bound = peel_captured["raster_bound"]
+    _k1_modes_match(
+        D.raster_resolve(tris, planes, binned, wp, hp, bound=bound).data,
+        D.raster_resolve_plain(tris, planes, binned, wp, hp, bound=bound),
+    )
 
 
 def test_k2_matches_plain(captured):

@@ -12,7 +12,8 @@ the wgpu goldens.
   occlusion_culling=False (culling is image-neutral): max abs
   difference <= 1.
 - Shadow maps cached across static frames (as test_caps.py:96 tests).
-- Features outside the slice raise NotImplementedError naming the ROADMAP.
+- Features outside the slice (MSAA 4, the skybox) raise
+  NotImplementedError naming the ROADMAP.
 """
 
 import os
@@ -31,7 +32,7 @@ from rend3_tpu.types import Perspective as JaxPerspective
 from rend3_tpu.utils import math as jm3
 from rend3_tpu_torch import scenes
 from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget
-from rend3_tpu_torch.routine.pbr.material import AlbedoComponent, PbrMaterial, Transparency
+from rend3_tpu_torch.routine.pbr.material import AlbedoComponent, PbrMaterial
 from rend3_tpu_torch.testing import FrameRenderSettings, TestRunner, Threshold, compare_to_golden, load_png
 from rend3_tpu_torch.types import Camera, Orthographic
 from rend3_tpu_torch.utils import math as m3
@@ -70,7 +71,7 @@ def _shadow_frames(runner, settings_cls, cam_cls, ortho_cls, mm3):
 
 @pytest.fixture(scope="module")
 def shadow_images():
-    port = _shadow_frames(TestRunner(), FrameRenderSettings, Camera, Orthographic, m3)
+    port = _shadow_frames(TestRunner(device="cpu"), FrameRenderSettings, Camera, Orthographic, m3)
     ref = _shadow_frames(
         jax_testing.TestRunner(), jax_testing.FrameRenderSettings, JaxCamera, JaxOrtho, jm3
     )
@@ -103,7 +104,7 @@ def test_shadow_scene_matches_jax(shadow_images, i):
 
 @pytest.fixture(scope="module")
 def city_images():
-    pr = TestRunner()
+    pr = TestRunner(device="cpu")
     keep = scenes.build_city_scene(pr, n_buildings=24, seed=7, representative=False)
     scenes.set_bench_camera(pr, CITY_W, CITY_H)
     pr.renderer.swap_instruction_buffers()
@@ -147,7 +148,7 @@ def _camera(runner):
 
 
 def test_shadow_maps_cached_across_static_frames():
-    runner = TestRunner()
+    runner = TestRunner(device="cpu")
     keep = [runner.add_directional_light(np.array([-1.0, -1.0, 1.0], np.float32))]
     mat = runner.add_lit_material([0.5, 0.6, 0.7, 1.0])
     keep += [mat, runner.plane(mat, m3.rotation_x(-np.pi / 2))]
@@ -174,20 +175,6 @@ def _lit_scene(runner, material):
     return keep
 
 
-def _cutout(runner):
-    return _lit_scene(runner, PbrMaterial(
-        albedo=AlbedoComponent.new_value(np.array([1, 1, 1, 1], np.float32)),
-        transparency=Transparency.cutout_at(0.5),
-    ))
-
-
-def _blend(runner):
-    return _lit_scene(runner, PbrMaterial(
-        albedo=AlbedoComponent.new_value(np.array([1, 1, 1, 0.5], np.float32)),
-        transparency=Transparency.blend(),
-    ))
-
-
 def _plain(runner):
     return _lit_scene(runner, PbrMaterial(albedo=AlbedoComponent.new_value(np.ones(4, np.float32))))
 
@@ -195,14 +182,12 @@ def _plain(runner):
 @pytest.mark.parametrize(
     "build,target,item",
     [
-        (_cutout, (64, 1), "Cutout peels"),
-        (_blend, (64, 1), "Blend peels"),
         (_plain, (64, 4), "MSAA"),
     ],
-    ids=["cutout", "blend", "msaa"],
+    ids=["msaa"],
 )
 def test_features_off_the_slice_raise(build, target, item):
-    runner = TestRunner()
+    runner = TestRunner(device="cpu")
     keep = build(runner)
     with pytest.raises(NotImplementedError, match=item):
         runner.render_frame(FrameRenderSettings(size=target[0], samples=target[1]))
@@ -210,7 +195,7 @@ def test_features_off_the_slice_raise(build, target, item):
 
 
 def test_skybox_not_ported():
-    runner = TestRunner()
+    runner = TestRunner(device="cpu")
     keep = _plain(runner)
     runner.renderer.swap_instruction_buffers()
     with pytest.raises(NotImplementedError, match="Off the main path"):

@@ -53,7 +53,7 @@ def _jax_scene():
 
 
 def _port_scene():
-    runner = PortRunner()
+    runner = PortRunner(device="cpu")
     keep = scenes.build_city_scene(runner, n_buildings=24, seed=7, representative=False)
     scenes.set_bench_camera(runner, W, H)
     runner.renderer.swap_instruction_buffers()

@@ -112,7 +112,7 @@ def test_handle_drop_enqueues_delete():
     from rend3_tpu_torch.core.renderer import Renderer
     from rend3_tpu_torch.core.instruction import InstructionKind
 
-    r = Renderer()
+    r = Renderer(device="cpu")
     mesh = MeshBuilder(np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32), Handedness.LEFT).build()
     h = r.add_mesh(mesh)
     idx = h.idx
@@ -133,7 +133,7 @@ def test_texture_from_texture_mip_view():
     from rend3_tpu_torch.types import Handedness, MipmapCount, Texture, TextureFormat
     from rend3_tpu_torch.types.texture import TextureFromTexture
 
-    r = Renderer(handedness=Handedness.LEFT)
+    r = Renderer(handedness=Handedness.LEFT, device="cpu")
     img = (np.random.default_rng(0).uniform(0, 255, (16, 16, 4))).astype(np.uint8)
     src = r.add_texture_2d(
         Texture(label="src", data=img, format=TextureFormat.RGBA8_UNORM, mip_count=MipmapCount.MAXIMUM)
@@ -157,7 +157,7 @@ def test_set_skeleton_joint_transforms_composes_inverse_bind():
     from rend3_tpu_torch.core.renderer import Renderer
     from rend3_tpu_torch.types import Handedness, Mesh, MeshBuilder, Skeleton
 
-    r = Renderer(handedness=Handedness.LEFT)
+    r = Renderer(handedness=Handedness.LEFT, device="cpu")
     verts = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
     mesh = (
         MeshBuilder(verts, Handedness.LEFT)

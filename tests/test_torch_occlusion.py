@@ -123,7 +123,7 @@ def _wall_and_cubes(runner, cam, ortho, mm3):
 
 
 def test_occlusion_scene_culls_and_keeps_image():
-    runner = TestRunner()
+    runner = TestRunner(device="cpu")
     keep = _wall_and_cubes(runner, Camera, Orthographic, m3)
     settings = FrameRenderSettings(size=128)
     graph = runner.base_graph
@@ -149,7 +149,7 @@ def test_occlusion_scene_culls_and_keeps_image():
 
 
 def test_predicted_mask_resets_when_the_triangle_table_changes():
-    runner = TestRunner()
+    runner = TestRunner(device="cpu")
     keep = _wall_and_cubes(runner, Camera, Orthographic, m3)
     settings = FrameRenderSettings(size=64)
     graph = runner.base_graph
@@ -168,7 +168,7 @@ def test_predicted_mask_resets_when_the_triangle_table_changes():
 
 def test_textured_city_matches_jax():
     W, H = 256, 128
-    pr = TestRunner()
+    pr = TestRunner(device="cpu")
     keep = scenes.textured_city(pr, n_buildings=24)
     scenes.set_bench_camera(pr, W, H)
     port, survivors = [], []

@@ -1,6 +1,7 @@
 """Package rules of the PyTorch port (rend3_tpu_torch): it never pulls in
-jax or the JAX package, a CUDA renderer needs a card, and features outside
-the ported slice refuse loudly."""
+jax or the JAX package, not even when its scenes are built; its entry points
+render on the card unless asked for the CPU, and a CUDA renderer needs a
+card; features outside the ported slice refuse loudly."""
 
 import subprocess
 import sys
@@ -43,6 +44,34 @@ def test_cuda_renderer_needs_a_card():
         P.Renderer(device="cuda")
 
 
+@pytest.mark.parametrize("entry", ["Renderer", "TestRunner"])
+def test_entry_points_default_to_the_card(entry):
+    """Renderer() and TestRunner() render on the card unless asked for the
+    CPU; without a card they raise instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    make = P.Renderer if entry == "Renderer" else TestRunner
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        make()
+
+
+def test_scenes_import_no_jax_package_when_called():
+    """Building the bench and test scenes through the port pulls in neither
+    jax nor the JAX package."""
+    code = (
+        "import sys, numpy as np; from rend3_tpu_torch import scenes; "
+        "from rend3_tpu_torch.testing import TestRunner; "
+        "r = TestRunner(device='cpu'); k = scenes.textured_planes(r); "
+        "k2 = scenes.build_city_scene(r, n_buildings=4, representative=True); "
+        "scenes.set_bench_camera(r, 256, 128); "
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'rend3_tpu' or m.startswith('rend3_tpu.')); print(bad)"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
 def test_multi_device_not_ported():
     with pytest.raises(NotImplementedError, match="Multi-GPU"):
         P.Renderer(device=["cuda:0", "cuda:1"])
@@ -50,7 +79,7 @@ def test_multi_device_not_ported():
 
 @pytest.mark.parametrize("call", ["register_routine", "register_pass"])
 def test_graph_extension_points_not_ported(call):
-    graph = BaseRenderGraph(P.Renderer())
+    graph = BaseRenderGraph(P.Renderer(device="cpu"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(graph, call)(lambda *a: a[0])
 
@@ -64,7 +93,7 @@ def test_cuda_kernel_rejects_cpu_tensors():
 
 
 def test_empty_scene_renders_clear_color():
-    runner = TestRunner()
+    runner = TestRunner(device="cpu")
     img = runner.render_frame(FrameRenderSettings(size=64))
     assert img.shape == (64, 64, 4) and img.dtype == np.uint8
     assert not img.any()

@@ -24,7 +24,7 @@ def _goldens_and_threads(monkeypatch):
 
 
 def test_empty():
-    runner = TestRunner()
+    runner = TestRunner(device="cpu")
     runner.set_camera_data(Camera(projection=RawProjection(np.eye(4)), view=np.eye(4)))
     runner.render_and_compare(FrameRenderSettings(), "simple/empty.png", Threshold(mae=0.001, ssim=0.999))
 
@@ -39,7 +39,7 @@ def test_empty():
     ],
 )
 def test_triangle(handedness, winding_cw, visible):
-    runner = TestRunner(handedness=handedness)
+    runner = TestRunner(handedness=handedness, device="cpu")
 
     if winding_cw:
         verts = [[0.5, -0.5, 0.0], [-0.5, -0.5, 0.0], [0.0, 0.5, 0.0]]
@@ -70,7 +70,7 @@ def test_coordinate_space():
         ("NegX", -Z, Y, -X),
         ("X", Z, Y, X),
     ]
-    runner = TestRunner(handedness=Handedness.LEFT)
+    runner = TestRunner(handedness=Handedness.LEFT, device="cpu")
     objects = []
     for _name, right, up, cam_vec in tests:
         mesh = MeshBuilder(
@@ -95,7 +95,7 @@ def test_coordinate_space():
 
 
 def test_duplicate_object_retain():
-    runner = TestRunner()
+    runner = TestRunner(device="cpu")
     runner.set_camera_data(Camera(projection=RawProjection(np.eye(4)), view=np.eye(4)))
 
     mat = runner.add_unlit_material([1.0, 1.0, 1.0, 1.0])
@@ -112,7 +112,7 @@ def test_duplicate_object_retain():
 
 
 def test_multi_frame_add():
-    runner = TestRunner()
+    runner = TestRunner(device="cpu")
     mat = runner.add_unlit_material([1.0, 1.0, 1.0, 1.0])
     base = m3.translation([0.5, 0.5, 0.0]) @ m3.scale([0.5, 1.0, 1.0])
     runner.set_camera_data(

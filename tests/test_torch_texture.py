@@ -29,6 +29,8 @@ from rend3_tpu.core.managers.texture import TextureManager as JaxTextureManager
 from rend3_tpu.ops import mxu_gather as mg
 from rend3_tpu.ops import texture as jtex
 from rend3_tpu.ops.shade import MF as JMF
+from rend3_tpu.routine.pbr import material as jax_material
+from rend3_tpu.utils import math as jax_m3
 from rend3_tpu_torch import interop, scenes, types
 from rend3_tpu_torch.core.managers.texture import TextureManager
 from rend3_tpu_torch.ops import samplers as S
@@ -190,11 +192,11 @@ def test_sample_textures_grid_matches_jax():
 
 
 def test_textured_planes_match_jax():
-    pr = TestRunner()
+    pr = TestRunner(device="cpu")
     keep = scenes.textured_planes(pr)
     port = pr.render_frame(FrameRenderSettings(size=128))
     jr = jax_testing.TestRunner()
-    jkeep = scenes.textured_planes(jr, package="rend3_tpu")
+    jkeep = scenes.textured_planes(jr, mat=jax_material, types=jax_types, m3=jax_m3)
     ref = jr.render_frame(jax_testing.FrameRenderSettings(size=128))
     del keep, jkeep
     assert port.shape == ref.shape == (128, 128, 4)
