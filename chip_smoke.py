@@ -2,16 +2,20 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths (rend3_tpu_torch) on the card through the
-entry points a user calls (TestRunner / Renderer scene calls,
-swap_instruction_buffers, evaluate_instructions, BaseRenderGraph.render_frame)
-at 1920x1080: the flat city-block scene of `bench.py --flat`, the textured
-city (the representative bench scene without its alpha-tested foliage and
-alpha-blended glass), and the whole representative bench frame (foliage
-through the cutout peels, glass through the blend peels), both with
-two-phase occlusion culling. It checks every hand-written kernel of those
-paths, K1 in each of its modes, against its plain PyTorch version.
-Phases (each raises on failure; any failure exits nonzero):
+Drives the port's paths (rend3_tpu_torch) on the card through the entry
+points a user calls (TestRunner / Renderer scene calls,
+swap_instruction_buffers, evaluate_instructions, BaseRenderGraph.render_frame,
+routine.base.raster_scene, probe_shadow.run) at 1920x1080: the flat
+city-block scene of `bench.py --flat`, the textured city (the
+representative bench scene without its alpha-tested foliage and
+alpha-blended glass), the whole representative bench frame (foliage through
+the cutout peels, glass through the blend peels) at 1 and at 4 samples
+(MSAA), all but the flat one with two-phase occlusion culling, the
+visibility raster of the representative frame's opaque triangles, and the
+map-free shadow resolve of its light 0. It checks every hand-written kernel
+of those paths, K1 in each of its modes, against its plain PyTorch version.
+Phases (each raises on failure; any failure exits nonzero; each prints its
+wall time):
 
 1. environment: torch, CUDA and nvcc versions, the card's name and power limit;
 2. build: compile csrc/*.cu with nvcc, one process per source (timed);
@@ -29,14 +33,28 @@ Phases (each raises on failure; any failure exits nonzero):
    frames 1 and 2 must equal the reference bit for bit, frame 2 must
    rasterize fewer opaque triangles than the reference, and the frames must
    run cutout peels and at least two blend peels over blend pixels;
-6. kernels: K1, K2 and K3 on the inputs captured in the flat frames, K4 and
+6. msaa: the representative frame at 4 samples, as phase 5 (an
+   occlusion-off reference frame, then three counted occlusion-on frames,
+   1 and 2 equal to the reference bit for bit, 3 with a building moved);
+7. visibility raster: raster_scene (K6) at 1 and at 4 samples over the
+   representative frame's opaque clipped table, counted; K6 against its
+   plain version (ids and depth bit-exact) and its depth and hit against
+   K1's G-buffer of the same triangles at the same offsets (equal);
+8. map-free shadows: probe_shadow.run (K7 and K8 once each) on light 0 of
+   the representative frame, counted; each against its plain version at
+   hit pixels (bit-exact), the number of values where K7 and K8 differ,
+   and pcf5_from_occlusion of K8 against the frame's K3 factors where K3's
+   query was valid (at most 1% differ by more than 1e-6);
+9. kernels: K1, K2 and K3 on the inputs captured in the flat frames, K4 and
    K5 on those of the textured frames, K1's count and bound modes and K4
-   on the cutout alpha test on those of the representative frames, against
-   their plain versions on the card, with median times, the bound each
-   kernel's bytes or operations set on the card, and the time of one
-   PyTorch call computing the same function where there is one;
-7. parity: the shadow golden scene, the textured-planes scene, the stacked
-   cutout scene and the glass stack at 256x256 on the card and on the CPU.
+   on the cutout alpha test on those of the representative frames, K1 at
+   an MSAA offset on those of the MSAA frames, K6-K8 on those of phases 7
+   and 8, against their plain versions on the card, with median times, the
+   bound each kernel's bytes or operations set on the card, and the time of
+   one PyTorch call computing the same function where there is one;
+10. parity: the shadow golden scene, the textured-planes scene, the stacked
+   cutout scene and the glass stack at 256x256, and test_msaa's triangle at
+   64x64 and 4 samples, on the card and on the CPU.
 
 The last two lines are the card (nvidia-smi) and one JSON object
 {"ok": true, "device": {...}}; the line before them lists the kernels.
@@ -56,7 +74,13 @@ WIDTH, HEIGHT = 1920, 1080
 # device memory 3.35 TB/s, f32 outside the tensor cores 67 TFLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-KERNEL_NAMES = ("raster_resolve", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather")
+KERNEL_NAMES = (
+    "raster_resolve", "raster_msaa", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather",
+    "raster_vis", "shadow_occ", "shadow_occ_lt",
+)
+# The kernels each frame path must launch.
+FRAME_KERNELS = ("raster_resolve", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather")
+MSAA_KERNELS = ("raster_msaa", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather")
 
 
 def log(msg):
@@ -96,17 +120,19 @@ def phase_build():
         log("  nvcc: " + line.strip())
 
 
-def _launch_counts():
-    from rend3_tpu_torch.ops import deferred, samplers
+def _counters():
+    from rend3_tpu_torch.ops import deferred, raster_binned, samplers, shadow
 
-    counts = {**deferred.launches, **samplers.launches}
+    return (deferred.launches, samplers.launches, raster_binned.launches, shadow.launches)
+
+
+def _launch_counts():
+    counts = {k: v for d in _counters() for k, v in d.items()}
     return {name: counts[name] for name in KERNEL_NAMES}
 
 
 def _reset_launch_counts():
-    from rend3_tpu_torch.ops import deferred, samplers
-
-    for d in (deferred.launches, samplers.launches):
+    for d in _counters():
         for k in d:
             d[k] = 0
 
@@ -277,10 +303,10 @@ def phase_textured(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
     return graph, counts, ref
 
 
-def phase_representative(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
+def phase_representative(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600, samples=1):
     """The whole representative bench frame with two-phase occlusion
-    culling: an occlusion-off reference frame, then three counted frames;
-    returns (graph, counts, image)."""
+    culling, at 1 or 4 samples: an occlusion-off reference frame, then
+    three counted frames; returns (graph, counts, image)."""
     import numpy as np
     import torch
 
@@ -297,29 +323,32 @@ def phase_representative(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=
     graph = runner.base_graph
     graph.captured = {}
     frame = _frame_fn(
-        runner, FrameRenderTarget(width, height, 1), BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0)),
-        device,
+        runner, FrameRenderTarget(width, height, samples),
+        BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0)), device,
     )
+    name = "representative" if samples == 1 else f"msaa{samples}"
     # Objects: the ground, then the buildings; move the last building.
     building = [h for h in keep if getattr(h, "kind", None) == "object"][n_buildings]
     cuda = torch.device(device).type == "cuda"
 
     graph.occlusion_culling = False
-    ref = frame("representative 0 (occlusion off, the reference)")
+    ref = frame(f"{name} 0 (occlusion off, the reference)")
     s_off = graph.last_stats["main_survivors"]
     graph.occlusion_culling = True
     _reset_launch_counts()
-    img1 = frame("representative 1 (occlusion on, predicts every triangle)")
-    img2 = frame("representative 2 (occlusion on, the carried mask)")
+    img1 = frame(f"{name} 1 (occlusion on, predicts every triangle)")
+    img2 = frame(f"{name} 2 (occlusion on, the carried mask)")
     st = dict(graph.last_stats)
     s_on2 = st["main_survivors"] + st["resid_survivors"]
     runner.renderer.set_object_transform(building, m3.translation([24.0, 25.0, -40.0]) @ m3.scale([3.0, 25.0, 3.0]))
-    img3 = frame("representative 3 (occlusion on, a building moved)")
+    img3 = frame(f"{name} 3 (occlusion on, a building moved)")
     counts = _launch_counts()
-    log(f"launches during the three representative frames: {counts}")
+    log(f"launches during the three {name} frames: {counts}")
     log(f"frame 2 opaque survivors: main + resid = {s_on2} vs {s_off} with occlusion off")
     if cuda:
-        _check_launched(counts, KERNEL_NAMES)
+        _check_launched(counts, FRAME_KERNELS if samples == 1 else MSAA_KERNELS)
+    if st["samples"] != samples:
+        raise AssertionError(f"the frames rendered {st['samples']} samples, not {samples}")
     for img in (ref, img1, img2, img3):
         _check_image(img, width, height)
     if not s_on2 < s_off:
@@ -329,7 +358,7 @@ def phase_representative(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=
     for k, img in ((1, img1), (2, img2)):
         if not np.array_equal(img, ref):
             n = int((img != ref).any(-1).sum())
-            raise AssertionError(f"representative frame {k} differs from the occlusion-off frame at {n} pixels")
+            raise AssertionError(f"{name} frame {k} differs from the occlusion-off frame at {n} pixels")
     if np.array_equal(img2, img3):
         raise AssertionError("moving a building changed nothing")
     log(f"image: {ref.shape}, non-background {(ref[..., :3] != 0).any(-1).mean():.4f}, mean {ref.mean():.3f}")
@@ -374,21 +403,19 @@ def _bound(bytes_moved, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _raster_fragments(tris, binned, width):
+def _raster_fragments(tris, binned, width, tile_h=32, tile_w=128):
     """Pixels the raster kernels must test this run: per listed
     (tile, triangle) pair, the tile's pixels inside the triangle's bbox."""
     import torch
 
-    from rend3_tpu_torch.ops import deferred as D
-
     offs = binned.offsets.long()
     tile = torch.repeat_interleave(torch.arange(offs.numel() - 1, device=offs.device), offs[1:] - offs[:-1])
     bb = tris.bbox[binned.ids.long()]
-    n_cols = width // D.DTILE_W
-    tx0 = (tile % n_cols) * D.DTILE_W
-    ty0 = (tile // n_cols) * D.DTILE_H
-    nx = (torch.minimum(torch.ceil(bb[:, 2]).long(), tx0 + D.DTILE_W) - torch.maximum(torch.floor(bb[:, 0]).long(), tx0))
-    ny = (torch.minimum(torch.ceil(bb[:, 3]).long(), ty0 + D.DTILE_H) - torch.maximum(torch.floor(bb[:, 1]).long(), ty0))
+    n_cols = width // tile_w
+    tx0 = (tile % n_cols) * tile_w
+    ty0 = (tile // n_cols) * tile_h
+    nx = (torch.minimum(torch.ceil(bb[:, 2]).long(), tx0 + tile_w) - torch.maximum(torch.floor(bb[:, 0]).long(), tx0))
+    ny = (torch.minimum(torch.ceil(bb[:, 3]).long(), ty0 + tile_h) - torch.maximum(torch.floor(bb[:, 1]).long(), ty0))
     return int((nx.clamp_min(0) * ny.clamp_min(0)).sum())
 
 
@@ -398,6 +425,11 @@ def _raster_fragments(tris, binned, width):
 # planes (three operations each) and the four uv derivatives (about six).
 RASTER_TEST_OPS = 24
 K1_FINALIZE_OPS = 21 * 3 + 4 * 6
+# f32 operations per (base texel, nearby caster) pair of the map-free
+# shadow occlusion: four planes at the base texel (three operations each),
+# then per PCF offset four offset planes (three each), three edge tests,
+# the depth test and the max.
+OCC_PAIR_OPS = 4 * 3 + 12 * (4 * 3 + 5)
 
 
 def _k1_bound(tris, planes, binned, w, h, extra_in=(), extra_out=()):
@@ -435,12 +467,132 @@ def _k1_check(name, k, p, kc=None, pc=None):
     return err
 
 
-def phase_kernels(paths, timed=True):
+def phase_visibility(graph, device="cuda"):
+    """raster_scene (K6) at 1 and 4 samples over the opaque clipped table
+    of `graph`'s last representative frame (occlusion plays no part:
+    raster_scene culls the whole table). Returns (counts, kernel rows)."""
+    import torch
+
+    from rend3_tpu_torch.ops import deferred as D
+    from rend3_tpu_torch.ops import geometry as G
+    from rend3_tpu_torch.ops import raster as R
+    from rend3_tpu_torch.ops import raster_binned as RB
+    from rend3_tpu_torch.routine.base import raster_scene
+
+    clip, valid, front_cw, width, height = graph.captured["opaque_table"]
+    cases = (("1 sample", R.CENTER_OFFSET), ("4 samples", R.MSAA4_OFFSETS))
+    _reset_launch_counts()
+    vis = [
+        raster_scene(clip, valid, width, height, cull_mode=G.CullMode.BACK, front_is_cw=front_cw,
+                     sample_offsets=offs)
+        for _label, offs in cases
+    ]
+    counts = _launch_counts()
+    log(f"launches of the visibility raster: {counts}")
+    if torch.device(device).type == "cuda":
+        _check_launched(counts, ("raster_vis",))
+    rows = []
+    for (label, offs), v in zip(cases, vis):
+        tris = G.cull_and_setup(clip, valid, width, height, cull_mode=G.CullMode.BACK, front_is_cw=front_cw,
+                                subpixel=len(offs) == 1)
+        wp, hp = -(-width // G.TILE_W) * G.TILE_W, -(-height // G.TILE_H) * G.TILE_H
+        binned = G.bin_triangles(tris, wp, hp, tile_h=G.TILE_H, tile_w=G.TILE_W)
+        k = RB.rasterize_binned(tris, binned, wp, hp, offs)
+        p = RB.rasterize_binned_plain(tris, binned, wp, hp, offs)
+        if not (torch.equal(k.tri, p.tri) and torch.equal(k.depth, p.depth)):
+            n = int(((k.tri != p.tri) | (k.depth != p.depth)).sum())
+            raise AssertionError(f"K6 ({label}) differs from its plain version at {n} samples")
+        if not (torch.equal(v.tri, k.tri[:, :height, :width]) and torch.equal(v.depth, k.depth[:, :height, :width])):
+            raise AssertionError(f"raster_scene ({label}) differs from K6 on the same tables")
+        # K1 over the same survivors at 32x128 tiles: the same planes and tie
+        # rule, so the same depth and coverage. Zero attribute planes: only
+        # the depth and hit channels are compared.
+        wp1, hp1 = -(-width // D.DTILE_W) * D.DTILE_W, -(-height // D.DTILE_H) * D.DTILE_H
+        binned1 = G.bin_triangles(tris, wp1, hp1, tile_h=D.DTILE_H, tile_w=D.DTILE_W)
+        planes0 = torch.zeros(tris.count, D.PLANES_W, device=tris.setup.device)
+        for si, sofs in enumerate(offs):
+            g = D.raster_resolve(tris, planes0, binned1, wp1, hp1, sofs=sofs).data
+            if not (torch.equal(g[D.G_DEPTH, :height, :width], v.depth[si])
+                    and torch.equal(g[D.G_HIT, :height, :width] > 0, v.tri[si] >= 0)):
+                n = int((g[D.G_DEPTH, :height, :width] != v.depth[si]).sum())
+                raise AssertionError(f"K6 ({label}) and K1 differ in depth or coverage (depth at {n} pixels)")
+        ms = _median_ms(lambda: RB.rasterize_binned(tris, binned, wp, hp, offs), 20) if k.tri.is_cuda else None
+        log(f"K6 ({label}): {tris.count} triangles, {int(binned.ids.numel())} 8x128 tile pairs; ids and depth "
+            f"bit-exact against the plain version over {k.tri.numel()} samples, {int((k.tri >= 0).sum())} covered; "
+            f"depth and coverage equal to K1's at the same offsets; kernel {ms} ms (median)")
+        frags = _raster_fragments(tris, binned, wp, G.TILE_H, G.TILE_W)
+        bound = _bound(_nbytes(tris.setup, tris.bbox, binned.offsets, binned.ids, k.depth, k.tri),
+                       frags * len(offs) * RASTER_TEST_OPS)
+        if len(offs) == len(R.MSAA4_OFFSETS):
+            rows.append(("raster_vis", "rend3_tpu_torch/csrc/raster.cu", "rend3_tpu/ops/raster_pallas.py:54",
+                         lambda: RB.rasterize_binned(tris, binned, wp, hp, offs),
+                         lambda: RB.rasterize_binned_plain(tris, binned, wp, hp, offs), 0.0, bound, None))
+    return counts, rows
+
+
+def phase_mapfree(graph, device="cuda"):
+    """probe_shadow.run (K7 and K8 once each) on light 0 of `graph`'s last
+    representative frame. Returns (counts, kernel rows)."""
+    import torch
+
+    from rend3_tpu_torch import probe_shadow
+    from rend3_tpu_torch.ops import shadow as SH
+
+    _reset_launch_counts()
+    res = probe_shadow.run(graph, log=log)
+    counts = _launch_counts()
+    log(f"launches of the map-free shadow resolve: {counts}")
+    if torch.device(device).type == "cuda":
+        _check_launched(counts, ("shadow_occ", "shadow_occ_lt"))
+    stris, sx, sy, hit, width, height, size, ref, in_bounds, factor = probe_shadow.inputs(graph.captured)
+    h = hit[None].expand(SH.N_OFF, -1, -1)
+    plain = {
+        "K7": SH.shadow_occlusion_plain(stris, sx, sy, hit),
+        "K8": SH.shadow_occlusion_lt_plain(stris, sx, sy, hit),
+    }
+    for name, k in (("K7", res["occ7"]), ("K8", res["occ8"])):
+        n = int(((k != plain[name]) & h).sum())
+        if n:
+            raise AssertionError(f"{name} differs from its plain version at {n} values at hit pixels")
+    n78 = int(((res["occ7"] != res["occ8"]) & h).sum())
+    log(f"K7, K8: bit-exact against their plain versions over {int(h.sum())} values at hit pixels "
+        f"({int((res['occ8'][h] > 0).sum())} nonzero); K7 and K8 differ at {n78} of them")
+    # K8 through the PCF5 blend against the frame's K3 factors, where K3's
+    # query was valid: a hit pixel in bounds whose base texel lies in the map.
+    bx, by = torch.floor(sx - 0.5), torch.floor(sy - 0.5)
+    ok = hit & in_bounds & (bx >= 0) & (bx < size) & (by >= 0) & (by < size)
+    pcf = SH.pcf5_from_occlusion(res["occ8"], sx, sy, ref)
+    diff = (pcf - factor).abs()[ok]
+    share = float((diff > 1e-6).float().mean()) if diff.numel() else 0.0
+    log(f"pcf5_from_occlusion(K8) against K3 at {diff.numel()} valid pixels: {share:.6f} differ by more than "
+        f"1e-6 (max {float(diff.max()) if diff.numel() else 0.0:.3g})")
+    if not diff.numel() or share > 0.01:
+        raise AssertionError(f"map-free PCF and K3 differ at a share of {share} of the valid pixels")
+    pairs = SH.occlusion_pairs(stris, sx, sy, hit)
+    rows = []
+    for name, lt, lists, occ, pfn in (
+        ("shadow_occ", False, res["rects"], res["occ7"], SH.shadow_occlusion_plain),
+        ("shadow_occ_lt", True, res["cells"], res["occ8"], SH.shadow_occlusion_lt_plain),
+    ):
+        bound = _bound(_nbytes(stris.setup, stris.bbox, lists.offsets, lists.ids, sx, sy, hit, occ),
+                       pairs * OCC_PAIR_OPS)
+        rows.append((name, "rend3_tpu_torch/csrc/shadow_occ.cu",
+                     "rend3_tpu/ops/shadow.py:445" if lt else "rend3_tpu/ops/shadow.py:175",
+                     lambda lists=lists, lt=lt: SH.occlusion_from_lists(stris, lists, sx, sy, hit, width, height,
+                                                                        lt_form=lt),
+                     lambda pfn=pfn: pfn(stris, sx, sy, hit), 0.0, bound, None))
+    log(f"map-free shadows: {pairs} (base texel, nearby caster) pairs at these inputs")
+    return counts, rows
+
+
+def phase_kernels(paths, extra_rows=(), timed=True):
     """Each kernel against its plain version on the captured 1080p inputs:
     K1-K3 from the flat frames, K4 and K5 from the textured ones, K1's
     count and bound modes and K4 on the cutout alpha test from the
-    representative ones. `paths` maps each path's name to its (graph,
-    launch counts)."""
+    representative ones, K1 at an MSAA offset from the MSAA ones; then the
+    rows of `extra_rows` (K6-K8, checked by their phases), all timed.
+    `paths` maps each path's name to its (graph, launch counts); a row's
+    launches are the sum of its kernel's counts over the paths."""
     import torch
 
     from rend3_tpu_torch.ops import deferred as D
@@ -481,6 +633,16 @@ def phase_kernels(paths, timed=True):
                  lambda: D.raster_resolve(b_tris, b_planes, b_binned, b_wp, b_hp, bound=bnd),
                  lambda: D.raster_resolve_plain(b_tris, b_planes, b_binned, b_wp, b_hp, bound=bnd),
                  errb, _k1_bound(b_tris, b_planes, b_binned, b_wp, b_hp, (bnd,)), None))
+
+    # K1 at a non-centre MSAA sample offset (the MSAA frames' phase 1).
+    m_tris, m_planes, m_binned, m_wp, m_hp, m_sofs = paths["msaa"][0].captured["raster_sample"]
+    errm = _k1_check(f"K1 at sample offset {m_sofs}",
+                     D.raster_resolve(m_tris, m_planes, m_binned, m_wp, m_hp, sofs=m_sofs).data,
+                     D.raster_resolve_plain(m_tris, m_planes, m_binned, m_wp, m_hp, sofs=m_sofs))
+    rows.append(("raster_msaa", "rend3_tpu_torch/csrc/raster.cu", "rend3_tpu/ops/deferred.py:505",
+                 lambda: D.raster_resolve(m_tris, m_planes, m_binned, m_wp, m_hp, sofs=m_sofs),
+                 lambda: D.raster_resolve_plain(m_tris, m_planes, m_binned, m_wp, m_hp, sofs=m_sofs), errm,
+                 _k1_bound(m_tris, m_planes, m_binned, m_wp, m_hp), None))
 
     # K2: bit-exact.
     stris, sbinned, swp, shp = cap["raster_depth"]
@@ -554,13 +716,13 @@ def phase_kernels(paths, timed=True):
                  lambda: img5[by5.long()[:, None] + dy, bx5.long()[:, None] + dx]))
 
     kernels = []
-    for name, src, repl, kfn, pfn, err, (bound_ms, bound_by), libfn in rows:
+    for name, src, repl, kfn, pfn, err, (bound_ms, bound_by), libfn in rows + list(extra_rows):
         ms = _median_ms(kfn, 20) if timed else None
         plain_ms = _median_ms(pfn, 5) if timed else None
         library_ms = _median_ms(libfn, 20) if timed and libfn is not None else None
         launches = sum(counts[name] for _g, counts in paths.values())
         log(f"{name}: kernel {ms} ms, plain {plain_ms} ms, library {library_ms} ms (median); "
-            f"bound {bound_ms:.6f} ms ({bound_by}); {launches} launches on the three paths")
+            f"bound {bound_ms:.6f} ms ({bound_by}); {launches} launches on the measured paths")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -590,26 +752,43 @@ def shadow_scene(runner):
     return keep
 
 
+def msaa_triangle(runner):
+    """The scene of tests/test_msaa.py's 4-sample triangle."""
+    import numpy as np
+
+    from rend3_tpu_torch.types import Camera, Handedness, MeshBuilder, Object, RawProjection, StaticMeshKind
+
+    mesh = MeshBuilder(
+        np.array([[0.5, -0.5, 0.0], [-0.5, -0.5, 0.0], [0.0, 0.5, 0.0]], np.float32), Handedness.LEFT
+    ).build()
+    mesh_hdl = runner.add_mesh(mesh)
+    mat = runner.add_unlit_material([0.25, 0.5, 0.75, 1.0])
+    obj = runner.add_object(Object(mesh_kind=StaticMeshKind(mesh_hdl), material=mat))
+    runner.set_camera_data(Camera(projection=RawProjection(np.eye(4)), view=np.eye(4)))
+    return [mesh_hdl, mat, obj]
+
+
 def phase_parity(device="cuda"):
     import numpy as np
 
     from rend3_tpu_torch import scenes
     from rend3_tpu_torch.testing import FrameRenderSettings, TestRunner
 
-    for name, build in (
-        ("shadow", shadow_scene),
-        ("textured planes", scenes.textured_planes),
-        ("stacked cutout", scenes.stacked_cutout),
-        ("glass stack", scenes.glass_stack),
+    for name, build, size, samples in (
+        ("shadow", shadow_scene, 256, 1),
+        ("textured planes", scenes.textured_planes, 256, 1),
+        ("stacked cutout", scenes.stacked_cutout, 256, 1),
+        ("glass stack", scenes.glass_stack, 256, 1),
+        ("msaa triangle", msaa_triangle, 64, 4),
     ):
         imgs = []
         for dev in (device, "cpu"):
             runner = TestRunner(device=dev)
             keep = build(runner)
-            imgs.append(runner.render_frame(FrameRenderSettings(size=256)))
+            imgs.append(runner.render_frame(FrameRenderSettings(size=size, samples=samples)))
             del keep
         diff = int(np.abs(imgs[0].astype(np.int32) - imgs[1].astype(np.int32)).max())
-        log(f"parity: {name} scene 256x256, {device} vs cpu max u8 diff {diff}")
+        log(f"parity: {name} scene {size}x{size} at {samples} sample(s), {device} vs cpu max u8 diff {diff}")
         if diff > 1:
             raise AssertionError(f"card and CPU renders of the {name} scene differ by {diff}")
 
@@ -627,15 +806,29 @@ def main():
     try:
         import rend3_tpu_torch  # noqa: F401
 
-        phase_environment()
-        phase_build()
+        t_run = time.perf_counter()
+
+        def timed(name, fn, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            log(f"phase {name}: {time.perf_counter() - t0:.2f} s wall (run so far {time.perf_counter() - t_run:.2f} s)")
+            return out
+
+        timed("environment", phase_environment)
+        timed("build", phase_build)
         paths = {}
-        for name, phase in (("flat", phase_slice), ("textured", phase_textured),
-                            ("representative", phase_representative)):
-            graph, counts, _img = phase()
+        for name, phase, kw in (("flat", phase_slice, {}), ("textured", phase_textured, {}),
+                                ("representative", phase_representative, {}),
+                                ("msaa", phase_representative, {"samples": 4})):
+            graph, counts, _img = timed(name, phase, **kw)
             paths[name] = (graph, counts)
-        kernels = phase_kernels(paths)
-        phase_parity()
+        rep_graph = paths["representative"][0]
+        vis_counts, vis_rows = timed("visibility raster", phase_visibility, rep_graph)
+        occ_counts, occ_rows = timed("map-free shadows", phase_mapfree, rep_graph)
+        paths["visibility"] = (rep_graph, vis_counts)
+        paths["map-free"] = (rep_graph, occ_counts)
+        kernels = timed("kernels", phase_kernels, paths, vis_rows + occ_rows)
+        timed("parity", phase_parity)
         smi = nvidia_smi_line()
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()

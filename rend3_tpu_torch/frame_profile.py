@@ -1,6 +1,7 @@
 """Time and trace the port's frame on a CUDA device.
 
-    python -m rend3_tpu_torch.frame_profile [--scene flat|textured|representative] [--frames N] [--trace-dir DIR]
+    python -m rend3_tpu_torch.frame_profile [--scene flat|textured|representative] [--samples 1|4]
+                                            [--frames N] [--trace-dir DIR]
 
 Renders a 600-building city at 1920x1080 on the card and prints one JSON
 line. The scene is `flat` (`bench.py --flat`: flat materials, one 2048²
@@ -9,8 +10,8 @@ shadow map, occlusion culling off, as the first slice timed it),
 textures with mips, 2048² and 1024² shadow maps, two-phase occlusion
 culling on) or `representative` (the whole bench frame,
 build_city_scene(representative=True): the textured city plus 340
-alpha-tested foliage objects and 16 glass panes, occlusion culling on).
-The line holds:
+alpha-tested foliage objects and 16 glass panes, occlusion culling on), at
+1 sample or 4 (MSAA, `--samples 4`). The line holds:
 
 - static_ms: median frame time (host clock around render_frame_tensor plus a
   synchronize) when the shadow map is cached;
@@ -41,6 +42,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=("flat", "textured", "representative"), default="flat")
+    ap.add_argument("--samples", type=int, choices=(1, 4), default=1)
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args()
@@ -63,7 +65,7 @@ def main() -> int:
     building = [h for h in keep if getattr(h, "kind", None) == "object"][600]
     graph = runner.base_graph
     graph.occlusion_culling = args.scene != "flat"
-    target = FrameRenderTarget(width, height, 1)
+    target = FrameRenderTarget(width, height, args.samples)
     settings = BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0))
 
     def frame():
@@ -119,7 +121,7 @@ def main() -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3 / n_prof
     if args.trace_dir:
         os.makedirs(args.trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.trace_dir, f"frame_trace_{args.scene}.json"))
+        prof.export_chrome_trace(os.path.join(args.trace_dir, f"frame_trace_{args.scene}_s{args.samples}.json"))
     kernels = []
     busy_us = 0.0
     for e in prof.key_averages():
@@ -135,6 +137,7 @@ def main() -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "scene": args.scene,
+        "samples": args.samples,
         "static_ms": statistics.median(static),
         "static_all_ms": static,
         "dynamic_ms": statistics.median(dynamic),

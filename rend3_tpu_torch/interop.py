@@ -11,7 +11,9 @@ jax; the inputs are numpy arrays or anything `np.asarray` accepts.
 - the setup table (`TriSetup`, padding rows past `count` dropped) and
   attribute planes (`planes`);
 - per-tile lists: `binned` turns JAX's (n_tiles, K) -1-padded `BinnedTris`
-  ids into CSR;
+  ids into CSR, at any tile size (K1's 32x128, K6's 8x128, the shadow
+  occlusion's 32x128 screen tiles);
+- the visibility buffer: `vis_buffer`;
 - shadow maps: `tensor`;
 - the texture atlas and its tables (`texture_arrays`), from the JAX
   `TextureArrays`.
@@ -24,12 +26,13 @@ import torch
 
 from .core.framestate import GeometryArrays
 from .ops.geometry import BinnedTris, TriSetup
+from .ops.raster import VisBuffer
 from .ops.shade import DirLightArrays, PointLightArrays
 from .ops.texture import TextureArrays
 
 __all__ = [
-    "tensor", "geometry_arrays", "tri_setup", "planes", "binned", "dir_lights", "point_lights",
-    "texture_arrays",
+    "tensor", "geometry_arrays", "tri_setup", "planes", "binned", "vis_buffer", "dir_lights",
+    "point_lights", "texture_arrays",
 ]
 
 
@@ -61,16 +64,24 @@ def planes(planes_arr, count, device="cpu") -> torch.Tensor:
     return tensor(np.asarray(planes_arr)[: int(count)], device, torch.float32)
 
 
-def binned(ids, device="cpu") -> BinnedTris:
+def binned(ids, counts=None, device="cpu") -> BinnedTris:
     """(n_tiles, K) per-tile ids, -1 padded -> CSR (padding stripped, the
-    order of each list kept)."""
+    order of each list kept). With `counts` (n_tiles,), only each row's
+    first counts[t] entries are kept."""
     ids = np.asarray(ids)
     keep = ids >= 0
+    if counts is not None:
+        keep &= np.arange(ids.shape[1])[None, :] < np.asarray(counts)[:, None]
     counts = keep.sum(axis=1)
     offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     return BinnedTris(
         offsets=tensor(offsets, device), ids=tensor(ids[keep].astype(np.int32), device)
     )
+
+
+def vis_buffer(depth, tri, device="cpu") -> VisBuffer:
+    """The JAX VisBuffer's (S, H, W) arrays."""
+    return VisBuffer(depth=tensor(depth, device, torch.float32), tri=tensor(tri, device, torch.int32))
 
 
 def dir_lights(arrays, device="cpu") -> DirLightArrays:

@@ -38,7 +38,7 @@ __all__ = ["build", "library", "call", "SOURCES", "NVCC_FLAGS"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("raster.cu", "pcf5.cu", "bilinear.cu", "gather.cu")
+SOURCES = ("raster.cu", "pcf5.cu", "bilinear.cu", "gather.cu", "shadow_occ.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-lineinfo", "-Xcompiler", "-fPIC")
 
@@ -49,6 +49,8 @@ _SIGNATURES = {
     "k3_pcf5": (8, 3, 0),
     "k4_bilinear": (8, 3, 0),
     "k5_gather": (6, 4, 0),
+    "k6_raster_vis": (6, 3, 8),
+    "k7_shadow_occ": (8, 3, 0),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -74,9 +74,10 @@ G_HIT = 20
 G_DUV = 21   # 4: du/dx, dv/dx, du/dy, dv/dy (analytic, post-divide)
 
 # Launch counts of the CUDA kernels (plain-version runs do not count). K1
-# counts its modes apart: plain (opaque and residual G-buffers), with a
-# count floor (peel 0 of a peel loop), with a bound only (later peels).
-launches = {"raster_resolve": 0, "raster_count": 0, "raster_bound": 0, "raster_depth": 0}
+# counts its modes apart: plain (opaque and residual G-buffers) at the pixel
+# centre, plain at another sample offset (MSAA), with a count floor (peel 0
+# of a peel loop), with a bound only (later peels).
+launches = {"raster_resolve": 0, "raster_msaa": 0, "raster_count": 0, "raster_bound": 0, "raster_depth": 0}
 
 
 class GBuffer(NamedTuple):
@@ -222,14 +223,14 @@ def attribute_planes(
 _PLAIN_BATCH = 1 << 22
 
 
-def _fragments(tris: TriSetup, binned: BinnedTris, width: int, sofs):
+def _fragments(tris: TriSetup, binned: BinnedTris, width: int, sofs, tile_h: int = DTILE_H, tile_w: int = DTILE_W):
     """Yield (tri ids, pixel index, px, py) for every pixel the kernels
     test a binned triangle against and that could be covered: the pixels
-    of the triangle's tiles inside its bbox grown by one pixel (rounding
-    can put a covered pixel center a hair outside the float bbox, never a
-    whole pixel)."""
+    of the triangle's tiles (tile_h x tile_w) inside its bbox grown by one
+    pixel (rounding can put a covered sample a hair outside the float bbox,
+    never a whole pixel)."""
     dev = tris.setup.device
-    n_cols = width // DTILE_W
+    n_cols = width // tile_w
     offs = binned.offsets.long()
     counts = offs[1:] - offs[:-1]
     tile = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev), counts)
@@ -237,17 +238,17 @@ def _fragments(tris: TriSetup, binned: BinnedTris, width: int, sofs):
     if tri.numel() == 0:
         return
     bb = tris.bbox[tri]
-    tx0 = (tile % n_cols) * DTILE_W
-    ty0 = (tile // n_cols) * DTILE_H
+    tx0 = (tile % n_cols) * tile_w
+    ty0 = (tile // n_cols) * tile_h
     x0 = torch.maximum(torch.floor(bb[:, 0]).clamp(-2, 1 << 20).long() - 1, tx0)
-    x1 = torch.minimum(torch.ceil(bb[:, 2]).clamp(-2, 1 << 20).long() + 1, tx0 + DTILE_W)
+    x1 = torch.minimum(torch.ceil(bb[:, 2]).clamp(-2, 1 << 20).long() + 1, tx0 + tile_w)
     y0 = torch.maximum(torch.floor(bb[:, 1]).clamp(-2, 1 << 20).long() - 1, ty0)
-    y1 = torch.minimum(torch.ceil(bb[:, 3]).clamp(-2, 1 << 20).long() + 1, ty0 + DTILE_H)
+    y1 = torch.minimum(torch.ceil(bb[:, 3]).clamp(-2, 1 << 20).long() + 1, ty0 + tile_h)
     nx = (x1 - x0).clamp_min(0)
     ny = (y1 - y0).clamp_min(0)
     npx = nx * ny
     # Batches of whole pairs, each about _PLAIN_BATCH fragments (a pair
-    # holds at most one tile, DTILE_H * DTILE_W fragments).
+    # holds at most one tile's fragments).
     csum = torch.cumsum(npx, 0)
     total = int(csum[-1])  # host read: fragment count
     marks = torch.tensor(list(range(_PLAIN_BATCH, total, _PLAIN_BATCH)), dtype=csum.dtype, device=dev)
@@ -290,7 +291,7 @@ def raster_depth_plain(tris: TriSetup, binned: BinnedTris, width: int, height: i
 
 def _winners_plain(
     tris: TriSetup, binned: BinnedTris, width: int, height: int, sofs,
-    bound=None, count_floor=None, count_strict=False,
+    bound=None, count_floor=None, count_strict=False, tile_h: int = DTILE_H, tile_w: int = DTILE_W,
 ):
     """Per pixel the winning setup row (-1 = none): greatest depth, and on
     equal depth the later list entry, i.e. the higher row id. Packs
@@ -305,7 +306,7 @@ def _winners_plain(
     bnd = None if bound is None else bound.reshape(-1)
     flr = None if count_floor is None else count_floor.reshape(-1)
     counts = None if flr is None else torch.zeros(height * width, dtype=torch.int64, device=dev)
-    for tri, pix, px, py in _fragments(tris, binned, width, sofs):
+    for tri, pix, px, py in _fragments(tris, binned, width, sofs, tile_h, tile_w):
         cov, z = _coverage(tris.setup[tri], px, py)
         if flr is not None:
             above = (z > flr[pix]) if count_strict else (z >= flr[pix])
@@ -370,11 +371,12 @@ def raster_resolve_plain(
 # ---------------------------------------------------------------------------
 
 
-def _check(tris: TriSetup, binned: BinnedTris, width: int, height: int, planes=None):
+def _check(tris: TriSetup, binned: BinnedTris, width: int, height: int, planes=None,
+           tile_h: int = DTILE_H, tile_w: int = DTILE_W):
     dev = tris.setup.device
-    if width % DTILE_W or height % DTILE_H:
-        raise ValueError(f"target {width}x{height} is not a multiple of the {DTILE_W}x{DTILE_H} tile")
-    n_tiles = (width // DTILE_W) * (height // DTILE_H)
+    if width % tile_w or height % tile_h:
+        raise ValueError(f"target {width}x{height} is not a multiple of the {tile_w}x{tile_h} tile")
+    n_tiles = (width // tile_w) * (height // tile_h)
     if binned.offsets.shape != (n_tiles + 1,):
         raise ValueError(f"offsets {tuple(binned.offsets.shape)} != ({n_tiles + 1},)")
     tensors = [tris.setup, tris.bbox, binned.offsets, binned.ids]
@@ -440,7 +442,10 @@ def raster_resolve(
     if counts is not None:
         launches["raster_count"] += 1
         return GBuffer(out), counts
-    launches["raster_bound" if bound is not None else "raster_resolve"] += 1
+    if bound is not None:
+        launches["raster_bound"] += 1
+    else:
+        launches["raster_resolve" if tuple(sofs) == (0.5, 0.5) else "raster_msaa"] += 1
     return GBuffer(out)
 
 

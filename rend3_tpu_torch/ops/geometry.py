@@ -26,7 +26,14 @@ __all__ = [
     "visibility_mask",
     "bin_triangles",
     "SETUP_W",
+    "TILE_H",
+    "TILE_W",
 ]
+
+# The visibility raster's (K6's) tile, as geometry.py:25-26; the G-buffer
+# raster K1 bins at deferred.DTILE_H x DTILE_W.
+TILE_H = 8
+TILE_W = 128
 
 # Setup row layout (SETUP_W floats per surviving triangle), as geometry.py:28-35.
 SETUP_W = 16

@@ -1,19 +1,25 @@
 """BaseRenderGraph: the canonical deferred frame, one plain function per stage.
 
-Port of rend3_tpu/routine/base.py for the single-sample deferred frame:
-opaque, cutout (alpha-tested) and alpha-blended materials, textures, shadows
-and two-phase Hi-Z occlusion culling. In the JAX package `render_frame`
-traces one closure into one XLA program (base.py:1147-2110); here each stage
-is a function over torch tensors on the renderer's device:
+Port of rend3_tpu/routine/base.py for the deferred frame at 1 or 4 samples
+(MSAA 4): opaque, cutout (alpha-tested) and alpha-blended materials,
+textures, shadows and two-phase Hi-Z occlusion culling. In the JAX package
+`render_frame` traces one closure into one XLA program (base.py:1147-2110);
+here each stage is a function over torch tensors on the renderer's device:
 
     upload -> shadow maps (K2, cached) -> clip -> setup -> planes -> bin ->
-    G-buffer (K1) -> [occlusion on: Hi-Z pyramid + visibility test (K5) ->
-    residual setup / planes / bin / G-buffer (K1) and merge] ->
-    [cutout peels: Hi-Z-tested setup (K5), planes, bin, K1 count and bound
-    modes, alpha test (K4)] -> [blend peels: K1 count and bound modes,
-    compacted hit pixels] -> shadow coordinates -> PCF (K3, opaque and blend
-    pixels in one launch) -> textures (K4) -> lighting -> blend shading and
-    compositing -> blit
+    G-buffer per sample (K1) -> [occlusion on: Hi-Z pyramid of the min over
+    samples + visibility test (K5) -> residual setup / planes / bin,
+    G-buffer per sample (K1) and merge] -> [cutout peels: Hi-Z-tested setup
+    (K5), planes, bin, then per sample K1 count and bound modes and the
+    alpha test (K4)] -> [blend peels: shared geometry, per sample K1 count
+    and bound modes, compacted hit pixels] -> shadow coordinates -> PCF (K3,
+    every sample's opaque and blend pixels in one launch) -> per sample
+    textures (K4), lighting, blend shading and compositing -> f16 round
+    trip -> resolve (mean over samples) -> blit
+
+Under MSAA the geometry work (cull, setup, planes, binning) runs once per
+pass and K1 runs once per sample offset (base.py:1353-1374); sub-pixel
+culling, a pixel-centre test, is off (base.py:1326-1329).
 
 Every buffer is sized from the frame's real counts, so the TPU build's
 survivor / flat-list / queue / peel caps, their growth and re-render loop
@@ -44,12 +50,14 @@ from ..ops import deferred as def_ops
 from ..ops import geometry as geom_ops
 from ..ops import hi_z as hiz_ops
 from ..ops import lighting as light_ops
+from ..ops import raster as raster_ops
+from ..ops import raster_binned as rb_ops
 from ..ops import shade as shade_ops
 from ..ops import shadow as shadow_ops
 from ..ops import transform as transform_ops
 from ..types import Handedness
 
-__all__ = ["BaseRenderGraph", "BaseRenderGraphSettings", "FrameRenderTarget", "StageTimer"]
+__all__ = ["BaseRenderGraph", "BaseRenderGraphSettings", "FrameRenderTarget", "StageTimer", "raster_scene"]
 
 
 @dataclass(frozen=True)
@@ -64,7 +72,7 @@ class BaseRenderGraphSettings:
 class FrameRenderTarget:
     width: int
     height: int
-    samples: int = 1  # the port renders 1; MSAA 4 is not ported yet
+    samples: int = 1  # 1, or 4 (MSAA)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -73,6 +81,39 @@ def _round_up(v: int, m: int) -> int:
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1: {item})")
+
+
+def raster_scene(
+    clip: torch.Tensor,
+    valid: torch.Tensor,
+    width: int,
+    height: int,
+    *,
+    cull_mode: int,
+    front_is_cw: bool,
+    sample_offsets,
+    backend: str = "pallas",
+) -> raster_ops.VisBuffer:
+    """The scene's (S, height, width) visibility buffer (base.py:95-124):
+    cull and set up (sub-pixel cull only at one sample), bin at K6's 8x128
+    tiles, K6, crop. "pallas" and "binned_xla" both run K6 on a card and
+    its plain version on the CPU; "reference" (raster.rasterize, the
+    O(T x P) oracle) is not ported."""
+    if backend == "reference":
+        raise _not_ported("the reference raster backend (raster.rasterize)", "Reference forward backend")
+    if backend not in ("pallas", "binned_xla"):
+        raise ValueError(f"unknown raster backend {backend!r}")
+    wp = _round_up(width, geom_ops.TILE_W)
+    hp = _round_up(height, geom_ops.TILE_H)
+    tris = geom_ops.cull_and_setup(
+        clip, valid, width, height, cull_mode=cull_mode, front_is_cw=front_is_cw,
+        subpixel=len(sample_offsets) == 1,
+    )
+    binned = geom_ops.bin_triangles(tris, wp, hp, tile_h=geom_ops.TILE_H, tile_w=geom_ops.TILE_W)
+    vis = rb_ops.rasterize_binned(tris, binned, wp, hp, sample_offsets)
+    if (wp, hp) != (width, height):
+        vis = raster_ops.VisBuffer(depth=vis.depth[:, :height, :width], tri=vis.tri[:, :height, :width])
+    return vis
 
 
 class StageTimer:
@@ -148,8 +189,7 @@ class BaseRenderGraph:
 
     def _check_slice(self, target: FrameRenderTarget, skybox_slot) -> None:
         r = self.renderer
-        if target.samples != 1:
-            raise _not_ported(f"samples={target.samples}", "MSAA")
+        raster_ops.sample_offsets(target.samples)  # raises unless 1 or 4
         if skybox_slot is not None:
             raise _not_ported("the skybox", "Off the main path, in the frame")
         if r.skeleton_manager.data:
@@ -345,7 +385,7 @@ class BaseRenderGraph:
         with stage(name):
             return geom_ops.cull_and_setup(
                 table.clip, valid, f.width, f.height,
-                cull_mode=geom_ops.CullMode.BACK, front_is_cw=f.front_cw, subpixel=True, hiz=hiz,
+                cull_mode=geom_ops.CullMode.BACK, front_is_cw=f.front_cw, subpixel=f.subpixel, hiz=hiz,
             )
 
     def _planes_bin(self, f: _Frame, stage, tris, table, tri_vlocal, tri_obj, names):
@@ -365,29 +405,42 @@ class BaseRenderGraph:
         if self.captured is not None and key not in self.captured:
             self.captured[key] = value
 
-    def _cutout_peels(self, f: _Frame, stage, cmask, pyramid, gbuf):
-        """Cutout (alpha-tested) depth peels over the opaque G-buffer
-        (base.py:1480-1557): raster the cutout set front to back, alpha-test
-        each peel's candidate pixels, and take the first passing fragment in
-        front of the opaque result.
+    def _cutout_peels(self, f: _Frame, stage, cmask, pyramid, gbufs):
+        """Cutout (alpha-tested) depth peels over each sample's opaque
+        G-buffer (base.py:1480-1557): raster the cutout set front to back,
+        alpha-test each peel's candidate pixels, and take the first passing
+        fragment in front of the opaque result. The cutout geometry (one
+        Hi-Z-tested cull, planes, binning) is shared by the samples; the peel
+        loop runs per sample, at its offset. Replaces the entries of `gbufs`
+        (one (GB_CH, H, W) G-buffer per sample) and returns it.
 
         The cutout set is Hi-Z-tested against the opaque phase-1 depth when
         occlusion culling is on. Peel 0 also counts, per pixel, the cutout
         fragments strictly in front of the opaque result; the largest count
-        bounds the peels a frame needs (no pixel needs more), so the loop
+        bounds the peels a sample needs (no pixel needs more), so the loop
         has no cap, unlike the JAX build's 8 (base.py:492-498): past it the
-        port keeps the wgpu discard semantics at any depth. The loop also
+        port keeps the wgpu discard semantics at any depth. Each sample's
+        loop is sized by its own count (JAX sizes every sample by the
+        largest, which gives the same images below its cap). The loop also
         stops once no pixel is still searching behind a failed fragment.
 
-        Host reads: cull and binning one each, the count's maximum one, and
-        per peel the `nonzero` of its candidate pixels plus, when there are
-        any, the count of those that failed the test."""
+        Host reads: cull and binning one each, and per sample the count's
+        maximum plus, per peel, the `nonzero` of its candidate pixels and,
+        when there are any, the count of those that failed the test."""
         tris = self._cull(f, stage, f.clipped, f.clipped.valid & cmask, "cut_setup", hiz=pyramid)
         st = self.last_stats
         st["cut_survivors"] = tris.count
         if tris.count == 0:
-            return gbuf
+            return gbufs
         planes, binned = self._planes_bin(f, stage, tris, f.clipped, f.tri_vlocal, f.tri_obj, ("cut_planes", "cut_bin"))
+        for si, sofs in enumerate(f.offsets):
+            gbufs[si], peels, layers = self._cutout_sample(f, stage, tris, planes, binned, sofs, gbufs[si])
+            st["cut_peels"] = max(st["cut_peels"], peels)
+            st["cut_layers"] = max(st["cut_layers"], layers)
+        return gbufs
+
+    def _cutout_sample(self, f: _Frame, stage, tris, planes, binned, sofs, gbuf):
+        """One sample's cutout peel loop; returns (gbuf, peels, layers)."""
         wp, hp = f.wp, f.hp
         odepth = gbuf[def_ops.G_DEPTH]
         ohit = gbuf[def_ops.G_HIT] > 0.0
@@ -401,12 +454,12 @@ class BaseRenderGraph:
                     floor = torch.where(ohit, odepth, torch.full_like(odepth, -1.0))
                     self._capture("raster_count", (tris, planes, binned, wp, hp, floor, True))
                     g, counts = def_ops.raster_resolve(
-                        tris, planes, binned, wp, hp, count_floor=floor, count_strict=True
+                        tris, planes, binned, wp, hp, sofs=sofs, count_floor=floor, count_strict=True
                     )
                     layers = int(torch.round(counts.max()))
                 else:
                     self._capture("raster_bound", (tris, planes, binned, wp, hp, bound))
-                    g = def_ops.raster_resolve(tris, planes, binned, wp, hp, bound=bound)
+                    g = def_ops.raster_resolve(tris, planes, binned, wp, hp, sofs=sofs, bound=bound)
                 gc = g.data
             peels += 1
             with stage("cut_alpha"):
@@ -435,22 +488,22 @@ class BaseRenderGraph:
                 bound = torch.where(done, torch.zeros_like(cdepth), cdepth)
             if searching == 0 or peels >= layers:
                 break
-        st["cut_peels"] = peels
-        st["cut_layers"] = layers
-        return gbuf
+        return gbuf, peels, layers
 
-    def _blend_peels(self, f: _Frame, stage, gbuf):
+    def _blend_peels(self, f: _Frame, stage, gbufs):
         """Blend geometry and depth-peel rasters (base.py:1730-1792): the
         blend triangles (far-first object order, from _upload) are culled
-        without Hi-Z, and peeled front to back over the final opaque depth.
-        Peel 0 counts every blend fragment at or in front of the opaque
-        result; the largest count is the number of peels needed (no cap,
-        unlike the JAX build's 16), and a peel with no hit pixel ends the
-        loop early (every later one would be empty). Returns, per peel, the
-        hit pixels' flat ids and their (GB_CH, n) G-buffer columns.
+        without Hi-Z once for every sample, and peeled front to back over
+        each sample's final opaque depth at its offset. Peel 0 counts every
+        blend fragment at or in front of the opaque result; the largest
+        count is the number of peels the sample needs (no cap, unlike the
+        JAX build's 16), and a peel with no hit pixel ends the loop early
+        (every later one would be empty). Returns, per sample, a list with,
+        per peel, the hit pixels' flat ids and their (GB_CH, n) G-buffer
+        columns (compacted per (sample, peel), base.py:1803-1830).
 
-        Host reads: clip, cull and binning one each, the count's maximum
-        one, and per peel the `nonzero` of its hit pixels."""
+        Host reads: clip, cull and binning one each, and per sample the
+        count's maximum and per peel the `nonzero` of its hit pixels."""
         with stage("blend_geom"):
             bclip = transform_ops.gather_tri_clip(
                 f.geo.position, f.blend_vlocal, f.blend_obj, f.bases[:, 0], f.mvp
@@ -463,23 +516,33 @@ class BaseRenderGraph:
             )
         st = self.last_stats
         st["blend_survivors"] = tris.count
-        peels = []
         if tris.count == 0:
-            return peels
+            return [[] for _ in f.offsets]
+        out = []
+        for sofs, gbuf in zip(f.offsets, gbufs):
+            peels, n = self._blend_sample(f, stage, tris, planes, binned, sofs, gbuf)
+            st["blend_peels"] = max(st["blend_peels"], n)
+            st["blend_px"] += sum(int(p.numel()) for p, _g in peels)
+            out.append(peels)
+        return out
+
+    def _blend_sample(self, f: _Frame, stage, tris, planes, binned, sofs, gbuf):
+        """One sample's blend peel loop; returns (peels, peel count)."""
         wp, hp = f.wp, f.hp
         odepth = gbuf[def_ops.G_DEPTH]
         ohit = gbuf[def_ops.G_HIT] > 0.0
         bound = None
+        peels = []
         need = n = 0
         while True:
             with stage("blend_raster"):
                 if n == 0:
                     floor = torch.where(ohit, odepth, torch.full_like(odepth, -1.0))
-                    g, counts = def_ops.raster_resolve(tris, planes, binned, wp, hp, count_floor=floor)
+                    g, counts = def_ops.raster_resolve(tris, planes, binned, wp, hp, sofs=sofs, count_floor=floor)
                     need = int(torch.round(counts.max()))
                 else:
                     self._capture("raster_bound", (tris, planes, binned, wp, hp, bound))
-                    g = def_ops.raster_resolve(tris, planes, binned, wp, hp, bound=bound)
+                    g = def_ops.raster_resolve(tris, planes, binned, wp, hp, sofs=sofs, bound=bound)
                 g = g.data
                 n += 1
                 bdepth = g[def_ops.G_DEPTH]
@@ -490,9 +553,7 @@ class BaseRenderGraph:
                     bound = torch.where(bhit, bdepth, torch.zeros_like(bdepth))
             if not pix.numel() or n >= need:
                 break
-        st["blend_peels"] = n
-        st["blend_px"] = sum(int(p.numel()) for p, _g in peels)
-        return peels
+        return peels, n
 
     def _shadow_coords(self, gbuf: torch.Tensor, f: _Frame, plan):
         """Per plan entry (map index, sx, sy, ref, hit, in_bounds) at the
@@ -599,33 +660,40 @@ class BaseRenderGraph:
         f.width, f.height = width, height
         f.wp = wp = _round_up(width, def_ops.DTILE_W)
         f.hp = hp = _round_up(height, def_ops.DTILE_H)
+        f.offsets = offsets = raster_ops.sample_offsets(target.samples)
+        f.subpixel = len(offsets) == 1
+        S = st["samples"] = len(offsets)
         # Cutout triangles go through the peel loop; the opaque passes, the
         # Hi-Z pyramid and the carried mask see only the rest (base.py:1312-1316).
         cmask = None if f.cutout_tri is None else f.cutout_tri[clipped.orig.long()]
         opaque_valid = clipped.valid if cmask is None else clipped.valid & ~cmask
+        if self.captured is not None:
+            self.captured["opaque_table"] = (clipped.clip, opaque_valid, f.front_cw, width, height)
 
-        def raster(tris, names, capture=False):
-            """planes -> bin -> G-buffer (K1), each step timed under its name."""
-            planes, binned = self._planes_bin(f, stage, tris, clipped, f.tri_vlocal, f.tri_obj, names[:2])
-            if capture and self.captured is not None:
-                self.captured["raster_resolve"] = (tris, planes, binned, wp, hp)
-            with stage(names[2]):
-                gbuf = def_ops.raster_resolve(tris, planes, binned, wp, hp, sofs=(0.5, 0.5)).data
-            return binned, gbuf
+        def raster_at(tris, planes, binned, sofs, name):
+            """The G-buffer (K1) of shared geometry at one sample offset."""
+            with stage(name):
+                return def_ops.raster_resolve(tris, planes, binned, wp, hp, sofs=sofs).data
 
         T = f.tri_vlocal.shape[0]
         pm = None
         if self.occlusion_culling:
             # Two-phase Hi-Z occlusion culling (base.py:1376-1472, reference
             # base.rs:155-172, cull.wgsl:243-324), deferred-style: phase 1
-            # renders the carried predicted set for real.
+            # renders the carried predicted set for real. It runs under MSAA
+            # too, as in JAX (base.py:1384-1387).
             pm_tri = self._prev_visible_mask
             if pm_tri is None or pm_tri.shape[0] != T:
                 # First frame, or the triangle table changed size: predict all.
                 pm_tri = torch.ones(T, dtype=torch.bool, device=clipped.valid.device)
             pm = pm_tri[clipped.orig.long()]
         tris = self._cull(f, stage, clipped, opaque_valid if pm is None else opaque_valid & pm, "setup")
-        binned, gbuf = raster(tris, ("planes", "bin", "gbuffer"), capture=True)
+        planes, binned = self._planes_bin(f, stage, tris, clipped, f.tri_vlocal, f.tri_obj, ("planes", "bin"))
+        if self.captured is not None:
+            self.captured["raster_resolve"] = (tris, planes, binned, wp, hp)
+            if S > 1:
+                self.captured["raster_sample"] = (tris, planes, binned, wp, hp, offsets[1])
+        gbufs = [raster_at(tris, planes, binned, sofs, "gbuffer") for sofs in offsets]
         st["main_survivors"] = tris.count
         st["main_pairs"] = int(binned.ids.shape[0])
         pyramid = None
@@ -633,12 +701,17 @@ class BaseRenderGraph:
             # Phase 1's depth is the occluder pyramid; every opaque row is
             # tested against it. The passers are the next frame's predicted
             # set; those not predicted (the residual set) are rendered and
-            # merged on top by depth.
+            # merged on top by depth. Under MSAA the occluder depth is the
+            # reverse-Z min over the samples (the farthest, so conservative;
+            # base.py:1427-1437).
             with stage("hiz"):
-                pyramid = hiz_ops.build_pyramid(gbuf[def_ops.G_DEPTH, :height, :width])
+                depth = gbufs[0][def_ops.G_DEPTH]
+                for g in gbufs[1:]:
+                    depth = torch.minimum(depth, g[def_ops.G_DEPTH])
+                pyramid = hiz_ops.build_pyramid(depth[:height, :width])
                 vis = geom_ops.visibility_mask(
                     clipped.clip, opaque_valid, width, height,
-                    cull_mode=geom_ops.CullMode.BACK, front_is_cw=f.front_cw, subpixel=True,
+                    cull_mode=geom_ops.CullMode.BACK, front_is_cw=f.front_cw, subpixel=f.subpixel,
                     hiz=pyramid, capture=self.captured,
                 )
                 new_mask = torch.zeros(T, dtype=torch.bool, device=vis.device)
@@ -646,48 +719,64 @@ class BaseRenderGraph:
             tris_r = self._cull(f, stage, clipped, vis & ~pm, "resid")
             st["resid_survivors"] = tris_r.count
             if tris_r.count:
-                _binned_r, gbuf_r = raster(tris_r, ("resid",) * 3)
-                with stage("resid"):
-                    # Merge on the hit flags, not bare depth (reverse-Z depth
-                    # 0 is a valid farthest fragment); the residual wins ties.
-                    take_r = (gbuf_r[def_ops.G_HIT] > 0.0) & (
-                        (gbuf[def_ops.G_HIT] <= 0.0) | (gbuf_r[def_ops.G_DEPTH] >= gbuf[def_ops.G_DEPTH])
-                    )
-                    gbuf = torch.where(take_r[None], gbuf_r, gbuf)
+                planes_r, binned_r = self._planes_bin(
+                    f, stage, tris_r, clipped, f.tri_vlocal, f.tri_obj, ("resid", "resid")
+                )
+                for si, sofs in enumerate(offsets):
+                    gbuf_r = raster_at(tris_r, planes_r, binned_r, sofs, "resid")
+                    with stage("resid"):
+                        # Merge on the hit flags, not bare depth (reverse-Z
+                        # depth 0 is a valid farthest fragment); the residual
+                        # wins ties.
+                        g = gbufs[si]
+                        take_r = (gbuf_r[def_ops.G_HIT] > 0.0) & (
+                            (g[def_ops.G_HIT] <= 0.0) | (gbuf_r[def_ops.G_DEPTH] >= g[def_ops.G_DEPTH])
+                        )
+                        gbufs[si] = torch.where(take_r[None], gbuf_r, g)
             self._prev_visible_mask = new_mask
         if cmask is not None:
-            gbuf = self._cutout_peels(f, stage, cmask, pyramid, gbuf)
-        peels = self._blend_peels(f, stage, gbuf) if f.blend_obj is not None else []
-        # The blend peels' hit pixels, compacted into one (CH, 1, N) G-buffer
-        # that shares the opaque pixels' K3 launch and is lit in one pass.
-        bgbuf = torch.cat([g for _pix, g in peels], dim=1)[:, None] if peels else None
+            gbufs = self._cutout_peels(f, stage, cmask, pyramid, gbufs)
+        peels_s = self._blend_peels(f, stage, gbufs) if f.blend_obj is not None else [[] for _ in offsets]
+        # Each sample's blend peels' hit pixels, compacted into one
+        # (CH, 1, N) G-buffer that shares the opaque pixels' K3 launch and
+        # is lit in one pass.
+        bgbufs = [torch.cat([g for _pix, g in peels], dim=1)[:, None] if peels else None for peels in peels_s]
         L = f.dir_lights.mask.shape[0]
+        dev = gbufs[0].device
         if plan:
             with stage("shadow_coords"):
-                coord_sets = [self._shadow_coords(gbuf, f, plan)]
-                if bgbuf is not None:
-                    coord_sets.append(self._shadow_coords(bgbuf, f, plan))
+                coord_sets = [self._shadow_coords(g, f, plan) for g in gbufs]
+                coord_sets += [self._shadow_coords(b, f, plan) for b in bgbufs if b is not None]
             with stage("pcf"):
                 svals = self._shadow_values(coord_sets, smaps, stacked, L)
-            shadow_values = svals[0][:, :height, :width]
-            blend_sv = svals[1] if bgbuf is not None else None
+            if self.captured is not None:
+                # Light 0 at sample 0's opaque pixels (rend3_tpu_torch.probe_shadow).
+                self.captured["shadow_light0"] = (coord_sets[0][0], svals[0][0], plan[0][2])
+            shadow_s = [sv[:, :height, :width] for sv in svals[:S]]
+            rest = iter(svals[S:])
+            blend_sv = [None if b is None else next(rest) for b in bgbufs]
         else:
-            shadow_values = torch.ones(L, height, width, dtype=torch.float32, device=gbuf.device)
-            blend_sv = None if bgbuf is None else torch.ones(L, *bgbuf.shape[1:], device=gbuf.device)
-        # Lighting (timed as "textures" and "lighting") on the cropped
-        # G-buffer: the padding pixels are never hit, so lighting them (as the
-        # JAX package's texture path does) changes nothing.
-        img = light_ops.light_gbuffer(
-            def_ops.GBuffer(gbuf[:, :height, :width]), f.materials, f.dir_lights,
-            f.point_lights, f.uniforms, f.clear_color.expand(height, width, 4), shadow_values,
-            textures=f.textures, active_tex_slots=f.active_tex_slots,
-            stage=self.timer, capture=self.captured,
-        )
-        if peels:
-            with stage("blend_shade"):
-                img = self._blend_composite(f, peels, bgbuf, blend_sv, img)
+            shadow_s = [torch.ones(L, height, width, dtype=torch.float32, device=dev)] * S
+            blend_sv = [None if b is None else torch.ones(L, *b.shape[1:], device=dev) for b in bgbufs]
+        # Lighting (timed as "textures" and "lighting") on each sample's
+        # cropped G-buffer: the padding pixels are never hit, so lighting
+        # them (as the JAX package's texture path does) changes nothing.
+        imgs = []
+        for si in range(S):
+            img = light_ops.light_gbuffer(
+                def_ops.GBuffer(gbufs[si][:, :height, :width]), f.materials, f.dir_lights,
+                f.point_lights, f.uniforms, f.clear_color.expand(height, width, 4), shadow_s[si],
+                textures=f.textures, active_tex_slots=f.active_tex_slots,
+                stage=self.timer, capture=self.captured,
+            )
+            gbufs[si] = None  # the sample's G-buffer is no longer needed
+            if peels_s[si]:
+                with stage("blend_shade"):
+                    img = self._blend_composite(f, peels_s[si], bgbufs[si], blend_sv[si], img)
+            imgs.append(img)
         with stage("blit"):
-            img = blit_ops.f16_roundtrip(img[None])
+            # f16 round trip per sample, then the resolve (base.py:2053-2054).
+            img = blit_ops.f16_roundtrip(torch.stack(imgs))
             out = blit_ops.hdr_to_srgb_u8(blit_ops.resolve_samples(img))
         return out
 

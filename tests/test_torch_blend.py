@@ -42,16 +42,19 @@ def _max_diff(a, b):
     return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
 
 
-def _render(pkg, build, size, monkeypatch=None, backend=None, blend_peels=None):
+def _render(pkg, build, size, monkeypatch=None, backend=None, blend_peels=None, caps=None):
     """Renders build(runner, pkg) on the CPU; `backend` sets the JAX
     package's raster backend for this render. `blend_peels` starts the JAX
     blend peel cap at the value its controller converges to for the scene
-    (tests/test_caps.py shows it does), so JAX compiles the converged frame
-    program once instead of once per regrow. Returns (image, stats)."""
+    (tests/test_caps.py shows it does), and `caps` all of JAX's caps, so JAX
+    compiles the converged frame program once instead of once per regrow.
+    Returns (image, stats)."""
     runner_cls, settings_cls = pkg[:2]
     if backend is not None:
         monkeypatch.setenv("REND3_TPU_RASTER", backend)
     runner = runner_cls(device="cpu") if pkg is PORT else runner_cls()
+    if pkg is JAX:
+        runner.base_graph._caps.update(caps or {})
     if blend_peels is not None and pkg is JAX:
         runner.base_graph._caps["blend_peels"] = blend_peels
     keep = build(runner, pkg)
@@ -138,9 +141,18 @@ def test_caps_blend_scene_peel_counts():
     assert _max_diff(five, ref) <= 1
 
 
+# JAX's caps for scenes.peel_slice at 128x128 as its controller converges
+# them, so that it compiles the converged frame program at once.
+PEEL_SLICE_CAPS = {
+    "shadow": 4096, "tile_shadow_mult": 1, "fl_shadow": 2048, "main": 4096, "resid": 4096, "cut": 4096,
+    "blend_peels": 2, "tile_main_mult": 1, "tex_pair": 16, "shadow_pair": 32, "cut_peels": 2, "blend_px": 65536,
+    "fl_main": 2048, "fl_cut": 2048, "fl_blend": 2048, "q_tex": 1024, "q_cut": 1024, "q_blend": 1024, "q_pcf": 1024,
+}
+
+
 def test_slice_scene_matches_jax():
     port, stats = _render(PORT, lambda runner, pkg: scenes.peel_slice(runner, *pkg[2:]), 128)
-    ref, _ = _render(JAX, lambda runner, pkg: scenes.peel_slice(runner, *pkg[2:]), 128)
+    ref, _ = _render(JAX, lambda runner, pkg: scenes.peel_slice(runner, *pkg[2:]), 128, caps=PEEL_SLICE_CAPS)
     assert stats["cut_survivors"] > 0 and stats["cut_peels"] >= 1, stats
     assert stats["blend_peels"] >= 2 and stats["blend_px"] > 0, stats
     assert (port[..., :3] != 0).any(-1).mean() > 0.3

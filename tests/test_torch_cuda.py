@@ -8,17 +8,24 @@ material channels and all of K2 bit-exact, the other K1 channels within
 1 ulp, K3 abs <= 1e-6, K4 and K5 bit-exact (random queries, including
 footprints off the grid and invalid ones). K1's count mode (strict and not)
 and bound mode run on inputs captured from scenes.peel_slice, with the
-counts bit-exact too.
+counts bit-exact too. K1 at an MSAA sample offset as in its opaque mode.
+K6 (raster_scene's visibility raster) at 1 and 4 samples: ids and depth
+bit-exact. K7 and K8 on light 0 of the captured city frame: bit-exact at
+hit pixels (their values elsewhere are not defined).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from rend3_tpu_torch import scenes
+from rend3_tpu_torch import probe_shadow, scenes
 from rend3_tpu_torch.ops import deferred as D
+from rend3_tpu_torch.ops import geometry as G
+from rend3_tpu_torch.ops import raster as R
+from rend3_tpu_torch.ops import raster_binned as RB
 from rend3_tpu_torch.ops import samplers as S
-from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget
+from rend3_tpu_torch.ops import shadow as SH
+from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget, raster_scene
 from rend3_tpu_torch.testing import FrameRenderSettings, TestRunner
 
 pytestmark = pytest.mark.cuda
@@ -86,6 +93,42 @@ def test_k1_bound_mode_matches_plain(peel_captured):
         D.raster_resolve(tris, planes, binned, wp, hp, bound=bound).data,
         D.raster_resolve_plain(tris, planes, binned, wp, hp, bound=bound),
     )
+
+
+def test_k1_at_an_msaa_offset_matches_plain(captured):
+    tris, planes, binned, wp, hp = captured[0]["raster_resolve"]
+    sofs = R.MSAA4_OFFSETS[1]
+    k = D.raster_resolve(tris, planes, binned, wp, hp, sofs=sofs).data
+    p = D.raster_resolve_plain(tris, planes, binned, wp, hp, sofs=sofs)
+    _k1_modes_match(k, p)
+    assert not torch.equal(k[D.G_HIT], D.raster_resolve(tris, planes, binned, wp, hp).data[D.G_HIT])
+
+
+@pytest.mark.parametrize("offsets", [R.CENTER_OFFSET, R.MSAA4_OFFSETS], ids=["1", "4"])
+def test_k6_matches_plain(captured, offsets):
+    clip, valid, front_cw, width, height = captured[0]["opaque_table"]
+    tris = G.cull_and_setup(clip, valid, width, height, cull_mode=G.CullMode.BACK, front_is_cw=front_cw,
+                            subpixel=len(offsets) == 1)
+    binned = G.bin_triangles(tris, width, height, tile_h=G.TILE_H, tile_w=G.TILE_W)
+    k = RB.rasterize_binned(tris, binned, width, height, offsets)
+    p = RB.rasterize_binned_plain(tris, binned, width, height, offsets)
+    assert k.tri.shape == (len(offsets), height, width)
+    assert torch.equal(k.tri, p.tri) and torch.equal(k.depth, p.depth)
+    assert float((k.tri >= 0).float().mean()) > 0.5
+    v = raster_scene(clip, valid, width, height, cull_mode=G.CullMode.BACK, front_is_cw=front_cw,
+                     sample_offsets=offsets)
+    assert torch.equal(v.tri, k.tri) and torch.equal(v.depth, k.depth)
+
+
+def test_k7_k8_match_plain(captured):
+    stris, sx, sy, hit, width, height, size = probe_shadow.inputs(captured[0])[:7]
+    h = hit[None].expand(SH.N_OFF, -1, -1)
+    k7 = SH.shadow_occlusion(stris, sx, sy, hit, width, height)
+    k8, overflow = SH.shadow_occlusion_lt(stris, sx, sy, hit, width, height, size)
+    assert int(overflow) == 0
+    assert torch.equal(k7[h], SH.shadow_occlusion_plain(stris, sx, sy, hit)[h])
+    assert torch.equal(k8[h], SH.shadow_occlusion_lt_plain(stris, sx, sy, hit)[h])
+    assert int((k8[h] > 0).sum()) > 0
 
 
 def test_k2_matches_plain(captured):

@@ -182,6 +182,13 @@ def test_textured_city_matches_jax():
         survivors.append(st["main_survivors"] + st["resid_survivors"])
     assert len(pr.base_graph._shadow_cache[1][0]) == 2  # both shadow maps
     jr = jax_testing.TestRunner()
+    # JAX's caps as its controller converges them on frame 1 of this scene,
+    # set up front so that it compiles the converged frame program at once.
+    jr.base_graph._caps.update({
+        "shadow": 4096, "tile_shadow_mult": 4, "fl_shadow": 8192, "main": 4096, "resid": 4096, "cut": 4096,
+        "tile_main_mult": 1, "tex_pair": 16, "shadow_pair": 128, "fl_main": 4096, "q_tex": 1024, "q_pcf": 1024,
+        "blend_peels": 1,
+    })
     jkeep = scenes.textured_city(jr, n_buildings=24, build=bench.build_city_scene)
     jr.set_camera_data(JaxCamera(
         projection=JaxPerspective(vfov=60.0, near=0.1),

@@ -23,7 +23,8 @@ def _one_thread():
 def test_import_leaves_jax_out():
     code = (
         "import sys, rend3_tpu_torch, rend3_tpu_torch.routine.base, rend3_tpu_torch.interop, "
-        "rend3_tpu_torch.scenes, rend3_tpu_torch.ops.cuda_kernels; "
+        "rend3_tpu_torch.scenes, rend3_tpu_torch.ops.cuda_kernels, rend3_tpu_torch.probe_shadow, "
+        "rend3_tpu_torch.frame_profile; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'rend3_tpu' or m.startswith('rend3_tpu.')); print(bad)"
     )
