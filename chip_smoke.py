@@ -5,15 +5,19 @@
 Drives the port's paths (rend3_tpu_torch) on the card through the entry
 points a user calls (TestRunner / Renderer scene calls,
 swap_instruction_buffers, evaluate_instructions, BaseRenderGraph.render_frame,
-routine.base.raster_scene, probe_shadow.run) at 1920x1080: the flat
+routine.base.raster_scene, probe_shadow.run, the tools.probe_bf16_* probes)
+at 1920x1080: the flat
 city-block scene of `bench.py --flat`, the textured city (the
 representative bench scene without its alpha-tested foliage and
 alpha-blended glass), the whole representative bench frame (foliage through
 the cutout peels, glass through the blend peels) at 1 and at 4 samples
 (MSAA), all but the flat one with two-phase occlusion culling, the
-visibility raster of the representative frame's opaque triangles, and the
-map-free shadow resolve of its light 0. It checks every hand-written kernel
-of those paths, K1 in each of its modes, against its plain PyTorch version.
+visibility raster of the representative frame's opaque triangles, the
+map-free shadow resolve of its light 0, the bf16 probes P1-P3, and the
+feature city (the representative frame with a skybox, skinned columns,
+registered material routines and injected passes) at 1 and 4 samples. It
+checks every hand-written kernel of those paths, K1 in each of its modes,
+against its plain PyTorch version.
 Phases (each raises on failure; any failure exits nonzero; each prints its
 wall time):
 
@@ -45,16 +49,30 @@ wall time):
    hit pixels (bit-exact), the number of values where K7 and K8 differ,
    and pcf5_from_occlusion of K8 against the frame's K3 factors where K3's
    query was valid (at most 1% differ by more than 1e-6);
-9. kernels: K1, K2 and K3 on the inputs captured in the flat frames, K4 and
+9. probes: run() of tools.probe_bf16_dot, _kernel and _real (P1-P3) on
+   the card, counted; every variant's output against its plain version on
+   the card, bit for bit with NaN positions equal;
+10. features (at 1, then 4 samples): scenes.feature_city, an occlusion-off
+   reference frame (with a pass that counts the registered routines'
+   G-buffer pixels), then (counters zeroed) three occlusion-on frames:
+   frames 1 and 2 must equal the reference bit for bit, frame 3 moves the
+   columns' joints and must rebuild the shadow maps; sky pixels, routine
+   pixels, a K4 launch of the skybox in every frame and both injected
+   passes in every frame are checked, and the archetype with no routine
+   must draw nothing (registering a routine for it then makes it draw);
+11. kernels: K1, K2 and K3 on the inputs captured in the flat frames, K4 and
    K5 on those of the textured frames, K1's count and bound modes and K4
    on the cutout alpha test on those of the representative frames, K1 at
-   an MSAA offset on those of the MSAA frames, K6-K8 on those of phases 7
-   and 8, against their plain versions on the card, with median times, the
-   bound each kernel's bytes or operations set on the card, and the time of
-   one PyTorch call computing the same function where there is one;
-10. parity: the shadow golden scene, the textured-planes scene, the stacked
-   cutout scene and the glass stack at 256x256, and test_msaa's triangle at
-   64x64 and 4 samples, on the card and on the CPU.
+   an MSAA offset on those of the MSAA frames, K4 on the skybox query of
+   the feature frame, K6-K8 on those of phases 7 and 8, P1-P3 on the
+   probes' inputs, against their plain versions on the card, with median
+   times, the bound each kernel's bytes or operations set on the card, and
+   the time of one PyTorch call computing the same function where there is
+   one;
+12. parity: the shadow golden scene, the textured-planes scene, the stacked
+   cutout scene and the glass stack at 256x256, test_msaa's triangle at
+   64x64 and 4 samples, a 64x64 skybox scene, a skinned scene and the
+   routine-registry scene, on the card and on the CPU.
 
 The last two lines are the card (nvidia-smi) and one JSON object
 {"ok": true, "device": {...}}; the line before them lists the kernels.
@@ -76,11 +94,15 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 KERNEL_NAMES = (
     "raster_resolve", "raster_msaa", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather",
-    "raster_vis", "shadow_occ", "shadow_occ_lt",
+    "raster_vis", "shadow_occ", "shadow_occ_lt", "probe_dot", "probe_reduce", "probe_lerp",
 )
 # The kernels each frame path must launch.
 FRAME_KERNELS = ("raster_resolve", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather")
 MSAA_KERNELS = ("raster_msaa", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather")
+# The kernels the feature frame must launch at 1 / 4 samples (K4 also for
+# the skybox, K2 for the new pose's shadow maps).
+FEATURE_KERNELS = {1: FRAME_KERNELS, 4: MSAA_KERNELS}
+PROBE_KERNELS = ("probe_dot", "probe_reduce", "probe_lerp")
 
 
 def log(msg):
@@ -121,9 +143,9 @@ def phase_build():
 
 
 def _counters():
-    from rend3_tpu_torch.ops import deferred, raster_binned, samplers, shadow
+    from rend3_tpu_torch.ops import deferred, probe_bf16, raster_binned, samplers, shadow
 
-    return (deferred.launches, samplers.launches, raster_binned.launches, shadow.launches)
+    return (deferred.launches, samplers.launches, raster_binned.launches, shadow.launches, probe_bf16.launches)
 
 
 def _launch_counts():
@@ -137,7 +159,7 @@ def _reset_launch_counts():
             d[k] = 0
 
 
-def _frame_fn(runner, target, settings, device):
+def _frame_fn(runner, target, settings, device, skybox_slot=None):
     """frame(label) renders one frame through the user's entry points and
     logs its host time, CUDA-event time, peak memory, stats and stages."""
     import torch
@@ -157,7 +179,7 @@ def _frame_fn(runner, target, settings, device):
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
         t0 = time.perf_counter()
-        img = graph.render_frame(ev, target, settings)
+        img = graph.render_frame(ev, target, settings, skybox_slot)
         host_ms = (time.perf_counter() - t0) * 1e3
         dev_ms = None
         if cuda:
@@ -361,6 +383,175 @@ def phase_representative(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=
             raise AssertionError(f"{name} frame {k} differs from the occlusion-off frame at {n} pixels")
     if np.array_equal(img2, img3):
         raise AssertionError("moving a building changed nothing")
+    log(f"image: {ref.shape}, non-background {(ref[..., :3] != 0).any(-1).mean():.4f}, mean {ref.mean():.3f}")
+    del keep
+    return graph, counts, ref
+
+
+def _same_with_nan(a, b):
+    """Equal bit for bit where not NaN, NaN at the same places."""
+    import torch
+
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return a.shape == b.shape and torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def _check_probe_runs(name, runs, init):
+    """Each run's output against its plain version: bit for bit where not
+    NaN, NaN at the same places. Runs not NaN-initialised must also hold
+    values (not NaN, not all zero), so that the comparison reads them."""
+    import torch
+
+    for r in runs:
+        p = r.plain()
+        if not _same_with_nan(r.out, p):
+            n = int(((r.out != p) & ~(torch.isnan(r.out) & torch.isnan(p))).sum())
+            raise AssertionError(f"{name} {r.name!r} (init {init}) differs from its plain version at {n} values")
+        n_val = int((~torch.isnan(r.out)).sum())
+        if init != "nan" and not (n_val > 0 and bool((r.out[~torch.isnan(r.out)] != 0).any())):
+            raise AssertionError(f"{name} {r.name!r} (init {init}) holds no nonzero value to compare")
+        log(f"{name} {r.name!r} ({'+'.join(r.kernels)}, init {init}): bit-exact against the plain version "
+            f"over {r.out.numel()} values, {n_val} of them not NaN")
+
+
+def phase_probes(device="cuda"):
+    """The three bf16 probe entry points (P1-P3), counted; every variant
+    against its plain version, as the entry points run it (NaN-initialised
+    outputs) and again on zero-initialised outputs, where the variants that
+    add into an output they never write first give values. Returns
+    (counts, {module: runs})."""
+    import torch
+
+    from rend3_tpu_torch.tools import probe_bf16_dot, probe_bf16_kernel, probe_bf16_real
+
+    _reset_launch_counts()
+    runs = {}
+    for mod in (probe_bf16_dot, probe_bf16_kernel, probe_bf16_real):
+        name = mod.__name__.rsplit(".", 1)[1]
+        log(f"python3 -m rend3_tpu_torch.tools.{name}:")
+        runs[name] = mod.run(device, log=lambda line: log("  " + line))
+    counts = _launch_counts()
+    log(f"launches of the probes: {counts}")
+    if torch.device(device).type == "cuda":
+        _check_launched(counts, PROBE_KERNELS)
+    for name, rs in runs.items():
+        _check_probe_runs(name, rs, "nan" if name != "probe_bf16_dot" else "none")
+    # P1 writes every output value; P2 and P3 once more from zeros.
+    for mod in (probe_bf16_kernel, probe_bf16_real):
+        name = mod.__name__.rsplit(".", 1)[1]
+        _check_probe_runs(name, mod.run(device, init="zero", log=lambda _line: None), "zero")
+    return counts, runs
+
+
+def _magenta(img):
+    """Pixels of exactly (255, 0, 255): the unregistered archetype's colour."""
+    return int(((img[..., 0] == 255) & (img[..., 1] == 0) & (img[..., 2] == 255)).sum())
+
+
+def phase_features(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600, samples=1, sky_size=512,
+                   n_columns=64):
+    """The feature city at `samples` samples: an occlusion-off reference
+    frame, then three counted occlusion-on frames, the third with a new
+    pose; returns (graph, counts, image)."""
+    import numpy as np
+    import torch
+
+    from rend3_tpu_torch import scenes
+    from rend3_tpu_torch.ops import deferred as D
+    from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget
+    from rend3_tpu_torch.routine.registry import unlit_routine
+    from rend3_tpu_torch.testing import TestRunner
+
+    t0 = time.perf_counter()
+    runner = TestRunner(device=device)
+    keep, info = scenes.feature_city(runner, n_buildings=n_buildings, sky_size=sky_size, n_columns=n_columns)
+    scenes.set_bench_camera(runner, width, height)
+    log(f"feature city built in {time.perf_counter() - t0:.2f} s: {len(info['skeletons'])} skinned columns, "
+        f"routines {sorted(r.archetype for r in info['routines'])}")
+    graph = runner.base_graph
+    graph.captured = {}
+    # The scene's passes, counted: unregistered and registered again wrapped.
+    calls = {"hdr": 0, "srgb": 0}
+
+    def counted(fn, stage):
+        def run(img, gbuf, uniforms):
+            calls[stage] += 1
+            return fn(img, gbuf, uniforms)
+        return run
+
+    for fn, stage in zip(info["passes"], ("hdr", "srgb")):
+        graph.unregister_pass(fn)
+        graph.register_pass(counted(fn, stage), stage=stage)
+    frame = _frame_fn(
+        runner, FrameRenderTarget(width, height, samples),
+        BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0)), device, skybox_slot=info["sky"].idx,
+    )
+    name = f"features{samples}"
+    cuda = torch.device(device).type == "cuda"
+    routine_px = {}
+
+    def mat_probe(img, gbuf, uniforms):
+        g = gbuf.data
+        m = torch.round(g[D.G_MAT])[g[D.G_HIT] > 0]
+        routine_px["n"] = int((m >= graph.last_stats["pbr_slots"]).sum())  # global slots past the PBR table
+        return img
+
+    graph.occlusion_culling = False
+    graph.register_pass(mat_probe, stage="hdr")
+    ref = frame(f"{name} 0 (occlusion off, the reference)")
+    graph.unregister_pass(mat_probe)
+    s_off = graph.last_stats["main_survivors"]
+    graph.occlusion_culling = True
+    _reset_launch_counts()
+    calls.update(hdr=0, srgb=0)
+    img1 = frame(f"{name} 1 (occlusion on, predicts every triangle)")
+    sky_k4 = [graph.last_stats["sky_k4_launches"]]
+    img2 = frame(f"{name} 2 (occlusion on, the carried mask, same pose)")
+    sky_k4.append(graph.last_stats["sky_k4_launches"])
+    st = dict(graph.last_stats)
+    s_on2 = st["main_survivors"] + st["resid_survivors"]
+    k2_after_2 = _launch_counts()["raster_depth"]
+    state2 = graph._shadow_cache[0]
+    scenes.pose_columns(runner, info["skeletons"], 1.0)
+    img3 = frame(f"{name} 3 (occlusion on, a new pose)")
+    sky_k4.append(graph.last_stats["sky_k4_launches"])
+    counts = _launch_counts()
+    n_sky = int(graph.captured["bilinear_sky"][-1].sum())
+    log(f"launches during the three {name} frames: {counts}; skybox K4 launches per frame {sky_k4}; "
+        f"pass calls {calls}; {n_sky} sky queries in frame 3; {routine_px['n']} routine G-buffer pixels")
+    log(f"frame 2 opaque survivors: main + resid = {s_on2} vs {s_off} with occlusion off")
+    if cuda:
+        _check_launched(counts, FEATURE_KERNELS[samples])
+        if min(sky_k4) < 1:
+            raise AssertionError(f"the skybox did not launch K4 in every frame: {sky_k4}")
+        if counts["raster_depth"] <= k2_after_2:
+            raise AssertionError("the new pose did not re-raster the shadow maps")
+    if graph._shadow_cache[0] == state2:
+        raise AssertionError("the new pose did not invalidate the shadow maps")
+    if calls != {"hdr": 3, "srgb": 3}:
+        raise AssertionError(f"the injected passes did not run once per frame: {calls}")
+    if st["samples"] != samples or not n_sky or not routine_px["n"]:
+        raise AssertionError(f"no sky pixels ({n_sky}) or no routine pixels ({routine_px['n']}), stats {st}")
+    if not (st["cut_survivors"] > 0 and st["blend_px"] > 0):
+        raise AssertionError(f"frame 2 did not run the cutout and blend peels: {st}")
+    for img in (ref, img1, img2, img3):
+        _check_image(img, width, height)
+        if _magenta(img):
+            raise AssertionError(f"the archetype with no routine drew {_magenta(img)} pixels")
+    if not s_on2 < s_off:
+        raise AssertionError(f"occlusion culling did not cut the survivors ({s_on2} vs {s_off})")
+    for k, img in ((1, img1), (2, img2)):
+        if not np.array_equal(img, ref):
+            n = int((img != ref).any(-1).sum())
+            raise AssertionError(f"{name} frame {k} differs from the occlusion-off frame at {n} pixels")
+    if np.array_equal(img2, img3):
+        raise AssertionError("the new pose changed nothing")
+    # The control: with a routine, the hidden archetype's signs do draw.
+    graph.register_routine(unlit_routine(info["classes"]["HiddenSignMaterial"]))
+    shown = _magenta(frame(f"{name} control (a routine for the hidden archetype)"))
+    log(f"the archetype with no routine drew 0 pixels; with a routine it draws {shown}")
+    if not shown:
+        raise AssertionError("the hidden archetype's signs are not in view: the check above proves nothing")
     log(f"image: {ref.shape}, non-background {(ref[..., :3] != 0).any(-1).mean():.4f}, mean {ref.mean():.3f}")
     del keep
     return graph, counts, ref
@@ -686,6 +877,14 @@ def phase_kernels(paths, extra_rows=(), timed=True):
     a4 = tcap["bilinear"]
     err4 = k4_check("textures", a4)
     k4_check("cutout alpha test", rcap["bilinear_cutout"])
+    sky = paths["features"][0].captured["bilinear_sky"]
+    k4_check("skybox", sky)
+    if timed:
+        n_sky = int(sky[-1].sum())
+        b_sky = _bound(_nbytes(*sky[1:]) + 16 * sky[1].numel() + min(_nbytes(sky[0]), n_sky * 4 * 8), n_sky * 40)
+        log(f"K4 (skybox, store {tuple(sky[0].shape)}, {n_sky} sky queries): kernel {_median_ms(lambda: S.sample_grid_bilinear(*sky), 20)} ms, "
+            f"plain {_median_ms(lambda: S.sample_grid_bilinear_plain(*sky), 5)} ms (median); bound {b_sky[0]:.6f} ms "
+            f"({b_sky[1]})")
     n_valid = int(a4[-1].sum())
     b4 = _bound(_nbytes(*a4[1:]) + 16 * a4[1].numel() + min(_nbytes(a4[0]), n_valid * 4 * 8), n_valid * 40)
     rows.append(("bilinear", "rend3_tpu_torch/csrc/bilinear.cu", "rend3_tpu/ops/mxu_gather.py:645",
@@ -731,6 +930,69 @@ def phase_kernels(paths, extra_rows=(), timed=True):
     return kernels
 
 
+def _probe_err(label, kfn, pfn):
+    """Max abs difference of a P-kernel and its plain version, read from
+    values: NaN positions must agree and some value must not be NaN."""
+    import torch
+
+    k, p = kfn(), pfn()
+    nan = torch.isnan(k)
+    if not torch.equal(nan, torch.isnan(p)) or bool(nan.all()):
+        raise AssertionError(f"{label}: NaN positions differ from the plain version, or no value is not NaN")
+    err = float((k[~nan] - p[~nan]).abs().max())
+    log(f"{label}: max abs err {err} against the plain version over {int((~nan).sum())} values")
+    if err != 0.0:
+        raise AssertionError(f"{label} differs from its plain version by {err}")
+    return err
+
+
+def probe_rows(runs):
+    """Kernel rows of P1-P3 (probe_dot on P1's f32 variant, probe_reduce on
+    P2 v2's inputs, probe_lerp on P3's full bf16 variant, both on a
+    zero-initialised output): each kernel alone, its plain version, its
+    error read from values, bound and library call."""
+    import torch
+
+    from rend3_tpu_torch.ops import probe_bf16 as pb
+
+    dot = runs["probe_bf16_dot"][0]
+    a, b = dot.args["a"], dot.args["b"]
+    K, M, N = a.shape[0], a.shape[1], b.shape[1]
+    fns = (lambda: pb.probe_dot(a, b, bf16=False), lambda: pb.probe_dot_plain(a, b, bf16=False))
+    rows = [("probe_dot", "rend3_tpu_torch/csrc/probe_bf16.cu", "tools/probe_bf16_dot.py:22",
+             *fns, _probe_err("probe_dot", *fns),
+             _bound(4 * (K * M + K * N + M * N), 2 * K * M * N), lambda: torch.matmul(a.T, b))]
+
+    v2 = runs["probe_bf16_kernel"][1]
+    t, y, x = (v2.args[k] for k in ("t", "y", "x"))
+    out = torch.zeros_like(v2.args["out"])
+    r2 = pb.probe_dot(t, y, bf16=True)
+    n = r2.shape[1]
+    fns = (lambda: pb.probe_reduce(r2, x, out, accumulate=True),
+           lambda: pb.probe_reduce_plain(r2, x, out, accumulate=True))
+    rows.append(("probe_reduce", "rend3_tpu_torch/csrc/probe_bf16.cu", "tools/probe_bf16_kernel.py:44",
+                 *fns, _probe_err("probe_reduce", *fns),
+                 _bound(_nbytes(r2, x) + 2 * 4 * 4 * n, 2 * r2.shape[0] * n),
+                 lambda: torch.einsum("jp,cjp->cp", x, r2.view(4, 128, n))))
+
+    real = runs["probe_bf16_real"][1]
+    ra = dict(real.args)
+    kw = {k: ra.pop(k) for k in ("mode", "npb", "gx", "lt", "hs", "ws")}
+    args = (ra["t"], ra["f"], ra["coords"], ra["st"], ra["sc"], ra["sf"], torch.zeros_like(ra["out"]))
+    # Work this run's steps need: per selected (step, band) pixel, the
+    # y-weights (6 operations) and per channel two two-hot columns (a
+    # product and an fma each) and the x-lerp (5).
+    bands = sum(bin(int(f) & 15).count("1") for f in ra["sf"].tolist())
+    cells = len(set(ra["sc"].tolist()))
+    ops = bands * kw["npb"] * (6 + 4 * (2 * 3 + 5))
+    bytes_moved = cells * ra["t"][0].numel() * 4 + _nbytes(ra["f"], ra["coords"], ra["st"], ra["sc"], ra["sf"]) + 2 * _nbytes(ra["out"])
+    fns = (lambda: pb.probe_lerp(*args, **kw), lambda: pb.probe_lerp_plain(*args, **kw))
+    rows.append(("probe_lerp", "rend3_tpu_torch/csrc/probe_bf16.cu", "tools/probe_bf16_real.py:22",
+                 *fns, _probe_err("probe_lerp", *fns), _bound(bytes_moved, ops), None))
+    log(f"P3 timing inputs: {len(ra['sf'])} steps, {bands} selected bands of {kw['npb']} pixels, {cells} cells")
+    return rows
+
+
 def shadow_scene(runner):
     """The scene of tests/test_shadow.py (plane + cube, one light)."""
     import numpy as np
@@ -768,10 +1030,30 @@ def msaa_triangle(runner):
     return [mesh_hdl, mat, obj]
 
 
+def skinned_scene(runner):
+    """scenes.skinned_columns, then a new pose (rendered by the caller)."""
+    from rend3_tpu_torch import scenes
+
+    keep, skeletons = scenes.skinned_columns(runner)
+    scenes.pose_columns(runner, skeletons, 0.8)
+    return keep
+
+
+def registry_scene(runner):
+    """tests/test_routine_registry.py:55-71's scene with the unlit routine."""
+    from rend3_tpu_torch import scenes
+    from rend3_tpu_torch.routine.registry import unlit_routine
+
+    flat = scenes.flat_material_class("FlatMaterial")
+    runner.base_graph.register_routine(unlit_routine(flat))
+    return scenes.registry_scene(runner, flat)
+
+
 def phase_parity(device="cuda"):
     import numpy as np
 
     from rend3_tpu_torch import scenes
+    from rend3_tpu_torch.routine.base import FrameRenderTarget
     from rend3_tpu_torch.testing import FrameRenderSettings, TestRunner
 
     for name, build, size, samples in (
@@ -780,12 +1062,22 @@ def phase_parity(device="cuda"):
         ("stacked cutout", scenes.stacked_cutout, 256, 1),
         ("glass stack", scenes.glass_stack, 256, 1),
         ("msaa triangle", msaa_triangle, 64, 4),
+        ("skybox", scenes.skybox_cube, 64, 4),
+        ("skinned columns", skinned_scene, 64, 1),
+        ("routine registry", registry_scene, 128, 1),
     ):
         imgs = []
         for dev in (device, "cpu"):
             runner = TestRunner(device=dev)
             keep = build(runner)
-            imgs.append(runner.render_frame(FrameRenderSettings(size=size, samples=samples)))
+            if build is scenes.skybox_cube:
+                runner.renderer.swap_instruction_buffers()
+                imgs.append(runner.base_graph.render_frame(
+                    runner.renderer.evaluate_instructions(), FrameRenderTarget(size, size, samples),
+                    skybox_slot=keep[-1].idx,
+                ))
+            else:
+                imgs.append(runner.render_frame(FrameRenderSettings(size=size, samples=samples)))
             del keep
         diff = int(np.abs(imgs[0].astype(np.int32) - imgs[1].astype(np.int32)).max())
         log(f"parity: {name} scene {size}x{size} at {samples} sample(s), {device} vs cpu max u8 diff {diff}")
@@ -827,7 +1119,12 @@ def main():
         occ_counts, occ_rows = timed("map-free shadows", phase_mapfree, rep_graph)
         paths["visibility"] = (rep_graph, vis_counts)
         paths["map-free"] = (rep_graph, occ_counts)
-        kernels = timed("kernels", phase_kernels, paths, vis_rows + occ_rows)
+        probe_counts, probe_runs = timed("probes", phase_probes)
+        paths["probes"] = (None, probe_counts)
+        for samples in (1, 4):
+            graph, counts, _img = timed(f"features{samples}", phase_features, samples=samples)
+            paths["features" if samples == 1 else "features-msaa"] = (graph, counts)
+        kernels = timed("kernels", phase_kernels, paths, vis_rows + occ_rows + probe_rows(probe_runs))
         timed("parity", phase_parity)
         smi = nvidia_smi_line()
     except Exception:  # noqa: BLE001 - any failed phase fails the run

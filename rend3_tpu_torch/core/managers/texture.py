@@ -8,8 +8,8 @@ mip-chained texture atlas (ops/texture.py): a full shelf pack on the first
 `evaluate`, later adds placed incrementally into the resident atlas, removes
 clearing only the rect table. The atlas lives on the renderer's device in
 bf16, (AH, AW, 4) interleaved, the texel type kernel K4 reads. The cube
-manager's device side (the skybox) is not ported yet (ROADMAP queue 1,
-item 12), so its `evaluate` raises.
+manager's device side (the skybox) is ops/texture.CubeArrays: the faces and
+K4's padded bf16 face store, rebuilt whole when a cube texture changes.
 """
 
 from __future__ import annotations
@@ -174,15 +174,17 @@ class TextureManager:
         return True
 
     def evaluate(self):
-        """The device texture arrays (ops/texture.TextureArrays), rebuilt
-        only when textures changed since the last call."""
-        if self.kind == "cube":
-            raise NotImplementedError(
-                "cube textures are not ported yet (ROADMAP queue 1, item 12 'Off the main path, in the frame')"
-            )
+        """The device texture arrays (ops/texture.TextureArrays, or
+        CubeArrays for the cube manager, None without cube textures),
+        rebuilt only when textures changed since the last call."""
         if not self.dirty and self._device_arrays is not None:
             return self._device_arrays
         from ...ops import texture as tex_ops
+
+        if self.kind == "cube":
+            self._device_arrays = tex_ops.build_cube_array(self.data, self.device)
+            self.dirty = False
+            return self._device_arrays
 
         if self._atlas_dev is None or not self._try_incremental(tex_ops):
             self._full_pack(tex_ops)

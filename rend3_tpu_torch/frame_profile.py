@@ -1,6 +1,6 @@
 """Time and trace the port's frame on a CUDA device.
 
-    python -m rend3_tpu_torch.frame_profile [--scene flat|textured|representative] [--samples 1|4]
+    python -m rend3_tpu_torch.frame_profile [--scene flat|textured|representative|features] [--samples 1|4]
                                             [--frames N] [--trace-dir DIR]
 
 Renders a 600-building city at 1920x1080 on the card and prints one JSON
@@ -10,13 +10,17 @@ shadow map, occlusion culling off, as the first slice timed it),
 textures with mips, 2048² and 1024² shadow maps, two-phase occlusion
 culling on) or `representative` (the whole bench frame,
 build_city_scene(representative=True): the textured city plus 340
-alpha-tested foliage objects and 16 glass panes, occlusion culling on), at
-1 sample or 4 (MSAA, `--samples 4`). The line holds:
+alpha-tested foliage objects and 16 glass panes, occlusion culling on) or
+`features` (scenes.feature_city: the representative frame with a 512²
+skybox, 64 skinned columns, three registered material routines and an
+"hdr" and an "srgb" pass), at 1 sample or 4 (MSAA, `--samples 4`). The
+line holds:
 
 - static_ms: median frame time (host clock around render_frame_tensor plus a
   synchronize) when the shadow map is cached;
-- dynamic_ms: the same when a building moves every frame, so the shadow map
-  is re-rasterized (the reference re-renders shadows every frame);
+- dynamic_ms: the same when a building moves every frame (in `features`,
+  the columns' joints), so the shadow map is re-rasterized (the reference
+  re-renders shadows every frame);
 - stages_ms / peak_mib: the per-stage CUDA-event split and the peak device
   memory of one static frame; dynamic_stages_ms / dynamic_peak_mib /
   dynamic_stats: the same for one frame with a moved building;
@@ -41,7 +45,7 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("flat", "textured", "representative"), default="flat")
+    ap.add_argument("--scene", choices=("flat", "textured", "representative", "features"), default="flat")
     ap.add_argument("--samples", type=int, choices=(1, 4), default=1)
     ap.add_argument("--frames", type=int, default=10)
     ap.add_argument("--trace-dir", default=None)
@@ -56,8 +60,12 @@ def main() -> int:
 
     width, height = 1920, 1080
     runner = TestRunner(device="cuda")
+    skybox_slot = None
     if args.scene == "textured":
         keep = scenes.textured_city(runner, n_buildings=600)
+    elif args.scene == "features":
+        keep, info = scenes.feature_city(runner, n_buildings=600)
+        skybox_slot = info["sky"].idx
     else:
         keep = scenes.build_city_scene(runner, n_buildings=600, representative=args.scene == "representative")
     scenes.set_bench_camera(runner, width, height)
@@ -71,9 +79,12 @@ def main() -> int:
     def frame():
         runner.renderer.swap_instruction_buffers()
         ev = runner.renderer.evaluate_instructions()
-        return graph.render_frame_tensor(ev, target, settings)
+        return graph.render_frame_tensor(ev, target, settings, skybox_slot)
 
     def move(i):
+        if args.scene == "features":
+            scenes.pose_columns(runner, info["skeletons"], 0.1 * (i + 1))
+            return
         runner.renderer.set_object_transform(
             building, m3.translation([24.0 + 0.01 * i, 25.0, -40.0]) @ m3.scale([3.0, 25.0, 3.0])
         )

@@ -16,7 +16,9 @@ jax; the inputs are numpy arrays or anything `np.asarray` accepts.
 - the visibility buffer: `vis_buffer`;
 - shadow maps: `tensor`;
 - the texture atlas and its tables (`texture_arrays`), from the JAX
-  `TextureArrays`.
+  `TextureArrays`;
+- cube textures (`cube_arrays`) from the JAX `CubeArrays` faces and sizes;
+- the skinning work list (`skin_inputs`) from the JAX `SkinInputs`.
 """
 
 from __future__ import annotations
@@ -27,12 +29,14 @@ import torch
 from .core.framestate import GeometryArrays
 from .ops.geometry import BinnedTris, TriSetup
 from .ops.raster import VisBuffer
+from .ops import texture as _texture
 from .ops.shade import DirLightArrays, PointLightArrays
-from .ops.texture import TextureArrays
+from .ops.skin import SkinInputs, direction_list
+from .ops.texture import CubeArrays, TextureArrays
 
 __all__ = [
     "tensor", "geometry_arrays", "tri_setup", "planes", "binned", "vis_buffer", "dir_lights",
-    "point_lights", "texture_arrays",
+    "point_lights", "texture_arrays", "cube_arrays", "skin_inputs",
 ]
 
 
@@ -112,4 +116,30 @@ def texture_arrays(atlas, rects, mip_counts, device="cpu") -> TextureArrays:
         atlas=tensor(atlas, device, torch.float32).to(torch.bfloat16),
         rects=tensor(rects, device, torch.float32),
         mip_counts=tensor(mip_counts, device, torch.int32),
+    )
+
+
+def cube_arrays(faces, sizes, device="cpu") -> CubeArrays:
+    """From the JAX CubeArrays' (N+1, 6, E, E, 4) f32 faces and (N+1,)
+    sizes; K4's padded bf16 store is built from them as the port builds it."""
+    return _texture.cube_arrays(np.asarray(faces, np.float32), np.asarray(sizes, np.int32), device)
+
+
+def skin_inputs(si, device="cpu") -> SkinInputs:
+    """From any object with the JAX SkinInputs' fields (src_ids, src_ids_n,
+    src_ids_t, dst_ids, dst_ids_n, dst_ids_t, joint_ids, joint_weights,
+    joint_matrices); the -1 normal and tangent rows are left out of their
+    lists, as the port's build_skin_inputs does."""
+    a = {f: np.asarray(getattr(si, f)) for f in (
+        "src_ids", "src_ids_n", "src_ids_t", "dst_ids", "dst_ids_n", "dst_ids_t", "joint_ids", "joint_weights",
+        "joint_matrices",
+    )}
+    return SkinInputs(
+        src_ids=tensor(a["src_ids"], device, torch.int64),
+        dst_ids=tensor(a["dst_ids"], device, torch.int64),
+        joint_ids=tensor(a["joint_ids"], device, torch.int64),
+        joint_weights=tensor(a["joint_weights"], device, torch.float32),
+        joint_matrices=tensor(a["joint_matrices"], device, torch.float32),
+        normal=direction_list(a["src_ids_n"].astype(np.int64), a["dst_ids_n"].astype(np.int64), device),
+        tangent=direction_list(a["src_ids_t"].astype(np.int64), a["dst_ids_t"].astype(np.int64), device),
     )

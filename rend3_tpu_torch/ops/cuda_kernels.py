@@ -38,7 +38,7 @@ __all__ = ["build", "library", "call", "SOURCES", "NVCC_FLAGS"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("raster.cu", "pcf5.cu", "bilinear.cu", "gather.cu", "shadow_occ.cu")
+SOURCES = ("raster.cu", "pcf5.cu", "bilinear.cu", "gather.cu", "shadow_occ.cu", "probe_bf16.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-lineinfo", "-Xcompiler", "-fPIC")
 
@@ -51,6 +51,9 @@ _SIGNATURES = {
     "k5_gather": (6, 4, 0),
     "k6_raster_vis": (6, 3, 8),
     "k7_shadow_occ": (8, 3, 0),
+    "p1_probe_dot": (3, 6, 0),
+    "p2_probe_reduce": (3, 2, 0),
+    "p3_probe_lerp": (7, 10, 0),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -43,6 +43,7 @@ __all__ = [
     "raster_resolve",
     "raster_depth",
     "fma32",
+    "sqrt32",
 ]
 
 DTILE_H = 32
@@ -107,6 +108,17 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     tie = (d != 0) & (2.0 * d == nb.double() - r64)
     fix = tie & (err != 0) & ((err > 0) == (d > 0))
     return torch.where(fix, nb, r)
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt, as XLA and CUDA compute it.
+
+    The CPU float32 torch.sqrt of some PyTorch builds is off by an ulp on a
+    sizeable share of inputs; there the sqrt is taken in float64 and
+    rounded, which is exact (53 >= 2*24 + 2 bits, so no double rounding)."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).to(x.dtype)
 
 
 def plane_eval(a, b, c, px, py):
@@ -185,7 +197,7 @@ def attribute_planes(
     tan_c = mv3_apply(gattr(geo.tangent, 2, [0.0, 0.0, 0.0]) * inv_scale_sq[:, None, :])
 
     def _norm(v):
-        n = torch.sqrt(sum3(v * v, 2))[..., None]
+        n = sqrt32(sum3(v * v, 2))[..., None]
         return v / torch.where(n == 0.0, torch.ones_like(n), n)
 
     nrm_c = _norm(nrm_c)

@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from .deferred import sqrt32
+
 __all__ = [
     "MF",
     "PbrMaterialTable",
@@ -134,7 +136,7 @@ def _dot_p(a, b):
 
 
 def _normalize_p(v):
-    n = torch.sqrt(_sum_rows(v * v))
+    n = sqrt32(_sum_rows(v * v))
     return v / torch.where(n == 0.0, torch.ones_like(n), n)
 
 
@@ -164,8 +166,8 @@ def brdf_f_schlick(u, f0, f90):
 
 def brdf_v_smith_ggx_correlated(nov, nol, a):
     a2 = a * a
-    ggxl = nov * torch.sqrt((-nol * a2 + nol) * nol + a2)
-    ggxv = nol * torch.sqrt((-nov * a2 + nov) * nov + a2)
+    ggxl = nov * sqrt32((-nol * a2 + nol) * nol + a2)
+    ggxv = nol * sqrt32((-nov * a2 + nov) * nov + a2)
     return 0.5 / (ggxl + ggxv)
 
 
@@ -243,7 +245,7 @@ def _shade_pixels(
         bicomp2 = torch.where(
             fl(MF.SWIZZLED_NORMAL), torch.cat([tex_normal[3:4], tex_normal[1:2]], dim=0), tex_normal[:2]
         ) * 2.0 - 1.0
-        bz = torch.sqrt(torch.clamp_min(1.0 - _sum_rows(bicomp2 ** 2), 0.0))
+        bz = sqrt32(torch.clamp_min(1.0 - _sum_rows(bicomp2 ** 2), 0.0))
         n_bi = torch.cat([bicomp2, bz], dim=0)
         n_tri = _normalize_p(tex_normal[:3] * 2.0 - 1.0)
         n_tex = torch.where(fl(MF.BICOMPONENT_NORMAL), n_bi, n_tri)
@@ -323,7 +325,7 @@ def _shade_pixels(
     for i in range(dir_lights.mask.shape[0]):
         shadow_value = shadow_values[i][None, :]
         dvec = view3 @ (-dir_lights.direction[i])
-        dn = torch.sqrt((dvec * dvec).sum())
+        dn = sqrt32((dvec * dvec).sum())
         l = dvec / torch.where(dn == 0.0, torch.ones_like(dn), dn)
         contrib = surface_shading(
             l[:, None].expand(3, N), dir_lights.color[i][:, None],
@@ -337,7 +339,7 @@ def _shade_pixels(
     for i in range(point_lights.mask.shape[0]):
         lp4 = torch.cat([point_lights.position[i], torch.ones(1, device=dev)])
         delta = (uniforms.view @ lp4)[:3][:, None] - view_pos
-        d = torch.sqrt(_sum_rows(delta * delta))
+        d = sqrt32(_sum_rows(delta * delta))
         s = _saturate(d / point_lights.radius[i])
         s2 = s * s
         inv_s2 = 1.0 - s2

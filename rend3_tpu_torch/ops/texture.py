@@ -16,7 +16,13 @@ per-pixel uv and gradients into two mip queries and runs them all through
 one launch of kernel K4 (samplers.sample_grid_bilinear). The TPU build's
 one-hot MXU lookups of the rect and mip tables become index gathers.
 `sample_textures` is the scalar sampler, kept as the tests' oracle.
-Cube textures and the skybox are not ported yet (ROADMAP queue 1, item 12).
+
+Cube textures (the skybox): `build_cube_array` keeps every cube's faces
+and, for the sampler, the padded face grid with a replicated one-texel
+border, stacked row-wise and held as the same bf16 interleaved store K4
+reads; `sample_cube_grid` turns directions into face texel queries and
+runs them through the same K4 entry point as the atlas. `sample_cube` is
+the scalar sampler, the tests' oracle.
 """
 
 from __future__ import annotations
@@ -26,16 +32,21 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
-from .deferred import fma32
+from .deferred import fma32, sqrt32
 from .samplers import sample_grid_bilinear
 
 __all__ = [
     "TextureArrays",
+    "CubeArrays",
     "build_texture_atlas_state",
+    "build_cube_array",
+    "cube_arrays",
     "gutter_block",
     "ShelfState",
     "sample_textures",
     "sample_textures_grid",
+    "sample_cube",
+    "sample_cube_grid",
     "MAX_MIPS",
     "NSLOT",
 ]
@@ -48,6 +59,14 @@ class TextureArrays(NamedTuple):
     atlas: torch.Tensor       # (AH, AW, 4) bf16 linear texels
     rects: torch.Tensor       # (N+1, MAX_MIPS, 4) f32: x, y, w, h texels
     mip_counts: torch.Tensor  # (N+1,) int32 (slot 0 = null texture)
+
+
+class CubeArrays(NamedTuple):
+    faces: torch.Tensor       # (N+1, 6, E, E, 4) f32 (slot 0 empty), for the scalar sampler
+    sizes: torch.Tensor       # (N+1,) int32 actual face extent
+    # K4's store: every face padded with a replicated one-texel border and
+    # stacked row-wise, ((N+1)*6*(E+2), E+2, 4) bf16 interleaved.
+    store: torch.Tensor
 
 
 def _shelf_pack(sizes):
@@ -217,7 +236,7 @@ def sample_textures(tex: TextureArrays, slots, uv, duv, mflags) -> torch.Tensor:
         twh = base_rect[:, 2:4]
         dx = duv[:, 0] * twh
         dy = duv[:, 1] * twh
-        rho = torch.maximum(torch.sqrt((dx * dx).sum(-1)), torch.sqrt((dy * dy).sum(-1)))
+        rho = torch.maximum(sqrt32((dx * dx).sum(-1)), sqrt32((dy * dy).sum(-1)))
         lam = _log2(torch.clamp_min(rho, 1e-12))
         lam = torch.minimum(torch.clamp_min(lam, 0.0), (nmips - 1).float())
     else:
@@ -277,7 +296,7 @@ def sample_textures_grid(
             tw, th = tex.rects[s, 0, 2], tex.rects[s, 0, 3]
             dxu, dxv = duv[0] * tw, duv[1] * th
             dyu, dyv = duv[2] * tw, duv[3] * th
-            rho = torch.maximum(torch.sqrt(dxu * dxu + dxv * dxv), torch.sqrt(dyu * dyu + dyv * dyv))
+            rho = torch.maximum(sqrt32(dxu * dxu + dxv * dxv), sqrt32(dyu * dyu + dyv * dyv))
             lam = torch.minimum(torch.clamp_min(_log2(torch.clamp_min(rho, 1e-12)), 0.0), nmips - 1.0)
         else:
             lam = torch.zeros(N, dtype=torch.float32, device=coords.device)
@@ -319,3 +338,121 @@ def sample_textures_grid(
         res = out[:, 2 * i] + out[:, 2 * i + 1]
         samples[q] = torch.where((mtex[q] > 0)[None, :], res, torch.ones_like(res))
     return samples
+
+
+# ---------------------------------------------------------------------------
+# Cube textures (the skybox)
+# ---------------------------------------------------------------------------
+
+
+def build_cube_array(textures: Dict[int, object], device="cpu"):
+    """CubeArrays of every cube texture's base level (texture.py:184-224),
+    or None without cube textures. Slot idx + 1 holds texture idx."""
+    if not textures:
+        return None
+    n_slots = max(textures.keys()) + 1
+    ext = max(t.mips[0].shape[1] for t in textures.values())
+    faces = np.zeros((n_slots + 1, 6, ext, ext, 4), dtype=np.float32)
+    sizes = np.zeros(n_slots + 1, dtype=np.int32)
+    for idx, t in textures.items():
+        e = t.mips[0].shape[1]
+        faces[idx + 1, :, :e, :e] = t.mips[0]
+        sizes[idx + 1] = e
+    return cube_arrays(faces, sizes, device)
+
+
+def cube_arrays(faces: np.ndarray, sizes: np.ndarray, device="cpu"):
+    """CubeArrays from (N+1, 6, E, E, 4) f32 faces and (N+1,) sizes: the
+    faces, and K4's store of every face padded with a replicated border
+    (the scalar sampler clamps each tap to [0, e-1]; with base bx / by =
+    tap0 + 1 in [0, e] the taps stay inside the padded block and read the
+    same clamped texels)."""
+    P = faces.shape[2] + 2
+    grid = np.zeros(faces.shape[:2] + (P, P, 4), dtype=np.float32)
+    for slot, e in enumerate(np.asarray(sizes).tolist()):
+        if e == 0:
+            continue
+        f = faces[slot, :, :e, :e]
+        g = grid[slot]
+        g[:, 1 : e + 1, 1 : e + 1] = f
+        g[:, 0, 1 : e + 1] = f[:, 0]
+        g[:, e + 1, 1 : e + 1] = f[:, e - 1]
+        g[:, :, 0] = g[:, :, 1]
+        g[:, :, e + 1] = g[:, :, e]
+    return CubeArrays(
+        faces=torch.tensor(faces, dtype=torch.float32, device=device),
+        sizes=torch.tensor(sizes, dtype=torch.int32, device=device),
+        store=torch.from_numpy(grid.reshape(-1, P, 4)).to(device).to(torch.bfloat16),
+    )
+
+
+def _cube_face_coords(cube: CubeArrays, slot: int, dirs: torch.Tensor):
+    """Face selection and in-face texel coordinates of (N, 3) directions
+    (texture.py:227-244): (face (N,) int64, xf, yf (N,) f32, unfloored).
+    `u * e - 0.5` is one fma, the form XLA:CPU gives the JAX frame."""
+    x, y, z = dirs[:, 0], dirs[:, 1], dirs[:, 2]
+    ax, ay, az = x.abs(), y.abs(), z.abs()
+    is_x = (ax >= ay) & (ax >= az)
+    is_y = (~is_x) & (ay >= az)
+
+    def pick(a, b):
+        return torch.where(is_x, a, b)
+
+    def sel(c, a, b):
+        return torch.where(c, torch.as_tensor(a, device=dirs.device), torch.as_tensor(b, device=dirs.device))
+
+    face = pick(sel(x > 0, 0, 1), torch.where(is_y, sel(y > 0, 2, 3), sel(z > 0, 4, 5)))
+    ma = torch.clamp_min(pick(ax, torch.where(is_y, ay, az)), 1e-20)
+    uc = pick(torch.where(x > 0, -z, z), torch.where(is_y, x, torch.where(z > 0, x, -x)))
+    vc = torch.where(is_y, torch.where(y > 0, z, -z), -y)
+    u = 0.5 * (uc / ma + 1.0)
+    v = 0.5 * (vc / ma + 1.0)
+    e = cube.sizes[slot].float()
+    minus_half = torch.full((), -0.5, dtype=torch.float32, device=dirs.device)
+    return face.long(), fma32(u, e, minus_half), fma32(v, e, minus_half)
+
+
+def sample_cube(cube: CubeArrays, slot: int, dirs: torch.Tensor) -> torch.Tensor:
+    """Scalar bilinear cube sample with clamped taps, wgpu face order +X,
+    -X, +Y, -Y, +Z, -Z (texture.py:388-413): (N, 3) directions -> (N, 4)
+    from the f32 faces."""
+    face, xf, yf = _cube_face_coords(cube, slot, dirs)
+    x0 = torch.floor(xf)
+    y0 = torch.floor(yf)
+    fx = (xf - x0)[:, None]
+    fy = (yf - y0)[:, None]
+    faces = cube.faces[slot]
+    e = int(cube.sizes[slot])
+
+    def fetch(xi, yi):
+        return faces[face, yi.long().clamp(0, e - 1), xi.long().clamp(0, e - 1)]
+
+    top = fetch(x0, y0) * (1 - fx) + fetch(x0 + 1, y0) * fx
+    bot = fetch(x0, y0 + 1) * (1 - fx) + fetch(x0 + 1, y0 + 1) * fx
+    return top * (1 - fy) + bot * fy
+
+
+def sample_cube_grid(cube: CubeArrays, slot: int, dirs_list, valid_list=None, *, capture: dict = None):
+    """Cube bilinear sampling through K4 (texture.py:247-303): every entry's
+    (N, 3) directions become queries into the padded face grid (base texel
+    floor + 1, so the replicated border stands in for the clamp), all
+    entries in one launch. Returns a list of (N, 4) samples; 0 where an
+    entry's optional (N,) bool valid mask is false."""
+    P = cube.store.shape[1]
+    q_bx, q_by, q_fx, q_fy, q_valid = [], [], [], [], []
+    for i, dirs in enumerate(dirs_list):
+        face, xf, yf = _cube_face_coords(cube, slot, dirs)
+        x0 = torch.floor(xf)
+        y0 = torch.floor(yf)
+        q_bx.append((x0.to(torch.int32) + 1))
+        q_by.append(((slot * 6 + face) * P + y0.long() + 1).to(torch.int32))
+        q_fx.append(xf - x0)
+        q_fy.append(yf - y0)
+        v = None if valid_list is None else valid_list[i]
+        q_valid.append(torch.ones_like(xf, dtype=torch.bool) if v is None else v)
+    bx, by, fx, fy, valid = (torch.cat(a) for a in (q_bx, q_by, q_fx, q_fy, q_valid))
+    args = (cube.store, bx, by, fx, fy, torch.ones_like(fx), valid)
+    if capture is not None:
+        capture["bilinear"] = args
+    out = sample_grid_bilinear(*args)  # (4, sum N)
+    return list(out.T.split([int(d.shape[0]) for d in dirs_list]))

@@ -2,20 +2,23 @@
 
 Port of rend3_tpu/routine/base.py for the deferred frame at 1 or 4 samples
 (MSAA 4): opaque, cutout (alpha-tested) and alpha-blended materials,
-textures, shadows and two-phase Hi-Z occlusion culling. In the JAX package
+textures, shadows, two-phase Hi-Z occlusion culling, and the frame's
+extension features: the skybox (on K4), GPU skinning, registered material
+routines in all three transparency modes and injected passes. In the JAX package
 `render_frame` traces one closure into one XLA program (base.py:1147-2110);
 here each stage is a function over torch tensors on the renderer's device:
 
-    upload -> shadow maps (K2, cached) -> clip -> setup -> planes -> bin ->
+    upload (skinning) -> shadow maps (K2, cached) -> clip -> setup -> planes -> bin ->
     G-buffer per sample (K1) -> [occlusion on: Hi-Z pyramid of the min over
     samples + visibility test (K5) -> residual setup / planes / bin,
     G-buffer per sample (K1) and merge] -> [cutout peels: Hi-Z-tested setup
     (K5), planes, bin, then per sample K1 count and bound modes and the
-    alpha test (K4)] -> [blend peels: shared geometry, per sample K1 count
-    and bound modes, compacted hit pixels] -> shadow coordinates -> PCF (K3,
-    every sample's opaque and blend pixels in one launch) -> per sample
-    textures (K4), lighting, blend shading and compositing -> f16 round
-    trip -> resolve (mean over samples) -> blit
+    alpha test (K4)] -> [skybox where no fragment hit (K4)] -> [blend peels:
+    shared geometry, per sample K1 count and bound modes, compacted hit
+    pixels] -> shadow coordinates -> PCF (K3, every sample's opaque and
+    blend pixels in one launch) -> per sample textures (K4), lighting,
+    registered routines, blend shading and compositing -> f16 round trip ->
+    resolve (mean over samples) -> [hdr passes] -> blit -> [srgb passes]
 
 Under MSAA the geometry work (cull, setup, planes, binning) runs once per
 pass and K1 runs once per sample offset (base.py:1353-1374); sub-pixel
@@ -29,13 +32,14 @@ geometry.cull_and_setup, geometry.bin_triangles, the plain raster versions'
 fragment count) and where a peel loop sizes itself (_cutout_peels and
 _blend_peels count theirs).
 
-Features outside the slice raise NotImplementedError at frame time, naming
-the ROADMAP item that will port them.
+The reference forward backend of `raster_scene` raises NotImplementedError,
+naming the ROADMAP item that will port it.
 """
 
 from __future__ import annotations
 
 import hashlib
+import inspect
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -52,12 +56,17 @@ from ..ops import hi_z as hiz_ops
 from ..ops import lighting as light_ops
 from ..ops import raster as raster_ops
 from ..ops import raster_binned as rb_ops
+from ..ops import samplers as samplers_ops
 from ..ops import shade as shade_ops
 from ..ops import shadow as shadow_ops
+from ..ops import skin as skin_ops
+from ..ops import texture as tex_ops
 from ..ops import transform as transform_ops
 from ..types import Handedness
 
-__all__ = ["BaseRenderGraph", "BaseRenderGraphSettings", "FrameRenderTarget", "StageTimer", "raster_scene"]
+__all__ = [
+    "BaseRenderGraph", "BaseRenderGraphSettings", "FrameRenderTarget", "StageTimer", "raster_scene", "sky_directions",
+]
 
 
 @dataclass(frozen=True)
@@ -114,6 +123,27 @@ def raster_scene(
     if (wp, hp) != (width, height):
         vis = raster_ops.VisBuffer(depth=vis.depth[:, :height, :width], tri=vis.tri[:, :height, :width])
     return vis
+
+
+def sky_directions(inv: torch.Tensor, width: int, height: int, hp: int, wp: int, sofs) -> torch.Tensor:
+    """(hp * wp, 3) unit world view directions of the padded frame's pixels
+    at sample offset sofs (base.py:1576-1591): ndc from the sample position,
+    times inv_origin_view_proj, divided by w and normalised. The product is
+    summed column by column in order, with no fma, as XLA:CPU computes the
+    JAX frame's (N, 4) x (4, 4) dot (bit for bit); the normalisation agrees
+    with the JAX frame's to an ulp or two (XLA fuses it its own way)."""
+    ox, oy = sofs
+    dev = inv.device
+    cols = torch.arange(wp, dtype=torch.float32, device=dev) + ox
+    rows = torch.arange(hp, dtype=torch.int32, device=dev).float() + oy
+    py, px = torch.meshgrid(rows, cols, indexing="ij")
+    ndc_x = (px / width * 2.0 - 1.0).reshape(-1)
+    ndc_y = (1.0 - py / height * 2.0).reshape(-1)
+    world = [((ndc_x * inv[i, 0] + ndc_y * inv[i, 1]) + inv[i, 2]) + inv[i, 3] for i in range(4)]
+    w = world[3]
+    wdir = torch.stack(world[:3], dim=1) / torch.where(w == 0.0, torch.ones_like(w), w)[:, None]
+    nlen = def_ops.sqrt32((wdir * wdir).sum(-1))
+    return wdir / torch.where(nlen == 0.0, torch.ones_like(nlen), nlen)[:, None]
 
 
 class StageTimer:
@@ -178,26 +208,49 @@ class BaseRenderGraph:
         self._cut_key = None
         self._cut_dev = None
         self._shadow_cache = None
+        self._skin_key = None
+        self._skin = None
+        self._skinned = None
+        # Registered per-archetype shading routines (routine/registry.py;
+        # reference: the per-archetype vtable, material.rs:43-61). Objects
+        # of archetypes other than PbrMaterial with no routine do not draw.
+        self.routines: Dict[str, object] = {}
+        self._gslot_key = None
+        # Injected passes (fn, stage), run in registration order (the
+        # reference graph's arbitrary-node seam, rend3/src/graph/node.rs).
+        self.injected_passes: list = []
 
     def register_routine(self, routine) -> None:
-        raise _not_ported("registered material routines", "Off the main path, in the frame")
+        """Install a MaterialRoutine (routine/registry.py) so objects of
+        its material archetype draw through the deferred frame (opaque,
+        cutout depth peels, or ordered blend peels per its transparency)."""
+        self.routines[routine.archetype] = routine
+        self._gslot_key = None
+        self._cut_key = None
 
     def register_pass(self, fn, stage: str = "srgb") -> None:
-        raise _not_ported("register_pass", "Off the main path, in the frame")
+        """Inject a pass into the frame (base.py:194-216):
 
-    # -- checks ----------------------------------------------------------------
+        - stage="srgb" (default): fn runs after tonemapping on the final
+          (H, W, 4) u8 sRGB image;
+        - stage="hdr": fn runs on the resolved (H, W, 4) f32 linear image,
+          after the MSAA resolve and before the sRGB OETF.
 
-    def _check_slice(self, target: FrameRenderTarget, skybox_slot) -> None:
-        r = self.renderer
-        raster_ops.sample_offsets(target.samples)  # raises unless 1 or 4
-        if skybox_slot is not None:
-            raise _not_ported("the skybox", "Off the main path, in the frame")
-        if r.skeleton_manager.data:
-            raise _not_ported("skinned and animated meshes", "Off the main path, in the frame")
+        fn(img, gbuf, uniforms) -> img, where gbuf is sample 0's padded
+        G-buffer (deferred.GBuffer); a 4-parameter fn also gets row0, the
+        target row of the image's first row (0 on one device)."""
+        if stage not in ("srgb", "hdr"):
+            raise ValueError(f"register_pass stage must be 'srgb' or 'hdr', got {stage!r}")
+        self.injected_passes.append((fn, stage))
+
+    def unregister_pass(self, fn) -> None:
+        """Remove a registered pass (the next frame runs without it); no-op
+        if absent."""
+        self.injected_passes = [(f, s) for (f, s) in self.injected_passes if f is not fn]
 
     # -- stages ----------------------------------------------------------------
 
-    def _upload(self, eval_output, target, settings) -> _Frame:
+    def _upload(self, eval_output, target, settings, skybox_slot) -> _Frame:
         """Host scene state -> device tables (static tables cached against
         the managers' versions, as the JAX build does)."""
         from .pbr.material import PbrMaterial
@@ -229,21 +282,49 @@ class BaseRenderGraph:
             self._obj_tbl_key = om.version
         f.transforms, f.bases = self._obj_tbl
 
-        # Materials: the PBR archetype draws; objects of archetypes with no
-        # registered routine do not (reference material.rs:43-61), and the
-        # port has no routine registry yet.
+        # Materials (base.py:844-908): the PBR table first, then the table of
+        # each registered archetype (name order) in one global slot space
+        # carried by the G-buffer material channel. Objects of an archetype
+        # with no registered routine do not draw (reference
+        # material.rs:43-61): they leave the frame and the shadow maps.
         mm = r.material_manager
         mm.ensure_archetype(PbrMaterial)
         arch = PbrMaterial.__name__
-        obj_pbr = np.ones(om.cap, bool)
-        if any(n != arch and a.next_slot > 0 for n, a in mm.archetypes.items()):
-            for oidx, rec in om.data.items():
-                obj_pbr[oidx] = rec.material_arch == arch
-        live = om.enabled & obj_pbr
         host = mm.archetypes[arch]
         data, flags, textures = mm.evaluate(arch)
         f.materials = shade_ops.PbrMaterialTable(data=data, flags=flags, textures=textures)
-        f.material_slots = torch.from_numpy(om.material_slots.astype(np.int32)).to(dev)
+        named_extras = []  # (name, (base, count, routine, data, flags))
+        gbase = self.last_stats["pbr_slots"] = int(data.shape[0])
+        for n in sorted(mm.archetypes):
+            if n == arch or mm.archetypes[n].next_slot == 0 or n not in self.routines:
+                continue
+            d, fl, _t = mm.evaluate(n)
+            named_extras.append((n, (gbase, int(d.shape[0]), self.routines[n], d, fl)))
+            gbase += int(d.shape[0])
+        f.extras = [e for _n, e in named_extras]
+        arch_bases = {n: e[0] for n, e in named_extras}
+        hidden_arch = any(
+            n != arch and a.next_slot > 0 and n not in arch_bases for n, a in mm.archetypes.items()
+        )
+        gkey = (om.version, tuple(sorted(arch_bases.items())), hidden_arch)
+        if self._gslot_key != gkey:
+            gslots = om.material_slots.astype(np.int32)
+            obj_pbr = np.ones(om.cap, bool)
+            obj_hidden = np.zeros(om.cap, bool)
+            if arch_bases or hidden_arch:
+                for oidx, rec in om.data.items():
+                    if rec.material_arch == arch:
+                        continue
+                    obj_pbr[oidx] = False
+                    b = arch_bases.get(rec.material_arch)
+                    if b is None:
+                        obj_hidden[oidx] = True
+                    else:
+                        gslots[oidx] += b
+            self._gslot_cache = (torch.from_numpy(gslots).to(dev), obj_pbr, obj_hidden)
+            self._gslot_key = gkey
+        f.material_slots, obj_pbr, obj_hidden = self._gslot_cache
+        live = om.enabled & ~obj_hidden
         # Texture slots any material references (base.py:976-980); slots no
         # material uses are never sampled.
         f.textures = r.d2_texture_manager.evaluate() if r.d2_texture_manager.data else None
@@ -253,10 +334,16 @@ class BaseRenderGraph:
         # (base.py:990-1022); the mask over the triangle table is cached
         # against the topology, object and material versions. None when the
         # frame has no cutout triangle.
-        cut_key = (om.version, host.version)
+        # Registered cutout routines' objects ride the same peel loop.
+        cut_archs = tuple(sorted(n for n, e in named_extras if e[2].transparency == "cutout"))
+        f.cut_extras = [e for _n, e in named_extras if e[2].transparency == "cutout"]
+        cut_key = (om.version, host.version, cut_archs)
         if self._cut_key != cut_key:
             cutout_mat = host.data[:, shade_ops.PBR_ALPHA_CUTOUT] > 0.0
             obj_cut = obj_pbr & cutout_mat[np.clip(om.material_slots, 0, len(cutout_mat) - 1)]
+            for oidx, rec in om.data.items():
+                if rec.material_arch in cut_archs:
+                    obj_cut[oidx] = True
             cutout_tri = obj_cut[opaque[:, 3]]
             self._cut_dev = torch.from_numpy(cutout_tri).to(dev) if cutout_tri.any() else None
             self._cut_key = cut_key
@@ -319,7 +406,22 @@ class BaseRenderGraph:
             **{k: t(pl[k], torch.bool if k == "mask" else torch.float32) for k in shade_ops.PointLightArrays._fields}
         )
         f.clear_color = t(settings.clear_color)
+        cm = r.d2c_texture_manager
+        f.cube = cm.evaluate() if skybox_slot is not None and cm.data else None
+        f.skybox_slot = skybox_slot
         f.geo = r.mesh_manager.evaluate()
+        skm = r.skeleton_manager
+        if skm.data:
+            # Skinning (base.py:944-948) rewrites the override ranges before
+            # any triangle corner is gathered; its work list is rebuilt per
+            # skeleton change, the skinned arenas per skeleton or mesh change.
+            if self._skin_key != skm.version:
+                self._skin = skin_ops.build_skin_inputs(skm, r.mesh_manager, dev)
+                self._skin_key = skm.version
+            key = (skm.version, r.mesh_manager.version, id(f.geo))
+            if self._skinned is None or self._skinned[0] != key:
+                self._skinned = (key, skin_ops.apply_skinning(f.geo, self._skin))
+            f.geo = self._skinned[1]
         f.front_cw = r.handedness == Handedness.LEFT
         tri_gid = transform_ops.tri_global_ids(
             f.tri_vlocal, f.tri_obj, f.bases[:, 0], f.geo.position.shape[0]
@@ -475,7 +577,7 @@ class BaseRenderGraph:
                     cap = {} if self.captured is not None else None
                     ok = light_ops.cutout_alpha_pass(
                         def_ops.GBuffer(gc.reshape(def_ops.GB_CH, -1)[:, pix][:, None]),
-                        f.materials, f.textures, f.active_tex_slots, capture=cap,
+                        f.materials, f.textures, f.active_tex_slots, extras=f.cut_extras, capture=cap,
                     ).flatten()
                     if cap:
                         self._capture("bilinear_cutout", cap["bilinear"])
@@ -639,18 +741,18 @@ class BaseRenderGraph:
     ) -> torch.Tensor:
         """render_frame without the copy to the host: (H, W, 4) u8 on the
         renderer's device."""
-        self._check_slice(target, skybox_slot)
+        raster_ops.sample_offsets(target.samples)  # raises unless 1 or 4
         stage = self.timer if self.timer is not None else _no_timer
         width, height = target.width, target.height
         plan = eval_output.shadow_plan
         if self.captured is not None:
-            for key in ("raster_count", "raster_bound", "bilinear_cutout"):
+            for key in ("raster_count", "raster_bound", "bilinear_cutout", "bilinear_sky"):
                 self.captured.pop(key, None)
         st = self.last_stats
         for key in ("cut_survivors", "cut_peels", "cut_layers", "blend_survivors", "blend_peels", "blend_px"):
             st[key] = 0
         with stage("upload"):
-            f = self._upload(eval_output, target, settings)
+            f = self._upload(eval_output, target, settings, skybox_slot)
         if plan:
             with stage("shadow_maps"):
                 smaps, stacked = self._ensure_shadow_maps(eval_output, f)
@@ -736,6 +838,12 @@ class BaseRenderGraph:
             self._prev_visible_mask = new_mask
         if cmask is not None:
             gbufs = self._cutout_peels(f, stage, cmask, pyramid, gbufs)
+        f.plan = plan
+        if f.cube is not None:
+            with stage("skybox"):
+                backgrounds = self._skybox(f, gbufs)
+        else:
+            backgrounds = [f.clear_color.expand(height, width, 4)] * S
         peels_s = self._blend_peels(f, stage, gbufs) if f.blend_obj is not None else [[] for _ in offsets]
         # Each sample's blend peels' hit pixels, compacted into one
         # (CH, 1, N) G-buffer that shares the opaque pixels' K3 launch and
@@ -763,21 +871,70 @@ class BaseRenderGraph:
         # them (as the JAX package's texture path does) changes nothing.
         imgs = []
         for si in range(S):
+            gbuf = def_ops.GBuffer(gbufs[si][:, :height, :width])
             img = light_ops.light_gbuffer(
-                def_ops.GBuffer(gbufs[si][:, :height, :width]), f.materials, f.dir_lights,
-                f.point_lights, f.uniforms, f.clear_color.expand(height, width, 4), shadow_s[si],
+                gbuf, f.materials, f.dir_lights, f.point_lights, f.uniforms, backgrounds[si], shadow_s[si],
                 textures=f.textures, active_tex_slots=f.active_tex_slots,
                 stage=self.timer, capture=self.captured,
             )
-            gbufs[si] = None  # the sample's G-buffer is no longer needed
+            if f.extras:
+                with stage("routines"):
+                    img = light_ops.apply_material_routines(
+                        img, gbuf, f.extras, f.dir_lights, f.point_lights, shadow_s[si] if plan else None,
+                        f.uniforms,
+                    )
+            if si > 0 or not self.injected_passes:
+                gbufs[si] = None  # the sample's G-buffer is no longer needed (passes get sample 0's)
             if peels_s[si]:
                 with stage("blend_shade"):
                     img = self._blend_composite(f, peels_s[si], bgbufs[si], blend_sv[si], img)
             imgs.append(img)
         with stage("blit"):
             # f16 round trip per sample, then the resolve (base.py:2053-2054).
-            img = blit_ops.f16_roundtrip(torch.stack(imgs))
-            out = blit_ops.hdr_to_srgb_u8(blit_ops.resolve_samples(img))
+            img = blit_ops.resolve_samples(blit_ops.f16_roundtrip(torch.stack(imgs)))
+        img = self._run_passes(stage, img, "hdr", gbufs[0], f.uniforms)
+        with stage("blit"):
+            out = blit_ops.hdr_to_srgb_u8(img)
+        return self._run_passes(stage, out, "srgb", gbufs[0], f.uniforms)
+
+    def _run_passes(self, stage, img, want_stage: str, gbuf0, uniforms):
+        """The registered passes of one stage, in order (base.py:2061-2080);
+        gbuf0 is sample 0's padded G-buffer."""
+        for fn, pstage in self.injected_passes:
+            if pstage != want_stage:
+                continue
+            try:
+                wants_row0 = len(inspect.signature(fn).parameters) >= 4
+            except (TypeError, ValueError):
+                wants_row0 = False
+            with stage("passes"):
+                img = fn(img, def_ops.GBuffer(gbuf0), uniforms, *((0,) if wants_row0 else ()))
+        return img
+
+    def _skybox(self, f: _Frame, gbufs):
+        """Per sample, the (H, W, 4) background: the skybox where no
+        fragment hit, with alpha 1, and the clear colour elsewhere
+        (base.py:1562-1613). Every sample's sky pixels go through one K4
+        launch."""
+        hp, wp, dev = f.hp, f.wp, gbufs[0].device
+        inv = f.uniforms.inv_origin_view_proj
+        in_frame = (
+            (torch.arange(hp, device=dev)[:, None] < f.height) & (torch.arange(wp, device=dev)[None, :] < f.width)
+        ).reshape(-1)
+        dirs_list = [sky_directions(inv, f.width, f.height, hp, wp, sofs) for sofs in f.offsets]
+        need_list = [~(g[def_ops.G_HIT] > 0.0).reshape(-1) & in_frame for g in gbufs]
+        cap = {} if self.captured is not None else None
+        k4_before = samplers_ops.launches["bilinear"]
+        sky = tex_ops.sample_cube_grid(f.cube, f.skybox_slot + 1, dirs_list, need_list, capture=cap)
+        # K4 launches of the skybox (0 on the CPU, where K4's plain version runs).
+        self.last_stats["sky_k4_launches"] = samplers_ops.launches["bilinear"] - k4_before
+        if cap:
+            self._capture("bilinear_sky", cap["bilinear"])
+        out = []
+        for si in range(len(f.offsets)):
+            rgba = torch.cat([sky[si][:, :3], torch.ones_like(sky[si][:, 3:4])], dim=1)
+            bg = torch.where(need_list[si][:, None], rgba, f.clear_color[None, :])
+            out.append(bg.reshape(hp, wp, 4)[: f.height, : f.width])
         return out
 
     def _blend_composite(self, f: _Frame, peels, bgbuf, blend_sv, img):
@@ -790,7 +947,14 @@ class BaseRenderGraph:
             def_ops.GBuffer(bgbuf), f.materials, f.dir_lights, f.point_lights, f.uniforms,
             torch.zeros(1, n_all, 4, device=bgbuf.device), blend_sv,
             textures=f.textures, active_tex_slots=f.blend_tex_slots,
-        ).reshape(n_all, 4)
+        )
+        if f.extras:
+            # Registered routines shade their peel pixels (alpha = rgba[:, 3]).
+            rgba = light_ops.apply_material_routines(
+                rgba, def_ops.GBuffer(bgbuf), f.extras, f.dir_lights, f.point_lights,
+                blend_sv if f.plan else None, f.uniforms,
+            )
+        rgba = rgba.reshape(n_all, 4)
         npx = f.hp * f.wp
         C = torch.zeros(npx, 3, device=bgbuf.device)
         A = torch.zeros(npx, device=bgbuf.device)

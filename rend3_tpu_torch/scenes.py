@@ -6,18 +6,22 @@ port render the same scene. `representative=False` is the flat variant that
 `bench.py --flat` times: subdivided-cube buildings with flat lit PBR
 materials, a ground plane and one shadowed directional light.
 `textured_city` cuts the representative scene down to its textured, opaque
-part; `textured_planes` is a small scene that drives every texture branch
-of the shader; `stacked_cutout`, `glass_stack` and `peel_slice` are small
-cutout, blend and whole-slice scenes (the first two those of
-tests/test_caps.py and tests/test_blend.py). The small scenes take the
-modules they build with, so another package can build the same scene.
+part; `feature_city` adds the frame's extension features to it (a skybox,
+skinned columns, registered material routines, injected passes).
+`textured_planes` is a small scene that drives every texture branch of the
+shader; `stacked_cutout`, `glass_stack` and `peel_slice` are small cutout,
+blend and whole-slice scenes (the first two those of tests/test_caps.py and
+tests/test_blend.py); `skinned_columns`, `registry_scene` and
+`skybox_cube` small skinning, routine and skybox scenes. The small scenes take the modules they build with, so
+another package can build the same scene.
 """
 
 import numpy as np
 
 __all__ = [
     "build_city_scene", "textured_city", "textured_planes", "stacked_cutout", "glass_stack", "peel_slice",
-    "set_bench_camera",
+    "set_bench_camera", "skinned_column_mesh", "column_pose", "add_skinned_columns", "pose_columns",
+    "skinned_columns", "flat_material_class", "registry_scene", "skybox_cube", "sky_faces", "feature_city",
 ]
 
 
@@ -515,3 +519,266 @@ def set_bench_camera(runner, width: int, height: int) -> None:
         )
     )
     runner.renderer.set_aspect_ratio(width / height)
+
+
+# ---------------------------------------------------------------------------
+# The frame's extension features: skinning, registered routines, the skybox
+# ---------------------------------------------------------------------------
+
+
+def skinned_column_mesh(types, g: int = 8, joints: int = 4):
+    """A subdivided [-1, 1] cube (6*(g+1)^2 vertices, 12*g^2 triangles)
+    skinned to `joints` joints spaced evenly along its height: a vertex at
+    height y blends the two joints around it linearly."""
+    v, i, uv = _subdivided_cube(g)
+    s = (v[:, 1] + 1.0) * 0.5 * (joints - 1)
+    j0 = np.minimum(np.floor(s), joints - 2).astype(np.int64)
+    w1 = (s - j0).astype(np.float32)
+    ji = np.zeros((len(v), 4), np.uint16)
+    ji[:, 0], ji[:, 1] = j0, j0 + 1
+    jw = np.zeros((len(v), 4), np.float32)
+    jw[:, 0], jw[:, 1] = 1.0 - w1, w1
+    return (
+        types.MeshBuilder(v, types.Handedness.LEFT).with_vertex_uv0(uv).with_indices(i)
+        .with_vertex_joint_indices(ji).with_vertex_joint_weights(jw).build()
+    )
+
+
+def column_pose(m3, joints: int = 4, bend: float = 0.0, twist: float = 0.0):
+    """(global transforms, inverse bind matrices) of a column's joints: joint
+    k sits at height -1 + 2k / (joints - 1) and turns by bend * k / (joints
+    - 1) about z and twist * k / (joints - 1) about y around that point."""
+    g, ib = [], []
+    for k in range(joints):
+        y = -1.0 + 2.0 * k / (joints - 1)
+        a = k / (joints - 1)
+        g.append(m3.translation([0.0, y, 0.0]) @ m3.rotation_z(bend * a) @ m3.rotation_y(twist * a))
+        ib.append(m3.translation([0.0, -y, 0.0]))
+    return np.stack(g).astype(np.float32), np.stack(ib).astype(np.float32)
+
+
+def add_skinned_columns(runner, placements, material, g=8, joints=4, types=None, m3=None):
+    """One skeleton and object per (transform, bend, twist) of
+    `placements`, on one shared column mesh; returns (handles to keep,
+    skeleton handles)."""
+    _mat, types, m3 = _modules(None, types, m3)
+    r = runner.renderer
+    mesh = r.add_mesh(skinned_column_mesh(types, g, joints))
+    keep, skeletons = [mesh], []
+    for transform, bend, twist in placements:
+        gl, ib = column_pose(m3, joints, bend, twist)
+        sk = r.add_skeleton(types.Skeleton(joint_matrices=gl @ ib, mesh=mesh))
+        keep += [sk, r.add_object(types.Object(
+            mesh_kind=types.AnimatedMeshKind(sk), material=material, transform=transform,
+        ))]
+        skeletons.append(sk)
+    return keep, skeletons
+
+
+def pose_columns(runner, skeletons, phase: float, joints=4, m3=None):
+    """Sets every column's joints through set_skeleton_joint_transforms, a
+    bend and twist that vary with the column and `phase`."""
+    _mat, _types, m3 = _modules(None, None, m3)
+    for k, sk in enumerate(skeletons):
+        gl, ib = column_pose(m3, joints, 0.5 * np.sin(phase + 0.7 * k), 0.8 * np.cos(phase + 0.3 * k))
+        runner.renderer.set_skeleton_joint_transforms(sk, gl, ib)
+
+
+def skinned_columns(runner, mat=None, types=None, m3=None):
+    """A small skinned scene: a lit ground, three bent columns of one
+    skinned mesh (three skeletons, g = 4, 4 joints), one shadowed light, in
+    perspective. Modules as in textured_planes. Returns (handles to keep,
+    skeleton handles)."""
+    mat, types, m3 = _modules(mat, types, m3)
+    keep = [runner.add_directional_light(np.array([-0.7, -1.0, 0.4], np.float32))]
+    ground = runner.add_lit_material([0.35, 0.35, 0.33, 1.0])
+    col = runner.add_lit_material([0.8, 0.4, 0.2, 1.0])
+    keep += [ground, col, runner.plane(ground, m3.rotation_x(-np.pi / 2) @ m3.scale(3.0))]
+    placements = [
+        (m3.translation([x, 0.9, z]) @ m3.scale([0.2, 0.9, 0.2]), bend, twist)
+        for x, z, bend, twist in ((-0.8, 0.2, 0.6, 0.0), (0.0, -0.2, -0.4, 0.9), (0.8, 0.3, 0.3, -0.5))
+    ]
+    k2, skeletons = add_skinned_columns(runner, placements, col, g=4, types=types, m3=m3)
+    keep += k2
+    runner.set_camera_data(types.Camera(
+        projection=types.Perspective(vfov=60.0, near=0.1),
+        view=m3.look_at_lh([0.4, 1.8, -3.4], [0.0, 0.7, 0.0], [0.0, 1.0, 0.0]),
+    ))
+    return keep, skeletons
+
+
+def flat_material_class(name: str = "FlatMaterial", blend: bool = False, types=None):
+    """A minimal non-PBR material class (tests/test_routine_registry.py:17-52):
+    a 4-float rgba data block, no textures; sorted as blended when `blend`.
+    The class's name is its archetype."""
+    _mat, types, _m3 = _modules(None, types, None)
+
+    def init(self, color):
+        self.color = np.asarray(color, np.float32)
+
+    return type(name, (), {
+        "__init__": init,
+        "required_attributes": classmethod(lambda cls: (types.POSITION,)),
+        "supported_attributes": classmethod(lambda cls: (types.POSITION,)),
+        "data_size": classmethod(lambda cls: 4),
+        "texture_count": classmethod(lambda cls: 0),
+        "key": lambda self: 0,
+        "sorting": lambda self: types.Sorting.blending() if blend else types.Sorting.opaque(),
+        "to_textures": lambda self: [],
+        "to_data": lambda self: self.color,
+        "to_flags": lambda self: 0,
+    })
+
+
+def registry_scene(runner, flat_cls, mat=None, types=None, m3=None):
+    """tests/test_routine_registry.py:55-71's scene: a green lit PBR plane,
+    a red `flat_cls` cube above it, one shadowed light, orthographic.
+    Returns the handles to keep."""
+    mat, types, m3 = _modules(mat, types, m3)
+    keep = [runner.add_directional_light(np.array([-1.0, -1.0, 1.0], np.float32))]
+    pbr = runner.add_lit_material([0.1, 0.6, 0.1, 1.0])
+    keep += [pbr, runner.plane(pbr, m3.rotation_x(-np.pi / 2) @ m3.scale(3.0))]
+    flat = runner.renderer.add_material(flat_cls([0.9, 0.02, 0.02, 1.0]))
+    keep += [flat, runner.cube(flat, m3.translation([0.0, 0.5, 0.0]) @ m3.scale(0.5))]
+    runner.set_camera_data(types.Camera(
+        projection=types.Orthographic(size=np.array([4.0, 4.0, 8.0], np.float32)),
+        view=m3.look_at_lh([0.0, 1.5, -2.0], [0.0, 0.25, 0.0], [0.0, 1.0, 0.0]),
+    ))
+    return keep
+
+
+def skybox_cube(runner, mat=None, types=None, m3=None):
+    """An unlit cube in front of a 16x16 random RGBA8 skybox, wide
+    perspective. Modules as in textured_planes. Returns the handles to
+    keep; the last is the cube texture (its idx is the skybox slot)."""
+    mat, types, m3 = _modules(mat, types, m3)
+    m = runner.add_unlit_material([0.8, 0.5, 0.3, 1.0])
+    keep = [m, runner.cube(m, m3.scale(0.4))]
+    faces = (np.random.default_rng(5).random((6, 16, 16, 4)) * 255).astype(np.uint8)
+    faces[..., 3] = 255
+    runner.set_camera_data(types.Camera(
+        projection=types.Perspective(vfov=100.0, near=0.1),
+        view=m3.look_at_lh([1.0, 0.7, -1.5], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]),
+    ))
+    return keep + [runner.renderer.add_texture_cube(types.Texture(
+        label="sky", data=faces, format=types.TextureFormat.RGBA8_UNORM_SRGB, mip_count=types.MipmapCount.ONE,
+    ))]
+
+
+def sky_faces(rng, size: int) -> np.ndarray:
+    """(6, size, size, 4) f32 linear cube faces: a vertical sky gradient
+    (horizon to zenith, the +Y face zenith blue, -Y ground grey) plus noise."""
+    t = (np.arange(size, dtype=np.float32) + 0.5) / size
+    faces = np.empty((6, size, size, 4), np.float32)
+    horizon = np.array([0.85, 0.8, 0.7], np.float32)
+    zenith = np.array([0.15, 0.35, 0.8], np.float32)
+    for f in range(6):
+        if f == 2:
+            base = np.broadcast_to(zenith, (size, size, 3))
+        elif f == 3:
+            base = np.broadcast_to(np.array([0.3, 0.28, 0.25], np.float32), (size, size, 3))
+        else:
+            up = 1.0 - t  # face rows run top (up) to bottom
+            base = horizon[None, None] + (zenith - horizon)[None, None] * up[:, None, None]
+        faces[f, ..., :3] = base + 0.05 * rng.standard_normal((size, size, 3)).astype(np.float32)
+    faces[..., 3] = 1.0
+    return np.clip(faces, 0.0, None)
+
+
+def feature_city(runner, n_buildings=600, seed=7, sky_size=512, n_columns=64):
+    """The representative bench city (build_city_scene(representative=True))
+    with the frame's extension features, procedural and from `seed`:
+
+    - a skybox: one 6 x sky_size^2 RGBA32F cube texture (sky_faces), to pass
+      as `skybox_slot`;
+    - n_columns skinned columns (the g = 8 column mesh: 486 vertices, 768
+      triangles, 4 joints along its height), posed by pose_columns;
+    - a registered unlit archetype ("SignMaterial") on 16 sign quads, a
+      cutout routine ("CutoutSignMaterial", alpha from a uv checker, cutoff
+      0.5) and a blend routine ("GlassSignMaterial") on 8 quads each, and 4
+      magenta quads of an archetype with no routine ("HiddenSignMaterial"),
+      which must not draw;
+    - an "hdr" pass (an exposure scale of 1.1) and an "srgb" pass (a 64x64
+      tint in the top-left corner) on runner.base_graph.
+
+    Returns (handles to keep, dict with "sky" (the cube texture's handle),
+    "skeletons", "passes" ((hdr fn, srgb fn)), "routines" and "classes"
+    (the four sign material classes by archetype name))."""
+    import torch
+
+    from .routine.registry import MaterialRoutine, unlit_routine
+    from .types import Object, StaticMeshKind, Texture, TextureFormat, MipmapCount
+    from .utils import math as m3
+
+    keep = build_city_scene(runner, n_buildings=n_buildings, seed=seed, representative=True)
+    rng = np.random.default_rng(seed + 1000)
+    r = runner.renderer
+    sky = r.add_texture_cube(Texture(
+        label="sky", data=sky_faces(rng, sky_size), format=TextureFormat.RGBA32_FLOAT, mip_count=MipmapCount.ONE,
+    ))
+    keep.append(sky)
+
+    # Columns and signs float around the bench camera's sight line
+    # ([40, 30, -60] -> [0, 5, 0]), in front of the city, as the storefront
+    # panes do.
+    cam, target = np.array([40.0, 30.0, -60.0]), np.array([0.0, 5.0, 0.0])
+    col_mat = runner.add_lit_material([0.75, 0.72, 0.68, 1.0])
+    keep.append(col_mat)
+    placements = []
+    for k in range(n_columns):
+        p = cam + rng.uniform(0.25, 0.5) * (target - cam) + np.array([rng.uniform(-9.0, 9.0), -4.0, 0.0])
+        h = rng.uniform(1.0, 2.5)
+        placements.append((m3.translation(p) @ m3.scale([0.3, h, 0.3]), 0.0, 0.0))
+    k2, skeletons = add_skinned_columns(runner, placements, col_mat, g=8)
+    keep += k2
+    pose_columns(runner, skeletons, 0.0)
+
+    sign_cls = flat_material_class("SignMaterial")
+    cut_cls = flat_material_class("CutoutSignMaterial")
+    glass_cls = flat_material_class("GlassSignMaterial", blend=True)
+    hidden_cls = flat_material_class("HiddenSignMaterial")  # no routine: must not draw
+
+    def checker_alpha(pixels, mdata, mflags):
+        u, v = pixels.uv0[:, 0], pixels.uv0[:, 1]
+        return ((torch.floor(u * 4.0) + torch.floor(v * 4.0)) % 2.0).float()
+
+    def glass_shade(pixels, mdata, mflags, dir_lights, point_lights, shadow_values, uniforms):
+        return mdata[:, :4] * pixels.vcol
+
+    routines = (
+        unlit_routine(sign_cls),
+        MaterialRoutine(cut_cls, shade=unlit_routine(cut_cls).shade, transparency="cutout", alpha=checker_alpha,
+                        alpha_cutoff=0.5),
+        MaterialRoutine(glass_cls, shade=glass_shade, transparency="blend"),
+    )
+    for rt in routines:
+        runner.base_graph.register_routine(rt)
+    from . import types
+
+    quad = _quad_mesh(r, types, double_sided=True)
+    keep.append(quad)
+    for cls, n, color in ((sign_cls, 16, (0.9, 0.8, 0.1, 1.0)), (cut_cls, 8, (0.2, 0.9, 0.3, 1.0)),
+                          (glass_cls, 8, (0.9, 0.2, 0.6, 0.45)), (hidden_cls, 4, (1.0, 0.0, 1.0, 1.0))):
+        for _ in range(n):
+            m = r.add_material(cls(list(color)))
+            p = cam + rng.uniform(0.2, 0.45) * (target - cam) + np.array([rng.uniform(-7.0, 7.0), rng.uniform(-2.0, 3.0), 0.0])
+            s = rng.uniform(0.6, 1.4)
+            keep += [m, r.add_object(Object(
+                mesh_kind=StaticMeshKind(quad), material=m,
+                transform=m3.translation(p) @ m3.rotation_y(rng.uniform(-0.6, 0.6)) @ m3.scale(s),
+            ))]
+
+    def exposure(img, gbuf, uniforms):
+        return img * 1.1
+
+    def corner_tint(img, gbuf, uniforms):
+        out = img.clone()
+        out[:64, :64, :3] = (out[:64, :64, :3].float() * 0.5 + 100.0).to(img.dtype)
+        return out
+
+    runner.base_graph.register_pass(exposure, stage="hdr")
+    runner.base_graph.register_pass(corner_tint, stage="srgb")
+    classes = {c.__name__: c for c in (sign_cls, cut_cls, glass_cls, hidden_cls)}
+    return keep, {
+        "sky": sky, "skeletons": skeletons, "passes": (exposure, corner_tint), "routines": routines, "classes": classes,
+    }

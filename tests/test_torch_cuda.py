@@ -11,7 +11,10 @@ and bound mode run on inputs captured from scenes.peel_slice, with the
 counts bit-exact too. K1 at an MSAA sample offset as in its opaque mode.
 K6 (raster_scene's visibility raster) at 1 and 4 samples: ids and depth
 bit-exact. K7 and K8 on light 0 of the captured city frame: bit-exact at
-hit pixels (their values elsewhere are not defined).
+hit pixels (their values elsewhere are not defined). The bf16 probes P1-P3
+(every variant of tools.probe_bf16_*): bit-exact, NaN positions equal, and
+for P2 and P3 again on zero-initialised outputs, which hold values. K4
+on the skybox query of a 64x64 skybox frame at 4 samples: bit-exact.
 """
 
 import numpy as np
@@ -191,3 +194,40 @@ def test_card_frame_matches_cpu(captured):
     )
     del keep
     assert int(np.abs(img.astype(np.int32) - captured[1].astype(np.int32)).max()) <= 1
+
+
+@pytest.mark.parametrize("probe", ["probe_bf16_dot", "probe_bf16_kernel", "probe_bf16_real"])
+def test_probe_kernels_match_plain(probe):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import importlib
+
+    mod = importlib.import_module(f"rend3_tpu_torch.tools.{probe}")
+    # As the entry point runs it (NaN-initialised), and for P2 and P3 again
+    # from zeros, where the variants that add into an output they never
+    # write first give values.
+    for init in ("nan", "zero") if probe != "probe_bf16_dot" else ("nan",):
+        kw = {"init": init} if probe != "probe_bf16_dot" else {}
+        for r in mod.run("cuda", log=lambda _line: None, **kw):
+            p = r.plain()
+            nan = torch.isnan(r.out)
+            assert torch.equal(nan, torch.isnan(p)), (r.name, init)
+            assert torch.equal(r.out[~nan], p[~nan]), (r.name, init)
+            if init == "zero" or probe == "probe_bf16_dot":
+                assert bool((r.out[~nan] != 0).any()), (r.name, init)
+
+
+def test_k4_skybox_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    runner = TestRunner(device="cuda")
+    keep = scenes.skybox_cube(runner)
+    runner.base_graph.captured = {}
+    runner.renderer.swap_instruction_buffers()
+    runner.base_graph.render_frame(
+        runner.renderer.evaluate_instructions(), FrameRenderTarget(64, 64, 4), skybox_slot=keep[-1].idx
+    )
+    args = runner.base_graph.captured["bilinear_sky"]
+    assert runner.base_graph.last_stats["sky_k4_launches"] == 1 and int(args[-1].sum()) > 0
+    assert torch.equal(S.sample_grid_bilinear(*args), S.sample_grid_bilinear_plain(*args))
+    del keep

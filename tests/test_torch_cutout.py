@@ -213,14 +213,56 @@ def test_cutout_alpha_pass_matches_jax():
     assert 0.2 < want.mean() < 0.9  # both outcomes occur
 
 
-def test_cutout_alpha_pass_refuses_registered_routines():
-    g = PD.GBuffer(torch.zeros(PD.GB_CH, 1, 4))
-    mats = PS.PbrMaterialTable(
-        data=torch.zeros(1, PS.PBR_DATA_SIZE), flags=torch.zeros(1, dtype=torch.int32),
-        textures=torch.zeros(1, 10, dtype=torch.int32),
+def test_cutout_alpha_pass_registered_routines_match_jax():
+    """Pixels of two registered cutout routines' global slot ranges take
+    each routine's own alpha against its cutoff; the PBR pixels keep the
+    PBR test. Against JAX's pass bit for bit."""
+    from rend3_tpu.routine import registry as JR
+    from rend3_tpu_torch.routine import registry as PREG
+
+    rng = np.random.default_rng(5)
+    M, hh, ww = 4, 8, 128
+    N = hh * ww
+    data = np.zeros((M, JS.PBR_DATA_SIZE), np.float32)
+    data[:, JS.PBR_ALBEDO : JS.PBR_ALBEDO + 4] = rng.uniform(0.2, 1.0, (M, 4))
+    data[:, JS.PBR_ALPHA_CUTOUT] = [0.5, 0.0, 0.7, 0.4]
+    flags = np.zeros(M, np.int32)
+    mtex = np.zeros((M, JT.NSLOT), np.int32)
+    g = np.zeros((JD.GB_CH, N), np.float32)
+    den = rng.uniform(0.5, 2.0, N).astype(np.float32)
+    g[JD.G_DEN] = den
+    for off, n in ((JD.G_VP, 3), (JD.G_NRM, 3), (JD.G_TAN, 3), (JD.G_UV0, 2), (JD.G_UV1, 2), (JD.G_COL, 4)):
+        g[off : off + n] = rng.uniform(-1.0, 1.0, (n, N)) * den
+    g[JD.G_MAT] = rng.integers(0, M + 8, N)  # PBR slots 0-3, then two routines' 4 slots each
+    g[JD.G_HIT] = 1.0
+    g = g.reshape(JD.GB_CH, hh, ww)
+    ext = [(rng.random((4, 4)).astype(np.float32), np.zeros(4, np.int32)) for _ in range(2)]
+
+    def routines(reg, to_float):
+        return [
+            reg.MaterialRoutine(object, shade=None, transparency="cutout", alpha_cutoff=0.5,
+                                alpha=lambda px, md, mf: to_float(px.view_pos[:, 0] > 0.0)),
+            reg.MaterialRoutine(object, shade=None, transparency="cutout", alpha_cutoff=0.3,
+                                alpha=lambda px, md, mf: md[:, 0] * px.uv0[:, 1]),
+        ]
+
+    jr = routines(JR, lambda b: b.astype(jnp.float32))
+    want, _ovf, _q = JL.cutout_alpha_pass(
+        JD.GBuffer(data=jnp.asarray(g)),
+        JS.PbrMaterialTable(data=jnp.asarray(data), flags=jnp.asarray(flags), textures=jnp.asarray(mtex)),
+        None, (), (hh, ww),
+        extras=[(M + 4 * i, 4, jr[i], jnp.asarray(d), jnp.asarray(f)) for i, (d, f) in enumerate(ext)],
     )
-    with pytest.raises(NotImplementedError, match="Off the main path"):
-        PL.cutout_alpha_pass(g, mats, None, (), extras=[object()])
+    pr = routines(PREG, lambda b: b.float())
+    got = PL.cutout_alpha_pass(
+        PD.GBuffer(torch.from_numpy(g)),
+        PS.PbrMaterialTable(data=torch.from_numpy(data), flags=torch.from_numpy(flags), textures=torch.from_numpy(mtex)),
+        None, (),
+        extras=[(M + 4 * i, 4, pr[i], torch.from_numpy(d), torch.from_numpy(f)) for i, (d, f) in enumerate(ext)],
+    )
+    want = np.asarray(want)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0.2 < want.mean() < 0.9  # both outcomes occur
 
 
 # ---------------------------------------------------------------------------

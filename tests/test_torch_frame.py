@@ -12,8 +12,8 @@ the wgpu goldens.
   occlusion_culling=False (culling is image-neutral): max abs
   difference <= 1.
 - Shadow maps cached across static frames (as test_caps.py:96 tests).
-- The skybox, outside the slice, raises NotImplementedError naming the
-  ROADMAP (MSAA 4 renders: tests/test_torch_msaa.py).
+(MSAA 4 renders: tests/test_torch_msaa.py; the skybox:
+tests/test_torch_skybox.py.)
 """
 
 import os
@@ -32,7 +32,6 @@ from rend3_tpu.types import Perspective as JaxPerspective
 from rend3_tpu.utils import math as jm3
 from rend3_tpu_torch import scenes
 from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget
-from rend3_tpu_torch.routine.pbr.material import AlbedoComponent, PbrMaterial
 from rend3_tpu_torch.testing import FrameRenderSettings, TestRunner, Threshold, compare_to_golden, load_png
 from rend3_tpu_torch.types import Camera, Orthographic
 from rend3_tpu_torch.utils import math as m3
@@ -170,27 +169,4 @@ def test_shadow_maps_cached_across_static_frames():
     keep.append(runner.cube(mat, m3.translation([0.5, 0.3, 0.0]) @ m3.scale(0.2)))
     runner.render_frame(settings)
     assert graph._shadow_cache[0] != state0
-    del keep
-
-
-def _lit_scene(runner, material):
-    keep = [runner.add_directional_light(np.array([-1.0, -1.0, 1.0], np.float32))]
-    mat = runner.renderer.add_material(material)
-    keep += [mat, runner.plane(mat, m3.rotation_x(-np.pi / 2))]
-    _camera(runner)
-    return keep
-
-
-def _plain(runner):
-    return _lit_scene(runner, PbrMaterial(albedo=AlbedoComponent.new_value(np.ones(4, np.float32))))
-
-
-def test_skybox_not_ported():
-    runner = TestRunner(device="cpu")
-    keep = _plain(runner)
-    runner.renderer.swap_instruction_buffers()
-    with pytest.raises(NotImplementedError, match="Off the main path"):
-        runner.base_graph.render_frame(
-            runner.renderer.evaluate_instructions(), FrameRenderTarget(64, 64, 1), skybox_slot=0
-        )
     del keep

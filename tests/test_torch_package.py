@@ -1,7 +1,7 @@
 """Package rules of the PyTorch port (rend3_tpu_torch): it never pulls in
 jax or the JAX package, not even when its scenes are built; its entry points
-render on the card unless asked for the CPU, and a CUDA renderer needs a
-card; features outside the ported slice refuse loudly."""
+render on the card unless asked for the CPU (the probes' entry points too), and a CUDA
+renderer needs a card; features outside the ported slice refuse loudly."""
 
 import subprocess
 import sys
@@ -11,7 +11,6 @@ import pytest
 import torch
 
 import rend3_tpu_torch as P
-from rend3_tpu_torch.routine.base import BaseRenderGraph
 from rend3_tpu_torch.testing import FrameRenderSettings, TestRunner
 
 
@@ -24,7 +23,9 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, rend3_tpu_torch, rend3_tpu_torch.routine.base, rend3_tpu_torch.interop, "
         "rend3_tpu_torch.scenes, rend3_tpu_torch.ops.cuda_kernels, rend3_tpu_torch.probe_shadow, "
-        "rend3_tpu_torch.frame_profile; "
+        "rend3_tpu_torch.frame_profile, rend3_tpu_torch.routine.registry, rend3_tpu_torch.ops.skin, "
+        "rend3_tpu_torch.ops.probe_bf16, rend3_tpu_torch.tools.probe_bf16_dot, "
+        "rend3_tpu_torch.tools.probe_bf16_kernel, rend3_tpu_torch.tools.probe_bf16_real; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'rend3_tpu' or m.startswith('rend3_tpu.')); print(bad)"
     )
@@ -73,16 +74,21 @@ def test_scenes_import_no_jax_package_when_called():
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
 
+@pytest.mark.parametrize("probe", ["probe_bf16_dot", "probe_bf16_kernel", "probe_bf16_real"])
+def test_probe_entry_points_need_the_card(probe):
+    """tools.probe_bf16_*.run() defaults to the card and raises without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import importlib
+
+    mod = importlib.import_module(f"rend3_tpu_torch.tools.{probe}")
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        mod.run(log=lambda _line: None)
+
+
 def test_multi_device_not_ported():
     with pytest.raises(NotImplementedError, match="Multi-GPU"):
         P.Renderer(device=["cuda:0", "cuda:1"])
-
-
-@pytest.mark.parametrize("call", ["register_routine", "register_pass"])
-def test_graph_extension_points_not_ported(call):
-    graph = BaseRenderGraph(P.Renderer(device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(graph, call)(lambda *a: a[0])
 
 
 def test_cuda_kernel_rejects_cpu_tensors():
