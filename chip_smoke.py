@@ -64,11 +64,20 @@ wall time):
    K5 on those of the textured frames, K1's count and bound modes and K4
    on the cutout alpha test on those of the representative frames, K1 at
    an MSAA offset on those of the MSAA frames, K4 on the skybox query of
-   the feature frame, K6-K8 on those of phases 7 and 8, P1-P3 on the
-   probes' inputs, against their plain versions on the card, with median
-   times, the bound each kernel's bytes or operations set on the card, and
-   the time of one PyTorch call computing the same function where there is
-   one;
+   the feature frame, K1 in every mode and K2 on the stress input
+   (rend3_tpu_torch.testing.raster_stress_case), K6-K8 on those of phases 7
+   and 8, P1-P3 on the probes' inputs, against their plain versions on the
+   card. Each kernel and library row is timed on the device: 20 calls
+   captured in one CUDA graph, replayed between two CUDA events, the median
+   of five replays over 20 (torch.profiler's summed device durations of 20
+   calls for a wrapper that reads the device on the host, P3's), beside the
+   time of one call between two CUDA events (host included), the plain
+   version's median, the bound each kernel's bytes or operations set on
+   the card, and the time of one PyTorch call computing the same function
+   where there is one; the registers, spills, shared memory and resident
+   CTAs per SM of K1 / K2's kernel; which kernel the redesign rule picks
+   second (K5 while it is slower on the device than its library call,
+   else K2);
 12. parity: the shadow golden scene, the textured-planes scene, the stacked
    cutout scene and the glass stack at 256x256, test_msaa's triangle at
    64x64 and 4 samples, a 64x64 skybox scene, a skinned scene and the
@@ -138,8 +147,10 @@ def phase_build():
     cuda_kernels.build(verbose=True)
     cuda_kernels.library()
     log(f"build: {time.perf_counter() - t0:.2f} s ({cuda_kernels.last_build['path']})")
-    for line in cuda_kernels.last_build["log"].splitlines()[:40]:
-        log("  nvcc: " + line.strip())
+    # ptxas -v: each kernel's registers, shared memory and spills.
+    for line in cuda_kernels.last_build["log"].splitlines():
+        if line.startswith("[") or "Compiling entry" in line or "spill" in line or "Used" in line:
+            log("  nvcc: " + line.strip())
 
 
 def _counters():
@@ -558,6 +569,8 @@ def phase_features(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600, s
 
 
 def _median_ms(fn, reps):
+    """Median time of one call between two CUDA events: the call's device
+    time and the host time of the wrapper around it (host included)."""
     import torch
 
     fn()
@@ -570,6 +583,65 @@ def _median_ms(fn, reps):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+# Calls in one device-time measurement.
+DEVICE_CALLS = 20
+
+
+def _graph_ms(fn, n=DEVICE_CALLS, replays=5):
+    """Device time of one call of fn: n calls captured in one CUDA graph
+    (after three warm-up calls on a side stream and one warm-up replay),
+    the graph replayed between two CUDA events, the median over `replays`
+    replays divided by n. Raises if the graph shows no device time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / n)
+    del graph
+    ms = statistics.median(times)
+    if not ms > 0.0:
+        raise AssertionError(f"a CUDA graph of {n} calls shows no device time ({times})")
+    return ms
+
+
+def _profiler_ms(fn, n=DEVICE_CALLS):
+    """Device time of one call of fn for a wrapper that reads the device on
+    the host (no CUDA graph can capture it): the summed device durations of
+    the kernels and memory operations of n calls under torch.profiler, over
+    n, after one warm-up call. Raises if the profile shows no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    if not us > 0.0:
+        raise AssertionError(f"the profile of {n} calls shows no device time")
+    return us / n / 1e3
 
 
 def _ulps(a, b):
@@ -624,13 +696,14 @@ OCC_PAIR_OPS = 4 * 3 + 12 * (4 * 3 + 5)
 
 
 def _k1_bound(tris, planes, binned, w, h, extra_in=(), extra_out=()):
-    import torch
-
+    """K1's bound; its bound or floor images (extra_in) count only over the
+    tiles whose lists are not empty, the only ones that need them."""
     from rend3_tpu_torch.ops import deferred as D
 
     frags = _raster_fragments(tris, binned, w)
-    bytes_moved = _nbytes(tris.setup, tris.bbox, planes, binned.offsets, binned.ids, *extra_in, *extra_out)
-    bytes_moved += D.GB_CH * w * h * 4
+    listed = float((binned.offsets[1:] > binned.offsets[:-1]).float().mean())
+    bytes_moved = _nbytes(tris.setup, tris.bbox, planes, binned.offsets, binned.ids, *extra_out)
+    bytes_moved += listed * _nbytes(*extra_in) + D.GB_CH * w * h * 4
     return _bound(bytes_moved, frags * RASTER_TEST_OPS + w * h * K1_FINALIZE_OPS)
 
 
@@ -707,10 +780,10 @@ def phase_visibility(graph, device="cuda"):
                     and torch.equal(g[D.G_HIT, :height, :width] > 0, v.tri[si] >= 0)):
                 n = int((g[D.G_DEPTH, :height, :width] != v.depth[si]).sum())
                 raise AssertionError(f"K6 ({label}) and K1 differ in depth or coverage (depth at {n} pixels)")
-        ms = _median_ms(lambda: RB.rasterize_binned(tris, binned, wp, hp, offs), 20) if k.tri.is_cuda else None
+        ms = _graph_ms(lambda: RB.rasterize_binned(tris, binned, wp, hp, offs)) if k.tri.is_cuda else None
         log(f"K6 ({label}): {tris.count} triangles, {int(binned.ids.numel())} 8x128 tile pairs; ids and depth "
             f"bit-exact against the plain version over {k.tri.numel()} samples, {int((k.tri >= 0).sum())} covered; "
-            f"depth and coverage equal to K1's at the same offsets; kernel {ms} ms (median)")
+            f"depth and coverage equal to K1's at the same offsets; kernel {ms} ms (device, CUDA graph)")
         frags = _raster_fragments(tris, binned, wp, G.TILE_H, G.TILE_W)
         bound = _bound(_nbytes(tris.setup, tris.bbox, binned.offsets, binned.ids, k.depth, k.tri),
                        frags * len(offs) * RASTER_TEST_OPS)
@@ -882,8 +955,10 @@ def phase_kernels(paths, extra_rows=(), timed=True):
     if timed:
         n_sky = int(sky[-1].sum())
         b_sky = _bound(_nbytes(*sky[1:]) + 16 * sky[1].numel() + min(_nbytes(sky[0]), n_sky * 4 * 8), n_sky * 40)
-        log(f"K4 (skybox, store {tuple(sky[0].shape)}, {n_sky} sky queries): kernel {_median_ms(lambda: S.sample_grid_bilinear(*sky), 20)} ms, "
-            f"plain {_median_ms(lambda: S.sample_grid_bilinear_plain(*sky), 5)} ms (median); bound {b_sky[0]:.6f} ms "
+        log(f"K4 (skybox, store {tuple(sky[0].shape)}, {n_sky} sky queries): kernel "
+            f"{_graph_ms(lambda: S.sample_grid_bilinear(*sky))} ms (device, CUDA graph), call "
+            f"{_median_ms(lambda: S.sample_grid_bilinear(*sky), 20)} ms, plain "
+            f"{_median_ms(lambda: S.sample_grid_bilinear_plain(*sky), 5)} ms (median); bound {b_sky[0]:.6f} ms "
             f"({b_sky[1]})")
     n_valid = int(a4[-1].sum())
     b4 = _bound(_nbytes(*a4[1:]) + 16 * a4[1].numel() + min(_nbytes(a4[0]), n_valid * 4 * 8), n_valid * 40)
@@ -914,20 +989,79 @@ def phase_kernels(paths, extra_rows=(), timed=True):
                  lambda: S.sample_grid(*a5), lambda: S.sample_grid_plain(*a5), 0.0, b5,
                  lambda: img5[by5.long()[:, None] + dy, bx5.long()[:, None] + dx]))
 
+    phase_stress(tris.setup.device)
+    if tris.setup.is_cuda:
+        log_raster_kernels()
+
     kernels = []
-    for name, src, repl, kfn, pfn, err, (bound_ms, bound_by), libfn in rows + list(extra_rows):
-        ms = _median_ms(kfn, 20) if timed else None
+    for row in rows + list(extra_rows):
+        name, src, repl, kfn, pfn, err, (bound_ms, bound_by), libfn = row[:8]
+        method = row[8] if len(row) > 8 else "graph"
+        device_ms = _profiler_ms if method == "profiler" else _graph_ms
+        ms = device_ms(kfn) if timed else None
+        call_ms = _median_ms(kfn, 20) if timed else None
         plain_ms = _median_ms(pfn, 5) if timed else None
-        library_ms = _median_ms(libfn, 20) if timed and libfn is not None else None
+        library_ms = device_ms(libfn) if timed and libfn is not None else None
         launches = sum(counts[name] for _g, counts in paths.values())
-        log(f"{name}: kernel {ms} ms, plain {plain_ms} ms, library {library_ms} ms (median); "
+        log(f"{name}: kernel {ms} ms (device, {method} of {DEVICE_CALLS} calls), call {call_ms} ms (host included, "
+            f"median), plain {plain_ms} ms (median), library {library_ms} ms (device, {method}); "
             f"bound {bound_ms:.6f} ms ({bound_by}); {launches} launches on the measured paths")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "ms_method": f"{method} of {DEVICE_CALLS} calls", "call_ms": call_ms,
         })
+    if timed:
+        # The redesign rule: K5 comes second only while it is slower on the
+        # device than its library call; otherwise K2 does.
+        k5 = next(k for k in kernels if k["name"] == "gather")
+        second = "K5" if k5["ms"] > k5["library_ms"] else "K2"
+        log(f"second kernel by the rule: {second} (K5 {k5['ms']} ms on the device, its library call "
+            f"{k5['library_ms']} ms)")
     return kernels
+
+
+def phase_stress(device="cuda"):
+    """K1 in every mode and K2 against their plain versions on
+    testing.raster_stress_case: depth, hit, material and counts bit-exact,
+    the other channels within 1 ulp; K2 bit-exact."""
+    import torch
+
+    from rend3_tpu_torch import testing
+    from rend3_tpu_torch.ops import deferred as D
+    from rend3_tpu_torch.ops import raster as R
+
+    c = testing.raster_stress_case(device)
+    lens = (c["binned"].offsets[1:] - c["binned"].offsets[:-1]).tolist()
+    log(f"stress input: {c['tris'].count} triangles, tile lists {lens}")
+    args = (c["tris"], c["planes"], c["binned"], c["width"], c["height"])
+    for label, kw in (
+        ("opaque", {}), ("MSAA offset", {"sofs": R.MSAA4_OFFSETS[1]}), ("bound", {"bound": c["bound"]}),
+        ("count", {"count_floor": c["floor"]}), ("strict count", {"count_floor": c["floor"], "count_strict": True}),
+        ("bound + strict count", {"bound": c["bound"], "count_floor": c["floor"], "count_strict": True}),
+    ):
+        k, p = D.raster_resolve(*args, **kw), D.raster_resolve_plain(*args, **kw)
+        if "count_floor" in kw:
+            _k1_check(f"K1 stress, {label}", k[0].data, p[0], k[1], p[1])
+        else:
+            _k1_check(f"K1 stress, {label}", k.data, p)
+    for sofs in ((0.5, 0.5), R.MSAA4_OFFSETS[2]):
+        k = D.raster_depth(*args[:1], *args[2:], sofs=sofs)
+        if not torch.equal(k, D.raster_depth_plain(*args[:1], *args[2:], sofs=sofs)):
+            raise AssertionError(f"K2 differs from its plain version on the stress input at offset {sofs}")
+        log(f"K2 stress at offset {sofs}: bit-exact over {k.numel()} texels, {int((k > 0).sum())} covered")
+
+
+def log_raster_kernels():
+    """Registers, spills, shared memory and resident CTAs per SM of each
+    instance of K1 / K2's tiles_kernel (CUDA runtime)."""
+    from rend3_tpu_torch.ops import cuda_kernels
+
+    for i, name in enumerate(cuda_kernels.RASTER_INSTANCES):
+        info = cuda_kernels.raster_kernel_info(i)
+        log(f"tiles_kernel {name}: {info['registers']} registers, {info['local_bytes']} local (spill) bytes, "
+            f"{info['smem']} bytes of shared memory, {info['ctas_per_sm']} resident CTAs per SM of {info['sms']} SMs")
 
 
 def _probe_err(label, kfn, pfn):
@@ -988,7 +1122,8 @@ def probe_rows(runs):
     bytes_moved = cells * ra["t"][0].numel() * 4 + _nbytes(ra["f"], ra["coords"], ra["st"], ra["sc"], ra["sf"]) + 2 * _nbytes(ra["out"])
     fns = (lambda: pb.probe_lerp(*args, **kw), lambda: pb.probe_lerp_plain(*args, **kw))
     rows.append(("probe_lerp", "rend3_tpu_torch/csrc/probe_bf16.cu", "tools/probe_bf16_real.py:22",
-                 *fns, _probe_err("probe_lerp", *fns), _bound(bytes_moved, ops), None))
+                 *fns, _probe_err("probe_lerp", *fns), _bound(bytes_moved, ops), None,
+                 "profiler"))  # probe_lerp reads its step cells on the host: no CUDA graph
     log(f"P3 timing inputs: {len(ra['sf'])} steps, {bands} selected bands of {kw['npb']} pixels, {cells} cells")
     return rows
 

@@ -85,7 +85,7 @@ def _resolve_device(device) -> torch.device:
     raises here instead of rendering slowly."""
     if isinstance(device, (list, tuple)):
         raise NotImplementedError(
-            "multi-device rendering is not ported yet (ROADMAP queue 1, item 14 'Multi-GPU row bands')"
+            "multi-device rendering is not ported yet (ROADMAP queue 1, item 15 'Multi-GPU row bands')"
         )
     dev = torch.device(device)
     if dev.type == "cuda":

@@ -33,7 +33,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["build", "library", "call", "SOURCES", "NVCC_FLAGS"]
+__all__ = ["build", "library", "call", "raster_kernel_info", "SOURCES", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG, "csrc")
@@ -45,7 +45,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-lineinfo", "-X
 # name -> (tensor args, int args, float args); every function ends with the stream.
 _SIGNATURES = {
     "k1_raster_resolve": (9, 3, 2),
-    "k2_raster_depth": (5, 2, 2),
+    "k2_raster_depth": (6, 3, 2),
     "k3_pcf5": (8, 3, 0),
     "k4_bilinear": (8, 3, 0),
     "k5_gather": (6, 4, 0),
@@ -126,6 +126,8 @@ def library() -> ctypes.CDLL:
                 [ctypes.c_void_p] * n_t + [ctypes.c_int] * n_i + [ctypes.c_float] * n_f + [ctypes.c_void_p]
             )
             fn.restype = ctypes.c_int
+        lib.raster_kernel_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.raster_kernel_info.restype = ctypes.c_int
         lib.rend3_cuda_error_string.argtypes = [ctypes.c_int]
         lib.rend3_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -152,3 +154,19 @@ def call(name: str, *tensors: torch.Tensor, ints=(), floats=()) -> None:
         )
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}: {lib.rend3_cuda_error_string(rc).decode()}")
+
+
+# The instances of csrc/raster.cu's tiles_kernel, by raster_kernel_info's index.
+RASTER_INSTANCES = ("K1", "K1 bound", "K1 count", "K1 bound + count", "K2")
+
+
+def raster_kernel_info(which: int) -> dict:
+    """Registers a thread, local (spill) bytes, shared bytes and resident
+    CTAs per SM of tiles_kernel instance RASTER_INSTANCES[which], and the SM
+    count, from the CUDA runtime on the current device."""
+    lib = library()
+    info = (ctypes.c_int * 5)()
+    rc = lib.raster_kernel_info(which, ctypes.cast(info, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"raster_kernel_info: CUDA error {rc}: {lib.rend3_cuda_error_string(rc).decode()}")
+    return dict(zip(("registers", "local_bytes", "smem", "ctas_per_sm", "sms"), info))

@@ -405,6 +405,8 @@ def _check(tris: TriSetup, binned: BinnedTris, width: int, height: int, planes=N
             raise ValueError("raster inputs must be contiguous and on one device")
     if tris.bbox.shape[1:] != (4,) or tris.bbox.dtype != torch.float32 or tris.bbox.data_ptr() % 16:
         raise ValueError("bbox must be (V, 4) f32 rows aligned to 16 bytes")
+    if tris.setup.data_ptr() % 16:
+        raise ValueError("setup rows must be aligned to 16 bytes (the kernels copy them 16 bytes at a time)")
     return dev
 
 
@@ -478,10 +480,14 @@ def raster_depth(
     from . import cuda_kernels
 
     out = torch.empty(height, width, dtype=torch.float32, device=dev)
+    # The kernel's segment plan: a count, then (tile, first entry) for each
+    # of at most n_tiles + P / 128 segments of 128 list entries.
+    n_entries = binned.ids.numel()
+    plan = torch.empty(1 + 2 * (binned.offsets.numel() - 1 + n_entries // 128), dtype=torch.int32, device=dev)
     cuda_kernels.call(
         "k2_raster_depth",
-        tris.setup, tris.bbox, binned.offsets, binned.ids, out,
-        ints=(width, height), floats=sofs,
+        tris.setup, tris.bbox, binned.offsets, binned.ids, out, plan,
+        ints=(width, height, n_entries), floats=sofs,
     )
     launches["raster_depth"] += 1
     return out

@@ -63,6 +63,7 @@ from ..ops import skin as skin_ops
 from ..ops import texture as tex_ops
 from ..ops import transform as transform_ops
 from ..types import Handedness
+from ..types.error import DeviceOutOfMemoryError
 
 __all__ = [
     "BaseRenderGraph", "BaseRenderGraphSettings", "FrameRenderTarget", "StageTimer", "raster_scene", "sky_directions",
@@ -740,7 +741,17 @@ class BaseRenderGraph:
         skybox_slot: Optional[int] = None,
     ) -> torch.Tensor:
         """render_frame without the copy to the host: (H, W, 4) u8 on the
-        renderer's device."""
+        renderer's device. A device out-of-memory in any stage reaches the
+        caller as DeviceOutOfMemoryError, its cause chained, as JAX's
+        render_frame maps RESOURCE_EXHAUSTED (rend3_tpu/routine/base.py:252-259)."""
+        try:
+            return self._render_frame_stages(eval_output, target, settings, skybox_slot)
+        except RuntimeError as e:  # torch.cuda.OutOfMemoryError is one
+            if isinstance(e, torch.cuda.OutOfMemoryError) or "out of memory" in str(e).lower():
+                raise DeviceOutOfMemoryError(str(e)) from e
+            raise
+
+    def _render_frame_stages(self, eval_output, target, settings, skybox_slot):
         raster_ops.sample_offsets(target.samples)  # raises unless 1 or 4
         stage = self.timer if self.timer is not None else _no_timer
         width, height = target.width, target.height

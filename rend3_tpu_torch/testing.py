@@ -207,3 +207,125 @@ class TestRunner:
             raise ValueError("relative golden name: set REND3_REFERENCE_RESULTS or pass an absolute path")
         path = golden if os.path.isabs(golden) else os.path.join(REFERENCE_RESULTS, golden)
         return compare_to_golden(img, path, threshold)
+
+
+# ---------------------------------------------------------------------------
+# A stress input for the raster kernels K1 and K2
+# ---------------------------------------------------------------------------
+
+STRESS_W, STRESS_H = 256, 128
+
+
+def raster_stress_input(seed: int = 0, width: int = STRESS_W, height: int = STRESS_H):
+    """Clip-space triangles (T, 3, 4) f32 and per-triangle plane rows
+    (T, PLANES_W) f32, from a numpy generator, that press the raster
+    kernels' list walk over 32x128 tiles:
+
+    - a 10x5 grid of 24-pixel quads at w = 1 whose corners, edges and
+      diagonals pass through pixel centres (the top-left rule decides
+      those pixels), across the 32-pixel quarter-tile and 4-row warp
+      boundaries;
+    - 2,800 small triangles (2 to 6 pixels) of random depth and w, three in
+      four left of x = 128, so the left tiles list more than 256 entries and
+      the right ones more than 128 (one staging chunk), most of which a
+      given warp's bbox test skips;
+    - coplanar duplicates, equal in depth at every pixel, later in the list:
+      of 60 grid triangles (20 of them twice) at random later positions, so
+      the later entry must win across quarter, 128-entry chunk and 32-entry
+      ballot boundaries; of 200 small triangles, half right after their
+      original (the same ballot); of 6 of 12 large triangles (30 to 100
+      pixels across, spanning tiles).
+
+    The list order is the row order: the grid first, then the rest
+    shuffled. A duplicate's plane row has its own material, 100 + its row,
+    so the material channel shows where a duplicate won."""
+    from .ops.deferred import P_MAT, PLANES_W
+
+    rng = np.random.default_rng(seed)
+
+    def to_clip(xs, ys, z, w):
+        cx = (xs / width - 0.5) * 2.0 * w
+        cy = (0.5 - ys / height) * 2.0 * w
+        return np.stack([cx, cy, z * w, w], axis=-1).astype(np.float32)
+
+    def around(n, lo, hi, left_share):
+        """n triangles of radius in [lo, hi) about random centres."""
+        left = rng.random(n) < left_share
+        cx = np.where(left, rng.uniform(-2.0, width / 2, n), rng.uniform(width / 2, width + 2.0, n))
+        cy = rng.uniform(-2.0, height + 2.0, n)
+        ang = rng.uniform(0.0, 2.0 * np.pi, (n, 3))
+        rad = rng.uniform(lo, hi, (n, 1)) * rng.uniform(0.5, 1.0, (n, 3))
+        return cx[:, None] + rad * np.cos(ang), cy[:, None] + rad * np.sin(ang)
+
+    quads = []
+    for j in range(5):
+        for i in range(10):
+            x0, y0 = 4.5 + 24 * i, 4.5 + 24 * j
+            a, b, c, d = (x0, y0), (x0 + 24, y0), (x0 + 24, y0 + 24), (x0, y0 + 24)
+            quads += [(a, b, c), (a, c, d)]
+    g = np.array(quads, np.float64)
+    zg = 0.3 + 0.0005 * g[..., 0] + 0.0007 * g[..., 1]
+    grid = to_clip(g[..., 0], g[..., 1], zg, np.ones_like(zg))
+    xs, ys = around(2800, 1.0, 3.0, 0.75)
+    small = to_clip(xs, ys, rng.uniform(0.05, 0.9, xs.shape), rng.uniform(0.8, 1.25, xs.shape))
+    xs, ys = around(12, 15.0, 50.0, 0.5)
+    large = to_clip(xs, ys, rng.uniform(0.2, 0.7, xs.shape), rng.uniform(0.9, 1.1, xs.shape))
+
+    # The rest of the list sorts by key; a later duplicate of row k gets a
+    # key past k's (1e-9 past it: the next entry).
+    rest = np.concatenate([small, large])
+    key = rng.random(rest.shape[0])
+    rows, keys = [rest], [key]
+    gdup = rng.choice(grid.shape[0], 60, replace=False)
+    gdup = np.concatenate([gdup, gdup[:20]])
+    rows.append(grid[gdup])
+    keys.append(rng.random(gdup.shape[0]))
+    sdup = rng.choice(small.shape[0], 200, replace=False)
+    ldup = small.shape[0] + rng.choice(large.shape[0], 6, replace=False)
+    later = np.concatenate([sdup[100:], ldup])
+    rows += [rest[sdup[:100]], rest[later]]
+    keys += [key[sdup[:100]] + 1e-9, key[later] + rng.random(later.shape[0]) * (1.0 - key[later])]
+    order = np.argsort(np.concatenate(keys), kind="stable")
+    rows = np.concatenate(rows)
+    clip = np.concatenate([grid, rows[order]]).astype(np.float32)
+    is_dup = np.concatenate([np.zeros(grid.shape[0], bool), (np.arange(rows.shape[0]) >= rest.shape[0])[order]])
+
+    planes = rng.standard_normal((clip.shape[0], PLANES_W)).astype(np.float32)
+    planes[:, P_MAT] = rng.integers(0, 9, clip.shape[0]).astype(np.float32)
+    planes[is_dup, P_MAT] = 100.0 + np.flatnonzero(is_dup)
+    return clip, planes
+
+
+def raster_stress_case(device="cuda", seed: int = 0) -> dict:
+    """raster_stress_input through the port's front end on `device`: the
+    setup table (tris), its plane rows (planes), the 32x128 CSR tile lists
+    (binned), width, height, and the peel images (bound, floor) from the
+    plain K1's opaque pass."""
+    import torch
+
+    from .ops import deferred as D
+    from .ops import geometry as G
+
+    clip, planes = raster_stress_input(seed)
+    dev = torch.device(device)
+    c = torch.from_numpy(clip).to(dev)
+    tris = G.cull_and_setup(
+        c, torch.ones(c.shape[0], dtype=torch.bool, device=dev), STRESS_W, STRESS_H,
+        cull_mode=G.CullMode.NONE, front_is_cw=True, subpixel=True,
+    )
+    pl = torch.from_numpy(planes).to(dev)[tris.src].contiguous()
+    binned = G.bin_triangles(tris, STRESS_W, STRESS_H, tile_h=D.DTILE_H, tile_w=D.DTILE_W)
+    # Peel images from the opaque depth: the depth itself at hit pixels, so
+    # fragments tie them exactly, 0 (bound) or -1 (floor) elsewhere, and a
+    # third of the pixels at random depths.
+    g0 = D.raster_resolve_plain(tris, pl, binned, STRESS_W, STRESS_H)
+    depth, hit = g0[D.G_DEPTH].cpu().numpy(), (g0[D.G_HIT] > 0).cpu().numpy()
+    rng = np.random.default_rng(seed + 1)
+    noise = rng.random(depth.shape) < 0.33
+    rand = rng.uniform(0.0, 0.7, depth.shape).astype(np.float32)
+    bound = np.where(noise, rand, np.where(hit, depth, 0.0)).astype(np.float32)
+    floor = np.where(noise, rand, np.where(hit, depth, -1.0)).astype(np.float32)
+    return dict(
+        tris=tris, planes=pl, binned=binned, width=STRESS_W, height=STRESS_H,
+        bound=torch.from_numpy(bound).to(dev), floor=torch.from_numpy(floor).to(dev),
+    )

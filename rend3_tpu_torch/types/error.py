@@ -42,7 +42,8 @@ class DeviceLimitError(RendererError):
 
 
 class DeviceOutOfMemoryError(RendererError):
-    """HBM allocation failure surfaced from XLA with renderer context."""
+    """A device allocation failure during a frame (torch.cuda.OutOfMemoryError,
+    chained as the cause), raised by BaseRenderGraph.render_frame."""
 
 
 class RenderCapacityError(RendererError):

@@ -15,13 +15,18 @@ hit pixels (their values elsewhere are not defined). The bf16 probes P1-P3
 (every variant of tools.probe_bf16_*): bit-exact, NaN positions equal, and
 for P2 and P3 again on zero-initialised outputs, which hold values. K4
 on the skybox query of a 64x64 skybox frame at 4 samples: bit-exact.
+K1 in every mode and K2 on testing.raster_stress_case (lists longer than
+the kernels' 128-entry staging chunk and K2's 128-entry segment,
+equal-depth duplicates across quarter-tile, chunk and ballot boundaries,
+edges on pixel centres): as above, and K2 bit-exact at two offsets. A K1
+launch that cannot be made raises.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from rend3_tpu_torch import probe_shadow, scenes
+from rend3_tpu_torch import probe_shadow, scenes, testing
 from rend3_tpu_torch.ops import deferred as D
 from rend3_tpu_torch.ops import geometry as G
 from rend3_tpu_torch.ops import raster as R
@@ -231,3 +236,65 @@ def test_k4_skybox_matches_plain():
     assert runner.base_graph.last_stats["sky_k4_launches"] == 1 and int(args[-1].sum()) > 0
     assert torch.equal(S.sample_grid_bilinear(*args), S.sample_grid_bilinear_plain(*args))
     del keep
+
+
+@pytest.fixture(scope="module")
+def stress():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return testing.raster_stress_case("cuda")
+
+
+K1_MODES = {
+    "opaque": {},
+    "msaa_offset": {"sofs": R.MSAA4_OFFSETS[1]},
+    "bound": {"bound": True},
+    "count": {"floor": True},
+    "count_strict": {"floor": True, "strict": True},
+    "bound_count_strict": {"bound": True, "floor": True, "strict": True},
+}
+
+
+@pytest.mark.parametrize("mode", list(K1_MODES))
+def test_k1_stress_matches_plain(stress, mode):
+    m = K1_MODES[mode]
+    c = stress
+    kw = dict(
+        sofs=m.get("sofs", (0.5, 0.5)), bound=c["bound"] if m.get("bound") else None,
+        count_floor=c["floor"] if m.get("floor") else None, count_strict=bool(m.get("strict")),
+    )
+    args = (c["tris"], c["planes"], c["binned"], c["width"], c["height"])
+    k, p = D.raster_resolve(*args, **kw), D.raster_resolve_plain(*args, **kw)
+    if m.get("floor"):
+        _k1_modes_match(k[0].data, p[0], k[1], p[1])
+        assert int(k[1].max()) >= 2
+    else:
+        _k1_modes_match(k.data, p)
+    # Duplicates (material 100 + row) win where they tie their originals.
+    if not m.get("bound"):
+        g = k[0].data if m.get("floor") else k.data
+        assert int((g[D.G_MAT] >= 100).sum()) > 0
+
+
+@pytest.mark.parametrize("sofs", [(0.5, 0.5), R.MSAA4_OFFSETS[2]], ids=["centre", "msaa"])
+def test_k2_stress_matches_plain(stress, sofs):
+    c = stress
+    args = (c["tris"], c["binned"], c["width"], c["height"])
+    k = D.raster_depth(*args, sofs=sofs)
+    assert torch.equal(k, D.raster_depth_plain(*args, sofs=sofs))
+    assert int((k > 0).sum()) > 0
+
+
+def test_k1_launch_failure_raises():
+    """A K1 launch that cannot be made (a 4,194,304 x 524,288 target has
+    2^29 tiles, so 2^31 quarter-tile CTAs, more than a grid may hold)
+    raises instead of leaving the output unwritten."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rend3_tpu_torch.ops import cuda_kernels
+
+    t = torch.zeros(64, dtype=torch.float32, device="cuda")
+    i = torch.zeros(64, dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="k1_raster_resolve: CUDA error"):
+        cuda_kernels.call("k1_raster_resolve", t, t, t, i, i, t, None, None, None,
+                          ints=(128 << 15, 32 << 14, 0), floats=(0.5, 0.5))

@@ -87,7 +87,7 @@ def test_probe_entry_points_need_the_card(probe):
 
 
 def test_multi_device_not_ported():
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    with pytest.raises(NotImplementedError, match=r"item 15 'Multi-GPU row bands'"):
         P.Renderer(device=["cuda:0", "cuda:1"])
 
 
@@ -97,6 +97,35 @@ def test_cuda_kernel_rejects_cpu_tensors():
     t = torch.zeros(4)
     with pytest.raises(ValueError, match="CUDA kernel"):
         cuda_kernels.call("k3_pcf5", *([t] * 8), ints=(1, 1, 1))
+
+
+@pytest.mark.parametrize("error", ["cuda_oom", "runtime_oom", "other"])
+def test_render_frame_types_device_oom(monkeypatch, error):
+    """A device OOM in a frame stage reaches the caller as
+    DeviceOutOfMemoryError with the original as its cause; any other
+    RuntimeError passes through unchanged."""
+    from rend3_tpu_torch.routine import base
+    from rend3_tpu_torch.types.error import DeviceOutOfMemoryError
+
+    raised = {
+        "cuda_oom": torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate 2.00 GiB"),
+        "runtime_oom": RuntimeError("CUDA error: out of memory"),
+        "other": RuntimeError("shape mismatch"),
+    }[error]
+
+    def clip(self, f):
+        raise raised
+
+    monkeypatch.setattr(base.BaseRenderGraph, "_clip", clip)
+    runner = TestRunner(device="cpu")
+    if error == "other":
+        with pytest.raises(RuntimeError, match="shape mismatch") as info:
+            runner.render_frame(FrameRenderSettings(size=64))
+        assert info.value is raised
+        return
+    with pytest.raises(DeviceOutOfMemoryError, match="out of memory") as info:
+        runner.render_frame(FrameRenderSettings(size=64))
+    assert info.value.__cause__ is raised
 
 
 def test_empty_scene_renders_clear_color():
