@@ -74,10 +74,11 @@ wall time):
    time of one call between two CUDA events (host included), the plain
    version's median, the bound each kernel's bytes or operations set on
    the card, and the time of one PyTorch call computing the same function
-   where there is one; the registers, spills, shared memory and resident
-   CTAs per SM of K1 / K2's kernel; which kernel the redesign rule picks
-   second (K5 while it is slower on the device than its library call,
-   else K2);
+   where there is one; the launch floor (an empty kernel's device time in
+   the same CUDA graphs, on one CTA and on K5's grid); the registers,
+   spills, shared memory and resident CTAs per SM of K1 / K2's, P1's and
+   K5's kernels; and rule 2's order of the kernels still to redesign
+   (rend3_tpu_torch.testing.redesign_order);
 12. parity: the shadow golden scene, the textured-planes scene, the stacked
    cutout scene and the glass stack at 256x256, test_msaa's triangle at
    64x64 and 4 samples, a 64x64 skybox scene, a skinned scene and the
@@ -991,7 +992,15 @@ def phase_kernels(paths, extra_rows=(), timed=True):
 
     phase_stress(tris.setup.device)
     if tris.setup.is_cuda:
-        log_raster_kernels()
+        log_kernel_info()
+        if timed:
+            from rend3_tpu_torch.ops import cuda_kernels
+
+            q_ctas = (int(bx5.numel()) + 127) // 128
+            for blocks, threads in ((1, 32), (q_ctas, 128)):
+                ms = _graph_ms(lambda: cuda_kernels.call("launch_floor", ints=(blocks, threads)))
+                log(f"launch_floor_ms {ms} (an empty kernel, {blocks} CTAs of {threads} threads; device, graph of "
+                    f"{DEVICE_CALLS} calls)")
 
     kernels = []
     for row in rows + list(extra_rows):
@@ -1013,12 +1022,13 @@ def phase_kernels(paths, extra_rows=(), timed=True):
             "ms_method": f"{method} of {DEVICE_CALLS} calls", "call_ms": call_ms,
         })
     if timed:
-        # The redesign rule: K5 comes second only while it is slower on the
-        # device than its library call; otherwise K2 does.
-        k5 = next(k for k in kernels if k["name"] == "gather")
-        second = "K5" if k5["ms"] > k5["library_ms"] else "K2"
-        log(f"second kernel by the rule: {second} (K5 {k5['ms']} ms on the device, its library call "
-            f"{k5['library_ms']} ms)")
+        from rend3_tpu_torch import testing
+
+        # Launches per main-path frame: the representative path's three counted frames.
+        frame = {k: v / 3 for k, v in paths["representative"][1].items()}
+        order = testing.redesign_order(kernels, frame)
+        log("rule 2's order of the kernels still to redesign: " + "; ".join(
+            f"{i + 1}. {k} ({name}: {why})" for i, (k, name, why) in enumerate(order)))
     return kernels
 
 
@@ -1053,15 +1063,20 @@ def phase_stress(device="cuda"):
         log(f"K2 stress at offset {sofs}: bit-exact over {k.numel()} texels, {int((k > 0).sum())} covered")
 
 
-def log_raster_kernels():
-    """Registers, spills, shared memory and resident CTAs per SM of each
-    instance of K1 / K2's tiles_kernel (CUDA runtime)."""
+def log_kernel_info():
+    """Registers, spills, shared memory and resident CTAs per SM (CUDA
+    runtime) of each instance of K1 / K2's tiles_kernel, of P1's dot_kernel
+    at the probes' K = 72 and of K5's gather_kernel for the four Hi-Z taps."""
     from rend3_tpu_torch.ops import cuda_kernels
 
-    for i, name in enumerate(cuda_kernels.RASTER_INSTANCES):
-        info = cuda_kernels.raster_kernel_info(i)
-        log(f"tiles_kernel {name}: {info['registers']} registers, {info['local_bytes']} local (spill) bytes, "
-            f"{info['smem']} bytes of shared memory, {info['ctas_per_sm']} resident CTAs per SM of {info['sms']} SMs")
+    rows = [(f"tiles_kernel {name}", "raster_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.RASTER_INSTANCES)]
+    rows += [(f"P1 dot_kernel {name}", "p1_kernel_info", (i, 72)) for i, name in enumerate(cuda_kernels.P1_INSTANCES)]
+    rows.append(("K5 gather_kernel, 4 taps", "k5_kernel_info", (4,)))
+    for label, fn, args in rows:
+        info = cuda_kernels.kernel_info(fn, *args)
+        log(f"{label}: {info['registers']} registers, {info['local_bytes']} local (spill) bytes, "
+            f"{info['smem']} bytes of static shared memory, {info['ctas_per_sm']} resident CTAs per SM of "
+            f"{info['sms']} SMs")
 
 
 def _probe_err(label, kfn, pfn):

@@ -14,10 +14,11 @@
 //     contraction over dim 0 of both operands, operands kept in f32 or
 //     rounded to bf16 (round to nearest even), the sum taken in f32 as a
 //     sequential fma over r in ascending order (the order XLA:CPU uses,
-//     found by bit-matching all 524,288 values of the f32 variant). A tiled
-//     shared-memory GEMM: 64 x 64 outputs per CTA, 4 x 4 per thread, 16 rows
-//     of each operand staged per step. The operand a is read through two
-//     strides, so the transposed variant really reads a transposed layout.
+//     found by bit-matching all 524,288 values of the f32 variant). The
+//     function fixes the order, so tensor cores are out: mma / wgmma add
+//     their products without rounding after each one, as a sequential f32
+//     fma must, so they cannot give these bits. It is a CUDA-core GEMM
+//     (below).
 //   - probe_reduce (P2 v1 / v2): per channel c < 4 and pixel p, the
 //     x-weighted sum over the 128 lanes j of r2[128c + j, p], written or
 //     added to out. The 128-lane sum is XLA:CPU's order for a (128, n) axis-0
@@ -37,14 +38,32 @@
 //     only two nonzero terms of the one-hot reduce), added to the output.
 //     Texels and weights are rounded to bf16 in the bf16 variants.
 //
-// What bounds them on the H100: nothing the card feels. P1 moves 2.5 MB and
-// does 75.5 MFLOP (about 1.1 us at the f32 peak); the others less. A launch
-// (3-5 us) dominates. The design is the simple, right one: direct loads in
-// place of one-hot matmuls (the rule that turned K4 into a gather), a
-// hand-written GEMM for the one dense product.
+// What bounds them on the H100. P1 at the probes' shapes (K = 72 or 128, M =
+// 512, N = 1024) does 75.5 MFLOP, about 1.1 us at the f32 peak, and moves
+// 2.5 MB, about 0.75 us; the others are smaller. An empty kernel in a CUDA
+// graph takes 1.4-1.7 us (gather.cu's launch_floor). P1's design: a CTA
+// stages its whole contraction slice of both operands at once (K <= 128
+// rows, 27.6 KB at K = 72; a larger K loops over 128-row chunks) with
+// 16-byte cp.async copies issued from one site (the (M, K) layout of the
+// transposed variant through 16-byte loads, transposed into shared memory on
+// the way), bf16 rounded in place; 32 x 64 outputs a CTA, 128 threads of
+// 4 x 4, so the probes' 512 x 1024 outputs are 256 CTAs, about two on each
+// of the 132 SMs; a k step reads one float4 of each operand a thread; each
+// output row goes out as 16-byte streaming stores. What bounds it then is
+// the k loop: with 4 x 4 outputs a thread it issues two shared-memory loads
+// and 16 fmas a step, and the 524,288 outputs leave no room for larger
+// tiles at 8 warps an SM, nor may the contraction be split (the order). On
+// the card it costs more than cuBLAS per contraction row and less to
+// start, so at K = 72 the two are within a few per cent (PERF.md §6 lists
+// the designs measured). Any shape still launches: the operands are read
+// element by element where they do not allow 16 bytes.
+// P2 and P3 are the simple, right design: direct loads in place of one-hot
+// matmuls (the rule that turned K4 into a gather).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "kernel_info.cuh"
 
 namespace {
 
@@ -67,52 +86,156 @@ __device__ __forceinline__ float round_bf16(float v)
     return __uint_as_float(u & 0xFFFF0000u);
 }
 
-template <bool BF16>
-__global__ void __launch_bounds__(256) dot_kernel(
+// P1's tiling: a thread computes 4 x 4 outputs (4 of a's columns M by 4 of
+// b's columns N); a warp's lanes lie DOT_LM along M by DOT_LN along N; a CTA
+// is DOT_WM x DOT_WN warps. A CTA stages DOT_KC contraction rows of both
+// operands at once (a larger K loops over chunks).
+constexpr int DOT_LM = 4, DOT_WM = 2, DOT_WN = 2;
+constexpr int DOT_LN = 32 / DOT_LM;
+constexpr int DOT_TM = 4 * DOT_LM * DOT_WM;   // 32
+constexpr int DOT_TN = 4 * DOT_LN * DOT_WN;   // 64
+constexpr int DOT_THREADS = 32 * DOT_WM * DOT_WN;
+constexpr int DOT_KC = 128;
+
+// How dot_kernel reads its operands: element by element through (a_sr, a_si)
+// (any shape), or 16 bytes at a time from a (K, M) a (M % 4 == 0) or from an
+// (M, K) a transposed into shared memory on the way (K % 4 == 0); both
+// vector modes need N % 4 == 0 and 16-byte aligned pointers, and store 16
+// bytes at a time.
+enum DotMode { kDotScalar, kDotVec, kDotVecT };
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in)
+{
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ float4 round_bf16(float4 v)
+{
+    return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w));
+}
+
+// kc rows of the chunk at k0 into as[r][i] (i < DOT_TM) and bs[r][j] (j <
+// DOT_TN) for the CTA's tile at (i0, j0), zero past M and N, rounded to
+// bf16 when BF16. Ends with the CTA's barrier.
+template <bool BF16, int MODE>
+__device__ __forceinline__ void stage(const float* __restrict__ a, const float* __restrict__ b, float* as, float* bs,
+                                      int k0, int kc, int K, int M, int N, int a_sr, int a_si, int i0, int j0)
+{
+    const int t = threadIdx.x;
+    if (MODE == kDotScalar) {
+        constexpr int W = DOT_TM + DOT_TN;
+        for (int e = t; e < kc * W; e += DOT_THREADS) {
+            const int r = e / W, c = e % W, k = k0 + r;
+            float v = 0.0f;
+            if (c < DOT_TM) {
+                if (i0 + c < M) v = a[(size_t)k * a_sr + (size_t)(i0 + c) * a_si];
+                as[r * DOT_TM + c] = BF16 ? round_bf16(v) : v;
+            } else {
+                if (j0 + c - DOT_TM < N) v = b[(size_t)k * N + j0 + c - DOT_TM];
+                bs[r * DOT_TN + c - DOT_TM] = BF16 ? round_bf16(v) : v;
+            }
+        }
+        __syncthreads();
+        return;
+    }
+    // b, and a in the (K, M) layout: 16-byte cp.async copies, zero-filled
+    // past the edge. (One copy site: two, one a branch, made the kernel 25%
+    // slower on the card.)
+    constexpr int AQ = MODE == kDotVec ? DOT_TM / 4 : 0;  // 16-byte pieces of a row of a
+    constexpr int Q = AQ + DOT_TN / 4;
+#pragma unroll 4
+    for (int e = t; e < kc * Q; e += DOT_THREADS) {
+        const int r = e / Q, c = e % Q, k = k0 + r;
+        float* dst;
+        const float* src;
+        bool in;
+        if (c < AQ) {
+            in = i0 + 4 * c < M;
+            dst = as + r * DOT_TM + 4 * c;
+            src = a + (size_t)k * M + i0 + 4 * c;
+        } else {
+            const int j = j0 + 4 * (c - AQ);
+            in = j < N;
+            dst = bs + r * DOT_TN + 4 * (c - AQ);
+            src = b + (size_t)k * N + j;
+        }
+        cp_async16(dst, in ? src : b, in);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (MODE == kDotVecT) {
+        // a (M, K): thread e reads 4 consecutive k of row i = e % DOT_TM, so a
+        // warp's four stores into as each hit consecutive words.
+        for (int e = t; e < DOT_TM * (kc / 4); e += DOT_THREADS) {
+            const int i = e % DOT_TM, r = 4 * (e / DOT_TM);
+            float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (i0 + i < M) v = __ldg(reinterpret_cast<const float4*>(a + (size_t)(i0 + i) * K + k0 + r));
+            if (BF16) v = round_bf16(v);
+            as[r * DOT_TM + i] = v.x;
+            as[(r + 1) * DOT_TM + i] = v.y;
+            as[(r + 2) * DOT_TM + i] = v.z;
+            as[(r + 3) * DOT_TM + i] = v.w;
+        }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if (BF16) {
+        // Each thread rounds in place the pieces it copied itself.
+#pragma unroll 4
+        for (int e = t; e < kc * Q; e += DOT_THREADS) {
+            const int r = e / Q, c = e % Q;
+            float4* p = reinterpret_cast<float4*>(c < AQ ? as + r * DOT_TM + 4 * c : bs + r * DOT_TN + 4 * (c - AQ));
+            *p = round_bf16(*p);
+        }
+    }
+    __syncthreads();
+}
+
+template <bool BF16, int MODE>
+__global__ void __launch_bounds__(DOT_THREADS) dot_kernel(
     const float* __restrict__ a, const float* __restrict__ b, float* __restrict__ out,
     int K, int M, int N, int a_sr, int a_si)
 {
-    __shared__ float as[16][64];
-    __shared__ float bs[16][64];
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    const int i0 = blockIdx.y * 64, j0 = blockIdx.x * 64;
+    extern __shared__ float4 smem4[];
+    float* as = reinterpret_cast<float*>(smem4);
+    float* bs = as + min(K, DOT_KC) * DOT_TM;
+    const int i0 = blockIdx.y * DOT_TM, j0 = blockIdx.x * DOT_TN;
+    // The thread's rows m0..m0+3 and columns n0..n0+3 of the CTA's tile: a
+    // k step reads one float4 of each operand (a warp: 4 distinct float4 of
+    // as, 8 of bs).
+    const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+    const int m0 = (w / DOT_WN) * 4 * DOT_LM + (l / DOT_LN) * 4;
+    const int n0 = (w % DOT_WN) * 4 * DOT_LN + (l % DOT_LN) * 4;
     float acc[4][4];
 #pragma unroll
     for (int x = 0; x < 4; ++x)
 #pragma unroll
         for (int y = 0; y < 4; ++y) acc[x][y] = 0.0f;
-    for (int k0 = 0; k0 < K; k0 += 16) {
-        for (int e = threadIdx.x; e < 16 * 64; e += 256) {
-            const int kk = e / 64, c = e % 64, r = k0 + kk;
-            float va = 0.0f, vb = 0.0f;
-            if (r < K && i0 + c < M) va = a[(size_t)r * a_sr + (size_t)(i0 + c) * a_si];
-            if (r < K && j0 + c < N) vb = b[(size_t)r * N + j0 + c];
-            as[kk][c] = BF16 ? round_bf16(va) : va;
-            bs[kk][c] = BF16 ? round_bf16(vb) : vb;
-        }
-        __syncthreads();
-        const int kn = min(16, K - k0);
-        for (int kk = 0; kk < kn; ++kk) {
-            float av[4], bv[4];
-#pragma unroll
-            for (int x = 0; x < 4; ++x) av[x] = as[kk][ty * 4 + x];
-#pragma unroll
-            for (int y = 0; y < 4; ++y) bv[y] = bs[kk][tx * 4 + y];
+    for (int k0 = 0; k0 < K; k0 += DOT_KC) {
+        const int kc = min(DOT_KC, K - k0);
+        if (k0 > 0) __syncthreads();
+        stage<BF16, MODE>(a, b, as, bs, k0, kc, K, M, N, a_sr, a_si, i0, j0);
+#pragma unroll 8
+        for (int kk = 0; kk < kc; ++kk) {
+            const float4 av = *reinterpret_cast<const float4*>(as + kk * DOT_TM + m0);
+            const float4 bv = *reinterpret_cast<const float4*>(bs + kk * DOT_TN + n0);
+            const float ax[4] = {av.x, av.y, av.z, av.w}, by[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
             for (int x = 0; x < 4; ++x)
 #pragma unroll
-                for (int y = 0; y < 4; ++y) acc[x][y] = __fmaf_rn(av[x], bv[y], acc[x][y]);
+                for (int y = 0; y < 4; ++y) acc[x][y] = __fmaf_rn(ax[x], by[y], acc[x][y]);
         }
-        __syncthreads();
     }
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
-        const int i = i0 + ty * 4 + x;
+        const int i = i0 + m0 + x, j = j0 + n0;
         if (i >= M) continue;
+        float* o = out + (size_t)i * N + j;
+        if (MODE != kDotScalar) {
+            if (j < N) __stcs(reinterpret_cast<float4*>(o), make_float4(acc[x][0], acc[x][1], acc[x][2], acc[x][3]));
+        } else {
 #pragma unroll
-        for (int y = 0; y < 4; ++y) {
-            const int j = j0 + tx * 4 + y;
-            if (j < N) out[(size_t)i * N + j] = acc[x][y];
+            for (int y = 0; y < 4; ++y)
+                if (j + y < N) o[y] = acc[x][y];
         }
     }
 }
@@ -217,25 +340,54 @@ __global__ void __launch_bounds__(128) lerp_kernel(
     }
 }
 
+// P1's instance for (bf16, mode), through f(instance).
+template <typename F>
+int dot_instance(bool bf16, int mode, F f)
+{
+    switch (mode) {
+        case kDotScalar: return bf16 ? f(dot_kernel<true, kDotScalar>) : f(dot_kernel<false, kDotScalar>);
+        case kDotVec: return bf16 ? f(dot_kernel<true, kDotVec>) : f(dot_kernel<false, kDotVec>);
+        case kDotVecT: return bf16 ? f(dot_kernel<true, kDotVecT>) : f(dot_kernel<false, kDotVecT>);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+size_t dot_smem(int K)
+{
+    return (size_t)(K < DOT_KC ? K : DOT_KC) * (DOT_TM + DOT_TN) * sizeof(float);
+}
+
 }  // namespace
 
 extern "C" {
 
-// P1: out (M, N) f32 = a^T b over K rows; a element (r, i) at a[r * a_sr +
-// i * a_si], b (K, N) f32 contiguous; bf16 != 0 rounds both operands to bf16.
-int p1_probe_dot(const void* a, const void* b, void* out, int K, int M, int N, int a_sr, int a_si, int bf16,
+// P1: out (M, N) f32 = a^T b over K rows; a (K, M) f32, or (M, K) when
+// transposed != 0; b (K, N) f32; all contiguous. bf16 != 0 rounds both
+// operands to bf16.
+int p1_probe_dot(const void* a, const void* b, void* out, int K, int M, int N, int transposed, int bf16,
                  void* stream)
 {
-    if (M > 0 && N > 0) {
-        const dim3 grid((N + 63) / 64, (M + 63) / 64);
-        if (bf16)
-            dot_kernel<true><<<grid, 256, 0, (cudaStream_t)stream>>>(
-                (const float*)a, (const float*)b, (float*)out, K, M, N, a_sr, a_si);
-        else
-            dot_kernel<false><<<grid, 256, 0, (cudaStream_t)stream>>>(
-                (const float*)a, (const float*)b, (float*)out, K, M, N, a_sr, a_si);
-    }
-    return (int)cudaGetLastError();
+    if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+    const bool aligned = (((uintptr_t)a | (uintptr_t)b | (uintptr_t)out) & 15) == 0 && N % 4 == 0;
+    const int mode = !aligned ? kDotScalar : !transposed ? (M % 4 == 0 ? kDotVec : kDotScalar)
+                                                         : (K % 4 == 0 ? kDotVecT : kDotScalar);
+    const int a_sr = transposed ? 1 : M, a_si = transposed ? K : 1;
+    const dim3 grid((N + DOT_TN - 1) / DOT_TN, (M + DOT_TM - 1) / DOT_TM);
+    return dot_instance(bf16 != 0, mode, [&](auto kernel) {
+        kernel<<<grid, DOT_THREADS, dot_smem(K), (cudaStream_t)stream>>>(
+            (const float*)a, (const float*)b, (float*)out, K, M, N, a_sr, a_si);
+        return (int)cudaGetLastError();
+    });
+}
+
+// Registers, spills, shared memory and resident CTAs per SM (at K's dynamic
+// shared memory) of P1's instance `which` = 2 * mode + bf16, mode 0 scalar,
+// 1 vector, 2 vector transposed (kernel_info.cuh). info: 5 ints.
+int p1_kernel_info(int which, int K, void* info)
+{
+    return dot_instance(which & 1, which >> 1, [&](auto kernel) {
+        return kernel_info(kernel, DOT_THREADS, dot_smem(K), (int*)info);
+    });
 }
 
 // P2 v1 / v2: out rows 0-3 of (8, n) f32 get (or, with accumulate, add) the

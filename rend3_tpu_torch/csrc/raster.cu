@@ -106,6 +106,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_info.cuh"
+
 namespace {
 
 constexpr int TILE_H = 32;
@@ -608,23 +610,6 @@ Params make_params(const void* setup, const void* bbox, const void* planes, cons
     return p;
 }
 
-template <typename K>
-int kernel_info(K kernel, int* info)
-{
-    cudaFuncAttributes attr;
-    int per_sm = 0, dev = 0, n_sm = 0;
-    cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
-    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, 0);
-    if (e == cudaSuccess) e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    info[0] = attr.numRegs;
-    info[1] = (int)attr.localSizeBytes;
-    info[2] = (int)attr.sharedSizeBytes;
-    info[3] = per_sm;
-    info[4] = n_sm;
-    return (int)e;
-}
-
 }  // namespace
 
 extern "C" {
@@ -675,11 +660,11 @@ int raster_kernel_info(int which, void* info)
 {
     int* i = (int*)info;
     switch (which) {
-        case 0: return kernel_info(tiles_kernel<true, false, false>, i);
-        case 1: return kernel_info(tiles_kernel<true, true, false>, i);
-        case 2: return kernel_info(tiles_kernel<true, false, true>, i);
-        case 3: return kernel_info(tiles_kernel<true, true, true>, i);
-        case 4: return kernel_info(tiles_kernel<false, false, false>, i);
+        case 0: return kernel_info(tiles_kernel<true, false, false>, NT, 0, i);
+        case 1: return kernel_info(tiles_kernel<true, true, false>, NT, 0, i);
+        case 2: return kernel_info(tiles_kernel<true, false, true>, NT, 0, i);
+        case 3: return kernel_info(tiles_kernel<true, true, true>, NT, 0, i);
+        case 4: return kernel_info(tiles_kernel<false, false, false>, NT, 0, i);
         default: return (int)cudaErrorInvalidValue;
     }
 }

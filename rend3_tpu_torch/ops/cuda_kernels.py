@@ -10,10 +10,10 @@ loaded with ctypes (no PyTorch headers, so a build takes seconds):
          -o _build/librend3_kernels_<hash>.so _build/<hash>/*.o
 
 The library is built at first use into rend3_tpu_torch/_build/ (listed in
-.gitignore); its name carries a hash of the sources and flags, so editing a
-source rebuilds it. --fmad=false keeps nvcc from contracting a*b + c into an
-fma anywhere the kernels do not ask for one explicitly; division and sqrt
-stay IEEE (no --use_fast_math).
+.gitignore); its name carries a hash of the sources, their header and the
+flags, so editing a source rebuilds it. --fmad=false keeps nvcc from
+contracting a*b + c into an fma anywhere the kernels do not ask for one
+explicitly; division and sqrt stay IEEE (no --use_fast_math).
 
 Each C function takes a `c_void_p` per tensor (None passes a null pointer,
 for an optional input or output), then ints, then floats, then the CUDA
@@ -33,12 +33,13 @@ from typing import Optional
 
 import torch
 
-__all__ = ["build", "library", "call", "raster_kernel_info", "SOURCES", "NVCC_FLAGS"]
+__all__ = ["build", "library", "call", "kernel_info", "SOURCES", "HEADERS", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("raster.cu", "pcf5.cu", "bilinear.cu", "gather.cu", "shadow_occ.cu", "probe_bf16.cu")
+HEADERS = ("kernel_info.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-lineinfo", "-Xcompiler", "-fPIC")
 
@@ -48,13 +49,16 @@ _SIGNATURES = {
     "k2_raster_depth": (6, 3, 2),
     "k3_pcf5": (8, 3, 0),
     "k4_bilinear": (8, 3, 0),
-    "k5_gather": (6, 4, 0),
+    "k5_gather": (5, 4 + 2 * 12, 0),
     "k6_raster_vis": (6, 3, 8),
     "k7_shadow_occ": (8, 3, 0),
-    "p1_probe_dot": (3, 6, 0),
+    "p1_probe_dot": (3, 5, 0),
     "p2_probe_reduce": (3, 2, 0),
     "p3_probe_lerp": (7, 10, 0),
+    "launch_floor": (0, 2, 0),
 }
+# name -> int args of the kernel-info functions, which end with an int[5].
+_INFO_SIGNATURES = {"raster_kernel_info": 1, "p1_kernel_info": 2, "k5_kernel_info": 1}
 
 _lib: Optional[ctypes.CDLL] = None
 last_build: dict = {}
@@ -73,7 +77,7 @@ def _nvcc() -> str:
 
 def _library_path() -> str:
     h = hashlib.sha1()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(_SRC_DIR, name), "rb") as fh:
             h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -126,8 +130,10 @@ def library() -> ctypes.CDLL:
                 [ctypes.c_void_p] * n_t + [ctypes.c_int] * n_i + [ctypes.c_float] * n_f + [ctypes.c_void_p]
             )
             fn.restype = ctypes.c_int
-        lib.raster_kernel_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        lib.raster_kernel_info.restype = ctypes.c_int
+        for name, n_i in _INFO_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_int] * n_i + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.rend3_cuda_error_string.argtypes = [ctypes.c_int]
         lib.rend3_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -136,11 +142,12 @@ def library() -> ctypes.CDLL:
 
 def call(name: str, *tensors: torch.Tensor, ints=(), floats=()) -> None:
     """Launch kernel `name` on the current stream of the tensors' device
-    (the first tensor's); a tensor given as None passes a null pointer."""
+    (the first tensor's; the current CUDA device for a kernel that takes
+    none); a tensor given as None passes a null pointer."""
     n_t, n_i, n_f = _SIGNATURES[name]
     if len(tensors) != n_t or len(ints) != n_i or len(floats) != n_f:
         raise TypeError(f"{name}: expected {n_t} tensors, {n_i} ints, {n_f} floats")
-    dev = tensors[0].device
+    dev = tensors[0].device if tensors else torch.device("cuda", torch.cuda.current_device())
     if dev.type != "cuda":
         raise ValueError(f"{name}: CUDA kernel called with tensors on {dev}")
     lib = library()
@@ -158,15 +165,21 @@ def call(name: str, *tensors: torch.Tensor, ints=(), floats=()) -> None:
 
 # The instances of csrc/raster.cu's tiles_kernel, by raster_kernel_info's index.
 RASTER_INSTANCES = ("K1", "K1 bound", "K1 count", "K1 bound + count", "K2")
+# P1's instances (csrc/probe_bf16.cu dot_kernel), by p1_kernel_info's index.
+P1_INSTANCES = ("f32 scalar", "bf16 scalar", "f32 vector", "bf16 vector", "f32 vector transposed",
+                "bf16 vector transposed")
 
 
-def raster_kernel_info(which: int) -> dict:
-    """Registers a thread, local (spill) bytes, shared bytes and resident
-    CTAs per SM of tiles_kernel instance RASTER_INSTANCES[which], and the SM
-    count, from the CUDA runtime on the current device."""
+def kernel_info(fn: str, *ints: int) -> dict:
+    """Registers a thread, local (spill) bytes, static shared bytes and
+    resident CTAs per SM of one kernel instance, and the SM count, from the
+    CUDA runtime on the current device: `raster_kernel_info(which)` for
+    RASTER_INSTANCES[which], `p1_kernel_info(which, K)` for
+    P1_INSTANCES[which] at K's dynamic shared memory, `k5_kernel_info(n)`
+    for K5 with n taps."""
     lib = library()
     info = (ctypes.c_int * 5)()
-    rc = lib.raster_kernel_info(which, ctypes.cast(info, ctypes.c_void_p))
+    rc = getattr(lib, fn)(*ints, ctypes.cast(info, ctypes.c_void_p))
     if rc != 0:
-        raise RuntimeError(f"raster_kernel_info: CUDA error {rc}: {lib.rend3_cuda_error_string(rc).decode()}")
+        raise RuntimeError(f"{fn}: CUDA error {rc}: {lib.rend3_cuda_error_string(rc).decode()}")
     return dict(zip(("registers", "local_bytes", "smem", "ctas_per_sm", "sms"), info))

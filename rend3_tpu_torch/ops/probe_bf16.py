@@ -111,8 +111,7 @@ def probe_dot(a, b, *, bf16: bool, transposed: bool = False) -> torch.Tensor:
 
     N = b.shape[1]
     out = torch.empty(M, N, dtype=torch.float32, device=dev)
-    a_sr, a_si = (1, K) if transposed else (M, 1)
-    cuda_kernels.call("p1_probe_dot", a, b, out, ints=(K, M, N, a_sr, a_si, int(bf16)))
+    cuda_kernels.call("p1_probe_dot", a, b, out, ints=(K, M, N, int(transposed), int(bf16)))
     launches["probe_dot"] += 1
     return out
 

@@ -210,10 +210,10 @@ def sample_grid(img, bx, by, valid, offsets):
     from . import cuda_kernels
 
     out = torch.empty((len(offsets),) + tuple(shape), dtype=torch.float32, device=dev)
-    offs = torch.tensor(offsets, dtype=torch.int32)  # host memory: passed by value
+    taps = [int(d) for tap in offsets for d in tap]  # by value, padded to MAX_TAPS pairs
     cuda_kernels.call(
-        "k5_gather", img, bx, by, valid, out, offs,
-        ints=(img.shape[0], img.shape[1], bx.numel(), len(offsets)),
+        "k5_gather", img, bx, by, valid, out,
+        ints=(img.shape[0], img.shape[1], bx.numel(), len(offsets), *taps, *(0,) * (2 * MAX_TAPS - len(taps))),
     )
     launches["gather"] += 1
     return out

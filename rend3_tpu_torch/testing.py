@@ -329,3 +329,51 @@ def raster_stress_case(device="cuda", seed: int = 0) -> dict:
         tris=tris, planes=pl, binned=binned, width=STRESS_W, height=STRESS_H,
         bound=torch.from_numpy(bound).to(dev), floor=torch.from_numpy(floor).to(dev),
     )
+
+
+# ---------------------------------------------------------------------------
+# Rule 2: which hand-written kernel to redesign next
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py phase 11's kernel rows, by the TPU kernel each one ports.
+KERNEL_OF_ROW = {
+    "raster_resolve": "K1", "raster_msaa": "K1", "raster_count": "K1", "raster_bound": "K1",
+    "raster_depth": "K2", "pcf5": "K3", "bilinear": "K4", "gather": "K5", "raster_vis": "K6",
+    "shadow_occ": "K7", "shadow_occ_lt": "K8", "probe_dot": "P1", "probe_reduce": "P2", "probe_lerp": "P3",
+}
+# Kernels redesigned for the H100 after their port; rule 2 does not take
+# them again.
+REDESIGNED = frozenset({"K1", "K2", "P1", "K5"})
+
+
+def redesign_order(rows, frame_launches, redesigned=REDESIGNED):
+    """Rule 2's order of phase 11's kernel rows (dicts with name, ms,
+    bound_ms, library_ms and launches, the launches on chip_smoke's paths):
+    first the kernels slower than one PyTorch call computing the same
+    function, by the factor; then by launches per main-path frame
+    (`frame_launches`: row name -> launches in one representative frame at
+    1 sample) x (ms - bound_ms), ties broken by the launches on chip_smoke's
+    paths x (ms - bound_ms), which orders the kernels no frame launches.
+    Skipped: kernels in `redesigned`, and rows at half their bound or better
+    (bound_ms >= ms / 2) that are not slower than their library call. A
+    kernel with several rows takes its first place. Returns [(kernel, row
+    name, why)] in order."""
+    slower, rest = [], []
+    for r in rows:
+        kernel = KERNEL_OF_ROW[r["name"]]
+        if kernel in redesigned:
+            continue
+        gap = r["ms"] - r["bound_ms"]
+        lib = r.get("library_ms")
+        if lib is not None and r["ms"] > lib:
+            slower.append((r["ms"] / lib, kernel, r["name"], f"{r['ms'] / lib:.3f}x its library call"))
+        elif r["bound_ms"] < r["ms"] / 2:
+            f = frame_launches.get(r["name"], 0)
+            rest.append(((f * gap, r["launches"] * gap), kernel, r["name"],
+                         f"{f:g} launches a frame, {r['launches']} on the paths, x {gap:.6f} ms over the bound"))
+    order, seen = [], set()
+    for _key, kernel, name, why in sorted(slower, reverse=True) + sorted(rest, reverse=True):
+        if kernel not in seen:
+            seen.add(kernel)
+            order.append((kernel, name, why))
+    return order

@@ -6,14 +6,17 @@ python -m pytest tests/test_torch_cuda.py --noconftest -q. Each kernel runs
 on the same inputs as its plain version; tolerance: K1's depth, hit and
 material channels and all of K2 bit-exact, the other K1 channels within
 1 ulp, K3 abs <= 1e-6, K4 and K5 bit-exact (random queries, including
-footprints off the grid and invalid ones). K1's count mode (strict and not)
+footprints off the grid and invalid ones; K5 also at every tap count
+1..12, on and past the last row and column, at q = 0 and on -0.0 texels). K1's count mode (strict and not)
 and bound mode run on inputs captured from scenes.peel_slice, with the
 counts bit-exact too. K1 at an MSAA sample offset as in its opaque mode.
 K6 (raster_scene's visibility raster) at 1 and 4 samples: ids and depth
 bit-exact. K7 and K8 on light 0 of the captured city frame: bit-exact at
 hit pixels (their values elsewhere are not defined). The bf16 probes P1-P3
 (every variant of tools.probe_bf16_*): bit-exact, NaN positions equal, and
-for P2 and P3 again on zero-initialised outputs, which hold values. K4
+for P2 and P3 again on zero-initialised outputs, which hold values; P1
+also at K 1, 72, 128 and 130 on 100 x 333 and 100 x 332 outputs, both
+layouts of a, f32 and bf16. K4
 on the skybox query of a 64x64 skybox frame at 4 samples: bit-exact.
 K1 in every mode and K2 on testing.raster_stress_case (lists longer than
 the kernels' 128-entry staging chunk and K2's 128-entry segment,
@@ -172,20 +175,47 @@ def test_k4_matches_plain():
     assert bool((k == 0).all(0)[~args[-1]].all())  # invalid queries read 0
 
 
-@pytest.mark.parametrize("offsets", [((0, 0), (1, 0), (0, 1), (1, 1)), S.PCF5_OFFSETS])
-def test_k5_matches_plain(offsets):
+# A 12-tap list in [-2, 2]^2 whose first n taps make the case of n taps.
+K5_TAPS = ((0, 0), (1, 0), (0, 1), (1, 1), (-1, 0), (0, -1), (2, 2), (-2, 1), (1, -2), (2, -1), (-1, -1), (0, 2))
+K5_CASES = {
+    "hiz": (((0, 0), (1, 0), (0, 1), (1, 1)), 30000),
+    "pcf5": (S.PCF5_OFFSETS, 30000),
+    **{f"taps{n}": (K5_TAPS[:n], 30001) for n in range(1, 13)},
+    "q0": (K5_TAPS[:4], 0),
+    "edges": (K5_TAPS, None),
+}
+
+
+@pytest.mark.parametrize("case", list(K5_CASES))
+def test_k5_matches_plain(case):
+    """K5 bit for bit against its plain version: random queries (q not a
+    multiple of the 128-thread CTA) with base texels and taps off the image
+    and invalid queries, or q = 0, or ("edges") every base texel from one
+    outside the first row / column to one outside the last, each valid and
+    invalid; a fifth of the texels are -0.0, which must read +0.0."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    offsets, q = K5_CASES[case]
     g = torch.Generator().manual_seed(5)
-    hs, ws, q = 200, 150, 30000
+    hs, ws = 200, 150
     img = torch.randn(hs, ws, generator=g)
-    bx = torch.randint(-10, ws + 10, (q,), generator=g, dtype=torch.int32)
-    by = torch.randint(-10, hs + 10, (q,), generator=g, dtype=torch.int32)
-    valid = torch.rand(q, generator=g) > 0.2
+    img[torch.rand(hs, ws, generator=g) < 0.2] = -0.0
+    if q is None:
+        xs, ys = torch.meshgrid(torch.tensor([-1, 0, 1, ws - 2, ws - 1, ws]), torch.tensor([-1, 0, 1, hs - 2, hs - 1, hs]),
+                                indexing="ij")
+        bx, by = (v.reshape(-1).repeat(2).to(torch.int32) for v in (xs, ys))
+        valid = torch.arange(bx.numel()) < bx.numel() // 2
+    else:
+        bx = torch.randint(-10, ws + 10, (q,), generator=g, dtype=torch.int32)
+        by = torch.randint(-10, hs + 10, (q,), generator=g, dtype=torch.int32)
+        valid = torch.rand(q, generator=g) > 0.2
     args = [t.cuda() for t in (img, bx, by, valid)]
     k = S.sample_grid(*args, offsets)
-    assert k.shape == (len(offsets), q)
+    assert k.shape == (len(offsets), bx.numel())
     assert torch.equal(k, S.sample_grid_plain(*args, offsets))
+    assert not bool((torch.signbit(k) & (k == 0)).any())  # -0.0 reads +0.0
+    if bx.numel():
+        assert bool((k != 0).any())
 
 
 def test_card_frame_matches_cpu(captured):
@@ -201,12 +231,33 @@ def test_card_frame_matches_cpu(captured):
     assert int(np.abs(img.astype(np.int32) - captured[1].astype(np.int32)).max()) <= 1
 
 
-@pytest.mark.parametrize("probe", ["probe_bf16_dot", "probe_bf16_kernel", "probe_bf16_real"])
+# P1 on its own inputs: contraction K (130 runs two 128-row chunks), M x N
+# off the 32 x 64 tile (N = 333 reads element by element, 332 16 bytes at
+# a time), a (K, M) or (M, K) read transposed, f32 or bf16 operands.
+P1_CASES = [f"dot-K{k}-{m}x{n}-{layout}-{dt}" for k in (1, 72, 128, 130) for m, n in ((100, 333), (100, 332))
+            for layout in ("km", "mk") for dt in ("f32", "bf16")]
+
+
+@pytest.mark.parametrize("probe", ["probe_bf16_dot", "probe_bf16_kernel", "probe_bf16_real"] + P1_CASES)
 def test_probe_kernels_match_plain(probe):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import importlib
 
+    from rend3_tpu_torch.ops import probe_bf16 as pb
+
+    if probe.startswith("dot-"):
+        _d, k, mn, layout, dt = probe.split("-")
+        K, (M, N) = int(k[1:]), map(int, mn.split("x"))
+        rng = np.random.RandomState(K * 7 + M + N)
+        a = torch.from_numpy(rng.randn(*((M, K) if layout == "mk" else (K, M))).astype(np.float32)).cuda()
+        b = torch.from_numpy(rng.randn(K, N).astype(np.float32)).cuda()
+        kw = dict(bf16=dt == "bf16", transposed=layout == "mk")
+        out = pb.probe_dot(a, b, **kw)
+        assert out.shape == (M, N)
+        assert torch.equal(out, pb.probe_dot_plain(a, b, **kw))
+        assert bool((out != 0).all())
+        return
     mod = importlib.import_module(f"rend3_tpu_torch.tools.{probe}")
     # As the entry point runs it (NaN-initialised), and for P2 and P3 again
     # from zeros, where the variants that add into an output they never

@@ -1,0 +1,65 @@
+"""Rule 2's order (testing.redesign_order) on the kernel rows measured
+before P1's and K5's redesign (PERF.md §6's earlier device times, NVIDIA
+H100 80GB HBM3, 700 W): P1 first (slower than torch.matmul), then K5 (the
+only kernel the main path loses time on), and with those two redesigned
+the off-frame kernels by launches on chip_smoke's paths x (device -
+bound)."""
+
+import pytest
+
+from rend3_tpu_torch import testing
+
+# name, device ms, bound ms, library ms, launches on chip_smoke's paths.
+EARLIER_ROWS = [
+    ("raster_resolve", 0.1564, 0.0660, None, 15),
+    ("raster_msaa", 0.1076, 0.0630, None, 32),
+    ("raster_count", 0.0809, 0.0653, None, 60),
+    ("raster_bound", 0.0737, 0.0628, None, 75),
+    ("raster_depth", 0.0960, 0.00656, None, 12),
+    ("pcf5", 0.0221, 0.0208, None, 18),
+    ("bilinear", 0.1031, 0.1016, None, 114),
+    ("gather", 0.0057, 0.00107, 0.0166, 27),
+    ("raster_vis", 1.3026, 0.0533, None, 2),
+    ("shadow_occ", 23.7936, 0.0374, None, 1),
+    ("shadow_occ_lt", 2.4268, 0.0372, None, 1),
+    ("probe_dot", 0.0093, 0.00113, 0.0059, 6),
+    ("probe_reduce", 0.0107, 0.00079, 0.0197, 2),
+    ("probe_lerp", 0.0823, 0.00112, None, 12),
+]
+# Launches in one static representative frame at 1 sample (PERF.md §6).
+FRAME = {"raster_resolve": 2, "raster_count": 2, "raster_bound": 2, "pcf5": 1, "bilinear": 3, "gather": 2}
+
+CASES = {
+    "k1_k2_redesigned": ({"K1", "K2"}, ["P1", "K5", "K7", "K6", "K8", "P3", "P2"]),
+    "k1_k2_p1_k5_redesigned": (testing.REDESIGNED, ["K7", "K6", "K8", "P3", "P2"]),
+    # Nothing redesigned: K1's frame launches rank it before K5; K2 (no
+    # static-frame launch) among the off-frame kernels by its path launches.
+    "none": (set(), ["P1", "K1", "K5", "K7", "K6", "K8", "K2", "P3", "P2"]),
+}
+
+
+def _rows(overrides=None):
+    rows = [dict(name=n, ms=ms, bound_ms=b, library_ms=lib, launches=la) for n, ms, b, lib, la in EARLIER_ROWS]
+    for r in rows:
+        r.update((overrides or {}).get(r["name"], {}))
+    return rows
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_redesign_order_on_earlier_rows(case):
+    redesigned, expected = CASES[case]
+    order = testing.redesign_order(_rows(), FRAME, redesigned)
+    assert [k for k, _name, _why in order] == expected
+
+
+@pytest.mark.parametrize("case", ["near_bound_but_slower_than_library", "near_bound_and_faster"])
+def test_redesign_order_library_beats_the_bound_test(case):
+    """A row within 2x of its bound is skipped unless a library call beats
+    it; a library call that beats it puts it first, by the factor."""
+    lib = 0.02 if case == "near_bound_but_slower_than_library" else 0.03
+    order = testing.redesign_order(_rows({"pcf5": {"library_ms": lib}}), FRAME, {"K1", "K2"})
+    kernels = [k for k, _name, _why in order]
+    if case == "near_bound_but_slower_than_library":
+        assert kernels[:2] == ["P1", "K3"]  # 1.58x before 1.105x
+    else:
+        assert "K3" not in kernels
