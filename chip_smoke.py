@@ -43,12 +43,15 @@ wall time):
 7. visibility raster: raster_scene (K6) at 1 and at 4 samples over the
    representative frame's opaque clipped table, counted; K6 against its
    plain version (ids and depth bit-exact) and its depth and hit against
-   K1's G-buffer of the same triangles at the same offsets (equal);
+   K1's G-buffer of the same triangles at the same offsets (equal); at
+   each sample count K6's device, call and plain times and its bound;
 8. map-free shadows: probe_shadow.run (K7 and K8 once each) on light 0 of
    the representative frame, counted; each against its plain version at
    hit pixels (bit-exact), the number of values where K7 and K8 differ,
    and pcf5_from_occlusion of K8 against the frame's K3 factors where K3's
-   query was valid (at most 1% differ by more than 1e-6);
+   query was valid (at most 1% differ by more than 1e-6); the lists'
+   lengths (probe_shadow), their segments of the CUDA kernel's work, the
+   distinct base texels and the (base texel, nearby caster) pairs;
 9. probes: run() of tools.probe_bf16_dot, _kernel and _real (P1-P3) on
    the card, counted; every variant's output against its plain version on
    the card, bit for bit with NaN positions equal;
@@ -64,21 +67,22 @@ wall time):
    K5 on those of the textured frames, K1's count and bound modes and K4
    on the cutout alpha test on those of the representative frames, K1 at
    an MSAA offset on those of the MSAA frames, K4 on the skybox query of
-   the feature frame, K1 in every mode and K2 on the stress input
-   (rend3_tpu_torch.testing.raster_stress_case), K6-K8 on those of phases 7
-   and 8, P1-P3 on the probes' inputs, against their plain versions on the
-   card. Each kernel and library row is timed on the device: 20 calls
-   captured in one CUDA graph, replayed between two CUDA events, the median
-   of five replays over 20 (torch.profiler's summed device durations of 20
-   calls for a wrapper that reads the device on the host, P3's), beside the
-   time of one call between two CUDA events (host included), the plain
-   version's median, the bound each kernel's bytes or operations set on
-   the card, and the time of one PyTorch call computing the same function
-   where there is one; the launch floor (an empty kernel's device time in
-   the same CUDA graphs, on one CTA and on K5's grid); the registers,
-   spills, shared memory and resident CTAs per SM of K1 / K2's, P1's and
-   K5's kernels; and rule 2's order of the kernels still to redesign
-   (rend3_tpu_torch.testing.redesign_order);
+   the feature frame, K1 in every mode, K2 and K6 (at 1 and 4 samples) on
+   the raster stress input (rend3_tpu_torch.testing.raster_stress_case),
+   K7 and K8 on the shadow stress input (testing.shadow_stress_case), K6-K8
+   on those of phases 7 and 8, P1-P3 on the probes' inputs, against their
+   plain versions on the card. Each kernel and library row is timed on the
+   device: 20 calls captured in one CUDA graph, replayed between two CUDA
+   events, the median of five replays over 20 (torch.profiler's summed
+   device durations of 20 calls for a wrapper that reads the device on the
+   host, P3's), beside the time of one call between two CUDA events (host
+   included), the plain version's median, the bound each kernel's bytes or
+   operations set on the card, and the time of one PyTorch call computing
+   the same function where there is one; the launch floor (an empty
+   kernel's device time in the same CUDA graphs, on one CTA and on K5's
+   grid); the registers, spills, shared memory and resident CTAs per SM of
+   K1 / K2's and K6's, K7 / K8's, P1's and K5's kernels; and rule 2's order
+   of the kernels still to redesign (rend3_tpu_torch.testing.redesign_order);
 12. parity: the shadow golden scene, the textured-planes scene, the stacked
    cutout scene and the glass stack at 256x256, test_msaa's triangle at
    64x64 and 4 samples, a 64x64 skybox scene, a skinned scene and the
@@ -781,17 +785,21 @@ def phase_visibility(graph, device="cuda"):
                     and torch.equal(g[D.G_HIT, :height, :width] > 0, v.tri[si] >= 0)):
                 n = int((g[D.G_DEPTH, :height, :width] != v.depth[si]).sum())
                 raise AssertionError(f"K6 ({label}) and K1 differ in depth or coverage (depth at {n} pixels)")
-        ms = _graph_ms(lambda: RB.rasterize_binned(tris, binned, wp, hp, offs)) if k.tri.is_cuda else None
-        log(f"K6 ({label}): {tris.count} triangles, {int(binned.ids.numel())} 8x128 tile pairs; ids and depth "
-            f"bit-exact against the plain version over {k.tri.numel()} samples, {int((k.tri >= 0).sum())} covered; "
-            f"depth and coverage equal to K1's at the same offsets; kernel {ms} ms (device, CUDA graph)")
+        kfn = lambda t=tris, b=binned, o=offs: RB.rasterize_binned(t, b, wp, hp, o)  # noqa: E731
+        pfn = lambda t=tris, b=binned, o=offs: RB.rasterize_binned_plain(t, b, wp, hp, o)  # noqa: E731
+        ms, call_ms, plain_ms = (_graph_ms(kfn), _median_ms(kfn, 20), _median_ms(pfn, 3)) if k.tri.is_cuda else (
+            None, None, None)
         frags = _raster_fragments(tris, binned, wp, G.TILE_H, G.TILE_W)
         bound = _bound(_nbytes(tris.setup, tris.bbox, binned.offsets, binned.ids, k.depth, k.tri),
                        frags * len(offs) * RASTER_TEST_OPS)
+        log(f"K6 ({label}): {tris.count} triangles, {int(binned.ids.numel())} 8x128 tile pairs; ids and depth "
+            f"bit-exact against the plain version over {k.tri.numel()} samples, {int((k.tri >= 0).sum())} covered; "
+            f"depth and coverage equal to K1's at the same offsets; kernel {ms} ms (device, CUDA graph), call "
+            f"{call_ms} ms (host included, median), plain {plain_ms} ms (median); bound {bound[0]:.6f} ms "
+            f"({bound[1]})")
         if len(offs) == len(R.MSAA4_OFFSETS):
             rows.append(("raster_vis", "rend3_tpu_torch/csrc/raster.cu", "rend3_tpu/ops/raster_pallas.py:54",
-                         lambda: RB.rasterize_binned(tris, binned, wp, hp, offs),
-                         lambda: RB.rasterize_binned_plain(tris, binned, wp, hp, offs), 0.0, bound, None))
+                         kfn, pfn, 0.0, bound, None))
     return counts, rows
 
 
@@ -834,6 +842,12 @@ def phase_mapfree(graph, device="cuda"):
     if not diff.numel() or share > 0.01:
         raise AssertionError(f"map-free PCF and K3 differ at a share of {share} of the valid pixels")
     pairs = SH.occlusion_pairs(stris, sx, sy, hit)
+    texels = SH._base_texels(sx, sy, hit)[1].numel()
+    for name in ("rects", "cells"):
+        lens = res[name].offsets[1:] - res[name].offsets[:-1]
+        segs = int(((lens + SH.OCC_SEG - 1) // SH.OCC_SEG).sum())
+        log(f"  {name}: {segs} segments of at most {SH.OCC_SEG} entries over {int((lens > 0).sum())} listed tiles "
+            f"of {lens.numel()}; the 4 longest lists {sorted(lens.tolist())[-4:]}")
     rows = []
     for name, lt, lists, occ, pfn in (
         ("shadow_occ", False, res["rects"], res["occ7"], SH.shadow_occlusion_plain),
@@ -846,7 +860,8 @@ def phase_mapfree(graph, device="cuda"):
                      lambda lists=lists, lt=lt: SH.occlusion_from_lists(stris, lists, sx, sy, hit, width, height,
                                                                         lt_form=lt),
                      lambda pfn=pfn: pfn(stris, sx, sy, hit), 0.0, bound, None))
-    log(f"map-free shadows: {pairs} (base texel, nearby caster) pairs at these inputs")
+    log(f"map-free shadows: {pairs} (base texel, nearby caster) pairs over {texels} distinct base texels of "
+        f"{int(hit.sum())} hit pixels at these inputs")
     return counts, rows
 
 
@@ -1033,14 +1048,18 @@ def phase_kernels(paths, extra_rows=(), timed=True):
 
 
 def phase_stress(device="cuda"):
-    """K1 in every mode and K2 against their plain versions on
+    """K1 in every mode, K2 and K6 against their plain versions on
     testing.raster_stress_case: depth, hit, material and counts bit-exact,
-    the other channels within 1 ulp; K2 bit-exact."""
+    the other channels within 1 ulp; K2, and K6's ids and depth at 1 and 4
+    samples, bit-exact. K7 and K8 on testing.shadow_stress_case: bit-exact
+    at hit pixels."""
     import torch
 
     from rend3_tpu_torch import testing
     from rend3_tpu_torch.ops import deferred as D
     from rend3_tpu_torch.ops import raster as R
+    from rend3_tpu_torch.ops import raster_binned as RB
+    from rend3_tpu_torch.ops import shadow as SH
 
     c = testing.raster_stress_case(device)
     lens = (c["binned"].offsets[1:] - c["binned"].offsets[:-1]).tolist()
@@ -1061,15 +1080,39 @@ def phase_stress(device="cuda"):
         if not torch.equal(k, D.raster_depth_plain(*args[:1], *args[2:], sofs=sofs)):
             raise AssertionError(f"K2 differs from its plain version on the stress input at offset {sofs}")
         log(f"K2 stress at offset {sofs}: bit-exact over {k.numel()} texels, {int((k > 0).sum())} covered")
+    for samples, offs in ((1, R.CENTER_OFFSET), (4, R.MSAA4_OFFSETS)):
+        vt, vb = c["vis"][samples]
+        k = RB.rasterize_binned(vt, vb, c["width"], c["height"], offs)
+        p = RB.rasterize_binned_plain(vt, vb, c["width"], c["height"], offs)
+        if not (torch.equal(k.tri, p.tri) and torch.equal(k.depth, p.depth)):
+            raise AssertionError(f"K6 differs from its plain version on the stress input at {samples} samples")
+        lens = (vb.offsets[1:] - vb.offsets[:-1]).tolist()
+        log(f"K6 stress at {samples} samples: ids and depth bit-exact over {k.tri.numel()} samples, "
+            f"{int((k.tri >= 0).sum())} covered; 8x128 lists max {max(lens)}, {sum(lens)} entries")
+    s = testing.shadow_stress_case(device)
+    h = s["hit"][None].expand(SH.N_OFF, -1, -1)
+    args = (s["tris"], s["sx"], s["sy"], s["hit"])
+    for name, lists, lt, plain in (("K7", s["rects"], False, SH.shadow_occlusion_plain),
+                                   ("K8", s["cells"], True, SH.shadow_occlusion_lt_plain)):
+        k = SH.occlusion_from_lists(s["tris"], lists, *args[1:], s["width"], s["height"], lt_form=lt)
+        n = int(((k != plain(*args)) & h).sum())
+        if n:
+            raise AssertionError(f"{name} differs from its plain version on the shadow stress input at {n} values")
+        lens = (lists.offsets[1:] - lists.offsets[:-1]).tolist()
+        log(f"{name} stress: bit-exact at {int(h.sum())} values at hit pixels ({int((k[h] > 0).sum())} nonzero); "
+            f"tile lists {lens}")
 
 
 def log_kernel_info():
     """Registers, spills, shared memory and resident CTAs per SM (CUDA
-    runtime) of each instance of K1 / K2's tiles_kernel, of P1's dot_kernel
-    at the probes' K = 72 and of K5's gather_kernel for the four Hi-Z taps."""
+    runtime) of each instance of K1 / K2's tiles_kernel, K6's vis_kernel,
+    K7 / K8's occ_kernel, of P1's dot_kernel at the probes' K = 72 and of
+    K5's gather_kernel for the four Hi-Z taps."""
     from rend3_tpu_torch.ops import cuda_kernels
 
-    rows = [(f"tiles_kernel {name}", "raster_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.RASTER_INSTANCES)]
+    rows = [(f"{'vis' if name.startswith('K6') else 'tiles'}_kernel {name}", "raster_kernel_info", (i,))
+            for i, name in enumerate(cuda_kernels.RASTER_INSTANCES)]
+    rows += [(f"occ_kernel {name}", "occ_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.OCC_INSTANCES)]
     rows += [(f"P1 dot_kernel {name}", "p1_kernel_info", (i, 72)) for i, name in enumerate(cuda_kernels.P1_INSTANCES)]
     rows.append(("K5 gather_kernel, 4 taps", "k5_kernel_info", (4,)))
     for label, fn, args in rows:

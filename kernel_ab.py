@@ -1,15 +1,18 @@
-"""Time this tree's kernels against another tree's on the same inputs.
+"""Time this tree's kernels against other trees' on the same inputs.
 
-    python3 kernel_ab.py OTHER_DIR [K1 K2 P1 K5]
+    python3 kernel_ab.py OTHER_DIR [OTHER_DIR ...] [K1 K2 P1 K5 K6 K7]
 
-OTHER_DIR holds another commit's tree, for example the parent's, unpacked
-with `git archive` into the ignored `_checkout/`. Its rend3_tpu_torch
-package is imported under another name, so it builds its own kernels into
-its own `_build/` and launches them through its own wrappers
+Each OTHER_DIR holds another tree: another commit's, for example the
+parent's, unpacked with `git archive` into the ignored `_checkout/`, or a
+copy of this one with a constant changed (a design variant). Its
+rend3_tpu_torch package is imported under another name, so it builds its
+own kernels into its own `_build/` and launches them through its own
+wrappers
 (`ops.deferred.raster_resolve` and `raster_depth`, `ops.probe_bf16.probe_dot`,
-`ops.samplers.sample_grid`), whatever its kernels' C interface. The groups
-named (all four by default) choose the cases. The inputs come from this
-tree on the card, as chip_smoke.py makes them, at 1920x1080:
+`ops.samplers.sample_grid`, `ops.raster_binned.rasterize_binned`,
+`ops.shadow.occlusion_from_lists`), whatever its kernels' C interface. The
+groups named (all six by default) choose the cases. The inputs come from
+this tree on the card, as chip_smoke.py makes them, at 1920x1080:
 
 - K1 opaque and K2 (the 2048² map) from the flat city after a building
   moved; K1's count and bound modes from the representative frame's first
@@ -19,18 +22,29 @@ tree on the card, as chip_smoke.py makes them, at 1920x1080:
 - P1 on the four variants of tools.probe_bf16_dot and the dense dot of
   tools.probe_bf16_kernel v1 (K = 72 or 128, M = 512, N = 1024), and on
   random f32 operands of that shape at K = 8, 36 and 128;
-- K5 on the Hi-Z test of the textured city's second occlusion-on frame.
+- K5 on the Hi-Z test of the textured city's second occlusion-on frame;
+- K6 at 1 and 4 samples on the representative frame's opaque clipped
+  table (chip_smoke.py phase 7's inputs);
+- K7 on the rect lists and K8 on the light-cell lists of light 0 of the
+  representative frame (phase 8's inputs; the frame that builds the
+  shadow maps, occlusion off), and K7 again on the rect lists with the 4
+  longest lists emptied (what the longest tiles cost).
 
-Both trees' outputs must be equal bit for bit (NaN at the same places).
-Device times: chip_smoke._graph_ms (20 calls in one CUDA graph, replayed
-between CUDA events), in turns other, this, this, other; for P1 and K5 also
+Every tree's outputs must equal this tree's bit for bit (NaN at the same
+places; K7 and K8 at hit pixels, the only ones where their values are
+defined). Device times: chip_smoke._graph_ms (20 calls in one CUDA graph,
+replayed between CUDA events), in turns other, this, this, other for each
+other tree; for P1 and K5 also
 their library call's (torch.matmul; advanced indexing). For P1 and K5 it
 prints each tree's ptxas lines (registers, spills, shared memory) and
-resident CTAs per SM: this tree's from the CUDA runtime, the other's from
+resident CTAs per SM: this tree's from the CUDA runtime, the others' from
 ptxas's registers and shared memory by the occupancy rules of the H100
 (both ways for this tree, as a check). Prints each case as it goes, then
-one JSON object: per case the other's and this tree's mean device ms, the
-four turns, the library call's ms, and the tile lists' size for K1 / K2.
+one JSON object: per case this tree's mean device ms over all its turns,
+each other tree's mean device ms, this tree's beside it and the four
+turns, the library call's ms, and the lists' size for K1 / K2 / K6 / K7 /
+K8. For K6-K8 it also prints this tree's registers, spills, shared memory
+and CTAs per SM from the CUDA runtime, and every tree's ptxas lines.
 """
 
 import importlib
@@ -45,24 +59,24 @@ import sys
 import chip_smoke as cs
 
 WIDTH, HEIGHT = cs.WIDTH, cs.HEIGHT
-GROUPS = ("K1", "K2", "P1", "K5")
+GROUPS = ("K1", "K2", "P1", "K5", "K6", "K7")
 
 
-def load_other(root):
-    """The other tree's package, imported as rend3_other."""
+def load_other(root, name="rend3_other"):
+    """Another tree's package, imported as `name`."""
     pkg = os.path.join(os.path.abspath(root), "rend3_tpu_torch")
-    spec = importlib.util.spec_from_file_location(
-        "rend3_other", os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg]
-    )
+    spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
+                                                  submodule_search_locations=[pkg])
     mod = importlib.util.module_from_spec(spec)
-    sys.modules["rend3_other"] = mod
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return mod
 
 
-def capture(scene, samples=1, occlusion=False):
+def capture(scene, samples=1, occlusion=False, frames=2):
     """`captured` of a second frame of `scene` on the card: after a
-    building moved (flat), a new pose (features), or unchanged."""
+    building moved (flat), a new pose (features), or unchanged; with
+    frames=1 of the first frame (which builds the shadow maps)."""
     from rend3_tpu_torch import scenes
     from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget
     from rend3_tpu_torch.testing import TestRunner
@@ -87,6 +101,11 @@ def capture(scene, samples=1, occlusion=False):
         runner.renderer.swap_instruction_buffers()
         graph.render_frame_tensor(runner.renderer.evaluate_instructions(), target, settings, sky)
 
+    if frames == 1:
+        graph.captured = {}
+        frame()
+        del keep
+        return graph.captured
     frame()
     if scene == "flat":
         building = [h for h in keep if getattr(h, "kind", None) == "object"][-1]
@@ -105,8 +124,12 @@ def lists(binned):
     return {"tiles": int(n.numel()), "entries": int(n.sum()), "max": int(n.max())}
 
 
-def raster_cases(groups, D, OD):
-    """K1 / K2 cases: label -> (this, other, args, kwargs, binned)."""
+# A case: label -> (ops module, function, args, kwargs, library call, lists,
+# mask of the values compared); each tree's ops.<module>.<function> runs it.
+
+
+def raster_cases(groups):
+    """K1 / K2 cases."""
     cases = {}
     flat = capture("flat")
     if "K1" in groups:
@@ -115,25 +138,27 @@ def raster_cases(groups, D, OD):
         c_tris, c_planes, c_binned, c_wp, c_hp, floor, strict = rep["raster_count"]
         b_tris, b_planes, b_binned, b_wp, b_hp, bnd = rep["raster_bound"]
         m = msaa["raster_sample"]
-        k1 = (D.raster_resolve, OD.raster_resolve)
-        cases["K1 opaque (flat)"] = (*k1, flat["raster_resolve"], {}, flat["raster_resolve"][2])
-        cases["K1 MSAA offset (representative, 4 samples)"] = (*k1, m[:5], {"sofs": m[5]}, m[2])
+        k1 = ("deferred", "raster_resolve")
+        cases["K1 opaque (flat)"] = (*k1, flat["raster_resolve"], {}, None, flat["raster_resolve"][2], None)
+        cases["K1 MSAA offset (representative, 4 samples)"] = (*k1, m[:5], {"sofs": m[5]}, None, m[2], None)
         cases["K1 count (representative, first peel)"] = (
-            *k1, (c_tris, c_planes, c_binned, c_wp, c_hp), {"count_floor": floor, "count_strict": strict}, c_binned,
+            *k1, (c_tris, c_planes, c_binned, c_wp, c_hp), {"count_floor": floor, "count_strict": strict}, None,
+            c_binned, None,
         )
         cases["K1 bound (representative, first later peel)"] = (
-            *k1, (b_tris, b_planes, b_binned, b_wp, b_hp), {"bound": bnd}, b_binned,
+            *k1, (b_tris, b_planes, b_binned, b_wp, b_hp), {"bound": bnd}, None, b_binned, None,
         )
     if "K2" in groups:
         feat = capture("features", occlusion=True)
-        k2 = (D.raster_depth, OD.raster_depth)
-        cases["K2 (flat, 2048² map)"] = (*k2, flat["raster_depth"], {}, flat["raster_depth"][1])
-        cases["K2 (features, map rebuilt for a new pose)"] = (*k2, feat["raster_depth"], {}, feat["raster_depth"][1])
+        k2 = ("deferred", "raster_depth")
+        cases["K2 (flat, 2048² map)"] = (*k2, flat["raster_depth"], {}, None, flat["raster_depth"][1], None)
+        cases["K2 (features, map rebuilt for a new pose)"] = (*k2, feat["raster_depth"], {}, None,
+                                                              feat["raster_depth"][1], None)
     return cases
 
 
-def p1_cases(PB, OPB):
-    """P1 cases: label -> (this, other, args, kwargs, library call)."""
+def p1_cases():
+    """P1 cases."""
     import numpy as np
     import torch
 
@@ -144,22 +169,22 @@ def p1_cases(PB, OPB):
         a, b = r.args["a"], r.args["b"]
         kw = {"bf16": kw.get("bf16", True), "transposed": kw.get("transposed", False)}
         lib = (lambda a=a, b=b: torch.matmul(a, b)) if kw["transposed"] else (lambda a=a, b=b: torch.matmul(a.T, b))
-        cases[f"P1 {r.name}"] = (PB.probe_dot, OPB.probe_dot, (a, b), kw, lib)
+        cases[f"P1 {r.name}"] = ("probe_bf16", "probe_dot", (a, b), kw, lib, None, None)
     # The f32 variant's shape at other contraction depths: what the time
     # owes to each staged row and what it owes to launch, staging and stores.
     rng = np.random.RandomState(1)
     for k in (8, 36, 128):
         a, b = (torch.from_numpy(rng.rand(k, n).astype(np.float32)).cuda() for n in (512, 1024))
-        cases[f"P1 f32 K = {k} (random operands)"] = (PB.probe_dot, OPB.probe_dot, (a, b), {"bf16": False},
-                                                      lambda a=a, b=b: torch.matmul(a.T, b))
+        cases[f"P1 f32 K = {k} (random operands)"] = ("probe_bf16", "probe_dot", (a, b), {"bf16": False},
+                                                      lambda a=a, b=b: torch.matmul(a.T, b), None, None)
     v1 = probe_bf16_kernel.variant(0, np.random.RandomState(0), "cuda")
     t, y = v1.args["t"], v1.args["y"]
-    cases["P1 P2 v1's dense dot (bf16)"] = (PB.probe_dot, OPB.probe_dot, (t, y), {"bf16": True},
-                                            lambda: torch.matmul(t.T, y))
+    cases["P1 P2 v1's dense dot (bf16)"] = ("probe_bf16", "probe_dot", (t, y), {"bf16": True},
+                                            lambda: torch.matmul(t.T, y), None, None)
     return cases
 
 
-def k5_case(S, OS):
+def k5_case():
     import torch
 
     args = capture("textured", occlusion=True)["gather"]
@@ -167,8 +192,72 @@ def k5_case(S, OS):
     dx = torch.tensor([o[0] for o in offs], device=bx.device, dtype=torch.long)
     dy = torch.tensor([o[1] for o in offs], device=bx.device, dtype=torch.long)
     label = f"K5 Hi-Z taps (textured, {bx.numel()} queries, atlas {tuple(img.shape)})"
-    return {label: (S.sample_grid, OS.sample_grid, args, {},
-                    lambda: img[by.long()[:, None] + dy, bx.long()[:, None] + dx])}
+    return {label: ("samplers", "sample_grid", args, {},
+                    lambda: img[by.long()[:, None] + dy, bx.long()[:, None] + dx], None, None)}
+
+
+def emptied(lists, k):
+    """CSR lists with the k longest lists emptied."""
+    import torch
+
+    from rend3_tpu_torch.ops.geometry import BinnedTris
+
+    lens = lists.offsets[1:] - lists.offsets[:-1]
+    top = torch.argsort(lens, descending=True)[:k]
+    keep = torch.ones(lists.ids.numel(), dtype=torch.bool, device=lens.device)
+    for t in top.tolist():
+        keep[int(lists.offsets[t]):int(lists.offsets[t + 1])] = False
+    lens = lens.clone()
+    lens[top] = 0
+    offs = torch.zeros_like(lists.offsets)
+    offs[1:] = torch.cumsum(lens, 0)
+    return BinnedTris(offsets=offs, ids=lists.ids[keep].contiguous())
+
+
+def vis_occ_cases(groups):
+    """K6 / K7 / K8 cases on the representative frame."""
+    from rend3_tpu_torch import probe_shadow
+    from rend3_tpu_torch.ops import geometry as G
+    from rend3_tpu_torch.ops import raster as R
+    from rend3_tpu_torch.ops import shadow as SH
+
+    cap = capture("representative", frames=1)
+    cases = {}
+    if "K6" in groups:
+        clip, valid, front_cw, width, height = cap["opaque_table"]
+        wp, hp = -(-width // G.TILE_W) * G.TILE_W, -(-height // G.TILE_H) * G.TILE_H
+        for label, offs in (("1 sample", R.CENTER_OFFSET), ("4 samples", R.MSAA4_OFFSETS)):
+            tris = G.cull_and_setup(clip, valid, width, height, cull_mode=G.CullMode.BACK, front_is_cw=front_cw,
+                                    subpixel=len(offs) == 1)
+            binned = G.bin_triangles(tris, wp, hp, tile_h=G.TILE_H, tile_w=G.TILE_W)
+            cases[f"K6 {label} (representative)"] = ("raster_binned", "rasterize_binned",
+                                                     (tris, binned, wp, hp, offs), {}, None, binned, None)
+    if "K7" in groups:
+        stris, sx, sy, hit, width, height, size = probe_shadow.inputs(cap)[:7]
+        h = hit[None].expand(SH.N_OFF, -1, -1)
+        rects = SH.rect_lists(stris, sx, sy, hit, width, height)
+        for label, lists, lt in (("K7 rect lists", rects, False),
+                                 ("K8 light-cell lists", SH.cell_lists(stris, sx, sy, hit, width, height, size), True),
+                                 ("K7 rect lists, the 4 longest emptied", emptied(rects, 4), False)):
+            cases[f"{label} (representative, light 0)"] = (
+                "shadow", "occlusion_from_lists", (stris, lists, sx, sy, hit, width, height), {"lt_form": lt}, None,
+                lists, h,
+            )
+    return cases
+
+
+def log_vis_occ_kernels(this_ck, others):
+    """K6's and K7 / K8's kernels: this tree's runtime numbers, every
+    tree's ptxas lines (others: [(dir, cuda_kernels module)])."""
+    for name in this_ck.RASTER_INSTANCES[5:]:
+        cs.log(f"this {name} (runtime): "
+               f"{json.dumps(this_ck.kernel_info('raster_kernel_info', this_ck.RASTER_INSTANCES.index(name)))}")
+    for i, name in enumerate(this_ck.OCC_INSTANCES):
+        cs.log(f"this {name} (runtime): {json.dumps(this_ck.kernel_info('occ_kernel_info', i))}")
+    for label, ck in [("this", this_ck)] + others:
+        ck.build(verbose=True)
+        for name, info in ptxas(ck.last_build["log"], r"vis_kernel|occ_kernel").items():
+            cs.log(f"{label} {name}: {json.dumps(info)}")
 
 
 def ptxas(log, pattern):
@@ -213,16 +302,17 @@ def ctas_per_sm(registers, smem, threads):
 
 
 # Threads a CTA of P1's and K5's kernels: this tree's, and their earlier
-# design's (the commit before their redesign), for the other tree's
+# design's (the commit before their redesign), for the other trees'
 # occupancy estimate.
 THREADS = {"this": 128, "other": 256}
 
 
-def log_kernels(this_ck, other_ck):
-    """ptxas and runtime numbers of P1's and K5's kernels, both trees."""
-    for label, ck in (("this", this_ck), ("other", other_ck)):
+def log_kernels(this_ck, others):
+    """ptxas and runtime numbers of P1's and K5's kernels, every tree
+    (others: [(dir, cuda_kernels module)])."""
+    for label, ck in [("this", this_ck)] + others:
         ck.build(verbose=True)
-        t = THREADS[label]
+        t = THREADS["this" if label == "this" else "other"]
         for group, pattern in (("P1", r"dot_kernel"), ("K5", r"gather_kernel")):
             # This tree's P1 stages K = 72 rows of 96 floats in dynamic shared memory.
             dyn = 72 * 96 * 4 if label == "this" and group == "P1" else 0
@@ -238,42 +328,56 @@ def log_kernels(this_ck, other_ck):
 def main(argv):
     import torch
 
-    if not argv or any(g not in GROUPS for g in argv[1:]):
+    dirs = [a for a in argv if a not in GROUPS]
+    if not dirs:
         raise SystemExit(__doc__.split("\n\n")[1])
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA device")
-    from rend3_tpu_torch.ops import cuda_kernels, deferred, probe_bf16, samplers
+    from rend3_tpu_torch.ops import cuda_kernels
 
-    groups = argv[1:] or GROUPS
-    load_other(argv[0])
-    OD, OPB, OS, OCK = (importlib.import_module(f"rend3_other.ops.{m}")
-                        for m in ("deferred", "probe_bf16", "samplers", "cuda_kernels"))
+    groups = [a for a in argv if a in GROUPS] or GROUPS
+    others = [(d, load_other(d, f"rend3_other{i}").__name__) for i, d in enumerate(dirs)]
     cases = {}
     if "K1" in groups or "K2" in groups:
-        cases.update((k, v[:4] + (None, v[4])) for k, v in raster_cases(groups, deferred, OD).items())
+        cases.update(raster_cases(groups))
     if "P1" in groups:
-        cases.update((k, v + (None,)) for k, v in p1_cases(probe_bf16, OPB).items())
+        cases.update(p1_cases())
     if "K5" in groups:
-        cases.update((k, v + (None,)) for k, v in k5_case(samplers, OS).items())
+        cases.update(k5_case())
+    if "K6" in groups or "K7" in groups:
+        cases.update(vis_occ_cases(groups))
+    other_cks = [(d, importlib.import_module(f"{pkg}.ops.cuda_kernels")) for d, pkg in others]
     if "P1" in groups or "K5" in groups:
-        log_kernels(cuda_kernels, OCK)
+        log_kernels(cuda_kernels, other_cks)
+    if "K6" in groups or "K7" in groups:
+        log_vis_occ_kernels(cuda_kernels, other_cks)
+
+    def outputs(f, args, kw, mask):
+        out = f(*args, **kw)
+        out = out if isinstance(out, tuple) else (out,)
+        out = [getattr(a, "data", a) for a in out]
+        return out if mask is None else [a[mask] for a in out]
+
     results = {}
-    for label, (fn, other_fn, args, kw, lib, binned) in cases.items():
-        outs = []
-        for f in (fn, other_fn):
-            out = f(*args, **kw)
-            outs.append(out if isinstance(out, tuple) else (out,))
-        for a, b in zip(*outs):
-            a, b = getattr(a, "data", a), getattr(b, "data", b)
-            if not cs._same_with_nan(a, b):
-                raise AssertionError(f"{label}: this tree's kernel and the other's differ")
-        t = [cs._graph_ms(lambda g=g: g(*args, **kw)) for g in (other_fn, fn, fn, other_fn)]
-        results[label] = {"other_ms": (t[0] + t[3]) / 2, "this_ms": (t[1] + t[2]) / 2, "turns_ms": t}
+    for label, (mod, fname, args, kw, lib, binned, mask) in cases.items():
+        fn = getattr(importlib.import_module(f"rend3_tpu_torch.ops.{mod}"), fname)
+        ref = outputs(fn, args, kw, mask)
+        res = {"others": {}}
+        this_turns = []
+        for d, pkg in others:
+            other_fn = getattr(importlib.import_module(f"{pkg}.ops.{mod}"), fname)
+            if not all(cs._same_with_nan(a, b) for a, b in zip(outputs(other_fn, args, kw, mask), ref)):
+                raise AssertionError(f"{label}: this tree's kernel and {d}'s differ")
+            t = [cs._graph_ms(lambda g=g: g(*args, **kw)) for g in (other_fn, fn, fn, other_fn)]
+            res["others"][d] = {"ms": (t[0] + t[3]) / 2, "this_ms": (t[1] + t[2]) / 2, "turns_ms": t}
+            this_turns += t[1:3]
+        res["this_ms"] = sum(this_turns) / len(this_turns)
         if lib is not None:
-            results[label]["library_ms"] = cs._graph_ms(lib)
+            res["library_ms"] = cs._graph_ms(lib)
         if binned is not None:
-            results[label]["lists"] = lists(binned)
-        cs.log(f"{label}: {json.dumps(results[label])}")
+            res["lists"] = lists(binned)
+        results[label] = res
+        cs.log(f"{label}: {json.dumps(res)}")
     print(json.dumps({"device": torch.cuda.get_device_name(0), "card": cs.nvidia_smi_line(), "cases": results}))
     return 0
 

@@ -60,9 +60,9 @@
 //     bits of the ballot in ascending order (__ffs): list order, so the
 //     later-entry tie-break needs no atomics;
 //   - the top-left rule is one compare an edge (e > t, below), cheaper
-//     than the two-compare form (covers, which K6 keeps); K2 also skips the
-//     rows of a block that the entry's bbox misses (K1's larger triangles
-//     run faster without);
+//     than the two-compare form (e > 0, or e == 0 on a top-left edge); K2
+//     also skips the rows of a block that the entry's bbox misses (K1's
+//     larger triangles run faster without);
 //   - one CTA a work item, the grid in item order; the hardware hands the
 //     next item to whichever SM frees a slot first, which balances the
 //     tiles. K1's items are the quarters of the tiles, in tile order, in
@@ -73,8 +73,9 @@
 //     empty list reads neither the bound nor the floor image, so the peel
 //     modes' near-empty lists leave the G-buffer write alone;
 //   - K2's items are the quarters of segments of at most 128 list entries,
-//     so a long list spreads over many CTAs: a one-CTA kernel (plan_kernel)
-//     writes each segment's tile and first entry to global memory first.
+//     so a long list spreads over many CTAs: a one-CTA kernel (plan_kernel,
+//     tile_lists.cuh) writes each segment's tile and first entry to global
+//     memory first.
 //     The grid counts the most segments there can be (n_tiles + entries /
 //     128); the CTAs past the plan's count return at once. A tile with one
 //     segment stores its depths; the segments of a longer list combine with
@@ -92,44 +93,58 @@
 // memory and resident CTAs per SM (cudaOccupancyMaxActiveBlocksPer-
 // Multiprocessor), which chip_smoke.py prints beside ptxas -v.
 //
-// K6 is the earlier walk (walk_vis) over 8x128 tiles (the visibility raster's
-// binning), for 1 or 4 sample offsets at once: one staging of the list's
-// setup rows serves every offset, each thread keeping the depth and winner
-// of 4 pixel rows per offset in registers (a 256-thread CTA per tile, so up
-// to 32 pairs fit). It writes depth (S, H, W) f32 and the winner's S_ID
-// (its clipped-table row) as id (S, H, W) int32, -1 where nothing covers;
-// the S_ID is read from the winner's setup row once per covered pixel.
-// Bound: the 8 bytes per pixel and sample it writes, and the per-(pixel,
-// listed triangle, sample) tests; 2,040 CTAs for a 1088x1920 target.
+// K6 (the visibility raster) walks its 8x128 tile lists with the same
+// device function, for 1 or 4 sample offsets at once: a 256-thread CTA a
+// tile, each warp a 32x4 block (4 across, 2 down), each thread one column
+// and 4 rows, with the depth and winner of every (sample, row) in
+// registers (16 + 16 at 4 samples). One staging of an entry serves every
+// offset; the ballot's edge test runs at the corner samples of the block
+// over all offsets, so it rejects an entry only where it covers no sample.
+// At 4 samples it also takes K2's per-(sample, row) bbox skip and runs 3
+// CTAs an SM (80 registers); at 1 sample neither paid (PERF.md §6).
+// It writes depth (S, H, W) f32 and the winner's S_ID (its clipped-table
+// row, read from the setup row once per covered sample) as id (S, H, W)
+// int32, -1 where nothing covers. What bounds it on the H100: the
+// per-(sample, pixel, listed triangle) tests, as K1's, times the samples
+// (so the ballot cull, which drops an entry for all samples at once, and
+// the one-compare top-left test pay most at 4 samples); the 8 bytes a
+// sample it writes are 66 MB at 1088x1920 and 4 samples (0.020 ms at
+// 3.35 TB/s).
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "kernel_info.cuh"
+#include "tile_lists.cuh"
 
 namespace {
 
 constexpr int TILE_H = 32;
 constexpr int TILE_W = 128;
+using tile_lists::CHUNK;
+using tile_lists::Chunk;
+using tile_lists::NT;                      // 256 threads a CTA, 8 warps
+using tile_lists::ROW4;
+using tile_lists::SETUP_W;
+
 constexpr int ROWS = 4;                    // pixel rows per thread
-constexpr int SETUP_W = 16;
 constexpr int PLANES_W = 64;
 constexpr int GB_CH = 25;
-constexpr int STAGE = 128;                 // K6: setup rows staged per pass
-constexpr int VTILE_H = 8;                 // K6's tile height
-constexpr int VGROUPS = VTILE_H / ROWS;    // K6's threadIdx.y extent
 constexpr int MAX_SAMPLES = 4;
 
 // K1 / K2 (tiles_kernel).
 constexpr int QW = 32;                     // quarter-tile width: a warp's columns
 constexpr int QUARTERS = TILE_W / QW;      // work items per tile (per segment)
-constexpr int WARPS = TILE_H / ROWS;       // 8 warps, one 32x4 block each
-constexpr int NT = 32 * WARPS;             // 256 threads a CTA
-constexpr int CHUNK = 128;                 // list entries a staged buffer holds
 constexpr int SEG = CHUNK;                 // K2: list entries a work item walks
 constexpr int K1_MIN_CTAS = 4;             // resident CTAs an SM: 64 registers a thread
 constexpr int K2_MIN_CTAS = 5;             // 48 registers a thread
+static_assert(TILE_H / ROWS == NT / 32, "a K1 / K2 CTA is one warp a 32x4 block of a 32x32 quarter");
+
+// K6 (vis_kernel).
+constexpr int VTILE_H = 8;                 // K6's tile height: a CTA, 4 x 2 warp blocks
+constexpr int K6_MIN_CTAS_1 = 4;           // resident CTAs an SM at 1 sample
+constexpr int K6_MIN_CTAS_4 = 3;           // at 4 samples (16 depths and 16 winners a thread)
+static_assert(QUARTERS * (VTILE_H / ROWS) == NT / 32, "a K6 CTA is one warp a 32x4 block of an 8x128 tile");
 
 // Setup row layout (geometry.py:28-35).
 constexpr int S_EA = 0, S_EB = 3, S_EC = 6, S_ZA = 9, S_ZB = 10, S_ZC = 11;
@@ -139,18 +154,6 @@ constexpr int P_DEN = 0, P_VP = 3, P_NRM = 12, P_TAN = 21, P_UV0 = 30, P_UV1 = 3
 
 __device__ __forceinline__ float plane(float a, float b, float c, float px, float py) {
     return __fadd_rn(__fmaf_rn(a, px, __fmul_rn(b, py)), c);
-}
-
-// The coverage and depth of one setup row s at (x, y), as K6 tests them.
-__device__ __forceinline__ bool covers(const float* s, float x, float y, float& z) {
-    const float e0 = plane(s[S_EA + 0], s[S_EB + 0], s[S_EC + 0], x, y);
-    const float e1 = plane(s[S_EA + 1], s[S_EB + 1], s[S_EC + 1], x, y);
-    const float e2 = plane(s[S_EA + 2], s[S_EB + 2], s[S_EC + 2], x, y);
-    const bool c0 = (e0 > 0.0f) || ((e0 == 0.0f) && (s[S_TL] > 0.0f));
-    const bool c1 = (e1 > 0.0f) || ((e1 == 0.0f) && (s[S_TL1] > 0.0f));
-    const bool c2 = (e2 > 0.0f) || ((e2 == 0.0f) && (s[S_TL2] > 0.0f));
-    z = plane(s[S_ZA], s[S_ZB], s[S_ZC], x, y);
-    return c0 && c1 && c2 && (z >= 0.0f) && (z <= 1.0f);
 }
 
 // Whether the bbox (xmin, ymin, xmax, ymax), grown by one pixel, meets the
@@ -178,127 +181,52 @@ __device__ __forceinline__ bool edge_rejects(float a, float b, float c, float x0
 // K1 and K2: the quarter-tile walk
 // ---------------------------------------------------------------------------
 
-// A staged entry's row: its setup row (4 float4) and bbox (the 5th). The
-// 80-byte stride keeps the lanes of a warp that read 32 rows at once on
-// distinct banks.
-constexpr int ROW4 = SETUP_W / 4 + 1;
-
-struct Chunk {
-    float4 row[CHUNK][ROW4];
-    int id[CHUNK];
-};
-
 struct Params {
     const float* setup;
     const float4* bbox;
     const float* planes;
     const int* offs;
     const int* ids;
-    float* out;
+    float* out;       // K1's G-buffer, K2's depth, K6's depth
+    int* tri;         // K6's ids
     const float* bound;
     const float* cfloor;
     float* counts;
-    const int* plan;  // K2's segments (plan_kernel)
+    const int* plan;  // K2's segments (tile_lists::plan_kernel)
     int width, height, n_tiles, strict;
-    float sofs_x, sofs_y;
+    float ox[MAX_SAMPLES], oy[MAX_SAMPLES];  // sample offsets (K1 and K2 take the first)
 };
 
-// Exclusive prefix sum of one int a thread over the CTA; `total` gets the sum.
-__device__ __forceinline__ int cta_exclusive_scan(int v, int& total, int* warp_sums) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    int inc = v;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-        const int t = __shfl_up_sync(0xffffffffu, inc, o);
-        if (lane >= o) inc += t;
-    }
-    if (lane == 31) warp_sums[warp] = inc;
-    __syncthreads();
-    int base = 0;
-    total = 0;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-        const int s = warp_sums[w];
-        base += (w < warp) ? s : 0;
-        total += s;
-    }
-    __syncthreads();
-    return base + inc - v;
-}
-
-__device__ __forceinline__ int n_segments(int len) { return (len + SEG - 1) / SEG; }
-
-// K2's segments, one CTA: tile t's list of len entries splits into
-// n_segments(len) segments of SEG entries (none for an empty list), in tile
-// order. plan[0] gets their number; segment s's tile and first list entry
-// go to plan[1 + 2s] and plan[2 + 2s]. Thread i owns a contiguous run of
-// tiles.
-__global__ void __launch_bounds__(NT) plan_kernel(const int* __restrict__ offs, int n_tiles, int* __restrict__ plan)
-{
-    __shared__ int warp_sums[WARPS];
-    const int per = (n_tiles + NT - 1) / NT;
-    const int lo = min(n_tiles, (int)threadIdx.x * per), hi = min(n_tiles, lo + per);
-    int n = 0;
-    for (int t = lo; t < hi; ++t) n += n_segments(offs[t + 1] - offs[t]);
-    int total;
-    int s = cta_exclusive_scan(n, total, warp_sums);
-    for (int t = lo; t < hi; ++t) {
-        for (int b = offs[t]; b < offs[t + 1]; b += SEG, ++s) {
-            plan[1 + 2 * s] = t;
-            plan[2 + 2 * s] = b;
-        }
-    }
-    if (threadIdx.x == 0) plan[0] = total;
-}
-
-// Stage list entry e of a chunk (setup row id `id`, -1 past the list's end)
-// into `c`: thread half h copies setup floats 8h..8h+7, half 0 also the bbox.
-__device__ __forceinline__ void stage(Chunk& c, int e, int h, int id, const Params& p) {
-    if (id < 0) return;
-    const float4* src = reinterpret_cast<const float4*>(p.setup + (size_t)id * SETUP_W) + 2 * h;
-    __pipeline_memcpy_async(&c.row[e][2 * h], src, 16);
-    __pipeline_memcpy_async(&c.row[e][2 * h + 1], src + 1, 16);
-    if (h == 0) {
-        __pipeline_memcpy_async(&c.row[e][ROW4 - 1], p.bbox + id, 16);
-        c.id[e] = id;
-    }
-}
-
-// Walk list entries [beg, end) for this thread's pixel column px and rows
-// py: greatest covered depth d[r] and (WINNER) the setup row win[r] that
-// reached it last; with BOUND a fragment also needs z < bnd[r]; with COUNT,
-// cnt[r] counts the covered fragments above flr[r] before the bound. wx0,
-// wy0: the warp's block. Every thread of the CTA calls it with the same
-// range.
-template <bool WINNER, bool BOUND, bool COUNT>
+// Walk list entries [beg, end) for this thread's pixel column at NS sample
+// offsets, sample positions px[s] and py[s][r] of rows r: per (sample, row)
+// the greatest covered depth d and (WINNER) the setup row win that reached
+// it last; with BOUND a fragment also needs z < bnd[r]; with COUNT, cnt[r]
+// counts the covered fragments above flr[r] before the bound (the peel
+// modes take one sample). ROWSKIP skips the (sample, row)s outside the
+// entry's bbox grown by one pixel. wx0, wy0: the warp's 32 x ROWS block.
+// Every thread of the CTA calls it with the same range.
+template <bool WINNER, bool BOUND, bool COUNT, bool ROWSKIP, int NS>
 __device__ __forceinline__ void walk_chunks(
-    const Params& p, int beg, int end, float px, const float (&py)[ROWS], float wx0, float wy0,
-    const float (&bnd)[ROWS], const float (&flr)[ROWS], float (&d)[ROWS], int (&win)[ROWS], int (&cnt)[ROWS],
-    Chunk* sm)
+    const Params& p, int beg, int end, const float (&px)[NS], const float (&py)[NS][ROWS], float wx0, float wy0,
+    const float (&bnd)[ROWS], const float (&flr)[ROWS], float (&d)[NS][ROWS], int (&win)[NS][ROWS],
+    int (&cnt)[ROWS], Chunk* sm)
 {
-    const int n_chunks = (end - beg + CHUNK - 1) / CHUNK;
-    if (n_chunks <= 0) return;
-    const int lane = threadIdx.x & 31, e = threadIdx.x >> 1, h = threadIdx.x & 1;
+    static_assert(NS == 1 || !(BOUND || COUNT), "the peel modes take one sample");
+    const int lane = threadIdx.x & 31;
     const bool strict = p.strict != 0;
-    // The warp's corner samples (lanes 0 and 31, rows 0 and ROWS - 1).
-    const float cx0 = __fadd_rn(wx0, p.sofs_x), cx1 = __fadd_rn(wx0 + float(QW - 1), p.sofs_x);
-    const float cy0 = py[0], cy1 = py[ROWS - 1];
-    stage(sm[0], e, h, beg + e < end ? __ldg(p.ids + beg + e) : -1, p);
-    __pipeline_commit();
-    int id_next = beg + CHUNK + e < end ? __ldg(p.ids + beg + CHUNK + e) : -1;
-    for (int k = 0; k < n_chunks; ++k) {
-        const int base = beg + k * CHUNK;
-        if (k + 1 < n_chunks) {
-            stage(sm[(k + 1) & 1], e, h, id_next, p);
-            __pipeline_commit();
-            id_next = base + 2 * CHUNK + e < end ? __ldg(p.ids + base + 2 * CHUNK + e) : -1;
-            __pipeline_wait_prior(1);
-        } else {
-            __pipeline_wait_prior(0);
-        }
-        __syncthreads();
-        const Chunk& c = sm[k & 1];
-        const int n = min(CHUNK, end - base);
+    // The block's corner samples (lanes 0 and 31, rows 0 and ROWS - 1, at
+    // the smallest and largest offsets): every sample lies between them.
+    float ox0 = p.ox[0], ox1 = p.ox[0], oy0 = p.oy[0], oy1 = p.oy[0];
+#pragma unroll
+    for (int s = 1; s < NS; ++s) {
+        ox0 = fminf(ox0, p.ox[s]);
+        ox1 = fmaxf(ox1, p.ox[s]);
+        oy0 = fminf(oy0, p.oy[s]);
+        oy1 = fmaxf(oy1, p.oy[s]);
+    }
+    const float cx0 = __fadd_rn(wx0, ox0), cx1 = __fadd_rn(wx0 + float(QW - 1), ox1);
+    const float cy0 = __fadd_rn(wy0, oy0), cy1 = __fadd_rn(wy0 + float(ROWS - 1), oy1);
+    tile_lists::walk_staged(p.ids, p.setup, p.bbox, beg, end, sm, [&](const Chunk& c, int n) {
         for (int g = 0; g < n; g += 32) {
             // Lane l tests entry g + l against the warp's block: its bbox,
             // grown by one pixel, then its three edges at the block's corners.
@@ -333,33 +261,34 @@ __device__ __forceinline__ void walk_chunks(
                 const float t0 = s[S_TL] > 0.0f ? -0x1p-149f : 0.0f;
                 const float t1 = s[S_TL1] > 0.0f ? -0x1p-149f : 0.0f;
                 const float t2 = s[S_TL2] > 0.0f ? -0x1p-149f : 0.0f;
-                // K2 skips the rows outside the bbox grown by one pixel (K1,
-                // whose triangles are larger, runs faster without the test).
                 const float4 bb = c.row[j][ROW4 - 1];
 #pragma unroll
-                for (int r = 0; r < ROWS; ++r) {
-                    const float y = py[r];
-                    if (!WINNER && (y < bb.y - 1.0f || y > bb.w + 1.0f)) continue;
-                    const float z = plane(s[S_ZA], s[S_ZB], s[S_ZC], px, y);
-                    bool cov = plane(s[S_EA + 0], s[S_EB + 0], s[S_EC + 0], px, y) > t0
-                               && plane(s[S_EA + 1], s[S_EB + 1], s[S_EC + 1], px, y) > t1
-                               && plane(s[S_EA + 2], s[S_EB + 2], s[S_EC + 2], px, y) > t2
-                               && (z >= 0.0f) && (z <= 1.0f);
-                    if (COUNT && cov && (strict ? (z > flr[r]) : (z >= flr[r]))) ++cnt[r];
-                    if (BOUND) cov = cov && (z < bnd[r]);
-                    if (WINNER) {
-                        if (cov && z >= d[r]) {
-                            d[r] = z;
-                            win[r] = id;
+                for (int si = 0; si < NS; ++si) {
+#pragma unroll
+                    for (int r = 0; r < ROWS; ++r) {
+                        const float y = py[si][r];
+                        if (ROWSKIP && (y < bb.y - 1.0f || y > bb.w + 1.0f)) continue;
+                        const float x = px[si];
+                        const float z = plane(s[S_ZA], s[S_ZB], s[S_ZC], x, y);
+                        bool cov = plane(s[S_EA + 0], s[S_EB + 0], s[S_EC + 0], x, y) > t0
+                                   && plane(s[S_EA + 1], s[S_EB + 1], s[S_EC + 1], x, y) > t1
+                                   && plane(s[S_EA + 2], s[S_EB + 2], s[S_EC + 2], x, y) > t2
+                                   && (z >= 0.0f) && (z <= 1.0f);
+                        if (COUNT && cov && (strict ? (z > flr[r]) : (z >= flr[r]))) ++cnt[r];
+                        if (BOUND) cov = cov && (z < bnd[r]);
+                        if (WINNER) {
+                            if (cov && z >= d[si][r]) {
+                                d[si][r] = z;
+                                win[si][r] = id;
+                            }
+                        } else if (cov && z > d[si][r]) {
+                            d[si][r] = z;
                         }
-                    } else if (cov && z > d[r]) {
-                        d[r] = z;
                     }
                 }
             }
         }
-        __syncthreads();  // buffer k & 1 is staged again for chunk k + 2
-    }
+    });
 }
 
 // K1's finalize at one pixel: the winner's plane row evaluated into the 25
@@ -433,32 +362,33 @@ __global__ void __launch_bounds__(NT, WINNER ? K1_MIN_CTAS : K2_MIN_CTAS) tiles_
     const int x0 = tcol * TILE_W + q * QW;
     const int y0 = trow * TILE_H + warp * ROWS;
     const int x = x0 + lane;
-    const float px = __fadd_rn(float(x), p.sofs_x);
-    float py[ROWS], d[ROWS], bnd[ROWS], flr[ROWS];
-    int win[ROWS], cnt[ROWS];
+    const float px[1] = {__fadd_rn(float(x), p.ox[0])};
+    float py[1][ROWS], d[1][ROWS], bnd[ROWS], flr[ROWS];
+    int win[1][ROWS], cnt[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
         const size_t pix = (size_t)(y0 + r) * p.width + x;
-        py[r] = __fadd_rn(float(y0 + r), p.sofs_y);
-        d[r] = 0.0f;
-        win[r] = -1;
+        py[0][r] = __fadd_rn(float(y0 + r), p.oy[0]);
+        d[0][r] = 0.0f;
+        win[0][r] = -1;
         // An empty list reads neither image: its pixels win nothing and count nothing.
         bnd[r] = BOUND && beg < end ? p.bound[pix] : 0.0f;
         flr[r] = COUNT && beg < end ? p.cfloor[pix] : 0.0f;
         cnt[r] = 0;
     }
-    walk_chunks<WINNER, BOUND, COUNT>(p, beg, end, px, py, float(x0), float(y0), bnd, flr, d, win, cnt, sm);
+    walk_chunks<WINNER, BOUND, COUNT, !WINNER, 1>(p, beg, end, px, py, float(x0), float(y0), bnd, flr, d, win, cnt,
+                                                  sm);
     const size_t hw = (size_t)p.width * p.height;
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
         const size_t pix = (size_t)(y0 + r) * p.width + x;
         if (WINNER) {
             if (COUNT) __stcs(p.counts + pix, float(cnt[r]));
-            resolve_pixel(p, pix, hw, d[r], win[r], px, py[r]);
+            resolve_pixel(p, pix, hw, d[0][r], win[0][r], px[0], py[0][r]);
         } else if (!shared_tile) {
-            __stcs(p.out + pix, d[r]);
-        } else if (d[r] > 0.0f) {
-            atomicMax(reinterpret_cast<int*>(p.out) + pix, __float_as_int(d[r]));
+            __stcs(p.out + pix, d[0][r]);
+        } else if (d[0][r] > 0.0f) {
+            atomicMax(reinterpret_cast<int*>(p.out) + pix, __float_as_int(d[0][r]));
         }
     }
 }
@@ -475,122 +405,53 @@ int launch_tiles(const Params& p, size_t n_items, cudaStream_t s)
 }
 
 // ---------------------------------------------------------------------------
-// K6: the earlier walk over 8x128 tiles
+// K6: the same walk over 8x128 tiles, at NS sample offsets
 // ---------------------------------------------------------------------------
 
-struct Staged {
-    float setup[STAGE][SETUP_W];
-    float4 bbox[STAGE];
-    int id[STAGE];
-};
-
-// Walk the tile's list; per sample offset s and pixel row r of this
-// thread: greatest covered depth d[s][r] and the setup row win[s][r] that
-// reached it last.
+// One CTA a tile, warps 4 across and 2 down.
 template <int NS>
-__device__ __forceinline__ void walk_vis(
-    const float* __restrict__ setup, const float4* __restrict__ bbox,
-    const int* __restrict__ offs, const int* __restrict__ ids,
-    int tile, const float (&px)[NS], const float (&py)[NS][ROWS], float wx0, float wy0,
-    float (&d)[NS][ROWS], int (&win)[NS][ROWS], Staged& sm)
+__global__ void __launch_bounds__(NT, NS == 1 ? K6_MIN_CTAS_1 : K6_MIN_CTAS_4) vis_kernel(const Params p)
 {
-    const int tid = threadIdx.y * TILE_W + threadIdx.x;
-    const int nthreads = TILE_W * blockDim.y;
-    const int beg = offs[tile], end = offs[tile + 1];
-    for (int base = beg; base < end; base += STAGE) {
-        const int n = min(STAGE, end - base);
-        __syncthreads();
-        for (int i = tid; i < n * SETUP_W; i += nthreads) {
-            const int j = i / SETUP_W, k = i - j * SETUP_W;
-            sm.setup[j][k] = setup[(size_t)ids[base + j] * SETUP_W + k];
-        }
-        for (int i = tid; i < n; i += nthreads) {
-            const int v = ids[base + i];
-            sm.id[i] = v;
-            sm.bbox[i] = bbox[v];
-        }
-        __syncthreads();
-        for (int j = 0; j < n; ++j) {
-            // Warp-uniform skip: no pixel of the warp's 32x4 block lies in
-            // the bbox grown by one pixel (so no pixel can be covered).
-            if (!meets(sm.bbox[j], wx0, wy0)) continue;
-            const float* s = sm.setup[j];
-#pragma unroll
-            for (int si = 0; si < NS; ++si) {
-#pragma unroll
-                for (int r = 0; r < ROWS; ++r) {
-                    float z;
-                    if (covers(s, px[si], py[si][r], z) && z >= d[si][r]) {
-                        d[si][r] = z;
-                        win[si][r] = sm.id[j];
-                    }
-                }
-            }
-        }
-    }
-}
-
-struct SampleOffsets {
-    float x[MAX_SAMPLES], y[MAX_SAMPLES];
-};
-
-// K6: one CTA of 128 x VGROUPS threads per 8x128 tile, NS sample offsets.
-template <int NS>
-__global__ void __launch_bounds__(TILE_W * VGROUPS) vis_kernel(
-    const float* __restrict__ setup, const float4* __restrict__ bbox,
-    const int* __restrict__ offs, const int* __restrict__ ids,
-    float* __restrict__ depth, int* __restrict__ tri, int width, int height, SampleOffsets so)
-{
-    __shared__ Staged sm;
-    const int n_cols = width / TILE_W;
+    __shared__ Chunk sm[2];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int tile = blockIdx.x;
+    const int n_cols = p.width / TILE_W;
     const int trow = tile / n_cols, tcol = tile - trow * n_cols;
-    const int x = tcol * TILE_W + threadIdx.x;
-    const int y0 = trow * VTILE_H + threadIdx.y * ROWS;
-    float px[NS], py[NS][ROWS], d[NS][ROWS];
-    int win[NS][ROWS];
+    const int x0 = tcol * TILE_W + (warp % QUARTERS) * QW;
+    const int y0 = trow * VTILE_H + (warp / QUARTERS) * ROWS;
+    const int x = x0 + lane;
+    float px[NS], py[NS][ROWS], d[NS][ROWS], none[ROWS] = {};
+    int win[NS][ROWS], cnt[ROWS] = {};
 #pragma unroll
     for (int si = 0; si < NS; ++si) {
-        px[si] = __fadd_rn(float(x), so.x[si]);
+        px[si] = __fadd_rn(float(x), p.ox[si]);
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
-            py[si][r] = __fadd_rn(float(y0 + r), so.y[si]);
+            py[si][r] = __fadd_rn(float(y0 + r), p.oy[si]);
             d[si][r] = 0.0f;
             win[si][r] = -1;
         }
     }
-    const float wx0 = float(tcol * TILE_W + (threadIdx.x & ~31));
-    walk_vis<NS>(setup, bbox, offs, ids, tile, px, py, wx0, float(y0), d, win, sm);
-    const size_t hw = (size_t)width * height;
+    // K2's per-(sample, row) bbox skip pays at 4 samples only.
+    walk_chunks<true, false, false, (NS > 1), NS>(p, p.offs[tile], p.offs[tile + 1], px, py, float(x0), float(y0),
+                                                    none, none, d, win, cnt, sm);
+    const size_t hw = (size_t)p.width * p.height;
 #pragma unroll
     for (int si = 0; si < NS; ++si) {
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
-            const size_t pix = si * hw + (size_t)(y0 + r) * width + x;
-            depth[pix] = d[si][r];
-            tri[pix] = win[si][r] < 0 ? -1 : int(setup[(size_t)win[si][r] * SETUP_W + S_ID]);
+            const size_t pix = si * hw + (size_t)(y0 + r) * p.width + x;
+            __stcs(p.out + pix, d[si][r]);
+            __stcs(p.tri + pix, win[si][r] < 0 ? -1 : int(__ldg(p.setup + (size_t)win[si][r] * SETUP_W + S_ID)));
         }
     }
-}
-
-template <int NS>
-int launch_vis(const void* setup, const void* bbox, const void* offs, const void* ids, void* depth, void* tri,
-               int width, int height, const SampleOffsets& so, void* stream)
-{
-    const int n_tiles = (width / TILE_W) * (height / VTILE_H);
-    if (n_tiles > 0) {
-        vis_kernel<NS><<<n_tiles, dim3(TILE_W, VGROUPS), 0, (cudaStream_t)stream>>>(
-            (const float*)setup, (const float4*)bbox, (const int*)offs, (const int*)ids,
-            (float*)depth, (int*)tri, width, height, so);
-    }
-    return (int)cudaGetLastError();
 }
 
 Params make_params(const void* setup, const void* bbox, const void* planes, const void* offs, const void* ids,
                    void* out, const void* bound, const void* cfloor, void* counts, const void* plan,
                    int width, int height, int strict, float sofs_x, float sofs_y)
 {
-    Params p;
+    Params p = {};
     p.setup = (const float*)setup;
     p.bbox = (const float4*)bbox;
     p.planes = (const float*)planes;
@@ -605,8 +466,8 @@ Params make_params(const void* setup, const void* bbox, const void* planes, cons
     p.height = height;
     p.n_tiles = (width / TILE_W) * (height / TILE_H);
     p.strict = strict;
-    p.sofs_x = sofs_x;
-    p.sofs_y = sofs_y;
+    p.ox[0] = sofs_x;
+    p.oy[0] = sofs_y;
     return p;
 }
 
@@ -648,14 +509,15 @@ int k2_raster_depth(const void* setup, const void* bbox, const void* offs, const
     if (p.n_tiles <= 0) return (int)cudaGetLastError();
     const cudaError_t e = cudaMemsetAsync(out, 0, (size_t)width * height * sizeof(float), s);
     if (e != cudaSuccess) return (int)e;
-    plan_kernel<<<1, NT, 0, s>>>(p.offs, p.n_tiles, (int*)plan);
+    tile_lists::plan_kernel<SEG><<<1, NT, 0, s>>>(p.offs, p.n_tiles, (int*)plan);
     // At most one partial segment a tile: n_tiles + P / SEG segments.
     return launch_tiles<false, false, false>(p, (size_t)p.n_tiles + n_entries / SEG, s);
 }
 
 // Registers, local (spill) bytes, static shared bytes and resident CTAs per
-// SM of tiles_kernel instance `which` (0 K1, 1 K1 bound, 2 K1 count, 3 K1
-// bound + count, 4 K2), and the SM count. info: 5 ints.
+// SM of kernel instance `which` (tiles_kernel: 0 K1, 1 K1 bound, 2 K1
+// count, 3 K1 bound + count, 4 K2; vis_kernel: 5 K6 at 1 sample, 6 K6 at 4
+// samples), and the SM count. info: 5 ints.
 int raster_kernel_info(int which, void* info)
 {
     int* i = (int*)info;
@@ -665,24 +527,39 @@ int raster_kernel_info(int which, void* info)
         case 2: return kernel_info(tiles_kernel<true, false, true>, NT, 0, i);
         case 3: return kernel_info(tiles_kernel<true, true, true>, NT, 0, i);
         case 4: return kernel_info(tiles_kernel<false, false, false>, NT, 0, i);
+        case 5: return kernel_info(vis_kernel<1>, NT, 0, i);
+        case 6: return kernel_info(vis_kernel<4>, NT, 0, i);
         default: return (int)cudaErrorInvalidValue;
     }
 }
 
 // K6: depth (nsamp, height, width) f32 and tri (nsamp, height, width)
 // int32; inputs as K2 over 8x128 tiles (width % 128 == 0, height % 8 == 0);
-// nsamp is 1 or 4 sample offsets (ox_i, oy_i), unused pairs ignored.
+// nsamp is 1 or 4 sample offsets (ox_i, oy_i) in [0, 1), unused pairs
+// ignored.
 int k6_raster_vis(const void* setup, const void* bbox, const void* offs, const void* ids,
                   void* depth, void* tri, int width, int height, int nsamp,
                   float ox0, float oy0, float ox1, float oy1, float ox2, float oy2, float ox3, float oy3,
                   void* stream)
 {
-    const SampleOffsets so = {{ox0, ox1, ox2, ox3}, {oy0, oy1, oy2, oy3}};
-    switch (nsamp) {
-        case 1: return launch_vis<1>(setup, bbox, offs, ids, depth, tri, width, height, so, stream);
-        case 4: return launch_vis<4>(setup, bbox, offs, ids, depth, tri, width, height, so, stream);
-        default: return (int)cudaErrorInvalidValue;
+    Params p = make_params(setup, bbox, nullptr, offs, ids, depth, nullptr, nullptr, nullptr, nullptr,
+                           width, height, 0, ox0, oy0);
+    p.tri = (int*)tri;
+    const float ox[MAX_SAMPLES] = {ox0, ox1, ox2, ox3}, oy[MAX_SAMPLES] = {oy0, oy1, oy2, oy3};
+    for (int s = 0; s < MAX_SAMPLES; ++s) {
+        p.ox[s] = ox[s];
+        p.oy[s] = oy[s];
     }
+    const int n_tiles = (width / TILE_W) * (height / VTILE_H);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (nsamp != 1 && nsamp != 4) return (int)cudaErrorInvalidValue;
+    if (n_tiles > 0) {
+        if (nsamp == 1)
+            vis_kernel<1><<<n_tiles, NT, 0, s>>>(p);
+        else
+            vis_kernel<4><<<n_tiles, NT, 0, s>>>(p);
+    }
+    return (int)cudaGetLastError();
 }
 
 const char* rend3_cuda_error_string(int code)

@@ -39,7 +39,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("raster.cu", "pcf5.cu", "bilinear.cu", "gather.cu", "shadow_occ.cu", "probe_bf16.cu")
-HEADERS = ("kernel_info.cuh",)
+HEADERS = ("kernel_info.cuh", "tile_lists.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-lineinfo", "-Xcompiler", "-fPIC")
 
@@ -51,14 +51,14 @@ _SIGNATURES = {
     "k4_bilinear": (8, 3, 0),
     "k5_gather": (5, 4 + 2 * 12, 0),
     "k6_raster_vis": (6, 3, 8),
-    "k7_shadow_occ": (8, 3, 0),
+    "k7_shadow_occ": (9, 5, 0),
     "p1_probe_dot": (3, 5, 0),
     "p2_probe_reduce": (3, 2, 0),
     "p3_probe_lerp": (7, 10, 0),
     "launch_floor": (0, 2, 0),
 }
 # name -> int args of the kernel-info functions, which end with an int[5].
-_INFO_SIGNATURES = {"raster_kernel_info": 1, "p1_kernel_info": 2, "k5_kernel_info": 1}
+_INFO_SIGNATURES = {"raster_kernel_info": 1, "p1_kernel_info": 2, "k5_kernel_info": 1, "occ_kernel_info": 1}
 
 _lib: Optional[ctypes.CDLL] = None
 last_build: dict = {}
@@ -163,8 +163,11 @@ def call(name: str, *tensors: torch.Tensor, ints=(), floats=()) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc}: {lib.rend3_cuda_error_string(rc).decode()}")
 
 
-# The instances of csrc/raster.cu's tiles_kernel, by raster_kernel_info's index.
-RASTER_INSTANCES = ("K1", "K1 bound", "K1 count", "K1 bound + count", "K2")
+# The instances of csrc/raster.cu's tiles_kernel and vis_kernel, by
+# raster_kernel_info's index.
+RASTER_INSTANCES = ("K1", "K1 bound", "K1 count", "K1 bound + count", "K2", "K6 1 sample", "K6 4 samples")
+# csrc/shadow_occ.cu occ_kernel's instances, by occ_kernel_info's index.
+OCC_INSTANCES = ("K7", "K8")
 # P1's instances (csrc/probe_bf16.cu dot_kernel), by p1_kernel_info's index.
 P1_INSTANCES = ("f32 scalar", "bf16 scalar", "f32 vector", "bf16 vector", "f32 vector transposed",
                 "bf16 vector transposed")
@@ -174,9 +177,9 @@ def kernel_info(fn: str, *ints: int) -> dict:
     """Registers a thread, local (spill) bytes, static shared bytes and
     resident CTAs per SM of one kernel instance, and the SM count, from the
     CUDA runtime on the current device: `raster_kernel_info(which)` for
-    RASTER_INSTANCES[which], `p1_kernel_info(which, K)` for
-    P1_INSTANCES[which] at K's dynamic shared memory, `k5_kernel_info(n)`
-    for K5 with n taps."""
+    RASTER_INSTANCES[which], `occ_kernel_info(which)` for
+    OCC_INSTANCES[which], `p1_kernel_info(which, K)` for P1_INSTANCES[which]
+    at K's dynamic shared memory, `k5_kernel_info(n)` for K5 with n taps."""
     lib = library()
     info = (ctypes.c_int * 5)()
     rc = getattr(lib, fn)(*ints, ctypes.cast(info, ctypes.c_void_p))

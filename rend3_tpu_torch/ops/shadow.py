@@ -125,6 +125,9 @@ N_OFF = len(PCF_OFFSETS)
 
 # Launch counts of the CUDA kernels (plain-version runs do not count).
 launches = {"shadow_occ": 0, "shadow_occ_lt": 0}
+# List entries a segment of the CUDA kernel's work (csrc/shadow_occ.cu SEG;
+# the kernel refuses a plan buffer sized for a larger one).
+OCC_SEG = 2048
 
 _BIG = 1e9
 # Mask entries per step of the list builders and pairs per batch of the
@@ -365,16 +368,24 @@ def occlusion_from_lists(tris: TriSetup, binned: BinnedTris, sx, sy, hit, width:
     version (which needs no lists). Returns (12, height, width) f32."""
     dev = _check_screen(tris, sx, sy, hit, width, height)
     n_tiles = (width // STILE_W) * (height // STILE_H)
-    if binned.offsets.shape != (n_tiles + 1,) or binned.offsets.dtype != torch.int32 or binned.ids.dtype != torch.int32:
-        raise ValueError(f"caster lists must be int32 CSR over {n_tiles} tiles")
+    if binned.offsets.shape != (n_tiles + 1,) or any(
+        t.dtype != torch.int32 or t.device != dev or not t.is_contiguous() for t in (binned.offsets, binned.ids)
+    ):
+        raise ValueError(f"caster lists must be contiguous int32 CSR over {n_tiles} tiles on {dev}")
     if dev.type == "cpu":
         return _occlusion_plain(tris, sx, sy, hit, lt_form)
+    if tris.setup.data_ptr() % 16:
+        raise ValueError("setup rows must be aligned to 16 bytes (the kernel copies them 16 bytes at a time)")
     from . import cuda_kernels
 
     out = torch.empty(N_OFF, height, width, dtype=torch.float32, device=dev)
+    # The kernel's segment plan: a count, then (tile, first entry) for each
+    # of at most n_tiles + P / OCC_SEG segments.
+    n_entries = binned.ids.numel()
+    plan = torch.empty(1 + 2 * (n_tiles + n_entries // OCC_SEG), dtype=torch.int32, device=dev)
     cuda_kernels.call(
-        "k7_shadow_occ", tris.setup, tris.bbox, binned.offsets, binned.ids, sx, sy, hit, out,
-        ints=(width, height, int(lt_form)),
+        "k7_shadow_occ", tris.setup, tris.bbox, binned.offsets, binned.ids, sx, sy, hit, out, plan,
+        ints=(width, height, int(lt_form), n_entries, plan.numel()),
     )
     launches["shadow_occ_lt" if lt_form else "shadow_occ"] += 1
     return out

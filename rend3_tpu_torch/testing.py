@@ -299,8 +299,10 @@ def raster_stress_input(seed: int = 0, width: int = STRESS_W, height: int = STRE
 def raster_stress_case(device="cuda", seed: int = 0) -> dict:
     """raster_stress_input through the port's front end on `device`: the
     setup table (tris), its plane rows (planes), the 32x128 CSR tile lists
-    (binned), width, height, and the peel images (bound, floor) from the
-    plain K1's opaque pass."""
+    (binned), width, height, the peel images (bound, floor) from the
+    plain K1's opaque pass, and K6's inputs: vis[S] = (setup table, 8x128
+    CSR tile lists) at S = 1 and 4 samples, set up as raster_scene does
+    (the sub-pixel cull at one sample only)."""
     import torch
 
     from .ops import deferred as D
@@ -325,9 +327,115 @@ def raster_stress_case(device="cuda", seed: int = 0) -> dict:
     rand = rng.uniform(0.0, 0.7, depth.shape).astype(np.float32)
     bound = np.where(noise, rand, np.where(hit, depth, 0.0)).astype(np.float32)
     floor = np.where(noise, rand, np.where(hit, depth, -1.0)).astype(np.float32)
+    vis = {}
+    for samples in (1, 4):
+        vt = tris if samples == 1 else G.cull_and_setup(
+            c, torch.ones(c.shape[0], dtype=torch.bool, device=dev), STRESS_W, STRESS_H,
+            cull_mode=G.CullMode.NONE, front_is_cw=True, subpixel=False,
+        )
+        vis[samples] = (vt, G.bin_triangles(vt, STRESS_W, STRESS_H, tile_h=G.TILE_H, tile_w=G.TILE_W))
     return dict(
         tris=tris, planes=pl, binned=binned, width=STRESS_W, height=STRESS_H,
-        bound=torch.from_numpy(bound).to(dev), floor=torch.from_numpy(floor).to(dev),
+        bound=torch.from_numpy(bound).to(dev), floor=torch.from_numpy(floor).to(dev), vis=vis,
+    )
+
+
+# ---------------------------------------------------------------------------
+# A stress input for the map-free shadow occlusion K7 and K8
+# ---------------------------------------------------------------------------
+
+SHADOW_STRESS_W, SHADOW_STRESS_H, SHADOW_STRESS_SIZE = 256, 64, 256
+
+
+def shadow_stress_input(seed: int = 0):
+    """Caster triangles in light clip space (T, 3, 4) f32 for a
+    SHADOW_STRESS_SIZE² light, and the light-space coordinates sx, sy and
+    hit mask (H, W) of a SHADOW_STRESS_W x SHADOW_STRESS_H screen, its four
+    32x128 tiles (row-major) each pressing one path of the occlusion
+    kernels, from a numpy generator:
+
+    - tile 0: every pixel hit, a depth discontinuity: its left half maps
+      to about 22 x 10 texels at one corner of a 190 x 100 texel rect, its
+      right half to the opposite corner (0.35 texels a pixel, sub-texel
+      noise), and 5,000 small casters (2 to 12 texels across) fill the
+      rect in random order: its rect list spans several of the CUDA
+      kernel's 2,048-entry segments, nearly all of it far from any warp's
+      pixels, and a pixel's casters fall in every segment; its light-cell
+      list holds only the casters near the two corners;
+    - tile 1: no hit pixel (its coordinates lie over the casters all the
+      same): no list;
+    - tile 2: every pixel hit, over texels where no caster lies: an empty
+      rect list at hit pixels, whose values must be 0;
+    - tile 3: hit pixels only in its left 64 columns and, there, rows 32 to
+      43 (so some of the CUDA kernel's 8x32 pixel blocks and 4x8 warp
+      blocks have none, and some warps are hit in part),
+      over 300 casters of their own.
+
+    Casters have random winding and random depth in (0.05, 0.95), but for
+    40 with depth 0 at every vertex, so exactly 0 at every tap they cover."""
+    rng = np.random.default_rng(seed)
+    size = SHADOW_STRESS_SIZE
+    W, H = SHADOW_STRESS_W, SHADOW_STRESS_H
+
+    def casters(n, x0, x1, y0, y1, lo, hi):
+        cx, cy = rng.uniform(x0, x1, n), rng.uniform(y0, y1, n)
+        ang = rng.uniform(0.0, 2.0 * np.pi, (n, 3))
+        rad = rng.uniform(lo, hi, (n, 1)) * rng.uniform(0.5, 1.0, (n, 3))
+        return cx[:, None] + rad * np.cos(ang), cy[:, None] + rad * np.sin(ang)
+
+    xa, ya = casters(5000, 18.0, 212.0, 18.0, 118.0, 2.0, 6.0)
+    xb, yb = casters(300, 120.0, 200.0, 150.0, 196.0, 2.0, 6.0)
+    xs, ys = np.concatenate([xa, xb]), np.concatenate([ya, yb])
+    z = rng.uniform(0.05, 0.95, xs.shape)
+    z[rng.choice(xs.shape[0], 40, replace=False)] = 0.0
+    clip = np.stack([(xs / size - 0.5) * 2.0, (0.5 - ys / size) * 2.0, z, np.ones_like(z)], axis=-1)
+
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    noise = lambda: rng.uniform(-0.45, 0.45, (H, W))  # noqa: E731
+    sx = np.empty((H, W))
+    sy = np.empty((H, W))
+    t0a = (yy < 32) & (xx < 64)
+    t0b = (yy < 32) & (xx >= 64) & (xx < 128)
+    t1 = (yy < 32) & (xx >= 128)
+    t2 = (yy >= 32) & (xx < 128)
+    t3 = (yy >= 32) & (xx >= 128)
+    sx[t0a] = (22.0 + 0.35 * xx + noise())[t0a]
+    sy[t0a] = (22.0 + 0.3 * yy + noise())[t0a]
+    sx[t0b] = (180.0 + 0.35 * (xx - 64) + noise())[t0b]
+    sy[t0b] = (100.0 + 0.35 * yy + noise())[t0b]
+    sx[t1] = (xx - 100.0 + noise())[t1]
+    sy[t1] = (40.0 + yy + noise())[t1]
+    sx[t2] = (222.0 + 0.2 * xx + noise())[t2]
+    sy[t2] = (180.0 + 2.0 * (yy - 32) + noise())[t2]
+    sx[t3] = (125.0 + 1.1 * (xx - 128) + noise())[t3]
+    sy[t3] = (152.0 + 0.1 * (xx - 128) + 3.0 * (yy - 32) + noise())[t3]
+    hit = t0a | t0b | t2 | (t3 & (xx < 192) & (yy < 44))
+    return clip.astype(np.float32), sx.astype(np.float32), sy.astype(np.float32), hit
+
+
+def shadow_stress_case(device="cuda", seed: int = 0) -> dict:
+    """shadow_stress_input through the port's setup on `device`: the caster
+    table (tris, set up as the shadow pass does, culling nothing), sx, sy,
+    hit, width, height, the light's size, and both list builders' CSR
+    lists (rects for K7, cells for K8)."""
+    import torch
+
+    from .ops import geometry as G
+    from .ops import shadow as SH
+
+    clip, sx, sy, hit = shadow_stress_input(seed)
+    dev = torch.device(device)
+    c = torch.from_numpy(clip).to(dev)
+    size = SHADOW_STRESS_SIZE
+    tris = G.cull_and_setup(
+        c, torch.ones(c.shape[0], dtype=torch.bool, device=dev), size, size,
+        cull_mode=G.CullMode.NONE, front_is_cw=True, subpixel=False,
+    )
+    sx, sy, hit = (torch.from_numpy(a).to(dev) for a in (sx, sy, hit))
+    W, H = SHADOW_STRESS_W, SHADOW_STRESS_H
+    return dict(
+        tris=tris, sx=sx, sy=sy, hit=hit, width=W, height=H, size=size,
+        rects=SH.rect_lists(tris, sx, sy, hit, W, H), cells=SH.cell_lists(tris, sx, sy, hit, W, H, size),
     )
 
 
@@ -342,8 +450,9 @@ KERNEL_OF_ROW = {
     "shadow_occ": "K7", "shadow_occ_lt": "K8", "probe_dot": "P1", "probe_reduce": "P2", "probe_lerp": "P3",
 }
 # Kernels redesigned for the H100 after their port; rule 2 does not take
-# them again.
-REDESIGNED = frozenset({"K1", "K2", "P1", "K5"})
+# them again. K8 came with K7: both are instances of one CUDA kernel
+# (csrc/shadow_occ.cu occ_kernel), so redesigning K7's redesigned K8's.
+REDESIGNED = frozenset({"K1", "K2", "P1", "K5", "K6", "K7", "K8"})
 
 
 def redesign_order(rows, frame_launches, redesigned=REDESIGNED):

@@ -21,8 +21,12 @@ on the skybox query of a 64x64 skybox frame at 4 samples: bit-exact.
 K1 in every mode and K2 on testing.raster_stress_case (lists longer than
 the kernels' 128-entry staging chunk and K2's 128-entry segment,
 equal-depth duplicates across quarter-tile, chunk and ballot boundaries,
-edges on pixel centres): as above, and K2 bit-exact at two offsets. A K1
-launch that cannot be made raises.
+edges on pixel centres): as above, and K2 bit-exact at two offsets; K6 on
+its 8x128 tables at 1 and 4 samples: ids and depth bit-exact. K7 and K8 on
+testing.shadow_stress_case (a list over several segments, casters of depth
+0, tiles with no hit pixel or an empty list, a tile hit in part):
+bit-exact at hit pixels. A K1 launch that cannot be made raises, and so
+does a K7 launch given too small a plan buffer.
 """
 
 import numpy as np
@@ -334,6 +338,49 @@ def test_k2_stress_matches_plain(stress, sofs):
     k = D.raster_depth(*args, sofs=sofs)
     assert torch.equal(k, D.raster_depth_plain(*args, sofs=sofs))
     assert int((k > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("samples", [1, 4])
+def test_k6_stress_matches_plain(stress, samples):
+    vt, vb = stress["vis"][samples]
+    offsets = R.CENTER_OFFSET if samples == 1 else R.MSAA4_OFFSETS
+    k = RB.rasterize_binned(vt, vb, stress["width"], stress["height"], offsets)
+    p = RB.rasterize_binned_plain(vt, vb, stress["width"], stress["height"], offsets)
+    assert torch.equal(k.tri, p.tri) and torch.equal(k.depth, p.depth)
+    assert int((k.tri >= 0).sum()) > 0
+
+
+@pytest.fixture(scope="module")
+def shadow_stress():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return testing.shadow_stress_case("cuda")
+
+
+@pytest.mark.parametrize("kernel", ["k7", "k8"])
+def test_k7_k8_stress_match_plain(shadow_stress, kernel):
+    c = shadow_stress
+    lt = kernel == "k8"
+    args = (c["tris"], c["sx"], c["sy"], c["hit"])
+    k = SH.occlusion_from_lists(c["tris"], c["cells" if lt else "rects"], *args[1:], c["width"], c["height"],
+                                lt_form=lt)
+    p = (SH.shadow_occlusion_lt_plain if lt else SH.shadow_occlusion_plain)(*args)
+    h = c["hit"][None].expand(SH.N_OFF, -1, -1)
+    assert torch.equal(k[h], p[h])
+    assert int((k[h] > 0).sum()) > 0
+
+
+def test_k7_small_plan_raises(shadow_stress):
+    """The kernel refuses a plan buffer too small for its segments."""
+    from rend3_tpu_torch.ops import cuda_kernels
+
+    c = shadow_stress
+    lists = c["rects"]
+    out = torch.empty(SH.N_OFF, c["height"], c["width"], device="cuda")
+    plan = torch.empty(3, dtype=torch.int32, device="cuda")
+    with pytest.raises(RuntimeError, match="k7_shadow_occ: CUDA error"):
+        cuda_kernels.call("k7_shadow_occ", c["tris"].setup, c["tris"].bbox, lists.offsets, lists.ids, c["sx"], c["sy"],
+                          c["hit"], out, plan, ints=(c["width"], c["height"], 0, lists.ids.numel(), plan.numel()))
 
 
 def test_k1_launch_failure_raises():

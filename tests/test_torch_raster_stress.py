@@ -19,7 +19,10 @@ tables, in interpret mode in the same program, and the
 port's tile lists to JAX's binning of the same setup table (the setup
 table itself is held to JAX's by test_torch_frontend.py). Tolerances as
 test_torch_raster.py: depth, hit, material and counts bit-exact, the other
-channels within 1 ulp.
+channels within 1 ulp. K6's plain version is held to JAX's rasterize_binned
+in interpret mode on the case's 8x128 tables at 1 and 4 samples (set up as
+raster_scene does), whose lists outrun the CUDA walk's 128-entry staging
+chunk: ids and depth bit-exact.
 """
 
 import jax
@@ -31,9 +34,12 @@ import torch
 from rend3_tpu.ops import deferred as JD
 from rend3_tpu.ops import geometry as JG
 from rend3_tpu.ops import raster as JRaster
+from rend3_tpu.ops import raster_pallas as JRP
 from rend3_tpu_torch import interop, testing
 from rend3_tpu_torch.ops import deferred as PD
 from rend3_tpu_torch.ops import geometry as PG
+from rend3_tpu_torch.ops import raster as PR
+from rend3_tpu_torch.ops import raster_binned as PRB
 
 W, H = testing.STRESS_W, testing.STRESS_H
 MODES = ("opaque", "bound", "count_strict", "count")
@@ -143,3 +149,18 @@ def test_port_binning_matches_jax(stress):
     own = JG.bin_triangles(t, W, H, tile_cap=int(t.count), tile_h=JD.DTILE_H, tile_w=JD.DTILE_W)
     np.testing.assert_array_equal(np.asarray(own.counts), np.asarray(b.counts))
     np.testing.assert_array_equal(np.asarray(own.ids)[:, : b.ids.shape[1]], np.asarray(b.ids))
+
+
+@pytest.mark.parametrize("samples", [1, 4])
+def test_k6_stress_matches_jax(stress, samples):
+    """K6's plain version against JAX's rasterize_binned (interpret mode)
+    on the stress input's 8x128 tables, padded past the longest list."""
+    vt, vb = stress["case"]["vis"][samples]
+    t, b, lens = _jax_tables({"tris": vt, "binned": vb})
+    assert lens.max() > 128
+    offsets = PR.CENTER_OFFSET if samples == 1 else PR.MSAA4_OFFSETS
+    j = JRP.rasterize_binned(t, b, W, H, offsets, interpret=True)
+    p = PRB.rasterize_binned_plain(vt, vb, W, H, offsets)
+    np.testing.assert_array_equal(p.tri.numpy(), np.asarray(j.tri))
+    np.testing.assert_array_equal(p.depth.numpy(), np.asarray(j.depth))
+    assert (p.tri.numpy() >= 0).mean() > 0.2

@@ -3,7 +3,9 @@ before P1's and K5's redesign (PERF.md §6's earlier device times, NVIDIA
 H100 80GB HBM3, 700 W): P1 first (slower than torch.matmul), then K5 (the
 only kernel the main path loses time on), and with those two redesigned
 the off-frame kernels by launches on chip_smoke's paths x (device -
-bound)."""
+bound). On the rows measured after that redesign (chip_smoke.py phase 11
+on the same card): K7, K6, K8, P3, P2, and with K6-K8 redesigned too
+(testing.REDESIGNED), P3 then P2."""
 
 import pytest
 
@@ -31,15 +33,38 @@ FRAME = {"raster_resolve": 2, "raster_count": 2, "raster_bound": 2, "pcf5": 1, "
 
 CASES = {
     "k1_k2_redesigned": ({"K1", "K2"}, ["P1", "K5", "K7", "K6", "K8", "P3", "P2"]),
-    "k1_k2_p1_k5_redesigned": (testing.REDESIGNED, ["K7", "K6", "K8", "P3", "P2"]),
+    "k1_k2_p1_k5_redesigned": ({"K1", "K2", "P1", "K5"}, ["K7", "K6", "K8", "P3", "P2"]),
     # Nothing redesigned: K1's frame launches rank it before K5; K2 (no
     # static-frame launch) among the off-frame kernels by its path launches.
     "none": (set(), ["P1", "K1", "K5", "K7", "K6", "K8", "K2", "P3", "P2"]),
 }
 
 
-def _rows(overrides=None):
-    rows = [dict(name=n, ms=ms, bound_ms=b, library_ms=lib, launches=la) for n, ms, b, lib, la in EARLIER_ROWS]
+# The same rows measured after P1's and K5's redesign.
+PR7_ROWS = [
+    ("raster_resolve", 0.1556, 0.0660, None, 15),
+    ("raster_msaa", 0.1080, 0.0630, None, 32),
+    ("raster_count", 0.0810, 0.0653, None, 60),
+    ("raster_bound", 0.0733, 0.0628, None, 75),
+    ("raster_depth", 0.0969, 0.00656, None, 12),
+    ("pcf5", 0.0225, 0.0208, None, 18),
+    ("bilinear", 0.1029, 0.1016, None, 114),
+    ("gather", 0.00274, 0.00107, 0.0165, 27),
+    ("raster_vis", 1.3009, 0.0533, None, 2),
+    ("shadow_occ", 23.7964, 0.0374, None, 1),
+    ("shadow_occ_lt", 2.4272, 0.0372, None, 1),
+    ("probe_dot", 0.00622, 0.00113, 0.00580, 6),
+    ("probe_reduce", 0.0105, 0.00079, 0.0199, 2),
+    ("probe_lerp", 0.0803, 0.00112, None, 12),
+]
+PR7_CASES = {
+    "k1_k2_p1_k5_redesigned": ({"K1", "K2", "P1", "K5"}, ["K7", "K6", "K8", "P3", "P2"]),
+    "k6_k7_k8_also_redesigned": (testing.REDESIGNED, ["P3", "P2"]),
+}
+
+
+def _rows(overrides=None, table=EARLIER_ROWS):
+    rows = [dict(name=n, ms=ms, bound_ms=b, library_ms=lib, launches=la) for n, ms, b, lib, la in table]
     for r in rows:
         r.update((overrides or {}).get(r["name"], {}))
     return rows
@@ -49,6 +74,13 @@ def _rows(overrides=None):
 def test_redesign_order_on_earlier_rows(case):
     redesigned, expected = CASES[case]
     order = testing.redesign_order(_rows(), FRAME, redesigned)
+    assert [k for k, _name, _why in order] == expected
+
+
+@pytest.mark.parametrize("case", list(PR7_CASES))
+def test_redesign_order_on_pr7_rows(case):
+    redesigned, expected = PR7_CASES[case]
+    order = testing.redesign_order(_rows(table=PR7_ROWS), FRAME, redesigned)
     assert [k for k, _name, _why in order] == expected
 
 

@@ -19,6 +19,15 @@ discontinuity, so the rect lists and the light-cell lists differ), with
 - Both of the port's list builders hold, for every tile, every caster that
   covers a tap of one of the tile's hit pixels in a brute-force evaluation
   over all casters, so the kernels' results do not depend on the lists.
+
+The same holds on rend3_tpu_torch.testing.shadow_stress_case (numpy seed
+0, 5,300 casters, a 256x64 screen: a tile across a depth discontinuity
+whose rect list spans several of the CUDA kernel's segments, casters of
+depth 0 at every tap they cover, a tile with no hit pixel, a tile whose
+hit pixels list no caster, and a tile hit in part), which the card-only tests and chip_smoke.py hold the CUDA
+kernels to: the plain versions against JAX in interpret mode, bit for bit
+at hit pixels, with JAX's list capacity past the longest list so that it
+drops no caster.
 """
 
 import jax.numpy as jnp
@@ -29,7 +38,7 @@ import torch
 from rend3_tpu.ops import geometry as JG
 from rend3_tpu.ops import raster as JR
 from rend3_tpu.ops import shadow as JS
-from rend3_tpu_torch import interop
+from rend3_tpu_torch import interop, testing
 from rend3_tpu_torch.ops import shadow as PS
 
 W, H, SIZE = 128, 64, 256
@@ -127,3 +136,55 @@ def test_lists_hold_every_caster_a_hit_pixel_needs(case):
     cells = PS.cell_lists(pt, sx, sy, hit, W, H, SIZE)
     rects = PS.rect_lists(pt, sx, sy, hit, W, H)
     assert cells.ids.numel() != rects.ids.numel()  # the discontinuity tile's lists differ
+
+
+@pytest.fixture(scope="module")
+def stress():
+    c = testing.shadow_stress_case("cpu")
+    tr = c["tris"]
+    jt = JG.TriSetup(setup=jnp.asarray(tr.setup.numpy()), bbox=jnp.asarray(tr.bbox.numpy()), count=jnp.int32(tr.count),
+                     src=jnp.asarray(tr.src.numpy().astype(np.int32)), flip=jnp.asarray(tr.flip.numpy()))
+    jargs = tuple(jnp.asarray(c[k].numpy()) for k in ("sx", "sy", "hit"))
+    h = np.broadcast_to(c["hit"].numpy(), (PS.N_OFF, c["height"], c["width"]))
+    return dict(c, jt=jt, jargs=jargs, h=h)
+
+
+def _lens(lists):
+    return (lists.offsets[1:] - lists.offsets[:-1]).numpy()
+
+
+def test_shadow_stress_input_presses_the_kernels(stress):
+    c = stress
+    rects, cells = _lens(c["rects"]), _lens(c["cells"])
+    assert rects.max() > 2 * PS.OCC_SEG  # a list over several segments
+    hit = c["hit"].numpy().reshape(2, PS.STILE_H, 2, PS.STILE_W)
+    tile_hits = hit.any(axis=(1, 3)).reshape(-1)
+    assert not tile_hits.all() and rects[~tile_hits].sum() == 0  # a tile with no hit pixel lists nothing
+    assert (tile_hits & (rects == 0)).any()  # hit pixels over an empty list
+    # A tile hit in part: 8x32 pixel blocks (a CTA's) with and without a hit
+    # pixel, and 4x8 warp blocks hit in part.
+    blocks = hit.reshape(2, 32, 2, 16, 8).any(axis=(1, 4))
+    assert (blocks.any(axis=2) & ~blocks.all(axis=2)).any()
+    warps = hit.reshape(2, 4, 8, 2, 32, 4).transpose(0, 1, 3, 4, 2, 5).reshape(-1, 32)
+    assert (warps.any(axis=1) & ~warps.all(axis=1)).any()
+    s = c["tris"].setup.numpy()
+    assert (s[:, 9:12] == 0).all(axis=1).sum() >= 10  # depth exactly 0 at every tap
+
+
+@pytest.mark.parametrize("kernel", ["k7", "k8"])
+def test_occlusion_stress_matches_jax_at_hit_pixels(stress, kernel):
+    c = stress
+    W, H, V = c["width"], c["height"], c["tris"].count
+    args = (c["tris"], c["sx"], c["sy"], c["hit"])
+    if kernel == "k7":
+        jax_occ = np.asarray(JS.shadow_occlusion(c["jt"], *c["jargs"], W, H, tile_cap=V, interpret=True))
+        plain = PS.shadow_occlusion_plain(*args)
+    else:
+        # A capacity of whole groups of 8, past every list.
+        j, overflow = JS.shadow_occlusion_lt(c["jt"], *c["jargs"], W, H, c["size"], tile_cap=V // 8 * 8,
+                                             interpret=True)
+        assert int(overflow) == 0
+        jax_occ, plain = np.asarray(j), PS.shadow_occlusion_lt_plain(*args)
+    h = c["h"]
+    np.testing.assert_array_equal(plain.numpy()[h], jax_occ[h])
+    assert (jax_occ[h] > 0).mean() > 0.1
