@@ -69,20 +69,22 @@ wall time):
    an MSAA offset on those of the MSAA frames, K4 on the skybox query of
    the feature frame, K1 in every mode, K2 and K6 (at 1 and 4 samples) on
    the raster stress input (rend3_tpu_torch.testing.raster_stress_case),
-   K7 and K8 on the shadow stress input (testing.shadow_stress_case), K6-K8
-   on those of phases 7 and 8, P1-P3 on the probes' inputs, against their
-   plain versions on the card. Each kernel and library row is timed on the
-   device: 20 calls captured in one CUDA graph, replayed between two CUDA
-   events, the median of five replays over 20 (torch.profiler's summed
-   device durations of 20 calls for a wrapper that reads the device on the
-   host, P3's), beside the time of one call between two CUDA events (host
-   included), the plain version's median, the bound each kernel's bytes or
-   operations set on the card, and the time of one PyTorch call computing
-   the same function where there is one; the launch floor (an empty
-   kernel's device time in the same CUDA graphs, on one CTA and on K5's
-   grid); the registers, spills, shared memory and resident CTAs per SM of
-   K1 / K2's and K6's, K7 / K8's, P1's and K5's kernels; and rule 2's order
-   of the kernels still to redesign (rend3_tpu_torch.testing.redesign_order);
+   K7 and K8 on the shadow stress input (testing.shadow_stress_case), P3 on
+   its stress input (testing.probe_lerp_stress_case) and P2's reduce at a
+   width off its CTA's, K6-K8 on those of phases 7 and 8, P1-P3 on the
+   probes' inputs, against their plain versions on the card. Each kernel
+   and library row is timed on the device: 20 calls captured in one CUDA
+   graph, replayed between two CUDA events, the median of five replays over
+   20 (P3, whose wrapper reads its step cells on the host, through its raw
+   launch on a prepared output), beside the time of one call between two
+   CUDA events (host included), the plain version's median, the bound each
+   kernel's bytes or operations set on the card, and the time of one
+   PyTorch call computing the same function where there is one; the launch
+   floor (an empty kernel's device time in the same CUDA graphs, on one CTA
+   and on K5's grid); the registers, spills, shared memory and resident
+   CTAs per SM of every hand-written kernel; and rule 2's order of the
+   kernels still to redesign (rend3_tpu_torch.testing.redesign_order), or
+   that none is left;
 12. parity: the shadow golden scene, the textured-planes scene, the stacked
    cutout scene and the glass stack at 256x256, test_msaa's triangle at
    64x64 and 4 samples, a 64x64 skybox scene, a skinned scene and the
@@ -628,27 +630,6 @@ def _graph_ms(fn, n=DEVICE_CALLS, replays=5):
     return ms
 
 
-def _profiler_ms(fn, n=DEVICE_CALLS):
-    """Device time of one call of fn for a wrapper that reads the device on
-    the host (no CUDA graph can capture it): the summed device durations of
-    the kernels and memory operations of n calls under torch.profiler, over
-    n, after one warm-up call. Raises if the profile shows no device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    if not us > 0.0:
-        raise AssertionError(f"the profile of {n} calls shows no device time")
-    return us / n / 1e3
-
-
 def _ulps(a, b):
     import torch
 
@@ -1020,15 +1001,16 @@ def phase_kernels(paths, extra_rows=(), timed=True):
     kernels = []
     for row in rows + list(extra_rows):
         name, src, repl, kfn, pfn, err, (bound_ms, bound_by), libfn = row[:8]
-        method = row[8] if len(row) > 8 else "graph"
-        device_ms = _profiler_ms if method == "profiler" else _graph_ms
-        ms = device_ms(kfn) if timed else None
+        # The function timed on the device: the wrapper, or (row[8]) its raw
+        # launch where the wrapper reads the device on the host.
+        method = "graph" if len(row) == 8 else "graph of the raw launch"
+        ms = _graph_ms(row[8] if len(row) > 8 else kfn) if timed else None
         call_ms = _median_ms(kfn, 20) if timed else None
         plain_ms = _median_ms(pfn, 5) if timed else None
-        library_ms = device_ms(libfn) if timed and libfn is not None else None
+        library_ms = _graph_ms(libfn) if timed and libfn is not None else None
         launches = sum(counts[name] for _g, counts in paths.values())
         log(f"{name}: kernel {ms} ms (device, {method} of {DEVICE_CALLS} calls), call {call_ms} ms (host included, "
-            f"median), plain {plain_ms} ms (median), library {library_ms} ms (device, {method}); "
+            f"median), plain {plain_ms} ms (median), library {library_ms} ms (device, graph); "
             f"bound {bound_ms:.6f} ms ({bound_by}); {launches} launches on the measured paths")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
@@ -1044,6 +1026,9 @@ def phase_kernels(paths, extra_rows=(), timed=True):
         order = testing.redesign_order(kernels, frame)
         log("rule 2's order of the kernels still to redesign: " + "; ".join(
             f"{i + 1}. {k} ({name}: {why})" for i, (k, name, why) in enumerate(order)))
+        if not order:
+            log("rule 2 is done: every kernel has been redesigned for this card, or runs at half its bound or better "
+                "and no library call beats it")
     return kernels
 
 
@@ -1052,7 +1037,7 @@ def phase_stress(device="cuda"):
     testing.raster_stress_case: depth, hit, material and counts bit-exact,
     the other channels within 1 ulp; K2, and K6's ids and depth at 1 and 4
     samples, bit-exact. K7 and K8 on testing.shadow_stress_case: bit-exact
-    at hit pixels."""
+    at hit pixels. Then phase_probe_stress."""
     import torch
 
     from rend3_tpu_torch import testing
@@ -1101,13 +1086,49 @@ def phase_stress(device="cuda"):
         lens = (lists.offsets[1:] - lists.offsets[:-1]).tolist()
         log(f"{name} stress: bit-exact at {int(h.sum())} values at hit pixels ({int((k[h] > 0).sum())} nonzero); "
             f"tile lists {lens}")
+    phase_probe_stress(device)
+
+
+def phase_probe_stress(device="cuda"):
+    """P3 against its plain version on testing.probe_lerp_stress_case (a
+    tile list longer than the kernel's compaction round, an empty one, init
+    steps mid-list or none, most pixels owned), in the x-lerp and the
+    128-lane-sum modes; P2's reduce at a width its 32-column CTAs do not
+    divide, written and accumulated: bit for bit, NaN positions too."""
+    import numpy as np
+    import torch
+
+    from rend3_tpu_torch import testing
+    from rend3_tpu_torch.ops import probe_bf16 as pb
+
+    for label, kw in (("x-lerp, bf16, init steps, NaN output", {}),
+                      ("x-lerp, f32, no init step, zero output", dict(bf16=False, init_steps=False, init="zero")),
+                      ("128-lane sum, bf16, no init step, zero output", dict(xlerp=False, init_steps=False,
+                                                                             init="zero"))):
+        a = testing.probe_lerp_stress_case(device, **kw)
+        k = pb.probe_lerp(**a)
+        if not _same_with_nan(k, pb.probe_lerp_plain(**a)):
+            raise AssertionError(f"P3 differs from its plain version on the stress input ({label})")
+        log(f"P3 stress ({label}): bit-exact over {k.numel()} values, {int((~torch.isnan(k)).sum())} not NaN; "
+            f"steps per tile {torch.bincount(a['st'], minlength=4).tolist()}")
+    rng = np.random.RandomState(5)
+    n = 1000
+    r2, x = (torch.from_numpy(rng.rand(rows, n).astype(np.float32)).to(device) for rows in (512, 128))
+    out = torch.full((pb.OUT_ROWS, n), float("nan"), device=device)
+    out[:2] = torch.from_numpy(rng.rand(2, n).astype(np.float32)).to(device)
+    for acc in (False, True):
+        k = pb.probe_reduce(r2, x, out, accumulate=acc)
+        if not _same_with_nan(k, pb.probe_reduce_plain(r2, x, out, accumulate=acc)):
+            raise AssertionError(f"P2's reduce differs from its plain version at n = {n} (accumulate={acc})")
+    log(f"P2 reduce at n = {n}: bit-exact, written and accumulated")
 
 
 def log_kernel_info():
     """Registers, spills, shared memory and resident CTAs per SM (CUDA
     runtime) of each instance of K1 / K2's tiles_kernel, K6's vis_kernel,
-    K7 / K8's occ_kernel, of P1's dot_kernel at the probes' K = 72 and of
-    K5's gather_kernel for the four Hi-Z taps."""
+    K7 / K8's occ_kernel, of P1's dot_kernel at the probes' K = 72, of
+    K5's gather_kernel for the four Hi-Z taps, of P2's reduce_kernel and of
+    P3's lerp_kernel (x-lerp and 128-lane sum)."""
     from rend3_tpu_torch.ops import cuda_kernels
 
     rows = [(f"{'vis' if name.startswith('K6') else 'tiles'}_kernel {name}", "raster_kernel_info", (i,))
@@ -1115,6 +1136,7 @@ def log_kernel_info():
     rows += [(f"occ_kernel {name}", "occ_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.OCC_INSTANCES)]
     rows += [(f"P1 dot_kernel {name}", "p1_kernel_info", (i, 72)) for i, name in enumerate(cuda_kernels.P1_INSTANCES)]
     rows.append(("K5 gather_kernel, 4 taps", "k5_kernel_info", (4,)))
+    rows += [(name, "p23_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.P23_INSTANCES)]
     for label, fn, args in rows:
         info = cuda_kernels.kernel_info(fn, *args)
         log(f"{label}: {info['registers']} registers, {info['local_bytes']} local (spill) bytes, "
@@ -1138,11 +1160,79 @@ def _probe_err(label, kfn, pfn):
     return err
 
 
+def raw_launch(name, tensors, ints, out_index, pkg="rend3_tpu_torch"):
+    """A kernel's launch without its wrapper (P3's wrapper checks its cells
+    on the host, which reads the device, so no CUDA graph can capture it):
+    a function that launches kernel `name` through package `pkg`'s
+    cuda_kernels on a copy of tensors[out_index] (made once here, so each
+    call updates it again) and returns the copy."""
+    import importlib
+
+    ck = importlib.import_module(f"{pkg}.ops.cuda_kernels")
+    ts = list(tensors)
+    res = ts[out_index] = ts[out_index].clone()
+
+    def launch():
+        ck.call(name, *ts, ints=ints)
+        return res
+
+    return launch
+
+
+def lerp_needs(t, f, coords, st, sc, sf, out, *, mode, npb, gx, lt, hs, ws):
+    """(bytes, operations) that P3's cell-mode x-lerp needs on this input:
+    the texels its owned (step, pixel) pairs read (rows ry, ry + 1 by lanes
+    rx, rx + 1 of the step's cell, 4 channels, each distinct texel once);
+    coords where a step selects the pixel and f where one owns it; the step
+    list; rows 0-3 of `out` read where no init step hit the tile, written
+    everywhere, rows 4-7 written where one did. Steps before their tile's
+    last init step add nothing that outlives it and are left out.
+    Operations: per owned pair the y-weights (6) and per channel two
+    two-hot columns (a product and an fma each) and the x-lerp (5); per
+    selected pair not owned, its 4 adds of +0."""
+    import torch
+
+    from rend3_tpu_torch.ops import probe_bf16 as pb
+
+    if mode & pb.LERP_GATE or not (mode & pb.LERP_YCELL and mode & pb.LERP_XLERP):
+        raise ValueError("lerp_needs counts the cell-mode x-lerp only")
+    nT, _three, npx = f.shape
+    S = st.shape[0]
+    T, cell, fl = st.long(), sc.long(), sf.long()
+    idx = torch.arange(S, device=st.device)
+    init = ((fl >> 4) & 1).bool() if mode & pb.LERP_INIT else torch.zeros_like(idx, dtype=torch.bool)
+    last = torch.full((nT,), -1, dtype=torch.long, device=st.device)
+    last = last.scatter_reduce(0, T[init], idx[init], "amax")
+    band = torch.arange(npx, device=st.device) // npb
+    sel = ((fl[:, None] >> band[None]) & 1).bool() & (idx >= last[T])[:, None]  # (S, npx)
+    bx, by = coords[T, 0].long(), coords[T, 1].long()
+    cy = cell // gx
+    rx, ry = bx - ((cell - cy * gx) * lt)[:, None], by - (cy * lt)[:, None]
+    own = (sel & (rx >= 0) & (rx < lt) & (ry >= 0) & (ry < lt)
+           & (bx >= 0) & (bx + 1 < ws) & (by >= 0) & (by + 1 < hs))
+    used = torch.zeros(t.shape[0], t.shape[1], pb.LANES, dtype=torch.bool, device=st.device)
+    oc, oy, ox = cell[:, None].expand_as(own)[own], ry[own], rx[own]
+    for dy in (0, 1):
+        for dx in (0, 1):
+            used[oc, oy + dy, ox + dx] = True
+    tile_sel, tile_own = (torch.zeros(nT, npx, dtype=torch.int32, device=st.device).index_add_(0, T, m.int()) > 0
+                          for m in (sel, own))
+    hit = int((last >= 0).sum())
+    row = npx * out.element_size()
+    bytes_moved = (int(used.sum()) * pb.CHANNELS * t.element_size()
+                   + int(tile_sel.sum()) * 2 * coords.element_size() + int(tile_own.sum()) * 3 * f.element_size()
+                   + _nbytes(st, sc, sf) + pb.CHANNELS * row * ((nT - hit) + nT + hit))
+    n_own = int(own.sum())
+    ops = n_own * (6 + pb.CHANNELS * (2 * 3 + 5)) + (int(sel.sum()) - n_own) * pb.CHANNELS
+    return bytes_moved, ops
+
+
 def probe_rows(runs):
     """Kernel rows of P1-P3 (probe_dot on P1's f32 variant, probe_reduce on
     P2 v2's inputs, probe_lerp on P3's full bf16 variant, both on a
     zero-initialised output): each kernel alone, its plain version, its
-    error read from values, bound and library call."""
+    error read from values, bound and library call, and for P3 the raw
+    launch its device time is taken from."""
     import torch
 
     from rend3_tpu_torch.ops import probe_bf16 as pb
@@ -1171,18 +1261,12 @@ def probe_rows(runs):
     ra = dict(real.args)
     kw = {k: ra.pop(k) for k in ("mode", "npb", "gx", "lt", "hs", "ws")}
     args = (ra["t"], ra["f"], ra["coords"], ra["st"], ra["sc"], ra["sf"], torch.zeros_like(ra["out"]))
-    # Work this run's steps need: per selected (step, band) pixel, the
-    # y-weights (6 operations) and per channel two two-hot columns (a
-    # product and an fma each) and the x-lerp (5).
-    bands = sum(bin(int(f) & 15).count("1") for f in ra["sf"].tolist())
-    cells = len(set(ra["sc"].tolist()))
-    ops = bands * kw["npb"] * (6 + 4 * (2 * 3 + 5))
-    bytes_moved = cells * ra["t"][0].numel() * 4 + _nbytes(ra["f"], ra["coords"], ra["st"], ra["sc"], ra["sf"]) + 2 * _nbytes(ra["out"])
+    bytes_moved, ops = lerp_needs(*args, **kw)
     fns = (lambda: pb.probe_lerp(*args, **kw), lambda: pb.probe_lerp_plain(*args, **kw))
     rows.append(("probe_lerp", "rend3_tpu_torch/csrc/probe_bf16.cu", "tools/probe_bf16_real.py:22",
                  *fns, _probe_err("probe_lerp", *fns), _bound(bytes_moved, ops), None,
-                 "profiler"))  # probe_lerp reads its step cells on the host: no CUDA graph
-    log(f"P3 timing inputs: {len(ra['sf'])} steps, {bands} selected bands of {kw['npb']} pixels, {cells} cells")
+                 raw_launch("p3_probe_lerp", *pb.lerp_launch_args(*args, **kw), 6)))
+    log(f"P3 timing inputs: {len(ra['sf'])} steps; {bytes_moved} bytes and {ops} operations needed")
     return rows
 
 

@@ -1,6 +1,6 @@
 """Time this tree's kernels against other trees' on the same inputs.
 
-    python3 kernel_ab.py OTHER_DIR [OTHER_DIR ...] [K1 K2 P1 K5 K6 K7]
+    python3 kernel_ab.py OTHER_DIR [OTHER_DIR ...] [K1 K2 P1 K5 K6 K7 P2 P3]
 
 Each OTHER_DIR holds another tree: another commit's, for example the
 parent's, unpacked with `git archive` into the ignored `_checkout/`, or a
@@ -10,8 +10,11 @@ own kernels into its own `_build/` and launches them through its own
 wrappers
 (`ops.deferred.raster_resolve` and `raster_depth`, `ops.probe_bf16.probe_dot`,
 `ops.samplers.sample_grid`, `ops.raster_binned.rasterize_binned`,
-`ops.shadow.occlusion_from_lists`), whatever its kernels' C interface. The
-groups named (all six by default) choose the cases. The inputs come from
+`ops.shadow.occlusion_from_lists`), whatever its kernels' C interface; P2
+and P3 run as raw launches through the tree's own `ops.cuda_kernels.call`
+(P3's wrapper reads the device on the host, so no CUDA graph takes it), on
+the C interface of P2 and P3, unchanged since their port. The groups named (all eight
+by default) choose the cases. The inputs come from
 this tree on the card, as chip_smoke.py makes them, at 1920x1080:
 
 - K1 opaque and K2 (the 2048² map) from the flat city after a building
@@ -28,14 +31,22 @@ this tree on the card, as chip_smoke.py makes them, at 1920x1080:
 - K7 on the rect lists and K8 on the light-cell lists of light 0 of the
   representative frame (phase 8's inputs; the frame that builds the
   shadow maps, occlusion off), and K7 again on the rect lists with the 4
-  longest lists emptied (what the longest tiles cost).
+  longest lists emptied (what the longest tiles cost);
+- P2's reduce on v2's inputs (n = 1,024, accumulated) and at n = 1,000,
+  with `torch.einsum` as its library call;
+- P3 on its timed input (the full bf16 variant of tools.probe_bf16_real
+  from zeros, as chip_smoke.py phase 11 times it) and in its 128-lane-sum
+  variant (bf16 no-ohx-lerp), on testing.probe_lerp_stress_case (x-lerp
+  without and with init steps, the 128-lane sum without), and on P2 v3's
+  (one step of 128-lane sums over 4,096 pixels) and v7's (bf16) inputs.
 
 Every tree's outputs must equal this tree's bit for bit (NaN at the same
 places; K7 and K8 at hit pixels, the only ones where their values are
 defined). Device times: chip_smoke._graph_ms (20 calls in one CUDA graph,
 replayed between CUDA events), in turns other, this, this, other for each
-other tree; for P1 and K5 also
-their library call's (torch.matmul; advanced indexing). For P1 and K5 it
+other tree; for P1, K5 and P2 also
+their library call's (torch.matmul; advanced indexing; torch.einsum). For
+P1 and K5 it
 prints each tree's ptxas lines (registers, spills, shared memory) and
 resident CTAs per SM: this tree's from the CUDA runtime, the others' from
 ptxas's registers and shared memory by the occupancy rules of the H100
@@ -43,10 +54,12 @@ ptxas's registers and shared memory by the occupancy rules of the H100
 one JSON object: per case this tree's mean device ms over all its turns,
 each other tree's mean device ms, this tree's beside it and the four
 turns, the library call's ms, and the lists' size for K1 / K2 / K6 / K7 /
-K8. For K6-K8 it also prints this tree's registers, spills, shared memory
-and CTAs per SM from the CUDA runtime, and every tree's ptxas lines.
+K8. For K6-K8 and P2 / P3 it also prints this tree's registers, spills,
+shared memory and CTAs per SM from the CUDA runtime, and every tree's
+ptxas lines.
 """
 
+import functools
 import importlib
 import importlib.util
 import json
@@ -59,7 +72,7 @@ import sys
 import chip_smoke as cs
 
 WIDTH, HEIGHT = cs.WIDTH, cs.HEIGHT
-GROUPS = ("K1", "K2", "P1", "K5", "K6", "K7")
+GROUPS = ("K1", "K2", "P1", "K5", "K6", "K7", "P2", "P3")
 
 
 def load_other(root, name="rend3_other"):
@@ -246,6 +259,62 @@ def vis_occ_cases(groups):
     return cases
 
 
+def probe_cases(groups):
+    """P2 / P3 cases (raw launches)."""
+    import numpy as np
+    import torch
+
+    from rend3_tpu_torch import testing
+    from rend3_tpu_torch.ops import probe_bf16 as pb
+    from rend3_tpu_torch.tools import probe_bf16_kernel, probe_bf16_real
+
+    cases = {}
+    if "P2" in groups:
+        v2 = probe_bf16_kernel.variant(1, np.random.RandomState(0), "cuda")
+        r2 = pb.probe_dot(v2.args["t"], v2.args["y"], bf16=True)
+        rng = np.random.RandomState(5)
+        for label, (r, x, acc) in (
+            ("v2's inputs, n = 1024, accumulated", (r2, v2.args["x"], 1)),
+            ("n = 1000, written", tuple(torch.from_numpy(rng.rand(k, 1000).astype(np.float32)).cuda()
+                                        for k in (512, 128)) + (0,)),
+        ):
+            n = r.shape[1]
+            out = torch.zeros(pb.OUT_ROWS, n, device="cuda")
+            cases[f"P2 reduce ({label})"] = (
+                None, functools.partial(cs.raw_launch, "p2_probe_reduce", (r, x, out), (n, acc), 2), (), {},
+                lambda r=r, x=x: torch.einsum("jp,cjp->cp", x, r.view(4, 128, r.shape[1])), None, None,
+            )
+    if "P3" in groups:
+        def lerp_case(a):
+            a = {"coords": None, **a, "out": torch.zeros_like(a["out"])}
+            return (None, functools.partial(cs.raw_launch, "p3_probe_lerp", *pb.lerp_launch_args(**a), 6), (), {},
+                    None, None, None)
+
+        for name, kw in (("full bf16", {}), ("bf16 no-ohx-lerp", {"ohx_lerp": False})):
+            cases[f"P3 {name} (probe input, from zeros)"] = lerp_case(
+                dict(probe_bf16_real.build(name, "cuda", **kw).args))
+        for label, kw in (("x-lerp bf16, no init step", dict(init_steps=False)),
+                          ("x-lerp bf16, init steps", {}),
+                          ("128-lane sum bf16, no init step", dict(xlerp=False, init_steps=False))):
+            cases[f"P3 stress ({label}, from zeros)"] = lerp_case(testing.probe_lerp_stress_case("cuda", **kw))
+        rng = np.random.RandomState(0)
+        runs = [probe_bf16_kernel.variant(k, rng, "cuda") for k in range(len(probe_bf16_kernel.VARIANTS))]
+        for k in (2, 6):
+            cases[f"P3's kernel on P2 {runs[k].name} (from zeros)"] = lerp_case(dict(runs[k].args))
+    return cases
+
+
+def log_probe_kernels(this_ck, others):
+    """P2's and P3's kernels: this tree's runtime numbers, every tree's
+    ptxas lines (others: [(dir, cuda_kernels module)])."""
+    for i, name in enumerate(this_ck.P23_INSTANCES):
+        cs.log(f"this {name} (runtime): {json.dumps(this_ck.kernel_info('p23_kernel_info', i))}")
+    for label, ck in [("this", this_ck)] + others:
+        ck.build(verbose=True)
+        for name, info in ptxas(ck.last_build["log"], r"reduce_kernel|lerp_kernel").items():
+            cs.log(f"{label} {name}: {json.dumps(info)}")
+
+
 def log_vis_occ_kernels(this_ck, others):
     """K6's and K7 / K8's kernels: this tree's runtime numbers, every
     tree's ptxas lines (others: [(dir, cuda_kernels module)])."""
@@ -346,26 +415,35 @@ def main(argv):
         cases.update(k5_case())
     if "K6" in groups or "K7" in groups:
         cases.update(vis_occ_cases(groups))
+    if "P2" in groups or "P3" in groups:
+        cases.update(probe_cases(groups))
     other_cks = [(d, importlib.import_module(f"{pkg}.ops.cuda_kernels")) for d, pkg in others]
     if "P1" in groups or "K5" in groups:
         log_kernels(cuda_kernels, other_cks)
     if "K6" in groups or "K7" in groups:
         log_vis_occ_kernels(cuda_kernels, other_cks)
+    if "P2" in groups or "P3" in groups:
+        log_probe_kernels(cuda_kernels, other_cks)
 
     def outputs(f, args, kw, mask):
         out = f(*args, **kw)
         out = out if isinstance(out, tuple) else (out,)
         out = [getattr(a, "data", a) for a in out]
-        return out if mask is None else [a[mask] for a in out]
+        return [a.clone() for a in out] if mask is None else [a[mask] for a in out]
+
+    def function(pkg, mod, fname):
+        """A case's function in package `pkg`: ops.<mod>.<fname>, or what
+        fname(pkg) makes (a raw launch)."""
+        return fname(pkg) if callable(fname) else getattr(importlib.import_module(f"{pkg}.ops.{mod}"), fname)
 
     results = {}
     for label, (mod, fname, args, kw, lib, binned, mask) in cases.items():
-        fn = getattr(importlib.import_module(f"rend3_tpu_torch.ops.{mod}"), fname)
+        fn = function("rend3_tpu_torch", mod, fname)
         ref = outputs(fn, args, kw, mask)
         res = {"others": {}}
         this_turns = []
         for d, pkg in others:
-            other_fn = getattr(importlib.import_module(f"{pkg}.ops.{mod}"), fname)
+            other_fn = function(pkg, mod, fname)
             if not all(cs._same_with_nan(a, b) for a, b in zip(outputs(other_fn, args, kw, mask), ref)):
                 raise AssertionError(f"{label}: this tree's kernel and {d}'s differ")
             t = [cs._graph_ms(lambda g=g: g(*args, **kw)) for g in (other_fn, fn, fn, other_fn)]

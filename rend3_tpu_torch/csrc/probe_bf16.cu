@@ -26,9 +26,8 @@
 //     lanes (each product rounded, then added), then the four partial sums in
 //     order.
 //   - probe_lerp (P2 v3-v7, P3): a step list (tile, cell, flags) walked in
-//     order per tile, as the TPU grid runs; one thread per pixel of a tile, a
-//     CTA per (tile, 128 pixels), so no atomics and no order across CTAs.
-//     Per step: bit 4 of the flags zeroes the pixel's 8 output rows (when the
+//     order per tile, as the TPU grid runs; a CTA per (tile, 32 pixels), so
+//     no atomics and no order across CTAs. Per step: bit 4 of the flags zeroes the pixel's 8 output rows (when the
 //     init branch is on); bits 0-3 select the bands (npb pixels each); each
 //     selected pixel gets the two-hot y-weights (w_lo at row ry, w_hi at
 //     ry + 1), the dot over the 72 rows reduces to
@@ -57,8 +56,12 @@
 // start, so at K = 72 the two are within a few per cent (PERF.md §6 lists
 // the designs measured). Any shape still launches: the operands are read
 // element by element where they do not allow 16 bytes.
-// P2 and P3 are the simple, right design: direct loads in place of one-hot
-// matmuls (the rule that turned K4 into a gather).
+// P2 and P3 load texels directly in place of one-hot matmuls (the rule that
+// turned K4 into a gather). P2 moves 2.6 MB (0.8 us at 3.35 TB/s) and P3's
+// probe input about 3.8 MB, so each is bound by its launch and by load
+// latency, not by bytes: their designs (at reduce_kernel and lerp_kernel)
+// spread independent chains over enough warps to fill the SMs and issue
+// their loads before the adds that wait on them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -240,103 +243,318 @@ __global__ void __launch_bounds__(DOT_THREADS) dot_kernel(
     }
 }
 
-// XLA:CPU's 128-lane sum: four sequential 32-lane sums, then those in order.
-template <typename Term>
-__device__ __forceinline__ float lane_sum(Term term)
+// P2's reduce (P2 v1 / v2). XLA:CPU's 128-lane sum is four sequential
+// 32-lane sums, then those four in order from 0: per column and channel,
+// four independent chains of 32, not one of 128. A CTA takes 32 columns (a
+// lane each) of one channel (blockIdx.y), a warp per 32-lane block, so every
+// load is a coalesced 128-byte piece of a row; a thread's chain loads its 64
+// operands before its 32 adds, and the four block sums of a column meet in
+// shared memory, where warp 0 adds them in order. The probes' n = 1,024
+// columns make 128 CTAs. (Two or four channels a CTA, x loaded once for
+// them, were slower on the card: PERF.md §6.)
+constexpr int RED_BLOCKS = kLanes / 32;
+constexpr int RED_THREADS = 32 * RED_BLOCKS;
+
+__global__ void __launch_bounds__(RED_THREADS) reduce_kernel(
+    const float* __restrict__ r2, const float* __restrict__ x, float* __restrict__ out, int n, int accumulate)
 {
-    float total = 0.0f;
+    __shared__ float part[RED_BLOCKS][32];
+    const int lane = threadIdx.x % 32, blk = threadIdx.x / 32, c = blockIdx.y;
+    const int p = blockIdx.x * 32 + lane;
+    if (p < n) {
+        const float* xp = x + (size_t)blk * 32 * n + p;
+        const float* rp = r2 + ((size_t)c * kLanes + blk * 32) * n + p;
+        float xv[32], rv[32];
 #pragma unroll
-    for (int blk = 0; blk < kLanes; blk += 32) {
+        for (int j = 0; j < 32; ++j) {
+            xv[j] = __ldg(xp + (size_t)j * n);
+            rv[j] = __ldg(rp + (size_t)j * n);
+        }
         float s = 0.0f;
-        for (int j = blk; j < blk + 32; ++j) s = __fadd_rn(s, term(j));
-        total = __fadd_rn(total, s);
+#pragma unroll
+        for (int j = 0; j < 32; ++j) s = __fadd_rn(s, __fmul_rn(xv[j], rv[j]));
+        part[blk][lane] = s;
+    }
+    __syncthreads();
+    if (blk == 0 && p < n) {
+        float total = 0.0f;
+#pragma unroll
+        for (int b = 0; b < RED_BLOCKS; ++b) total = __fadd_rn(total, part[b][lane]);
+        float* o = out + (size_t)c * n + p;
+        *o = accumulate ? __fadd_rn(*o, total) : total;
+    }
+}
+
+// P2 v3-v7's and P3's lerp. The steps of a tile run in list order and a
+// pixel's output is a chain of adds in that order: the steps are the serial
+// dimension, pixels and channels the parallel ones. A CTA takes LERP_PX = 32
+// pixels of one tile, a thread per (pixel, channel) (a warp: 32 pixels of
+// one channel).
+//   - The walk: the CTA compacts the tile's steps once, in order, into
+//     shared memory (cell, its origin, flags), a step a thread a round by
+//     ballot, keeping only the steps that select a band of its pixels. A
+//     step before the tile's last init step adds nothing that outlives that
+//     init, so the walk starts at the last init step, from 0 (a first pass
+//     over the flags finds it).
+//   - A thread keeps its output value in a register from one read (or the
+//     init's 0) to one store, through the plain version's adds in its
+//     order, so NaN and zero outputs keep their bits; rows 4-7 are written
+//     (with 0) only where an init step hit the tile.
+//   - x-lerp: a thread issues the texel loads of LERP_BATCH steps before
+//     their arithmetic (loads at clamped indices, without a branch).
+//   - 128-lane sum: a warp computes its pixels' terms a 32-lane block at a
+//     time, a lane a column (coalesced rows), every pixel's loads issued
+//     together, the terms transposed through shared memory; then each lane
+//     adds its own pixel's 32 terms in order.
+// What bounds it on the card: on P3's probe input the launch and three
+// dependent rounds of global loads (the init scan, the compaction, the
+// walk's two or so steps); on long walks over owned pixels the texel
+// gathers (each lane reads its own rows, so an x-lerp load touches 32
+// lines) and, for the 128-lane sum, the 4 KB of cell rows each
+// (pixel, step) reads through L1 and L2. Neither is bytes or operations
+// once; the bound (bytes once) lies under the launch floor.
+constexpr int LERP_PX = 32;
+constexpr int LERP_THREADS = LERP_PX * kChannels;
+constexpr int LERP_WARPS = LERP_THREADS / 32;
+constexpr int LERP_BATCH = 2;   // x-lerp steps whose loads a thread issues together
+constexpr unsigned kAll = 0xffffffffu;
+
+// A step's rows ry, ry + 1, lanes rx, rx + 1 and y-weights at one pixel.
+struct Tap {
+    int ry, rx;
+    float wlo, whi;
+};
+
+// The pixel's tap: in the cell mode its y-weights where a step owns it
+// (rows and lanes come with the step); else all of it, the same every step.
+__device__ __forceinline__ Tap pixel_tap(float f0, float f1, float f2, int R, int mode)
+{
+    Tap k;
+    k.ry = (int)rintf(__fmul_rn(f2, (float)(R - 8)));
+    k.rx = (int)rintf(__fmul_rn(f0, (float)(kLanes - 8)));
+    const float one_m = __fsub_rn(1.0f, f1);
+    k.wlo = (mode & kWArea) ? __fmul_rn(f2, one_m) : one_m;
+    k.whi = (mode & kWArea) ? __fmul_rn(f2, f1) : f1;
+    if (mode & kBf16) {
+        k.wlo = round_bf16(k.wlo);
+        k.whi = round_bf16(k.whi);
+    }
+    return k;
+}
+
+// The tap of a step whose cell starts at (ox, oy) in the cell mode: rows and
+// lanes relative to the cell where it owns the pixel (base texel inside the
+// cell and the source: in_src), else none (the step then adds +0).
+__device__ __forceinline__ Tap cell_tap(Tap k, int bx, int by, int ox, int oy, int lt, bool in_src)
+{
+    const int rel_x = bx - ox, rel_y = by - oy;
+    const bool own = in_src && rel_y >= 0 && rel_y < lt && rel_x >= 0 && rel_x < lt;
+    k.ry = own ? rel_y : -2;
+    k.rx = own ? rel_x : -2;
+    return k;
+}
+
+__device__ __forceinline__ float texel(float v, bool bf16)
+{
+    return bf16 ? round_bf16(v) : v;
+}
+
+// One column of the two-hot dot: the sequential fma over the rows, whose
+// zero-weight rows add exactly nothing.
+__device__ __forceinline__ float two_hot(float lo, float hi, bool lo_ok, bool hi_ok, float wlo, float whi)
+{
+    const float acc = lo_ok ? __fmul_rn(lo, wlo) : 0.0f;
+    return hi_ok ? __fmaf_rn(hi, whi, acc) : acc;
+}
+
+// The texels an x-lerp reads at tap k of channel c0 / 128 of a cell's rows
+// tc: rows ry, ry + 1 at lanes rx, rx + 1, read at indices clamped into the
+// cell whether used or not (loads without a branch).
+struct Quad {
+    float la, lb, ha, hb;
+};
+
+__device__ __forceinline__ Quad load_quad(const float* __restrict__ tc, Tap k, int R, int c0)
+{
+    constexpr int cw = kChannels * kLanes;
+    const float* lo = tc + (ptrdiff_t)min(max(k.ry, 0), R - 1) * cw + c0;
+    const float* hi = tc + (ptrdiff_t)min(max(k.ry + 1, 0), R - 1) * cw + c0;
+    const int ca = min(max(k.rx, 0), kLanes - 1), cb = min(max(k.rx + 1, 0), kLanes - 1);
+    return {__ldg(lo + ca), __ldg(lo + cb), __ldg(hi + ca), __ldg(hi + cb)};
+}
+
+// The x-lerp of those texels: the only two nonzero terms of the one-hot
+// reduce.
+__device__ __forceinline__ float xlerp(Quad q, Tap k, float f0, int R, bool bf16)
+{
+    const bool lo_ok = k.ry >= 0 && k.ry < R, hi_ok = k.ry + 1 >= 0 && k.ry + 1 < R;
+    const bool a_ok = k.rx >= 0 && k.rx < kLanes, b_ok = k.rx + 1 >= 0 && k.rx + 1 < kLanes;
+    const float la = texel(q.la, bf16), lb = texel(q.lb, bf16), ha = texel(q.ha, bf16), hb = texel(q.hb, bf16);
+    const float a = a_ok ? __fmul_rn(__fsub_rn(1.0f, f0), two_hot(la, ha, lo_ok, hi_ok, k.wlo, k.whi)) : 0.0f;
+    const float b = b_ok ? __fmul_rn(f0, two_hot(lb, hb, lo_ok, hi_ok, k.wlo, k.whi)) : 0.0f;
+    return __fadd_rn(__fadd_rn(0.0f, a), b);
+}
+
+// The 128-lane sum of channel c0 / 128 at each of a warp's 32 pixels (taps
+// k, selected where sel) over a cell's rows tc; the warp's shared buffers
+// s_ry / s_w (2 x 32) / terms (32 x 33). A selected pixel whose rows lie
+// outside the cell gets the sum of 128 zeros, +0.
+__device__ __forceinline__ float lane_sum(const float* __restrict__ tc, Tap k, bool sel, int R, int c0, bool bf16,
+                                          int* __restrict__ s_ry, float* __restrict__ s_w,
+                                          float* __restrict__ terms)
+{
+    constexpr int cw = kChannels * kLanes;
+    const int lane = threadIdx.x % 32;
+    const bool needs = sel && ((k.ry >= 0 && k.ry < R) || (k.ry + 1 >= 0 && k.ry + 1 < R));
+    const unsigned need = __ballot_sync(kAll, needs);
+    float total = 0.0f;
+    if (!need) return total;
+    s_ry[lane] = needs ? k.ry : -2;
+    s_w[lane] = k.wlo;
+    s_w[32 + lane] = k.whi;
+    __syncwarp();
+    const float* col = tc + c0 + lane;
+    for (int blk = 0; blk < kLanes; blk += 32) {
+        // Every pixel's two rows (clamped into the cell): all 64 loads
+        // issued, without a branch, before the terms that use them.
+        float lo[32], hi[32];
+#pragma unroll
+        for (int q = 0; q < 32; ++q) {
+            const int ry = s_ry[q];
+            lo[q] = __ldg(col + (ptrdiff_t)min(max(ry, 0), R - 1) * cw + blk);
+            hi[q] = __ldg(col + (ptrdiff_t)min(max(ry + 1, 0), R - 1) * cw + blk);
+        }
+#pragma unroll
+        for (int q = 0; q < 32; ++q) {
+            const int ry = s_ry[q];
+            const bool lo_ok = ry >= 0 && ry < R, hi_ok = ry + 1 >= 0 && ry + 1 < R;
+            terms[q * 33 + lane] = two_hot(texel(lo[q], bf16), texel(hi[q], bf16), lo_ok, hi_ok, s_w[q], s_w[32 + q]);
+        }
+        __syncwarp();
+        if (needs) {
+            float sum = 0.0f;
+#pragma unroll
+            for (int j = 0; j < 32; ++j) sum = __fadd_rn(sum, terms[lane * 33 + j]);
+            total = __fadd_rn(total, sum);
+        }
+        __syncwarp();
     }
     return total;
 }
 
-__global__ void __launch_bounds__(256) reduce_kernel(
-    const float* __restrict__ r2, const float* __restrict__ x, float* __restrict__ out, int n, int accumulate)
-{
-    const int p = blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= n) return;
-    for (int c = 0; c < kChannels; ++c) {
-        const float* rc = r2 + (size_t)c * kLanes * n + p;
-        const float v = lane_sum([&](int j) { return __fmul_rn(x[(size_t)j * n + p], rc[(size_t)j * n]); });
-        float* o = out + (size_t)c * n + p;
-        *o = accumulate ? __fadd_rn(*o, v) : v;
-    }
-}
-
-__global__ void __launch_bounds__(128) lerp_kernel(
+template <bool XLERP>
+__global__ void __launch_bounds__(LERP_THREADS) lerp_kernel(
     const float* __restrict__ t, const float* __restrict__ f, const int* __restrict__ coords,
     const int* __restrict__ st, const int* __restrict__ sc, const int* __restrict__ sf, float* __restrict__ out,
     int R, int npx, int npb, int S, int gx, int lt, int hs, int ws, int mode)
 {
-    const int T = blockIdx.y;
-    const int p = blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= npx) return;
-    const bool bf16 = mode & kBf16;
+    constexpr int NT = LERP_THREADS, NW = LERP_WARPS;
+    __shared__ int s_cell[NT], s_ox[NT], s_oy[NT], s_fl[NT], s_count[NW], s_last;
+    // 128-lane sum: per warp, its pixels' rows and weights and a 32 x 32
+    // block of terms (a row per pixel, padded against bank conflicts).
+    constexpr int TW = XLERP ? 1 : NW, TQ = XLERP ? 1 : 32;
+    __shared__ int s_ry[TW][TQ];
+    __shared__ float s_w[TW][2 * TQ], s_terms[TW][TQ * 33];
+    const int T = blockIdx.y, tid = threadIdx.x, lane = tid % 32, warp = tid / 32, c = warp;
+    const int p0 = blockIdx.x * LERP_PX, p = p0 + lane;
+    const bool live = p < npx, bf16 = mode & kBf16, cell_mode = mode & kYCell;
     const float* fT = f + (size_t)T * 3 * npx;
+
+    // The pixel's inputs and output, loaded before the scan below.
     float* o = out + (size_t)T * kOutRows * npx + p;
+    float acc = 0.0f, f0 = 0.0f, f1 = 0.0f, f2 = 0.0f;
+    int bx = 0, by = 0;
+    if (live) {
+        acc = o[(size_t)c * npx];
+        f0 = fT[p];
+        f1 = fT[npx + p];
+        f2 = fT[2 * npx + p];
+        if (cell_mode) {
+            bx = coords[(size_t)T * 2 * npx + p];
+            by = coords[((size_t)T * 2 + 1) * npx + p];
+        }
+    }
+
+    // The tile's last init step, or -1.
+    if (tid == 0) s_last = -1;
+    __syncthreads();
+    if (mode & kInit) {
+        int last = -1;
+#pragma unroll 4
+        for (int s = tid; s < S; s += NT) {
+            const int tile = st[s], fl = sf[s];
+            if (tile == T && ((fl >> 4) & 1)) last = s;
+        }
+        last = __reduce_max_sync(kAll, last);
+        if (lane == 0 && last >= 0) atomicMax(&s_last, last);
+    }
+    __syncthreads();
+    const int first = s_last;
+    if (first >= 0) acc = 0.0f;
+
+    const Tap base = pixel_tap(f0, f1, f2, R, mode);
+    const bool in_src = bx >= 0 && bx + 1 < ws && by >= 0 && by + 1 < hs;
     const int band = p / npb;
+    const int bands = (2 << ((min(p0 + LERP_PX, npx) - 1) / npb)) - (1 << (p0 / npb));  // the CTA's band bits
     const bool gate_ok = !(mode & kGate) || fT[0] < 1.0f;
-    const int cw = kChannels * kLanes;
-    for (int s = 0; s < S; ++s) {
-        if (st[s] != T) continue;
-        const int fl = sf[s];
-        if ((mode & kInit) && ((fl >> 4) & 1)) {
-            for (int r = 0; r < kOutRows; ++r) o[(size_t)r * npx] = 0.0f;
+
+    // Step k's tap and cell rows at this thread's pixel.
+    auto step_tap = [&](int k) {
+        return cell_mode ? cell_tap(base, bx, by, s_ox[k], s_oy[k], lt, in_src) : base;
+    };
+    auto rows = [&](int k) { return t + (size_t)s_cell[k] * R * kChannels * kLanes; };
+    auto selected = [&](int k) { return live && ((s_fl[k] >> band) & 1); };
+
+    for (int round = max(first, 0); gate_ok && round < S; round += NT) {
+        // Compact this round's steps of the tile, in order.
+        const int s = round + tid, sl = min(s, S - 1);
+        const int tile = st[sl], fl = sf[sl], cell = sc[sl];
+        const bool take = s < S && tile == T && (fl & bands);
+        const unsigned m = __ballot_sync(kAll, take);
+        if (lane == 0) s_count[warp] = __popc(m);
+        __syncthreads();
+        int at = __popc(m & ((1u << lane) - 1)), n = 0;
+        for (int w = 0; w < NW; ++w) {
+            at += w < warp ? s_count[w] : 0;
+            n += s_count[w];
         }
-        if (!gate_ok || !((fl >> band) & 1)) continue;
-        const int cell = sc[s];
-        const float f0 = fT[p], f1 = fT[npx + p], f2 = fT[2 * npx + p];
-        int ry, rx;
-        float w;
-        if (mode & kYCell) {
-            const int cy = cell / gx, cx = cell - cy * gx;
-            const int bx = coords[(size_t)T * 2 * npx + p], by = coords[((size_t)T * 2 + 1) * npx + p];
-            const int rel_x = bx - cx * lt, rel_y = by - cy * lt;
-            const bool own = rel_y >= 0 && rel_y < lt && rel_x >= 0 && rel_x < lt && bx >= 0 && bx + 1 < ws &&
-                             by >= 0 && by + 1 < hs;
-            ry = own ? rel_y : -2;
-            rx = own ? rel_x : -2;
-            w = own ? f2 : 0.0f;
-        } else {
-            ry = (int)rintf(__fmul_rn(f2, (float)(R - 8)));
-            rx = (int)rintf(__fmul_rn(f0, (float)(kLanes - 8)));
-            w = f2;
+        if (take) {
+            const int cy = cell / gx;
+            s_cell[at] = cell;
+            s_ox[at] = (cell - cy * gx) * lt;
+            s_oy[at] = cy * lt;
+            s_fl[at] = fl;
         }
-        const float one_m = __fsub_rn(1.0f, f1);
-        float wlo = (mode & kWArea) ? __fmul_rn(w, one_m) : one_m;
-        float whi = (mode & kWArea) ? __fmul_rn(w, f1) : f1;
-        if (bf16) {
-            wlo = round_bf16(wlo);
-            whi = round_bf16(whi);
-        }
-        const float* tc = t + (size_t)cell * R * cw;
-        const bool lo_ok = ry >= 0 && ry < R, hi_ok = ry + 1 >= 0 && ry + 1 < R;
-        auto texel = [&](int r, int col) {
-            const float v = tc[(size_t)r * cw + col];
-            return bf16 ? round_bf16(v) : v;
-        };
-        // One column of the two-hot dot: the sequential fma over the rows,
-        // whose zero-weight rows add exactly nothing.
-        auto rcol = [&](int col) {
-            float acc = lo_ok ? __fmul_rn(texel(ry, col), wlo) : 0.0f;
-            return hi_ok ? __fmaf_rn(texel(ry + 1, col), whi, acc) : acc;
-        };
-        for (int c = 0; c < kChannels; ++c) {
-            const int c0 = c * kLanes;
-            float v;
-            if (mode & kXLerp) {
-                const float a = (rx >= 0 && rx < kLanes) ? __fmul_rn(__fsub_rn(1.0f, f0), rcol(c0 + rx)) : 0.0f;
-                const float b = (rx + 1 >= 0 && rx + 1 < kLanes) ? __fmul_rn(f0, rcol(c0 + rx + 1)) : 0.0f;
-                v = __fadd_rn(__fadd_rn(0.0f, a), b);
-            } else {
-                v = lane_sum([&](int j) { return rcol(c0 + j); });
+        __syncthreads();
+
+        if constexpr (XLERP) {
+            for (int k0 = 0; k0 < n; k0 += LERP_BATCH) {
+                // The batch's loads (past the end: the last step again, not
+                // added), all issued before the arithmetic.
+                Tap taps[LERP_BATCH];
+                Quad quads[LERP_BATCH];
+#pragma unroll
+                for (int i = 0; i < LERP_BATCH; ++i) {
+                    const int k = min(k0 + i, n - 1);
+                    taps[i] = step_tap(k);
+                    quads[i] = load_quad(rows(k), taps[i], R, c * kLanes);
+                }
+#pragma unroll
+                for (int i = 0; i < LERP_BATCH; ++i)
+                    if (k0 + i < n && selected(k0 + i)) acc = __fadd_rn(acc, xlerp(quads[i], taps[i], f0, R, bf16));
             }
-            o[(size_t)c * npx] = __fadd_rn(o[(size_t)c * npx], v);
+        } else {
+            for (int k = 0; k < n; ++k) {
+                const float v = lane_sum(rows(k), step_tap(k), selected(k), R, c * kLanes, bf16, s_ry[warp],
+                                         s_w[warp], s_terms[warp]);
+                if (selected(k)) acc = __fadd_rn(acc, v);
+            }
         }
+        __syncthreads();
+    }
+    if (live) {
+        o[(size_t)c * npx] = acc;
+        if (first >= 0) o[(size_t)(kChannels + c) * npx] = 0.0f;
     }
 }
 
@@ -395,7 +613,8 @@ int p1_kernel_info(int which, int K, void* info)
 int p2_probe_reduce(const void* r2, const void* x, void* out, int n, int accumulate, void* stream)
 {
     if (n > 0) {
-        reduce_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+        const dim3 grid((n + 31) / 32, kChannels);
+        reduce_kernel<<<grid, RED_THREADS, 0, (cudaStream_t)stream>>>(
             (const float*)r2, (const float*)x, (float*)out, n, accumulate);
     }
     return (int)cudaGetLastError();
@@ -409,12 +628,27 @@ int p3_probe_lerp(const void* t, const void* f, const void* coords, const void* 
                   void* stream)
 {
     if (n_tiles > 0 && npx > 0) {
-        const dim3 grid((npx + 127) / 128, n_tiles);
-        lerp_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+        const dim3 grid((npx + LERP_PX - 1) / LERP_PX, n_tiles);
+        const bool x = mode & kXLerp;
+        auto kernel = x ? lerp_kernel<true> : lerp_kernel<false>;
+        kernel<<<grid, LERP_THREADS, 0, (cudaStream_t)stream>>>(
             (const float*)t, (const float*)f, (const int*)coords, (const int*)st, (const int*)sc, (const int*)sf,
             (float*)out, R, npx, npb, S, gx, lt, hs, ws, mode);
     }
     return (int)cudaGetLastError();
+}
+
+// Registers, spills, shared memory and resident CTAs per SM (kernel_info.cuh)
+// of P2's reduce_kernel (which = 0) and of P3's lerp_kernel, x-lerp (1) or
+// 128-lane sum (2). info: 5 ints.
+int p23_kernel_info(int which, void* info)
+{
+    switch (which) {
+        case 0: return kernel_info(reduce_kernel, RED_THREADS, 0, (int*)info);
+        case 1: return kernel_info(lerp_kernel<true>, LERP_THREADS, 0, (int*)info);
+        case 2: return kernel_info(lerp_kernel<false>, LERP_THREADS, 0, (int*)info);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // extern "C"

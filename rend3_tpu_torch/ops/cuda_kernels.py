@@ -58,7 +58,8 @@ _SIGNATURES = {
     "launch_floor": (0, 2, 0),
 }
 # name -> int args of the kernel-info functions, which end with an int[5].
-_INFO_SIGNATURES = {"raster_kernel_info": 1, "p1_kernel_info": 2, "k5_kernel_info": 1, "occ_kernel_info": 1}
+_INFO_SIGNATURES = {"raster_kernel_info": 1, "p1_kernel_info": 2, "k5_kernel_info": 1, "occ_kernel_info": 1,
+                    "p23_kernel_info": 1}
 
 _lib: Optional[ctypes.CDLL] = None
 last_build: dict = {}
@@ -171,6 +172,8 @@ OCC_INSTANCES = ("K7", "K8")
 # P1's instances (csrc/probe_bf16.cu dot_kernel), by p1_kernel_info's index.
 P1_INSTANCES = ("f32 scalar", "bf16 scalar", "f32 vector", "bf16 vector", "f32 vector transposed",
                 "bf16 vector transposed")
+# P2's reduce_kernel and P3's lerp_kernel instances, by p23_kernel_info's index.
+P23_INSTANCES = ("P2 reduce_kernel", "P3 lerp_kernel x-lerp", "P3 lerp_kernel 128-lane sum")
 
 
 def kernel_info(fn: str, *ints: int) -> dict:
@@ -179,7 +182,8 @@ def kernel_info(fn: str, *ints: int) -> dict:
     CUDA runtime on the current device: `raster_kernel_info(which)` for
     RASTER_INSTANCES[which], `occ_kernel_info(which)` for
     OCC_INSTANCES[which], `p1_kernel_info(which, K)` for P1_INSTANCES[which]
-    at K's dynamic shared memory, `k5_kernel_info(n)` for K5 with n taps."""
+    at K's dynamic shared memory, `k5_kernel_info(n)` for K5 with n taps,
+    `p23_kernel_info(which)` for P23_INSTANCES[which]."""
     lib = library()
     info = (ctypes.c_int * 5)()
     rc = getattr(lib, fn)(*ints, ctypes.cast(info, ctypes.c_void_p))

@@ -35,7 +35,7 @@ from .deferred import fma32
 
 __all__ = [
     "probe_dot", "probe_dot_plain", "probe_reduce", "probe_reduce_plain", "probe_lerp", "probe_lerp_plain",
-    "LERP_BF16", "LERP_YCELL", "LERP_WAREA", "LERP_XLERP", "LERP_INIT", "LERP_GATE", "LANES", "OUT_ROWS",
+    "lerp_launch_args", "LERP_BF16", "LERP_YCELL", "LERP_WAREA", "LERP_XLERP", "LERP_INIT", "LERP_GATE", "LANES", "OUT_ROWS",
 ]
 
 LANES = 128     # lanes of one channel
@@ -224,6 +224,14 @@ def probe_lerp_plain(t, f, coords, st, sc, sf, out, *, mode: int, npb: int, gx: 
     return res
 
 
+def lerp_launch_args(t, f, coords, st, sc, sf, out, *, mode: int, npb: int, gx: int = 1, lt: int = 0, hs: int = 0,
+                     ws: int = 0):
+    """(tensors, ints) of the CUDA launch `p3_probe_lerp` for probe_lerp's
+    arguments, with `out` the tensor the kernel updates in place."""
+    return ((t, f, coords if mode & LERP_YCELL else None, st, sc, sf, out),
+            (f.shape[0], t.shape[1], f.shape[2], npb, st.shape[0], gx, lt, hs, ws, mode))
+
+
 def probe_lerp(t, f, coords: Optional[torch.Tensor], st, sc, sf, out, *, mode: int, npb: int, gx: int = 1,
                lt: int = 0, hs: int = 0, ws: int = 0) -> torch.Tensor:
     """P2 v3-v7 / P3: the S steps (st tile, sc cell, sf flags, int32) walked
@@ -251,9 +259,7 @@ def probe_lerp(t, f, coords: Optional[torch.Tensor], st, sc, sf, out, *, mode: i
     from . import cuda_kernels
 
     res = out.clone()
-    cuda_kernels.call(
-        "p3_probe_lerp", t, f, coords if mode & LERP_YCELL else None, st, sc, sf, res,
-        ints=(nT, t.shape[1], npx, npb, S, gx, lt, hs, ws, mode),
-    )
+    tensors, ints = lerp_launch_args(t, f, coords, st, sc, sf, res, mode=mode, npb=npb, gx=gx, lt=lt, hs=hs, ws=ws)
+    cuda_kernels.call("p3_probe_lerp", *tensors, ints=ints)
     launches["probe_lerp"] += 1
     return res

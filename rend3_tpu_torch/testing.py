@@ -440,6 +440,65 @@ def shadow_stress_case(device="cuda", seed: int = 0) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# A stress input for the step-list lerp (P3's probe_lerp)
+# ---------------------------------------------------------------------------
+
+# Tiles of 32x128 pixels, 16 cells of 72 texel rows (a 4x4 grid of 64x64
+# cells over a 256x256 source), as tools/probe_bf16_real.py; steps per tile.
+LERP_STRESS_STEPS = (640, 0, 40, 120)
+
+
+def probe_lerp_stress_case(device="cuda", seed: int = 0, *, bf16: bool = True, xlerp: bool = True,
+                           init_steps: bool = True, init: str = "nan", counts=LERP_STRESS_STEPS) -> dict:
+    """probe_lerp's arguments (t, f, coords, st, sc, sf, out, and mode, npb,
+    gx, lt, hs, ws), from a numpy generator, that press the kernel's walk
+    harder than P3's probe (whose tiles hold about 37 steps each, most of
+    them for pixels whose base texel lies in another cell):
+
+    - four tiles with `counts` steps (640, 0, 40 and 120), interleaved at
+      random in one list (tile 0's longer than the kernel's compaction round;
+      tile 1's empty, so its output stays as it was);
+    - each tile has a home cell: 90% of its pixels' base texels lie inside
+      it and 85% of its steps use it (the rest: anywhere), so a step owns
+      most of the pixels of the bands it selects;
+    - flags: random band bits 0-3 (a step may select none); with
+      `init_steps`, bit 4 at about 30% and 65% of tile 0's list and midway
+      through tile 3's, else nowhere (the init branch stays on);
+    - the cell mode with area weights, bf16 or f32 texels and weights, the
+      x-lerp or the 128-lane sum, NaN or zero initial outputs."""
+    import torch
+
+    from .ops import probe_bf16 as pb
+    from .tools import init_out
+
+    rng = np.random.default_rng(seed)
+    C, R, lt, gx = 4, 72, 64, 4
+    hs = ws = lt * gx
+    npx, npb = 32 * 128, 8 * 128
+    nT, n_cells = len(counts), gx * gx
+    t = rng.random((n_cells, R, C * 128), np.float32)
+    f = rng.random((nT, 3, npx), np.float32)
+    home = rng.choice(n_cells, nT, replace=False)
+    inside = rng.random((nT, npx)) < 0.9
+    hx, hy = (home % gx)[:, None] * lt, (home // gx)[:, None] * lt
+    bx = np.where(inside, hx + rng.integers(0, lt, (nT, npx)), rng.integers(0, hs, (nT, npx)))
+    by = np.where(inside, hy + rng.integers(0, lt, (nT, npx)), rng.integers(0, hs, (nT, npx)))
+    coords = np.stack([bx, by], axis=1).astype(np.int32)
+    st = rng.permutation(np.repeat(np.arange(nT), counts)).astype(np.int32)
+    sc = np.where(rng.random(st.shape[0]) < 0.85, home[st], rng.integers(0, n_cells, st.shape[0])).astype(np.int32)
+    sf = rng.integers(0, 16, st.shape[0]).astype(np.int32)
+    if init_steps:
+        for tile, at in ((0, 0.3), (0, 0.65), (3, 0.5)):
+            sf[np.flatnonzero(st == tile)[int(at * counts[tile])]] |= 16
+    mode = (pb.LERP_YCELL | pb.LERP_WAREA | pb.LERP_INIT | (pb.LERP_BF16 if bf16 else 0)
+            | (pb.LERP_XLERP if xlerp else 0))
+    dev = torch.device(device)
+    up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return dict(t=up(t), f=up(f), coords=up(coords), st=up(st), sc=up(sc), sf=up(sf),
+                out=init_out((nT, pb.OUT_ROWS, npx), init, dev), mode=mode, npb=npb, gx=gx, lt=lt, hs=hs, ws=ws)
+
+
+# ---------------------------------------------------------------------------
 # Rule 2: which hand-written kernel to redesign next
 # ---------------------------------------------------------------------------
 
@@ -452,7 +511,8 @@ KERNEL_OF_ROW = {
 # Kernels redesigned for the H100 after their port; rule 2 does not take
 # them again. K8 came with K7: both are instances of one CUDA kernel
 # (csrc/shadow_occ.cu occ_kernel), so redesigning K7's redesigned K8's.
-REDESIGNED = frozenset({"K1", "K2", "P1", "K5", "K6", "K7", "K8"})
+# With P2 and P3 every kernel but K3 and K4 (at their bounds) is here.
+REDESIGNED = frozenset({"K1", "K2", "P1", "K5", "K6", "K7", "K8", "P2", "P3"})
 
 
 def redesign_order(rows, frame_launches, redesigned=REDESIGNED):

@@ -49,7 +49,7 @@ VARIANTS = (
 )
 
 
-def variant(k: int, rng, device="cpu") -> ProbeRun:
+def variant(k: int, rng, device="cuda") -> ProbeRun:
     """Variant k of VARIANTS with inputs drawn from `rng`."""
     name, kw = VARIANTS[k]
     return _variant(name, rng, device_for(device), **kw)

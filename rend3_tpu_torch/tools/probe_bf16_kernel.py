@@ -96,7 +96,7 @@ VARIANTS = (
 )
 
 
-def variant(k: int, rng, device="cpu", init="nan") -> ProbeRun:
+def variant(k: int, rng, device="cuda", init="nan") -> ProbeRun:
     """Variant k of VARIANTS with inputs drawn from `rng` in the JAX
     variant's order."""
     name, fn = VARIANTS[k]

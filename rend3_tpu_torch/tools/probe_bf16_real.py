@@ -27,7 +27,7 @@ STILE_H, STILE_W, LT = 32, 128, 64
 N_BANDS, BAND_H = 4, 8
 
 
-def build(name, device="cpu", *, bf16=True, ohx_lerp=True, int_coords=True, w_area_in_ohy=True,
+def build(name, device="cuda", *, bf16=True, ohx_lerp=True, int_coords=True, w_area_in_ohy=True,
           init_branch=True, seed=0, init="nan") -> ProbeRun:
     """One variant (the JAX probe's build flags), run once."""
     dev = device_for(device)

@@ -16,7 +16,10 @@ hit pixels (their values elsewhere are not defined). The bf16 probes P1-P3
 (every variant of tools.probe_bf16_*): bit-exact, NaN positions equal, and
 for P2 and P3 again on zero-initialised outputs, which hold values; P1
 also at K 1, 72, 128 and 130 on 100 x 333 and 100 x 332 outputs, both
-layouts of a, f32 and bf16. K4
+layouts of a, f32 and bf16; P3 on testing.probe_lerp_stress_case (a list
+longer than the kernel's compaction round, an empty list, init steps
+mid-list or none, most pixels owned) in both modes, f32 and bf16, from NaN
+and from zeros; P2's reduce at n = 1024, 1000 and 77, written and added. K4
 on the skybox query of a 64x64 skybox frame at 4 samples: bit-exact.
 K1 in every mode and K2 on testing.raster_stress_case (lists longer than
 the kernels' 128-entry staging chunk and K2's 128-entry segment,
@@ -275,6 +278,49 @@ def test_probe_kernels_match_plain(probe):
             assert torch.equal(r.out[~nan], p[~nan]), (r.name, init)
             if init == "zero" or probe == "probe_bf16_dot":
                 assert bool((r.out[~nan] != 0).any()), (r.name, init)
+
+
+# P3 on testing.probe_lerp_stress_case: (bf16, x-lerp, init steps, initial output).
+LERP_STRESS = {
+    f"{'xlerp' if xl else 'lanesum'}-{'bf16' if bf else 'f32'}-{'init' if ini else 'noinit'}-{init}":
+        (bf, xl, ini, init)
+    for xl in (True, False) for bf in (True, False) for ini in (True, False) for init in ("nan", "zero")
+}
+
+
+@pytest.mark.parametrize("case", list(LERP_STRESS))
+def test_p3_stress_matches_plain(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rend3_tpu_torch.ops import probe_bf16 as pb
+
+    bf16, xlerp, init_steps, init = LERP_STRESS[case]
+    a = testing.probe_lerp_stress_case("cuda", bf16=bf16, xlerp=xlerp, init_steps=init_steps, init=init)
+    k, p = pb.probe_lerp(**a), pb.probe_lerp_plain(**a)
+    nan = torch.isnan(k)
+    assert torch.equal(nan, torch.isnan(p)) and torch.equal(k[~nan], p[~nan])
+    if init == "nan" and not init_steps:
+        assert bool(nan.all())  # no init step: every value stays NaN
+    else:
+        assert bool((k[~nan] != 0).any()) and (init == "nan") == bool(nan.any())
+
+
+# P2's reduce at widths its 32-column CTAs divide and do not, written or added.
+@pytest.mark.parametrize("n", [1024, 1000, 77])
+@pytest.mark.parametrize("accumulate", [False, True], ids=["write", "accumulate"])
+def test_p2_reduce_matches_plain(n, accumulate):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rend3_tpu_torch.ops import probe_bf16 as pb
+
+    rng = np.random.RandomState(n)
+    r2, x = (torch.from_numpy(rng.rand(rows, n).astype(np.float32)).cuda() for rows in (512, 128))
+    out = torch.full((pb.OUT_ROWS, n), float("nan"), device="cuda")
+    out[:2] = torch.from_numpy(rng.rand(2, n).astype(np.float32)).cuda()
+    k, p = pb.probe_reduce(r2, x, out, accumulate=accumulate), pb.probe_reduce_plain(r2, x, out, accumulate=accumulate)
+    nan = torch.isnan(k)
+    assert torch.equal(nan, torch.isnan(p)) and torch.equal(k[~nan], p[~nan])
+    assert int((~nan).sum()) == (4 if not accumulate else 2) * n
 
 
 def test_k4_skybox_matches_plain():

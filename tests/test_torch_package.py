@@ -86,6 +86,22 @@ def test_probe_entry_points_need_the_card(probe):
         mod.run(log=lambda _line: None)
 
 
+@pytest.mark.parametrize("fn", ["probe_bf16_dot.variant", "probe_bf16_kernel.variant", "probe_bf16_real.build"])
+def test_probe_public_functions_need_the_card(fn):
+    """The probes' public one-variant functions default to the card, as
+    run() does, and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import importlib
+
+    import numpy as np
+
+    mod_name, name = fn.split(".")
+    f = getattr(importlib.import_module(f"rend3_tpu_torch.tools.{mod_name}"), name)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        f("full bf16") if name == "build" else f(0, np.random.RandomState(0))
+
+
 def test_multi_device_not_ported():
     with pytest.raises(NotImplementedError, match=r"item 15 'Multi-GPU row bands'"):
         P.Renderer(device=["cuda:0", "cuda:1"])

@@ -4,8 +4,9 @@ H100 80GB HBM3, 700 W): P1 first (slower than torch.matmul), then K5 (the
 only kernel the main path loses time on), and with those two redesigned
 the off-frame kernels by launches on chip_smoke's paths x (device -
 bound). On the rows measured after that redesign (chip_smoke.py phase 11
-on the same card): K7, K6, K8, P3, P2, and with K6-K8 redesigned too
-(testing.REDESIGNED), P3 then P2."""
+on the same card): K7, K6, K8, P3, P2, and with K6-K8 redesigned too, P3
+then P2. On the rows measured after K6-K8's redesign, with every kernel
+redesigned (testing.REDESIGNED) or within twice its bound: none."""
 
 import pytest
 
@@ -59,7 +60,31 @@ PR7_ROWS = [
 ]
 PR7_CASES = {
     "k1_k2_p1_k5_redesigned": ({"K1", "K2", "P1", "K5"}, ["K7", "K6", "K8", "P3", "P2"]),
-    "k6_k7_k8_also_redesigned": (testing.REDESIGNED, ["P3", "P2"]),
+    "k6_k7_k8_also_redesigned": ({"K1", "K2", "P1", "K5", "K6", "K7", "K8"}, ["P3", "P2"]),
+}
+
+# The rows measured after K6-K8's redesign (PERF.md §6, same card):
+# P3 then P2; with those two redesigned as well (testing.REDESIGNED), and K3
+# and K4 within twice their bounds with no library call, none is left.
+AFTER_K6_K8_ROWS = [
+    ("raster_resolve", 0.1570, 0.0660, None, 15),
+    ("raster_msaa", 0.1090, 0.0630, None, 32),
+    ("raster_count", 0.0806, 0.0653, None, 60),
+    ("raster_bound", 0.0739, 0.0628, None, 75),
+    ("raster_depth", 0.0981, 0.00656, None, 12),
+    ("pcf5", 0.0217, 0.0208, None, 18),
+    ("bilinear", 0.1012, 0.1016, None, 114),
+    ("gather", 0.00259, 0.00107, 0.0162, 27),
+    ("raster_vis", 0.3775, 0.0533, None, 2),
+    ("shadow_occ", 0.5634, 0.0374, None, 1),
+    ("shadow_occ_lt", 0.3918, 0.0372, None, 1),
+    ("probe_dot", 0.00589, 0.00113, 0.00564, 6),
+    ("probe_reduce", 0.0107, 0.00079, 0.0198, 2),
+    ("probe_lerp", 0.0811, 0.00112, None, 12),
+]
+AFTER_K6_K8_CASES = {
+    "k1_k2_k5_k8_p1_redesigned": ({"K1", "K2", "P1", "K5", "K6", "K7", "K8"}, ["P3", "P2"]),
+    "all_redesigned_or_at_bound": (testing.REDESIGNED, []),
 }
 
 
@@ -81,6 +106,13 @@ def test_redesign_order_on_earlier_rows(case):
 def test_redesign_order_on_pr7_rows(case):
     redesigned, expected = PR7_CASES[case]
     order = testing.redesign_order(_rows(table=PR7_ROWS), FRAME, redesigned)
+    assert [k for k, _name, _why in order] == expected
+
+
+@pytest.mark.parametrize("case", list(AFTER_K6_K8_CASES))
+def test_redesign_order_after_k6_k8_redesign(case):
+    redesigned, expected = AFTER_K6_K8_CASES[case]
+    order = testing.redesign_order(_rows(table=AFTER_K6_K8_ROWS), FRAME, redesigned)
     assert [k for k, _name, _why in order] == expected
 
 
