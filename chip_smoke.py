@@ -15,9 +15,10 @@ the cutout peels, glass through the blend peels) at 1 and at 4 samples
 visibility raster of the representative frame's opaque triangles, the
 map-free shadow resolve of its light 0, the bf16 probes P1-P3, and the
 feature city (the representative frame with a skybox, skinned columns,
-registered material routines and injected passes) at 1 and 4 samples. It
-checks every hand-written kernel of those paths, K1 in each of its modes,
-against its plain PyTorch version.
+registered material routines and injected passes) at 1 and 4 samples,
+then the app layer (framework, overlay, glTF, animation and the examples)
+at 1280x720. It checks every hand-written kernel of those paths, K1 in
+each of its modes, against its plain PyTorch version.
 Phases (each raises on failure; any failure exits nonzero; each prints its
 wall time):
 
@@ -88,7 +89,25 @@ wall time):
 12. parity: the shadow golden scene, the textured-planes scene, the stacked
    cutout scene and the glass stack at 256x256, test_msaa's triangle at
    64x64 and 4 samples, a 64x64 skybox scene, a skinned scene and the
-   routine-registry scene, on the card and on the CPU.
+   routine-registry scene, on the card and on the CPU;
+13. framework: the app layer through its entry points at 1280x720 (the
+   reference screenshots' size), each example's launches counted from
+   zero and each kernel it launched (K1-K5) held against its plain version
+   on the frame's captured inputs with phase 11's tolerances; every
+   example frame is also rendered on the CPU and held to the card's within
+   1 u8: the cube example through framework.render_single_frame, also
+   against the JAX package's committed render cube.png (mae 0.005, SSIM
+   0.99; K1, K2 and K3 launched; the largest u8 difference and the pixels
+   more than 1 u8 off); the overlay example with OVERLAY_ON_DEVICE True
+   and False (within 1 u8), and the overlay's bake, device pass and host
+   compositor timed with CUDA events; textured_quad on a checker built in
+   memory (K4 launched); testing.GltfAnimationApp (testing.make_test_gltf()
+   through gltf.loader.load_gltf, posed by anim.pose_animation_frame at t
+   = 0, half the duration and the duration through framework.start) with
+   its load, pose and frame times and each frame's peak memory above what
+   was allocated when it began, the rigid and skinned nodes moving between
+   frames; and utils.profiling: both scopes in the chrome trace, and
+   device_trace writing a trace of the card's kernels.
 
 The last two lines are the card (nvidia-smi) and one JSON object
 {"ok": true, "device": {...}}; the line before them lists the kernels.
@@ -717,6 +736,22 @@ def _k1_check(name, k, p, kc=None, pc=None):
     return err
 
 
+def _k4_check(label, a):
+    """K4 against its plain version: exact or at most 1 ulp. Returns the
+    max abs error."""
+    from rend3_tpu_torch.ops import samplers as S
+
+    k = S.sample_grid_bilinear(*a)
+    p = S.sample_grid_bilinear_plain(*a)
+    ulps = _ulps(k, p)
+    err = float((k - p).abs().max())
+    log(f"K4 ({label}): {int(a[1].numel())} queries ({int(a[-1].sum())} valid), atlas {tuple(a[0].shape)}; "
+        f"{int((ulps > 0).sum())} of {k.numel()} values differ, max {int(ulps.max())} ulp, max abs {err:.3g}")
+    if int(ulps.max()) > 1:
+        raise AssertionError(f"K4 ({label}) differs from its plain version by {int(ulps.max())} ulp")
+    return err
+
+
 def phase_visibility(graph, device="cuda"):
     """raster_scene (K6) at 1 and 4 samples over the opaque clipped table
     of `graph`'s last representative frame (occlusion plays no part:
@@ -933,22 +968,11 @@ def phase_kernels(paths, extra_rows=(), timed=True):
 
     # K4: exact or at most 1 ulp, on the textured frame's textures and on
     # the representative frame's cutout alpha test.
-    def k4_check(label, a):
-        k = S.sample_grid_bilinear(*a)
-        p = S.sample_grid_bilinear_plain(*a)
-        ulps = _ulps(k, p)
-        err = float((k - p).abs().max())
-        log(f"K4 ({label}): {int(a[1].numel())} queries ({int(a[-1].sum())} valid), atlas {tuple(a[0].shape)}; "
-            f"{int((ulps > 0).sum())} of {k.numel()} values differ, max {int(ulps.max())} ulp, max abs {err:.3g}")
-        if int(ulps.max()) > 1:
-            raise AssertionError(f"K4 ({label}) differs from its plain version by {int(ulps.max())} ulp")
-        return err
-
     a4 = tcap["bilinear"]
-    err4 = k4_check("textures", a4)
-    k4_check("cutout alpha test", rcap["bilinear_cutout"])
+    err4 = _k4_check("textures", a4)
+    _k4_check("cutout alpha test", rcap["bilinear_cutout"])
     sky = paths["features"][0].captured["bilinear_sky"]
-    k4_check("skybox", sky)
+    _k4_check("skybox", sky)
     if timed:
         n_sky = int(sky[-1].sum())
         b_sky = _bound(_nbytes(*sky[1:]) + 16 * sky[1].numel() + min(_nbytes(sky[0]), n_sky * 4 * 8), n_sky * 40)
@@ -1362,6 +1386,274 @@ def phase_parity(device="cuda"):
             raise AssertionError(f"card and CPU renders of the {name} scene differ by {diff}")
 
 
+EXAMPLE_W, EXAMPLE_H = 1280, 720  # the reference screenshots' size
+
+
+def _check_frame_kernels(label, cap):
+    """Each kernel that an example frame launched, against its plain version
+    on the inputs the frame captured, with phase 11's tolerances: K1 depth,
+    hit and material bit-exact and the rest within 1 ulp, K2 and K5
+    bit-exact, K3 within 1e-6, K4 within 1 ulp. Returns the names checked."""
+    import torch
+
+    from rend3_tpu_torch.ops import deferred as D
+    from rend3_tpu_torch.ops import samplers as S
+
+    checked = []
+    if "raster_resolve" in cap:
+        t = cap["raster_resolve"]
+        _k1_check(f"{label} K1", D.raster_resolve(*t).data, D.raster_resolve_plain(*t))
+        checked.append("raster_resolve")
+    if "raster_depth" in cap:
+        k, p = D.raster_depth(*cap["raster_depth"]), D.raster_depth_plain(*cap["raster_depth"])
+        if not torch.equal(k, p):
+            raise AssertionError(f"{label} K2 differs from the plain version at {int((k != p).sum())} texels")
+        log(f"{label} K2: bit-exact over {k.numel()} texels, {int((k > 0).sum())} covered")
+        checked.append("raster_depth")
+    if "pcf5" in cap:
+        err = float((S.sample_grid_pcf5(*cap["pcf5"]) - S.sample_grid_pcf5_plain(*cap["pcf5"])).abs().max())
+        log(f"{label} K3: max abs err {err:.3g} over {int(cap['pcf5'][-1].sum())} valid queries")
+        if not err <= 1e-6:
+            raise AssertionError(f"{label} K3 differs from the plain version by {err}")
+        checked.append("pcf5")
+    for key in ("bilinear", "bilinear_cutout", "bilinear_sky"):
+        if key in cap:
+            _k4_check(f"{label} {key}", cap[key])
+            checked.append(key)
+    if "gather" in cap:
+        k, p = S.sample_grid(*cap["gather"]), S.sample_grid_plain(*cap["gather"])
+        if not torch.equal(k, p):
+            raise AssertionError(f"{label} K5 differs from the plain version at {int((k != p).sum())} values")
+        log(f"{label} K5: bit-exact over {int(cap['gather'][1].numel())} queries")
+        checked.append("gather")
+    return checked
+
+
+def _example_frame(label, make_app, device, width=EXAMPLE_W, height=EXAMPLE_H, **start_kw):
+    """The app's frames through framework.start with the launch counters
+    zeroed just before and read just after; logs the host time and the
+    launches. On the card the base graph captures each kernel's inputs, and
+    each kernel launched is then held against its plain version. Returns
+    (app, images, counts)."""
+    import torch
+
+    from rend3_tpu_torch import framework
+
+    cuda = torch.device(device).type == "cuda"
+    smi = nvidia_smi_line() if cuda else "cpu"
+    app = make_app()
+    graphs = []
+    if cuda:
+        app_setup = app.setup
+
+        def setup(context):
+            context.base_graph.captured = {}
+            graphs.append(context.base_graph)
+            app_setup(context)
+
+        app.setup = setup
+    _reset_launch_counts()
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    imgs = framework.start(app, width, height, device=device, **start_kw)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = _launch_counts()
+    log(f"{label}: {len(imgs)} frame(s) at {width}x{height} in {ms:.3f} ms host (setup included); "
+        f"launches {{{', '.join(f'{k}: {v}' for k, v in counts.items() if v)}}} [{smi}]")
+    for img in imgs:
+        if img.shape != (height, width, 4) or img.dtype.name != "uint8":
+            raise AssertionError(f"{label}: image {img.shape} {img.dtype}")
+    if cuda:
+        checked = {k.split("_")[0] if k.startswith("bilinear") else k
+                   for k in _check_frame_kernels(label, graphs[0].captured)}
+        graphs[0].captured = None
+        unchecked = {k for k, v in counts.items() if v} - checked
+        if unchecked:
+            raise AssertionError(f"{label}: launched {sorted(unchecked)} but captured no inputs to check")
+    return app, imgs, counts
+
+
+def _card_vs_cpu(label, make_app, card_imgs, width, height, **start_kw):
+    """The same frames on the CPU, held to the card's within 1 u8."""
+    import numpy as np
+
+    _app, cpu_imgs, _counts = _example_frame(f"{label} on cpu", make_app, "cpu", width, height, **start_kw)
+    d = max(int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max()) for a, b in zip(card_imgs, cpu_imgs))
+    log(f"{label} at {width}x{height}, {len(card_imgs)} frame(s): card vs cpu largest u8 difference {d}")
+    if d > 1:
+        raise AssertionError(f"{label}: the card's and the CPU's frames differ by {d}")
+
+
+def phase_framework(device="cuda", width=EXAMPLE_W, height=EXAMPLE_H):
+    """The app layer through its entry points: the cube example against the
+    JAX package's committed render, the overlay example with the overlay on
+    the device and on the host, textured_quad on a checker built in memory,
+    testing.make_test_gltf()'s animated scene (three poses through
+    framework.start), each on the card against the CPU, and the profiling
+    scopes. Returns the per-frame launches of each example."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_framework_") as tmp:
+        return _phase_framework(device, width, height, tmp)
+
+
+def _phase_framework(device, width, height, tmp):
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from rend3_tpu_torch import framework, testing
+    from rend3_tpu_torch.examples import cube, overlay, textured_quad
+    from rend3_tpu_torch.utils import profiling
+
+    cuda = torch.device(device).type == "cuda"
+    smi = nvidia_smi_line() if cuda else "cpu"
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cube.png")
+    launches = {}
+
+    # cube against the CPU and against the JAX render at the reference's threshold.
+    _app, (img,), counts = _example_frame("cube", cube.CubeExample, device, width, height)
+    launches["cube"] = counts
+    if cuda:
+        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5"))
+    log(f"cube: K5 (gather) launches {counts['gather']}")
+    _card_vs_cpu("cube", cube.CubeExample, [img], width, height)
+    if (width, height) == (EXAMPLE_W, EXAMPLE_H):
+        if not os.path.isfile(golden):
+            raise AssertionError(f"the JAX package's cube render {golden!r} is missing")
+        ref = testing.load_png(golden)
+        diff = np.abs(img[..., :3].astype(np.int32) - ref.astype(np.int32))
+        stats = testing.compare_to_golden(img, golden, testing.Threshold(mae=0.005, ssim=0.99), out_dir=tmp)
+        off = (diff > 1).any(-1)
+        log(f"cube vs {golden} (the JAX render): mae {stats['mae']:.6f}, ssim {stats['ssim']:.6f}, "
+            f"largest u8 difference {int(diff.max())}, {int(off.sum())} pixels more than 1 u8 off "
+            f"(share {float(off.mean()):.6f}) [{smi}]")
+
+    # overlay: on the device, then on the host.
+    imgs = {}
+    apps = {}
+    for on in (True, False):
+        class App(overlay.OverlayExample):
+            OVERLAY_ON_DEVICE = on
+
+        apps[on] = App
+        app, (imgs[on],), counts = _example_frame(f"overlay (OVERLAY_ON_DEVICE {on})", App, device, width, height)
+        launches[f"overlay ({'device' if on else 'host'})"] = counts
+    d = int(np.abs(imgs[True].astype(np.int32) - imgs[False].astype(np.int32)).max())
+    log(f"overlay: device pass vs host compositor, largest u8 difference {d}")
+    if d > 1:
+        raise AssertionError(f"the overlay on the device and on the host differ by {d}")
+    _card_vs_cpu("overlay (OVERLAY_ON_DEVICE True)", apps[True], [imgs[True]], width, height)
+    if cuda:
+        ov = app.overlay
+        jobs = app.overlay_jobs(SimpleNamespace(overlay=ov))
+        n_tris = sum(len(j.indices) for j in jobs)
+        bake_ms = _median_ms(lambda: ov.bake(jobs, width, height), 5)
+        fn = ov.device_pass(jobs, width, height)
+        base = torch.from_numpy(imgs[False]).to(device)
+        pass_ms = _median_ms(lambda: fn(base, None, None, 0), 5)
+        host_ms = _median_ms(lambda: ov.render(imgs[False], jobs), 5)
+        log(f"overlay timings ({len(jobs)} jobs, {n_tris} triangles, CUDA events, host work included, "
+            f"median of 5 after a warm-up call): bake {bake_ms:.3f} ms, device pass {pass_ms:.4f} ms, "
+            f"host compositor {host_ms:.3f} ms [{smi}]")
+
+    # textured_quad on a checker built in memory.
+    yy, xx = np.mgrid[0:256, 0:256]
+    checker = np.zeros((256, 256, 4), np.uint8)
+    checker[..., :3] = np.where(((xx // 32) + (yy // 32)) % 2 == 0, 230, 25)[..., None]
+    checker[..., 3] = 255
+    png = os.path.join(tmp, "checker.png")
+    testing.save_png(png, checker)
+
+    def quad():
+        return textured_quad.TexturedQuadExample(png)
+
+    _app, (img,), counts = _example_frame("textured_quad", quad, device, width, height)
+    launches["textured_quad"] = counts
+    if cuda and counts["bilinear"] == 0:
+        raise AssertionError("textured_quad did not launch K4")
+    _check_image(img, width, height)
+    _card_vs_cpu("textured_quad", quad, [img], width, height)
+
+    # The glTF scene, posed at t = 0, half the duration and the duration.
+    dt = testing.TEST_GLTF_DURATION / 2
+
+    class Timed(testing.GltfAnimationApp):
+        def setup(self, context):
+            self.renderer = context.renderer
+            self.marks, self.frame_ms, self.peak_mib, self.pose_ms, self.states = [], [], [], [], []
+            self.base_bytes = 0
+            t0 = time.perf_counter()
+            super().setup(context)
+            self.load_ms = (time.perf_counter() - t0) * 1e3
+
+        def mark(self):
+            if cuda:
+                torch.cuda.synchronize()
+            now = time.perf_counter()
+            if self.marks:
+                self.frame_ms.append((now - self.marks[-1]) * 1e3)
+                if cuda:
+                    self.peak_mib.append((torch.cuda.max_memory_allocated() - self.base_bytes) / 2**20)
+                r = self.renderer
+                rigid = self.instance.objects_by_node[1][0]
+                sk = self.instance.skeletons[2][0]
+                self.states.append((r.object_manager.transforms[rigid.idx].copy(),
+                                    r.skeleton_manager.data[sk.idx].joint_matrices.copy()))
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+                self.base_bytes = torch.cuda.memory_allocated()
+            self.marks.append(now)
+
+        def handle_redraw(self, context):
+            self.mark()
+            t0 = time.perf_counter()
+            super().handle_redraw(context)
+            self.pose_ms.append((time.perf_counter() - t0) * 1e3)
+
+    app, big, counts = _example_frame("glTF scene", Timed, device, width, height, frames=3, frame_dt=dt)
+    app.mark()
+    launches["glTF scene (3 frames)"] = counts
+    log(f"glTF scene at {width}x{height}: load {app.load_ms:.3f} ms, pose {[round(x, 3) for x in app.pose_ms]} ms, "
+        f"frames {[round(x, 3) for x in app.frame_ms]} ms host (synchronized), peak above the frame's start "
+        f"{[round(x, 1) for x in app.peak_mib]} MiB [{smi}]")
+    for (t_a, j_a), (t_b, j_b) in zip(app.states, app.states[1:]):
+        if np.array_equal(t_a, t_b) or np.array_equal(j_a, j_b):
+            raise AssertionError("the rigid or the skinned node did not move between frames")
+    for a, b in zip(big, big[1:]):
+        if np.array_equal(a, b):
+            raise AssertionError("two poses of the glTF scene rendered the same image")
+    if cuda:
+        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", "bilinear"))
+    _card_vs_cpu("glTF scene", Timed, big, width, height, frames=3, frame_dt=dt)
+
+    # Profiling: both scopes in the chrome trace, and a device trace.
+    profiling.enable()
+    try:
+        framework.render_single_frame(cube.CubeExample(), width, height, device=device)
+    finally:
+        profiling.disable()
+    trace = os.path.join(tmp, "trace.json")
+    profiling.dump_chrome_trace(trace)
+    with open(trace) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]}
+    want = {"Renderer::evaluate_instructions", "BaseRenderGraph::build_frame_callable"}
+    if not want <= names:
+        raise AssertionError(f"the chrome trace lacks {want - names}")
+    log("profiling: " + profiling.stats().summary().replace("\n", "; ") + f" [{smi}]")
+    with profiling.device_trace(os.path.join(tmp, "device")):
+        framework.render_single_frame(cube.CubeExample(), width, height, device=device)
+    with open(os.path.join(tmp, "device", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    n_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"device_trace: {len(events)} events, {n_kernels} device kernels")
+    if not events or (cuda and not n_kernels):
+        raise AssertionError("device_trace wrote no trace of the card")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -1403,6 +1695,7 @@ def main():
             paths["features" if samples == 1 else "features-msaa"] = (graph, counts)
         kernels = timed("kernels", phase_kernels, paths, vis_rows + occ_rows + probe_rows(probe_runs))
         timed("parity", phase_parity)
+        timed("framework", phase_framework)
         smi = nvidia_smi_line()
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()

@@ -79,10 +79,11 @@ class GraphStorage:
         self._data.pop(idx, None)
 
 
-def _resolve_device(device) -> torch.device:
+def _resolve_device(device, owner: str = "Renderer") -> torch.device:
     """One device per renderer, the card unless the caller asks for "cpu".
     A CUDA device needs a card: there is no CPU fall-back, so a missing card
-    raises here instead of rendering slowly."""
+    raises here instead of rendering slowly. `owner` names the caller in
+    the error."""
     if isinstance(device, (list, tuple)):
         raise NotImplementedError(
             "multi-device rendering is not ported yet (ROADMAP queue 1, item 15 'Multi-GPU row bands')"
@@ -90,7 +91,7 @@ def _resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError("Renderer(device='cuda') needs a CUDA device; none is available")
+            raise RuntimeError(f"{owner}(device='cuda') needs a CUDA device; none is available")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
@@ -263,7 +264,9 @@ class Renderer:
         self.instructions.swap()
 
     def evaluate_instructions(self) -> InstructionEvaluationOutput:
-        with self.lock:
+        from ..utils.profiling import scope
+
+        with scope("Renderer::evaluate_instructions"), self.lock:
             return self._evaluate_locked()
 
     def _evaluate_locked(self) -> InstructionEvaluationOutput:

@@ -64,6 +64,7 @@ from ..ops import texture as tex_ops
 from ..ops import transform as transform_ops
 from ..types import Handedness
 from ..types.error import DeviceOutOfMemoryError
+from ..utils.profiling import scope as profiling_scope
 
 __all__ = [
     "BaseRenderGraph", "BaseRenderGraphSettings", "FrameRenderTarget", "StageTimer", "raster_scene", "sky_directions",
@@ -762,7 +763,9 @@ class BaseRenderGraph:
         st = self.last_stats
         for key in ("cut_survivors", "cut_peels", "cut_layers", "blend_survivors", "blend_peels", "blend_px"):
             st[key] = 0
-        with stage("upload"):
+        # The host's share of the frame: scene state into device tables (the
+        # JAX package assembles its program's inputs under this name).
+        with stage("upload"), profiling_scope("BaseRenderGraph::build_frame_callable"):
             f = self._upload(eval_output, target, settings, skybox_slot)
         if plan:
             with stage("shadow_maps"):

@@ -10,13 +10,20 @@ the cross-implementation oracle.
 
 from __future__ import annotations
 
+import base64
+import json
 import os
+import struct
+import zlib
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 
+from . import anim
 from .core.renderer import Renderer
+from .framework import App
+from .gltf.loader import GltfLoadSettings, load_gltf
 from .routine.base import BaseRenderGraph, BaseRenderGraphSettings, FrameRenderTarget
 from .routine.pbr.material import AlbedoComponent, PbrMaterial
 from .types import (
@@ -25,8 +32,10 @@ from .types import (
     Handedness,
     MeshBuilder,
     Object,
+    Perspective,
     StaticMeshKind,
 )
+from .utils import math as m3
 from .utils.compare import compare_images
 
 __all__ = ["TestRunner", "FrameRenderSettings", "Threshold", "compare_to_golden", "REFERENCE_RESULTS"]
@@ -546,3 +555,210 @@ def redesign_order(rows, frame_launches, redesigned=REDESIGNED):
             seen.add(kernel)
             order.append((kernel, name, why))
     return order
+
+
+# -- an in-memory glTF scene ---------------------------------------------------
+
+TEST_GLTF_DURATION = 2.0  # seconds: the last key time of make_test_gltf()'s animation
+
+
+def _png_bytes(rgba: np.ndarray) -> bytes:
+    """(H, W, 4) u8 -> PNG bytes (8-bit RGBA, filter 0 on every row)."""
+    h, w = rgba.shape[:2]
+    raw = b"".join(b"\x00" + rgba[y].tobytes() for y in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0)
+    return b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b"")
+
+
+def _box(half, center=(0.0, 0.0, 0.0)):
+    """(positions, normals, uvs, indices) of an axis-aligned box, four
+    vertices a face, counter-clockwise seen from outside (glTF's front)."""
+    pos, nrm, uvs, idx = [], [], [], []
+    half = np.asarray(half, np.float32)
+    for axis in range(3):
+        for sign in (1.0, -1.0):
+            n = np.zeros(3, np.float32)
+            n[axis] = sign
+            u = np.zeros(3, np.float32)
+            u[(axis + 1) % 3] = 1.0
+            v = np.cross(n, u)
+            base = len(pos)
+            for cu, cv, tu, tv in ((-1, -1, 0, 1), (1, -1, 1, 1), (1, 1, 1, 0), (-1, 1, 0, 0)):
+                pos.append((n + cu * u + cv * v) * half + np.asarray(center, np.float32))
+                nrm.append(n)
+                uvs.append((tu, tv))
+            idx += [base, base + 1, base + 2, base, base + 2, base + 3]
+    return (np.array(pos, np.float32), np.array(nrm, np.float32), np.array(uvs, np.float32),
+            np.array(idx, np.uint16))
+
+
+def make_test_gltf() -> bytes:
+    """A small .glb built in memory (numpy and the standard library only):
+
+    - node 0: a textured PBR box, its base colour an 8x8 PNG in a data URI;
+    - node 1: a rigid box whose T/R/S animate (LINEAR translation and
+      scale, a quaternion rotation);
+    - node 2: a two-joint skinned column (JOINTS_0 / WEIGHTS_0, inverse
+      bind matrices) under joints 3 and 4; joint 4's rotation animates,
+      joint 3's translation holds still;
+    - node 5: a KHR_lights_punctual directional light, tilted down;
+    - node 6: a ground slab.
+
+    One animation with keys at 0, 1 and TEST_GLTF_DURATION seconds."""
+    blob = bytearray()
+    views, accessors = [], []
+
+    def accessor(arr, ctype, atype, target=None):
+        arr = np.ascontiguousarray(arr)
+        while len(blob) % 4:
+            blob.append(0)
+        view = {"buffer": 0, "byteOffset": len(blob), "byteLength": arr.nbytes}
+        if target is not None:
+            view["target"] = target
+        blob.extend(arr.tobytes())
+        views.append(view)
+        accessors.append({"bufferView": len(views) - 1, "componentType": ctype,
+                          "count": int(arr.shape[0]), "type": atype})
+        return len(accessors) - 1
+
+    F32, U8, U16 = 5126, 5121, 5123
+
+    def mesh(pos, nrm, idx, material, uvs=None, joints=None, weights=None):
+        attrs = {"POSITION": accessor(pos, F32, "VEC3", 34962), "NORMAL": accessor(nrm, F32, "VEC3", 34962)}
+        if uvs is not None:
+            attrs["TEXCOORD_0"] = accessor(uvs, F32, "VEC2", 34962)
+        if joints is not None:
+            attrs["JOINTS_0"] = accessor(joints, U8, "VEC4", 34962)
+            attrs["WEIGHTS_0"] = accessor(weights, F32, "VEC4", 34962)
+        return {"primitives": [{"attributes": attrs, "indices": accessor(idx, U16, "SCALAR", 34963),
+                                "material": material}]}
+
+    pos, nrm, uvs, idx = _box((0.7, 0.7, 0.7))
+    meshes = [mesh(pos, nrm, idx, 0, uvs=uvs)]
+    pos, nrm, _, idx = _box((0.5, 0.5, 0.5))
+    meshes.append(mesh(pos, nrm, idx, 1))
+    # The column: two stacked boxes around x = 2, y in [0, 2]; y = 0 follows
+    # joint 0, y = 2 joint 1, y = 1 both halves.
+    parts = [_box((0.25, 0.5, 0.25), (2.0, 0.5 + k, 0.0)) for k in range(2)]
+    pos = np.concatenate([p[0] for p in parts])
+    nrm = np.concatenate([p[1] for p in parts])
+    idx = np.concatenate([parts[0][3], parts[1][3] + len(parts[0][0])]).astype(np.uint16)
+    w1 = np.clip(pos[:, 1] / 2.0, 0.0, 1.0)
+    joints = np.tile(np.array([0, 1, 0, 0], np.uint8), (len(pos), 1))
+    weights = np.stack([1.0 - w1, w1, np.zeros_like(w1), np.zeros_like(w1)], axis=1).astype(np.float32)
+    meshes.append(mesh(pos, nrm, idx, 2, joints=joints, weights=weights))
+    pos, nrm, _, idx = _box((4.0, 0.1, 3.0), (0.0, -0.8, 0.0))
+    meshes.append(mesh(pos, nrm, idx, 3))
+
+    # Inverse binds of joints at (2, 0, 0) and (2, 1, 0), column-major.
+    ibm = np.stack([np.eye(4, dtype=np.float32)] * 2)
+    ibm[0, :3, 3] = (-2.0, 0.0, 0.0)
+    ibm[1, :3, 3] = (-2.0, -1.0, 0.0)
+    ibm_acc = accessor(ibm.transpose(0, 2, 1).reshape(2, 16), F32, "MAT4")
+
+    times = accessor(np.array([0.0, 1.0, TEST_GLTF_DURATION], np.float32), F32, "SCALAR")
+    s45, c45 = np.sin(np.pi / 8), np.cos(np.pi / 8)
+    samplers = [
+        accessor(np.array([[-2.5, 0.0, 0.5], [-2.5, 0.8, 0.0], [-2.0, 1.2, -0.5]], np.float32), F32, "VEC3"),
+        accessor(np.array([[1.0, 1.0, 1.0], [0.6, 0.9, 1.2], [0.8, 0.8, 0.8]], np.float32), F32, "VEC3"),
+        accessor(np.array([[0, 0, 0, 1], [0, np.sin(np.pi / 4), 0, np.cos(np.pi / 4)], [0, 1, 0, 0]],
+                          np.float32), F32, "VEC4"),
+        accessor(np.array([[0, 0, 0, 1], [0, 0, s45, c45], [0, 0, -s45, c45]], np.float32), F32, "VEC4"),
+        accessor(np.array([[2.0, 0.0, 0.0]] * 3, np.float32), F32, "VEC3"),
+    ]
+    # Joint 3 holds its place through a constant channel: a joint no channel
+    # touches poses as identity (rend3-anim's convention, anim.py).
+    channels = [(1, "translation"), (1, "scale"), (1, "rotation"), (4, "rotation"), (3, "translation")]
+
+    yy, xx = np.mgrid[0:8, 0:8]
+    tex = np.zeros((8, 8, 4), np.uint8)
+    tex[..., 0] = np.where((xx + yy) % 2, 230, 40)
+    tex[..., 1] = 40 + 25 * xx
+    tex[..., 2] = 40 + 25 * yy
+    tex[..., 3] = 255
+    a = np.sin(-np.pi / 6)  # the light: -60 degrees about x
+    light_q = [float(a), 0.0, 0.0, float(np.cos(-np.pi / 6))]
+
+    doc = {
+        "asset": {"version": "2.0", "generator": "rend3_tpu_torch.testing.make_test_gltf"},
+        "extensionsUsed": ["KHR_lights_punctual"],
+        "extensions": {"KHR_lights_punctual": {"lights": [
+            {"type": "directional", "color": [1.0, 0.95, 0.9], "intensity": 3.0}]}},
+        "scene": 0,
+        "scenes": [{"nodes": [0, 1, 2, 3, 5, 6]}],
+        "nodes": [
+            {"mesh": 0, "translation": [0.0, 0.0, 0.0], "rotation": [0.0, 0.3826834, 0.0, 0.9238795]},
+            {"mesh": 1, "translation": [-2.5, 0.0, 0.5]},
+            {"mesh": 2, "skin": 0},
+            {"translation": [2.0, 0.0, 0.0], "children": [4]},
+            {"translation": [0.0, 1.0, 0.0]},
+            {"rotation": light_q, "extensions": {"KHR_lights_punctual": {"light": 0}}},
+            {"mesh": 3},
+        ],
+        "meshes": meshes,
+        "materials": [
+            {"pbrMetallicRoughness": {"baseColorTexture": {"index": 0}, "metallicFactor": 0.0,
+                                      "roughnessFactor": 0.7}},
+            {"pbrMetallicRoughness": {"baseColorFactor": [0.85, 0.25, 0.2, 1.0], "metallicFactor": 0.0,
+                                      "roughnessFactor": 0.5}},
+            {"pbrMetallicRoughness": {"baseColorFactor": [0.2, 0.55, 0.9, 1.0], "metallicFactor": 0.1,
+                                      "roughnessFactor": 0.6}},
+            {"pbrMetallicRoughness": {"baseColorFactor": [0.6, 0.6, 0.55, 1.0], "metallicFactor": 0.0,
+                                      "roughnessFactor": 0.9}},
+        ],
+        "textures": [{"source": 0}],
+        "images": [{"mimeType": "image/png",
+                    "uri": "data:image/png;base64," + base64.b64encode(_png_bytes(tex)).decode()}],
+        "skins": [{"joints": [3, 4], "inverseBindMatrices": ibm_acc}],
+        "animations": [{"name": "move", "samplers": [
+            {"input": times, "output": out, "interpolation": "LINEAR"} for out in samplers],
+            "channels": [{"sampler": i, "target": {"node": n, "path": p}} for i, (n, p) in enumerate(channels)]}],
+        "accessors": accessors,
+        "bufferViews": views,
+        "buffers": [{"byteLength": len(blob)}],
+    }
+    while len(blob) % 4:
+        blob.append(0)
+    js = json.dumps(doc, separators=(",", ":")).encode()
+    js += b" " * (-len(js) % 4)
+    chunks = struct.pack("<II", len(js), 0x4E4F534A) + js + struct.pack("<II", len(blob), 0x004E4942) + bytes(blob)
+    return struct.pack("<III", 0x46546C67, 2, 12 + len(chunks)) + chunks
+
+
+def gltf_scene_view() -> np.ndarray:
+    """The camera that frames make_test_gltf()'s scene (left-handed, from
+    the -z side, looking down a little)."""
+    return m3.rotation_x(-0.35) @ m3.translation([0.0, -2.0, 7.0])
+
+
+class GltfAnimationApp(App):
+    """make_test_gltf()'s scene (or another glTF's bytes) as a framework
+    App: loaded through gltf.loader.load_gltf in setup(), and posed by
+    anim.pose_animation_frame at the frame's elapsed time (frame k of
+    start(frames=n, frame_dt=dt) poses t = k * dt, clamped to the
+    animation)."""
+
+    def __init__(self, data: Optional[bytes] = None, shadow_resolution: int = 2048):
+        self.data = make_test_gltf() if data is None else data
+        self.shadow_resolution = shadow_resolution
+
+    def ambient_color(self):
+        return (0.1, 0.1, 0.1, 1.0)
+
+    def clear_color(self):
+        return (0.1, 0.05, 0.1, 1.0)
+
+    def setup(self, context):
+        r = context.renderer
+        settings = GltfLoadSettings(directional_light_resolution=self.shadow_resolution,
+                                    directional_light_shadow_distance=20.0)
+        self.loaded, self.instance, _ = load_gltf(r, self.data, settings)
+        self.anim_data = anim.AnimationData.from_gltf_scene(self.loaded, self.instance)
+        r.set_camera_data(Camera(projection=Perspective(vfov=60.0, near=0.1), view=gltf_scene_view()))
+
+    def handle_redraw(self, context):
+        anim.pose_animation_frame(context.renderer, self.loaded, self.instance, self.anim_data, 0, context.elapsed)

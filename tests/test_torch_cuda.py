@@ -29,20 +29,24 @@ its 8x128 tables at 1 and 4 samples: ids and depth bit-exact. K7 and K8 on
 testing.shadow_stress_case (a list over several segments, casters of depth
 0, tiles with no hit pixel or an empty list, a tile hit in part):
 bit-exact at hit pixels. A K1 launch that cannot be made raises, and so
-does a K7 launch given too small a plan buffer.
+does a K7 launch given too small a plan buffer. The app layer: the
+overlay's device pass against its host compositor on the card (within 1
+u8), and testing.make_test_gltf()'s animated scene (three poses through
+framework.start) on the card against the CPU (within 1 u8).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from rend3_tpu_torch import probe_shadow, scenes, testing
+from rend3_tpu_torch import framework, probe_shadow, scenes, testing
 from rend3_tpu_torch.ops import deferred as D
 from rend3_tpu_torch.ops import geometry as G
 from rend3_tpu_torch.ops import raster as R
 from rend3_tpu_torch.ops import raster_binned as RB
 from rend3_tpu_torch.ops import samplers as S
 from rend3_tpu_torch.ops import shadow as SH
+from rend3_tpu_torch.overlay import OverlayRoutine, PaintJob
 from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget, raster_scene
 from rend3_tpu_torch.testing import FrameRenderSettings, TestRunner
 
@@ -442,3 +446,57 @@ def test_k1_launch_failure_raises():
     with pytest.raises(RuntimeError, match="k1_raster_resolve: CUDA error"):
         cuda_kernels.call("k1_raster_resolve", t, t, t, i, i, t, None, None, None,
                           ints=(128 << 15, 32 << 14, 0), floats=(0.5, 0.5))
+
+
+def _overlay_jobs(ov):
+    """A translucent panel wider than the window raster, a textured quad and
+    a fractional-vertex triangle with a clip rect."""
+    tex = np.zeros((8, 8, 4), np.uint8)
+    tex[:, :4] = [0, 255, 0, 200]
+    tex[:, 4:] = [255, 255, 0, 90]
+    tid = ov.add_texture(tex)
+    quad = np.array([[0, 1, 2], [2, 3, 0]], np.uint32)
+    return [
+        PaintJob(vertices=np.array([[4, 4], [300, 4], [300, 120], [4, 120]], np.float32),
+                 colors=np.tile(np.array([30, 30, 40, 180], np.uint8), (4, 1)), indices=quad),
+        PaintJob(vertices=np.array([[16, 8], [80, 8], [80, 40], [16, 40]], np.float32),
+                 colors=np.tile(np.array([255, 200, 255, 255], np.uint8), (4, 1)), indices=quad,
+                 uvs=np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32), texture=tid),
+        PaintJob(vertices=np.array([[50.3, 60.1], [140.7, 71.9], [63.2, 118.6]], np.float32),
+                 colors=np.array([[255, 0, 0, 200], [0, 255, 0, 120], [0, 0, 255, 255]], np.uint8),
+                 indices=np.array([[0, 1, 2]], np.uint32), clip_rect=(55.0, 62.5, 130.0, 110.0)),
+    ]
+
+
+def test_overlay_device_pass_matches_host_compositor_on_card():
+    """The overlay's bake and device pass on the card against its host
+    compositor on the card (within 1 u8), and the card's host compositor
+    against the CPU's (within 1 u8); the band form equals the full pass."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    W, H = 320, 128
+    frame = np.random.default_rng(11).integers(0, 256, size=(H, W, 4), dtype=np.uint8)
+    ov = OverlayRoutine(device="cuda")
+    jobs = _overlay_jobs(ov)
+    host = ov.render(frame, jobs)
+    dev = ov.device_pass(jobs, W, H)(torch.from_numpy(frame).cuda(), None, None, 0)
+    assert dev.is_cuda and dev.dtype == torch.uint8
+    dev = dev.cpu().numpy()
+    assert np.abs(dev.astype(int) - host.astype(int)).max() <= 1
+    band = ov.device_pass(jobs, W, H)(torch.from_numpy(frame[64:].copy()).cuda(), None, None, 64).cpu().numpy()
+    np.testing.assert_array_equal(band, dev[64:])
+    cpu = OverlayRoutine(device="cpu")
+    assert np.abs(host.astype(int) - cpu.render(frame, _overlay_jobs(cpu)).astype(int)).max() <= 1
+
+
+def test_gltf_scene_on_card_matches_cpu():
+    """testing.make_test_gltf() posed at three times through framework.start
+    on the card and on the CPU: every frame within 1 u8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    imgs = {dev: framework.start(testing.GltfAnimationApp(), 160, 96, frames=3,
+                                 frame_dt=testing.TEST_GLTF_DURATION / 2, device=dev)
+            for dev in ("cuda", "cpu")}
+    for a, b in zip(imgs["cuda"], imgs["cpu"]):
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+    assert not np.array_equal(imgs["cuda"][0], imgs["cuda"][1])

@@ -25,7 +25,14 @@ def test_import_leaves_jax_out():
         "rend3_tpu_torch.scenes, rend3_tpu_torch.ops.cuda_kernels, rend3_tpu_torch.probe_shadow, "
         "rend3_tpu_torch.frame_profile, rend3_tpu_torch.routine.registry, rend3_tpu_torch.ops.skin, "
         "rend3_tpu_torch.ops.probe_bf16, rend3_tpu_torch.tools.probe_bf16_dot, "
-        "rend3_tpu_torch.tools.probe_bf16_kernel, rend3_tpu_torch.tools.probe_bf16_real; "
+        "rend3_tpu_torch.tools.probe_bf16_kernel, rend3_tpu_torch.tools.probe_bf16_real, "
+        "rend3_tpu_torch.utils.profiling, rend3_tpu_torch.overlay, rend3_tpu_torch.framework, "
+        "rend3_tpu_torch.framework.assets, rend3_tpu_torch.framework.camera, rend3_tpu_torch.framework.viewer, "
+        "rend3_tpu_torch.gltf.compressed, rend3_tpu_torch.gltf.loader, rend3_tpu_torch.anim, "
+        "rend3_tpu_torch.examples, rend3_tpu_torch.examples.cube, rend3_tpu_torch.examples.cube_no_framework, "
+        "rend3_tpu_torch.examples.overlay, rend3_tpu_torch.examples.textured_quad, "
+        "rend3_tpu_torch.examples.static_gltf, rend3_tpu_torch.examples.skinning, "
+        "rend3_tpu_torch.examples.animation, rend3_tpu_torch.examples.scene_viewer; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'rend3_tpu' or m.startswith('rend3_tpu.')); print(bad)"
     )
@@ -46,13 +53,36 @@ def test_cuda_renderer_needs_a_card():
         P.Renderer(device="cuda")
 
 
-@pytest.mark.parametrize("entry", ["Renderer", "TestRunner"])
-def test_entry_points_default_to_the_card(entry):
-    """Renderer() and TestRunner() render on the card unless asked for the
-    CPU; without a card they raise instead of falling back."""
+@pytest.mark.parametrize(
+    "entry", ["Renderer", "TestRunner", "framework.start", "render_single_frame", "OverlayRoutine", "serve_app"]
+)
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """Renderer(), TestRunner(), framework.start, render_single_frame,
+    OverlayRoutine() and serve_app render on the card unless asked for the
+    CPU; without a card they raise instead of falling back, before the app
+    is set up or a frame rendered, and serve_app before it binds a socket."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    make = P.Renderer if entry == "Renderer" else TestRunner
+    from rend3_tpu_torch import framework
+    from rend3_tpu_torch.framework import viewer
+    from rend3_tpu_torch.overlay import OverlayRoutine
+
+    class App(framework.App):
+        def setup(self, context):
+            raise AssertionError("setup ran without a card")
+
+    def no_socket(*a, **k):
+        raise AssertionError("serve_app bound a socket without a card")
+
+    monkeypatch.setattr(viewer, "ThreadingHTTPServer", no_socket)
+    make = {
+        "Renderer": P.Renderer,
+        "TestRunner": TestRunner,
+        "framework.start": lambda: framework.start(App(), 64, 64, frames=2),
+        "render_single_frame": lambda: framework.render_single_frame(App(), 64, 64),
+        "OverlayRoutine": OverlayRoutine,
+        "serve_app": lambda: viewer.serve_app(App(), 64, 64, port=0),
+    }[entry]
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         make()
 
