@@ -17,7 +17,8 @@ map-free shadow resolve of its light 0, the bf16 probes P1-P3, and the
 feature city (the representative frame with a skybox, skinned columns,
 registered material routines and injected passes) at 1 and 4 samples,
 then the app layer (framework, overlay, glTF, animation and the examples)
-at 1280x720. It checks every hand-written kernel of those paths, K1 in
+at 1280x720, then the reference forward backend on the representative
+city cut in depth, and the host-loop micro-bench. It checks every hand-written kernel of those paths, K1 in
 each of its modes, against its plain PyTorch version.
 Phases (each raises on failure; any failure exits nonzero; each prints its
 wall time):
@@ -107,7 +108,21 @@ wall time):
    its load, pose and frame times and each frame's peak memory above what
    was allocated when it began, the rigid and skinned nodes moving between
    frames; and utils.profiling: both scopes in the chrome trace, and
-   device_trace writing a trace of the card's kernels.
+   device_trace writing a trace of the card's kernels;
+14. reference: the reference forward backend (REND3_TPU_RASTER=reference)
+   on the representative city cut to REFERENCE_BUILDINGS buildings at
+   1920x1080, at 1 and 4 samples (frame time, peak memory, stages), and
+   shadow.sample_shadow_map / sample_shadow_maps (K5) on the 1-sample
+   frame's maps at the deferred frame's light-space coordinates, launches
+   counted over those frames and calls (K5's row of the kernels line adds
+   them); K5 there against its plain version bit for bit, raster.rasterize
+   on a 64-triangle soup at 1920x1080 card against CPU bit for bit, the
+   forward frame at 320x180 card against CPU within 1 u8, and (a
+   diagnostic) the pixels where the forward frame is more than 1 u8 off
+   the deferred frame of the same scene (the forward frame draws cutouts
+   as opaque);
+15. bench_host: tools.bench_host at 50,000 objects on the card (swap +
+   evaluate + the frame's host upload, 20 iterations), its median logged.
 
 The last two lines are the card (nvidia-smi) and one JSON object
 {"ok": true, "device": {...}}; the line before them lists the kernels.
@@ -138,6 +153,9 @@ MSAA_KERNELS = ("raster_msaa", "raster_count", "raster_bound", "raster_depth", "
 # the skybox, K2 for the new pose's shadow maps).
 FEATURE_KERNELS = {1: FRAME_KERNELS, 4: MSAA_KERNELS}
 PROBE_KERNELS = ("probe_dot", "probe_reduce", "probe_lerp")
+# Buildings of the representative city in the reference phase (of 600): the
+# forward frame rasterizes and shades in O(triangles x pixels).
+REFERENCE_BUILDINGS = 40
 
 
 def log(msg):
@@ -1654,6 +1672,156 @@ def _phase_framework(device, width, height, tmp):
     return launches
 
 
+def _soup(n, seed):
+    """test_raster_fast.py's random soup: n triangles of random depth over
+    the whole viewport (and past it), w = 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-1.2, 1.2, (n, 3, 2)).astype(np.float32)
+    z = rng.uniform(0.0, 1.0, (n, 1, 1)).astype(np.float32) * np.ones((n, 3, 1), np.float32)
+    return np.concatenate([xy, z, np.ones((n, 3, 1), np.float32)], axis=2)
+
+
+def _forward_city(device, width, height, n_buildings, samples, deferred=False):
+    """The representative city (n_buildings) rendered once through the
+    user's entry points under REND3_TPU_RASTER=reference (deferred: the
+    default backend, with occlusion culling); returns (graph, image, host
+    ms, peak MiB above the frame's start or nan on the CPU)."""
+    import torch
+
+    from rend3_tpu_torch import scenes
+    from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget, StageTimer
+    from rend3_tpu_torch.testing import TestRunner
+
+    runner = TestRunner(device=device)
+    keep = scenes.build_city_scene(runner, n_buildings=n_buildings, representative=True)
+    scenes.set_bench_camera(runner, width, height)
+    graph = runner.base_graph
+    graph.captured = {}
+    graph.timer = StageTimer(device)
+    cuda = torch.device(device).type == "cuda"
+    old = os.environ.get("REND3_TPU_RASTER")
+    os.environ["REND3_TPU_RASTER"] = "pallas" if deferred else "reference"
+    try:
+        runner.renderer.swap_instruction_buffers()
+        ev = runner.renderer.evaluate_instructions()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        settings = BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0))
+        img = graph.render_frame(ev, FrameRenderTarget(width, height, samples), settings)
+        if cuda:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20 if cuda else float("nan")
+    finally:
+        if old is None:
+            os.environ.pop("REND3_TPU_RASTER")
+        else:
+            os.environ["REND3_TPU_RASTER"] = old
+    stages = graph.timer.ms()
+    graph.timer = None
+    del keep
+    return graph, img, ms, peak, stages
+
+
+def phase_reference(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=REFERENCE_BUILDINGS, check=(320, 180)):
+    """The reference forward backend (REND3_TPU_RASTER=reference): the
+    representative city cut to n_buildings at width x height, at 1 and 4
+    samples, and sample_shadow_map / sample_shadow_maps (K5) on the 1-sample
+    frame's shadow maps at the deferred frame's light-space coordinates,
+    launches counted over those frames and calls only. Firm checks: K5
+    against its plain version bit for bit; raster.rasterize on a 64-triangle
+    soup at width x height (1 sample), card against CPU, bit for bit; the forward frame
+    at `check` on the card and on the CPU within 1 u8. Diagnostic: the
+    pixels where the forward frame is more than 1 u8 off the deferred frame
+    of the same scene. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from rend3_tpu_torch.ops import raster as R
+    from rend3_tpu_torch.ops import shadow as SH
+
+    log(f"reference: the representative city cut to {n_buildings} of its 600 buildings (the forward frame is "
+        f"O(triangles x pixels) by design), at {width}x{height}")
+    dgraph, dimg, dms, dpeak, _ = _forward_city(device, width, height, n_buildings, 1, deferred=True)
+    log(f"reference: deferred frame of the same scene {dms:.1f} ms (host, synchronized), peak {dpeak:.1f} MiB")
+    coords = dgraph.captured["shadow_coords"]
+    cuda = torch.device(device).type == "cuda"
+
+    _reset_launch_counts()
+    frames = {}
+    for samples in (1, 4):
+        graph, img, ms, peak, stages = _forward_city(device, width, height, n_buildings, samples)
+        frames[samples] = (graph, img)
+        _check_image(img, width, height)
+        log(f"reference frame at {samples} sample(s): {ms:.1f} ms (host, synchronized), peak {peak:.1f} MiB above "
+            f"its start, stats {graph.last_stats}")
+        log("  stages (ms): " + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+        if graph.last_stats["samples"] != samples:
+            raise AssertionError(f"the forward frame rendered {graph.last_stats['samples']} samples, not {samples}")
+    vis, atlas, plan = frames[1][0].captured["forward"]
+    maps = [atlas[oy : oy + size, ox : ox + size].contiguous() for _li, (ox, oy), size in plan]
+    entries = [(k, sx, sy, hit) for k, sx, sy, _ref, hit, _ib in coords]
+    occ0, need = SH.sample_shadow_map(maps[0], *entries[0][1:])
+    occs, overflow = SH.sample_shadow_maps(maps, entries)
+    counts = _launch_counts()
+    log(f"launches during the reference path (two forward frames, sample_shadow_map and sample_shadow_maps): {counts}")
+    if cuda:
+        _check_launched(counts, ("gather",))
+
+    # K5 through sample_shadow_map(s) against its plain version (the same
+    # calls on the CPU), bit for bit.
+    p0, _ = SH.sample_shadow_map(maps[0].cpu(), *(t.cpu() for t in entries[0][1:]))
+    ps, _ = SH.sample_shadow_maps([m.cpu() for m in maps], [(k, *(t.cpu() for t in e)) for k, *e in entries])
+    for label, k, p in [("sample_shadow_map", occ0, p0)] + [
+        (f"sample_shadow_maps entry {i}", a, b) for i, (a, b) in enumerate(zip(occs, ps))
+    ]:
+        if not torch.equal(k.cpu(), p):
+            raise AssertionError(f"K5 ({label}) differs from its plain version at {int((k.cpu() != p).sum())} values")
+    n_hit = int(entries[0][3].sum())
+    log(f"K5 through sample_shadow_map(s): bit-exact against the plain version over {len(entries)} entries "
+        f"({n_hit} hit pixels each, maps {[tuple(m.shape) for m in maps]}), need {need}, overflow {overflow}, "
+        f"{int((occ0 > 0).sum())} nonzero taps for light 0")
+
+    # rasterize: card against CPU on a random soup at the full size.
+    soup = torch.from_numpy(_soup(64, 0))
+    valid = torch.ones(64, dtype=torch.bool)
+    t0 = time.perf_counter()
+    a = R.rasterize(soup.to(device), valid.to(device), width, height)
+    b = R.rasterize(soup, valid, width, height)
+    same_depth = torch.equal(a.depth.cpu().view(torch.int32), b.depth.view(torch.int32))
+    if not (torch.equal(a.tri.cpu(), b.tri) and same_depth):
+        raise AssertionError("rasterize on the card differs from the CPU")
+    log(f"rasterize on a 64-triangle soup at {width}x{height}: card equals CPU bit for bit "
+        f"({int((b.tri >= 0).sum())} covered pixels; {time.perf_counter() - t0:.2f} s with the CPU's)")
+
+    # The forward frame at a small size, card against CPU.
+    cw, ch = check
+    _g, card_small, card_ms, _p, _s = _forward_city(device, cw, ch, n_buildings, 1)
+    _g, cpu_small, cpu_ms, _p, _s = _forward_city("cpu", cw, ch, n_buildings, 1)
+    d = int(np.abs(card_small.astype(np.int32) - cpu_small.astype(np.int32)).max())
+    log(f"reference frame at {cw}x{ch}: card vs CPU max {d} u8 (card frame {card_ms:.0f} ms, CPU {cpu_ms:.0f} ms)")
+    if d > 1:
+        raise AssertionError(f"the forward frame on the card differs from the CPU by {d} u8")
+
+    diff = np.abs(frames[1][1].astype(np.int32) - dimg.astype(np.int32)).max(-1)
+    log(f"reference vs deferred frame at {width}x{height} (diagnostic): {int((diff > 1).sum())} pixels more than "
+        f"1 u8 off (largest {int(diff.max())})")
+    return counts
+
+
+def phase_bench_host(device="cuda", n_objects=50_000):
+    """tools.bench_host at n_objects on the card; logs its lines."""
+    from rend3_tpu_torch.tools import bench_host
+
+    res = bench_host.run(n_objects, device, out=lambda line: log("bench_host: " + line))
+    return statistics.median(res["ms"])
+
+
 def main():
     try:
         import torch
@@ -1696,6 +1864,12 @@ def main():
         kernels = timed("kernels", phase_kernels, paths, vis_rows + occ_rows + probe_rows(probe_runs))
         timed("parity", phase_parity)
         timed("framework", phase_framework)
+        ref_counts = timed("reference", phase_reference)
+        for row in kernels:
+            row["launches"] += ref_counts[row["name"]]
+        log("launches on the measured paths with the reference path: "
+            + json.dumps({row["name"]: row["launches"] for row in kernels}))
+        timed("bench_host", phase_bench_host)
         smi = nvidia_smi_line()
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()

@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .fp import ab_minus_cd, dot3, fma32, sqrt32
 from .geometry import S_EA, S_EB, S_EC, S_TL, S_TL1, S_TL2, S_ZA, S_ZB, S_ZC, BinnedTris, TriSetup
 
 __all__ = [
@@ -87,40 +88,6 @@ class GBuffer(NamedTuple):
     data: torch.Tensor
 
 
-def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Exactly rounded float32 fma(a, b, c), emulated in float64.
-
-    a*b is exact in float64 and the sum's rounding error is recovered
-    exactly (TwoSum); the only case where rounding the float64 sum to
-    float32 differs from rounding the exact value is a sum that lands on a
-    float32 tie, which the error then breaks."""
-    a, b, c = torch.broadcast_tensors(a, b, c)
-    p = a.double() * b.double()
-    c64 = c.double()
-    s = p + c64
-    bb = s - p
-    err = (p - (s - bb)) + (c64 - bb)
-    r = s.float()
-    r64 = r.double()
-    d = s - r64
-    toward = torch.where(d > 0, torch.full_like(r, float("inf")), torch.full_like(r, float("-inf")))
-    nb = torch.nextafter(r, toward)
-    tie = (d != 0) & (2.0 * d == nb.double() - r64)
-    fix = tie & (err != 0) & ((err > 0) == (d > 0))
-    return torch.where(fix, nb, r)
-
-
-def sqrt32(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 sqrt, as XLA and CUDA compute it.
-
-    The CPU float32 torch.sqrt of some PyTorch builds is off by an ulp on a
-    sizeable share of inputs; there the sqrt is taken in float64 and
-    rounded, which is exact (53 >= 2*24 + 2 bits, so no double rounding)."""
-    if x.is_cuda:
-        return torch.sqrt(x)
-    return torch.sqrt(x.double()).to(x.dtype)
-
-
 def plane_eval(a, b, c, px, py):
     """fma(a, px, b*py) + c in float32 (the kernels' plane evaluation)."""
     return fma32(a, px, b * py) + c
@@ -139,10 +106,19 @@ def attribute_planes(
     obj_material: torch.Tensor,
     width: int,
     height: int,
+    *,
+    contract: bool = False,
 ) -> torch.Tensor:
     """The (V, PLANES_W) plane table for the surviving triangles (the
     vertex-stage math of opaque.wgsl vs_main), as deferred.py:101-220.
-    Sums over the three corners are written out left to right."""
+    Sums over the three corners are written out left to right.
+
+    contract: the form XLA:CPU gives the JAX function inside a jitted
+    program (the frame's form, read off its fusions): each three-term sum
+    of products as fp.dot3; the edge constant c as fma(a, b, -(c*d)); in
+    the a and b coefficients and the area, the product x = xp*width (or y)
+    of a corner used once fused into the difference that reads it. The
+    default is the eager JAX form."""
     from .geometry import _opp, _swap12
 
     V = tris.count
@@ -153,15 +129,28 @@ def attribute_planes(
 
     w = c[..., 3]
     inv_w = 1.0 / torch.where(w == 0.0, torch.ones_like(w), w)   # (V, 3)
-    x = (c[..., 0] * inv_w * 0.5 + 0.5) * width
-    y = (0.5 - c[..., 1] * inv_w * 0.5) * height
+    xp = c[..., 0] * inv_w * 0.5 + 0.5
+    yp = 0.5 - c[..., 1] * inv_w * 0.5
+    x = xp * width
+    y = yp * height
 
     xn = torch.roll(x, -1, dims=1)
     yn = torch.roll(y, -1, dims=1)
-    ea = -(yn - y)
-    eb = xn - x
-    ec = (yn - y) * x - (xn - x) * y
-    area = (x[:, 1] - x[:, 0]) * (y[:, 2] - y[:, 0]) - (x[:, 2] - x[:, 0]) * (y[:, 1] - y[:, 0])
+    if contract:
+        wt = torch.tensor(float(width), device=c.device)
+        ht = torch.tensor(float(height), device=c.device)
+        ea = fma32(yp, ht, -yn)
+        eb = fma32(-xp, wt, xn)
+        ec = ab_minus_cd(yn - y, x, xn - x, y)
+        area = ab_minus_cd(
+            fma32(xp[:, 1], wt, -x[:, 0]), fma32(yp[:, 2], ht, -y[:, 0]),
+            fma32(xp[:, 2], wt, -x[:, 0]), fma32(yp[:, 1], ht, -y[:, 0]),
+        )
+    else:
+        ea = -(yn - y)
+        eb = xn - x
+        ec = (yn - y) * x - (xn - x) * y
+        area = (x[:, 1] - x[:, 0]) * (y[:, 2] - y[:, 0]) - (x[:, 2] - x[:, 0]) * (y[:, 1] - y[:, 0])
     inv_area = 1.0 / torch.where(area == 0.0, torch.ones_like(area), area)
     oa = _opp(ea) * inv_area[:, None]
     ob = _opp(eb) * inv_area[:, None]
@@ -174,55 +163,54 @@ def attribute_planes(
     def sum3(t, dim):
         return t.select(dim, 0) + t.select(dim, 1) + t.select(dim, 2)
 
-    def gattr(arena, ai, default):
+    def dot(a, b, dim):
+        """sum over dim of a * b (broadcast), in the chosen form."""
+        a, b = torch.broadcast_tensors(a, b)
+        if contract:
+            return dot3(a.select(dim, 0), b.select(dim, 0), a.select(dim, 1), b.select(dim, 1),
+                        a.select(dim, 2), b.select(dim, 2))
+        return sum3(a * b, dim)
+
+    def corner_vals(arena, ai, default):
+        """(V, 3src, C) source-corner values of one attribute arena."""
         base = bs[:, ai]
-        has = base >= 0
         ids = (vloc + base[:, None]).clamp(0, arena.shape[0] - 1)
-        vals = arena[ids]                        # (V, 3src, C)
+        vals = arena[ids]
         dflt = torch.tensor(default, dtype=torch.float32, device=vals.device)
-        vals = torch.where(has[:, None, None], vals, dflt)
-        # per-CLIPPED-corner values: sum_k b[v,j,k] * vals[v,k,c]
-        return sum3(b[:, :, :, None] * vals[:, None, :, :], 2)
+        return torch.where((base >= 0)[:, None, None], vals, dflt)
+
+    # Every attribute at once, side by side along the channel axis: each
+    # sum below is per channel, so batching them changes no value.
+    vals = torch.cat([
+        corner_vals(geo.position, 0, [0.0, 0.0, 0.0]), corner_vals(geo.normal, 1, [0.0, 0.0, 0.0]),
+        corner_vals(geo.tangent, 2, [0.0, 0.0, 0.0]), corner_vals(geo.uv0, 3, [0.0, 0.0]),
+        corner_vals(geo.uv1, 4, [0.0, 0.0]), corner_vals(geo.color0, 5, [1.0, 1.0, 1.0, 1.0]),
+    ], dim=2)
+    # per-CLIPPED-corner values: sum_k b[v,j,k] * vals[v,k,c]
+    pos_c, nrm_m, tan_m, uv0_c, uv1_c, col_c = dot(b[:, :, :, None], vals[:, None, :, :], 2).split(
+        [3, 3, 3, 2, 2, 4], dim=2
+    )
 
     mv = model_view[obj]
     mv3 = mv[:, :3, :3]
+    inv_scale_sq = 1.0 / torch.clamp_min(dot(mv3, mv3, 1), 1e-30)[:, None, :]   # (V, 1, 3)
+    # sum_b mv3[v,a,b] * t[v,j,b] of position, normal and tangent -> (V, 9, a)
+    vecs = torch.cat([pos_c, nrm_m * inv_scale_sq, tan_m * inv_scale_sq], dim=1)
+    vecs = dot(mv3[:, None, :, :], vecs[:, :, None, :], 3)
+    vp_c = vecs[:, 0:3] + mv[:, None, :3, 3]
+    dirs = vecs[:, 3:9]
+    n = sqrt32(dot(dirs, dirs, 2))[..., None]
+    dirs = dirs / torch.where(n == 0.0, torch.ones_like(n), n)
 
-    def mv3_apply(t):  # sum_b mv3[v,a,b] * t[v,j,b] -> (V, j, a)
-        return sum3(mv3[:, None, :, :] * t[:, :, None, :], 3)
-
-    pos_c = gattr(geo.position, 0, [0.0, 0.0, 0.0])
-    vp_c = mv3_apply(pos_c) + mv[:, None, :3, 3]
-    inv_scale_sq = 1.0 / torch.clamp_min(sum3(mv3 * mv3, 1), 1e-30)   # (V, 3)
-    nrm_c = mv3_apply(gattr(geo.normal, 1, [0.0, 0.0, 0.0]) * inv_scale_sq[:, None, :])
-    tan_c = mv3_apply(gattr(geo.tangent, 2, [0.0, 0.0, 0.0]) * inv_scale_sq[:, None, :])
-
-    def _norm(v):
-        n = sqrt32(sum3(v * v, 2))[..., None]
-        return v / torch.where(n == 0.0, torch.ones_like(n), n)
-
-    nrm_c = _norm(nrm_c)
-    tan_c = _norm(tan_c)
-    uv0_c = gattr(geo.uv0, 3, [0.0, 0.0])
-    uv1_c = gattr(geo.uv1, 4, [0.0, 0.0])
-    col_c = gattr(geo.color0, 5, [1.0, 1.0, 1.0, 1.0])
-
-    def num_planes(vals_c):
-        """(V, 3, C) -> (V, C, 3) plane coefs of sum_j (A_j/w_j) lam_j."""
-        aw = vals_c * inv_w[:, :, None]
-        pa = sum3(aw * oa[:, :, None], 1)
-        pb = sum3(aw * ob[:, :, None], 1)
-        pc = sum3(aw * oc[:, :, None], 1)
-        return torch.stack([pa, pb, pc], dim=-1)
-
-    den = num_planes(torch.ones_like(inv_w)[..., None])[:, 0]
+    # Plane coefficients (a, b, c) of sum_j (A_j / w_j) lam_j for 1/w and
+    # every attribute channel: (V, 18, 3).
+    allv = torch.cat([torch.ones_like(inv_w)[..., None], vp_c, dirs[:, 0:3], dirs[:, 3:6], uv0_c, uv1_c, col_c], 2)
+    aw = allv * inv_w[:, :, None]
+    opp = torch.stack([oa, ob, oc], dim=-1)   # (V, 3, 3)
+    pl = dot(aw[:, :, :, None], opp[:, :, None, :], 1)
     planes = torch.zeros(V, PLANES_W, dtype=torch.float32, device=c.device)
-    planes[:, P_DEN : P_DEN + 3] = den
-    planes[:, P_VP : P_VP + 9] = num_planes(vp_c).reshape(V, 9)
-    planes[:, P_NRM : P_NRM + 9] = num_planes(nrm_c).reshape(V, 9)
-    planes[:, P_TAN : P_TAN + 9] = num_planes(tan_c).reshape(V, 9)
-    planes[:, P_UV0 : P_UV0 + 6] = num_planes(uv0_c).reshape(V, 6)
-    planes[:, P_UV1 : P_UV1 + 6] = num_planes(uv1_c).reshape(V, 6)
-    planes[:, P_COL : P_COL + 12] = num_planes(col_c).reshape(V, 12)
+    planes[:, P_DEN : P_DEN + 3] = pl[:, 0]
+    planes[:, P_VP : P_COL + 12] = pl[:, 1:].reshape(V, P_COL + 12 - P_VP)
     planes[:, P_MAT] = obj_material[obj].float()
     return planes
 

@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from .fp import ab_minus_cd, dot3, fma32
 from .hi_z import occlusion_test
 
 __all__ = [
@@ -76,6 +77,10 @@ def _top_left(ax, ay, bx, by):
     return ((dy == 0.0) & (dx > 0.0)) | (dy < 0.0)
 
 
+def _ab_minus_cd_eager(a, b, c, d):
+    return a * b - c * d
+
+
 def _swap12(a: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
     """Corners 1 <-> 2 where flip (orientation fix)."""
     swapped = torch.stack([a[:, 0], a[:, 2], a[:, 1]], dim=1)
@@ -87,18 +92,21 @@ def _opp(a: torch.Tensor) -> torch.Tensor:
     return torch.stack([a[:, 1], a[:, 2], a[:, 0]], dim=1)
 
 
-def _screen_tests(clip, valid, width, height, *, cull_mode, front_is_cw, subpixel, hiz=None, capture=None):
+def _screen_tests(
+    clip, valid, width, height, *, cull_mode, front_is_cw, subpixel, hiz=None, capture=None, contract=False,
+):
     """Degenerate / winding / viewport / sub-pixel culls (cull.wgsl), and
     the Hi-Z occlusion test against `hiz` (a hi_z.build_pyramid list) when
-    given; `capture` as in hi_z.occlusion_test. Returns (keep, x, y, z,
-    area2)."""
+    given; `capture` as in hi_z.occlusion_test; `contract` as in
+    cull_and_setup. Returns (keep, x, y, z, area2)."""
+    d2 = ab_minus_cd if contract else _ab_minus_cd_eager
     w = clip[..., 3]
     inv_w = 1.0 / torch.where(w == 0.0, torch.ones_like(w), w)
     x = (clip[..., 0] * inv_w * 0.5 + 0.5) * width
     y = (0.5 - clip[..., 1] * inv_w * 0.5) * height
     z = clip[..., 2] * inv_w
 
-    area2 = (x[:, 1] - x[:, 0]) * (y[:, 2] - y[:, 0]) - (x[:, 2] - x[:, 0]) * (y[:, 1] - y[:, 0])
+    area2 = d2(x[:, 1] - x[:, 0], y[:, 2] - y[:, 0], x[:, 2] - x[:, 0], y[:, 1] - y[:, 0])
     is_front = (area2 > 0.0) if front_is_cw else (area2 < 0.0)
     keep = valid & (area2 != 0.0) & (w > 0.0).all(dim=-1)
     if cull_mode == CullMode.BACK:
@@ -124,13 +132,13 @@ def _screen_tests(clip, valid, width, height, *, cull_mode, front_is_cw, subpixe
 
 def visibility_mask(clip, valid, width, height, *, cull_mode, front_is_cw, subpixel, hiz, capture=None):
     """Per-row potentially-visible mask: the tests of cull_and_setup,
-    including the Hi-Z query, without building a setup table. Drives the
-    two-phase predicted-visible set (cull.wgsl phase-2 result stores): the
-    next frame predicts exactly the rows that pass against this frame's
-    occluder depth."""
+    including the Hi-Z query, without building a setup table, in the
+    frame's contracted form. Drives the two-phase predicted-visible set
+    (cull.wgsl phase-2 result stores): the next frame predicts exactly the
+    rows that pass against this frame's occluder depth."""
     keep, *_ = _screen_tests(
         clip, valid, width, height, cull_mode=cull_mode, front_is_cw=front_is_cw,
-        subpixel=subpixel, hiz=hiz, capture=capture,
+        subpixel=subpixel, hiz=hiz, capture=capture, contract=True,
     )
     return keep
 
@@ -146,6 +154,7 @@ def cull_and_setup(
     subpixel: bool = False,
     hiz=None,
     capture=None,
+    contract: bool = False,
 ) -> TriSetup:
     """Cull, compute edge/depth planes, compact to the survivors. With
     `hiz` (a hi_z.build_pyramid list) the survivors also pass the Hi-Z
@@ -153,11 +162,19 @@ def cull_and_setup(
     opaque phase-1 depth (base.py:1487-1489 into geom_pass, :1334-1339);
     `capture` as in hi_z.occlusion_test.
 
+    contract: the form XLA:CPU gives the JAX function inside a jitted
+    program (the frame's form, read off its fusions): each a*b - c*d of
+    the area and the edge constants as fma(a, b, -(c*d)), each depth-plane
+    sum as fma(z2, e2, fma(z1, e1, z0*e0)), and the stored a coefficients
+    -(yn - yo) as fma(yp, height, -yn), yo's product fused in. The default
+    is the eager JAX form.
+
     Host read: `nonzero` sizes the survivor table (one device sync)."""
     keep, x, y, z, area2 = _screen_tests(
         clip, valid, width, height, cull_mode=cull_mode, front_is_cw=front_is_cw,
-        subpixel=subpixel, hiz=hiz, capture=capture,
+        subpixel=subpixel, hiz=hiz, capture=capture, contract=contract,
     )
+    d2 = ab_minus_cd if contract else _ab_minus_cd_eager
     g = torch.nonzero(keep).flatten()
     x, y, z, area2 = x[g], y[g], z[g], area2[g]
     flip = area2 < 0.0
@@ -169,8 +186,16 @@ def cull_and_setup(
     xn = torch.roll(xo, -1, dims=1)
     yn = torch.roll(yo, -1, dims=1)
     ea = -(yn - yo)
+    ea_row = ea
+    if contract:
+        # The stored row holds -(yn - yo) as yo - yn with yo's product fused
+        # in; the depth plane below reads the plain difference.
+        c = clip[g]
+        w = c[..., 3]
+        y_pre = _swap12(0.5 - c[..., 1] * (1.0 / torch.where(w == 0.0, torch.ones_like(w), w)) * 0.5, flip)
+        ea_row = fma32(y_pre, torch.tensor(float(height), device=y_pre.device), -yn)
     eb = xn - xo
-    ec = (yn - yo) * xo - (xn - xo) * yo
+    ec = d2(yn - yo, xo, xn - xo, yo)
     tl = _top_left(xo, yo, xn, yn).float()
 
     # Watertight shared edges (geometry.py:226-239): anchor c at the
@@ -182,20 +207,24 @@ def cull_and_setup(
     hx = torch.where(swap, xo, xn)
     ly = torch.where(swap, yn, yo)
     hy = torch.where(swap, yo, yn)
-    ec_canon = sgn * ((hy - ly) * lx - (hx - lx) * ly)
+    ec_canon = sgn * d2(hy - ly, lx, hx - lx, ly)
 
     # Depth plane: z(p) = sum_i z_i * e_opp_i(p) / area.
-    area_o = (xo[:, 1] - xo[:, 0]) * (yo[:, 2] - yo[:, 0]) - (xo[:, 2] - xo[:, 0]) * (yo[:, 1] - yo[:, 0])
+    area_o = d2(xo[:, 1] - xo[:, 0], yo[:, 2] - yo[:, 0], xo[:, 2] - xo[:, 0], yo[:, 1] - yo[:, 0])
     inv_area = 1.0 / torch.where(area_o == 0.0, torch.ones_like(area_o), area_o)
 
-    def _plane(e):
-        t = zo * _opp(e)
-        return (t[:, 0] + t[:, 1] + t[:, 2]) * inv_area
-
-    za, zb, zc = _plane(ea), _plane(eb), _plane(ec)
+    # The three planes at once: (V, plane, corner) opposite-edge values.
+    opp = torch.stack([_opp(ea), _opp(eb), _opp(ec)], dim=1)
+    zc3 = zo[:, None, :]
+    if contract:
+        zp = dot3(zc3[..., 0], opp[..., 0], zc3[..., 1], opp[..., 1], zc3[..., 2], opp[..., 2])
+    else:
+        t = zc3 * opp
+        zp = t[..., 0] + t[..., 1] + t[..., 2]
+    za, zb, zc = (zp * inv_area[:, None]).unbind(1)
     setup = torch.stack(
         [
-            ea[:, 0], ea[:, 1], ea[:, 2],
+            ea_row[:, 0], ea_row[:, 1], ea_row[:, 2],
             eb[:, 0], eb[:, 1], eb[:, 2],
             ec_canon[:, 0], ec_canon[:, 1], ec_canon[:, 2],
             za, zb, zc,

@@ -1,7 +1,11 @@
-"""PBR shading math (opaque.wgsl), planar over pixels.
+"""PBR shading math (opaque.wgsl), planar over pixels, and the forward
+frame's shading pass.
 
 Port of rend3_tpu/ops/shade.py: the material flags and data layout, the
-frame's light and uniform tables, and `_shade_pixels` (shade.py:443-707).
+frame's light and uniform tables, `_shade_pixels` (shade.py:443-707), the
+shadow-atlas PCF of the forward frame (`_sample_compare_bilinear`,
+`shadow_sample_pcf5`, shade.py:229-271) and `shade_deferred`, which shades
+a visibility buffer (shade.py:284-441).
 
 Matched math: material decode with every texture branch (albedo, the normal
 map in its three encodings with tangent and bitangent, the three AO /
@@ -9,7 +13,10 @@ metallic / roughness packings, reflectance, clear coat, emissive), Lambert
 diffuse + GGX/Smith/Schlick specular (math/brdf.wgsl), directional lights
 with precomputed shadow factors, point lights with the smooth-radius
 falloff, final max(ambient * albedo, shaded). Textures arrive as per-slot
-samples taken by lighting.light_gbuffer (texture.sample_textures_grid).
+samples taken by lighting.light_gbuffer (texture.sample_textures_grid),
+or, in the forward frame, through texture.sample_textures; directional
+shadows arrive as factors, or, in the forward frame, are resolved from the
+shadow atlas.
 """
 
 from __future__ import annotations
@@ -18,10 +25,12 @@ from typing import NamedTuple
 
 import torch
 
-from .deferred import sqrt32
+from .fp import sqrt32
 
 __all__ = [
     "MF",
+    "shadow_sample_pcf5",
+    "shade_deferred",
     "PbrMaterialTable",
     "PBR_DATA_SIZE",
     "DirLightArrays",
@@ -193,24 +202,219 @@ def _finite_or_zero(t):
     return torch.where(torch.isfinite(t), t, torch.zeros_like(t))
 
 
+def _sample_compare_bilinear(atlas, u_px, v_px, ref):
+    """textureSampleCompareLevel with a linear GreaterEqual comparison
+    sampler (shade.py:229-258): compare each of the 4 bilinear texels with
+    ref, then blend the 0/1 results. atlas (Ha, Wa) stored reverse-Z depth;
+    u_px, v_px texel-space coordinates; lit (1.0) where ref >= stored."""
+    ha, wa = atlas.shape
+    xf = u_px - 0.5
+    yf = v_px - 0.5
+    x0 = torch.floor(xf)
+    y0 = torch.floor(yf)
+    fx = xf - x0
+    fy = yf - y0
+    x0 = x0.to(torch.int32)
+    y0 = y0.to(torch.int32)
+
+    def cmp(xi, yi):
+        xi = xi.clamp(0, wa - 1).long()
+        yi = yi.clamp(0, ha - 1).long()
+        return (ref >= atlas[yi, xi]).to(torch.float32)
+
+    c00 = cmp(x0, y0)
+    c10 = cmp(x0 + 1, y0)
+    c01 = cmp(x0, y0 + 1)
+    c11 = cmp(x0 + 1, y0 + 1)
+    top = c00 * (1.0 - fx) + c10 * fx
+    bot = c01 * (1.0 - fx) + c11 * fx
+    return top * (1.0 - fy) + bot * fy
+
+
+def shadow_sample_pcf5(atlas, coords_uv, ref):
+    """5-tap PCF cross (shadow/pcf.wgsl:1-9, shade.py:261-271): coords_uv
+    (..., 2) atlas uv; ref (...,) depth."""
+    ha, wa = atlas.shape
+    u_px = coords_uv[..., 0] * wa
+    v_px = coords_uv[..., 1] * ha
+    total = _sample_compare_bilinear(atlas, u_px, v_px, ref)
+    for ox, oy in ((0, 1), (0, -1), (1, 0), (-1, 0)):
+        total = total + _sample_compare_bilinear(atlas, u_px + ox, v_px + oy, ref)
+    return total * 0.2
+
+
+def _interp(corner_vals, bary):
+    """corner_vals (N, 3, C), bary (N, 3) -> (N, C)."""
+    t = corner_vals * bary[:, :, None]
+    return (t[:, 0] + t[:, 1]) + t[:, 2]
+
+
+def _normalize(v):
+    """v / |v| over the last axis (0 length left as is)."""
+    n = sqrt32((v * v).sum(-1, keepdim=True))
+    return v / torch.where(n == 0.0, torch.ones_like(n), n)
+
+
+def shade_deferred(
+    vis, ctris, tri_vlocal, tri_obj, geo, obj_bases, model_view, obj_material,
+    materials: PbrMaterialTable, dir_lights: DirLightArrays, point_lights: PointLightArrays,
+    shadow_atlas, uniforms: FrameUniformsArrays, width: int, height: int, sample_offsets,
+    textures=None, background=None, origin=(0, 0),
+):
+    """Shade every sample of a visibility buffer (shade.py:284-416): per
+    pixel, the barycentrics of its clipped triangle at the sample position,
+    the vertex attributes interpolated from the source triangle's corners,
+    the material decode and lighting of `_shade_pixels` with shadows from
+    `shadow_atlas` and textures through texture.sample_textures with the
+    analytic uv gradients. Returns (S, Ht, Wt, 4) linear HDR RGBA, the
+    background (transparent black when None) where no triangle hit.
+    `width` / `height` are the viewport; the shaded region is the tile
+    covered by `vis`, whose top-left pixel is `origin`."""
+    S, tile_h, tile_w = vis.tri.shape
+    N = S * tile_h * tile_w
+    dev = vis.tri.device
+    t = vis.tri.reshape(N).long()
+    hit = t >= 0
+    ts = t.clamp_min(0)
+
+    cpos = ctris.clip[ts]
+    bmat = ctris.bary[ts]
+    orig = ctris.orig[ts].long()
+    inv_w = 1.0 / cpos[..., 3]
+    sx = (cpos[..., 0] * inv_w * 0.5 + 0.5) * width
+    sy = (0.5 - cpos[..., 1] * inv_w * 0.5) * height
+
+    cols = torch.arange(tile_w, dtype=torch.float32, device=dev) + origin[0]
+    rows = torch.arange(tile_h, dtype=torch.float32, device=dev) + origin[1]
+    pxs, pys = [], []
+    for ox, oy in sample_offsets:
+        py, px = torch.meshgrid(rows + oy, cols + ox, indexing="ij")
+        pxs.append(px)
+        pys.append(py)
+    px = torch.stack(pxs).reshape(N)
+    py = torch.stack(pys).reshape(N)
+
+    def edge(i, j):
+        return (sx[:, j] - sx[:, i]) * (py - sy[:, i]) - (sy[:, j] - sy[:, i]) * (px - sx[:, i])
+
+    bar = torch.stack([edge(1, 2), edge(2, 0), edge(0, 1)], dim=-1)
+    bsum = (bar[:, 0:1] + bar[:, 1:2]) + bar[:, 2:3]
+    bar = bar / torch.where(bsum == 0.0, torch.ones_like(bsum), bsum)
+    pb = bar * inv_w
+    psum = (pb[:, 0:1] + pb[:, 1:2]) + pb[:, 2:3]
+    pb = pb / torch.where(psum == 0.0, torch.ones_like(psum), psum)
+    beta = _interp(bmat, pb)  # barycentrics of the source triangle
+
+    vloc = tri_vlocal[orig].long()
+    obj = tri_obj[orig].clamp_min(0).long()
+    bases = obj_bases[obj].long()
+
+    def gather_attr(arena, ai, default):
+        base = bases[:, ai]
+        ids = (vloc + base[:, None]).clamp(0, arena.shape[0] - 1)
+        vals = arena[ids]
+        dflt = torch.tensor(default, dtype=torch.float32, device=dev)
+        return torch.where((base >= 0)[:, None, None], vals, dflt)
+
+    mv = model_view[obj]
+    mv3 = mv[:, :3, :3]
+
+    def mat3(m, v):  # sum_b m[n, a, b] * v[n, ..., b], summed in order
+        t = m[:, None, :, :] * v[:, :, None, :] if v.dim() == 3 else m * v[:, None, :]
+        return (t[..., 0] + t[..., 1]) + t[..., 2]
+
+    model_pos = _interp(gather_attr(geo.position, 0, [0.0, 0.0, 0.0]), beta)
+    view_pos = mat3(mv3, model_pos) + mv[:, :3, 3]
+    sq = mv3 * mv3
+    inv_scale_sq = 1.0 / torch.clamp_min((sq[:, 0] + sq[:, 1]) + sq[:, 2], 1e-30)
+    nrm_v = mat3(mv3, gather_attr(geo.normal, 1, [0.0, 0.0, 0.0]) * inv_scale_sq[:, None, :])
+    tan_v = mat3(mv3, gather_attr(geo.tangent, 2, [0.0, 0.0, 0.0]) * inv_scale_sq[:, None, :])
+    nrm = _interp(_normalize(nrm_v), beta)
+    tan = _interp(_normalize(tan_v), beta)
+    uv0_c = gather_attr(geo.uv0, 3, [0.0, 0.0])
+    uv0 = _interp(uv0_c, beta)
+    vcol = _interp(gather_attr(geo.color0, 5, [1.0, 1.0, 1.0, 1.0]), beta)
+    duv = _uv_gradients(sx, sy, inv_w, bmat, bar, pb, uv0_c) if textures is not None else None
+
+    midx = obj_material[obj].long()
+    mdata = materials.data[midx]
+    mflags = materials.flags[midx]
+    mtex = materials.textures[midx] if textures is not None else None
+    out_rgb, out_a = _shade_pixels(
+        mdata.T, mflags, None if mtex is None else mtex.T, vcol.T, nrm.T, tan.T, view_pos.T,
+        dir_lights, point_lights, uniforms, None,
+        textures=textures, uv0=uv0.T, duv=None if duv is None else duv.reshape(N, 4).T, shadow_atlas=shadow_atlas,
+    )
+    rgba = torch.cat([out_rgb, out_a], dim=0).T
+    bg = torch.zeros(N, 4, device=dev) if background is None else background.reshape(N, 4)
+    rgba = torch.where(hit[:, None], rgba, bg)
+    return rgba.reshape(S, tile_h, tile_w, 4)
+
+
+def _uv_gradients(sx, sy, inv_w, bmat, bar, pb, uv_corners):
+    """d(uv)/dx and d(uv)/dy (shade.py:419-441): the screen barycentrics'
+    constant gradients, perspective-corrected to first order at the pixel,
+    weighting the corners' uv. Returns (N, 2, 2). `bmat` is unused, as in
+    JAX's function (same signature)."""
+    x0, x1, x2 = sx[:, 0], sx[:, 1], sx[:, 2]
+    y0, y1, y2 = sy[:, 0], sy[:, 1], sy[:, 2]
+    area2 = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    area2 = torch.where(area2 == 0.0, torch.ones_like(area2), area2)
+    dl_dx = torch.stack([(y1 - y2), (y2 - y0), (y0 - y1)], dim=-1) / area2[:, None]
+    dl_dy = torch.stack([(x2 - x1), (x0 - x2), (x1 - x0)], dim=-1) / area2[:, None]
+
+    def sum3(t):
+        return (t[:, 0:1] + t[:, 1:2]) + t[:, 2:3]
+
+    wsum = sum3(bar * inv_w)
+    wsum = torch.where(wsum == 0.0, torch.ones_like(wsum), wsum)
+    db_dx = (dl_dx * inv_w - pb * sum3(dl_dx * inv_w)) / wsum
+    db_dy = (dl_dy * inv_w - pb * sum3(dl_dy * inv_w)) / wsum
+    return torch.stack([_interp(uv_corners, db_dx), _interp(uv_corners, db_dy)], dim=1)
+
+
 def _shade_pixels(
     mdata, mflags, mtex, vcol, nrm, tan, view_pos,
     dir_lights: DirLightArrays, point_lights: PointLightArrays,
     uniforms: FrameUniformsArrays, shadow_values, tex_samples=None,
+    *, textures=None, uv0=None, duv=None, shadow_atlas=None,
 ):
     """get_pixel_data + the lighting loop, planar over N pixels: mdata
     (D, N), mflags (N,), mtex (NSLOT, N) 1-based texture ids or None,
     vcol (4, N), nrm/tan/view_pos (3, N), shadow_values (L, N), tex_samples
     None or a list of NSLOT (4, N) samples / None (a slot no material
     samples this frame reads as a white texture). Returns ((3, N) rgb,
-    (1, N) alpha)."""
+    (1, N) alpha).
+
+    The forward frame's inputs, as in JAX (shade.py:474-484, 615-655):
+    with shadow_values None, each directional light's factor is PCF5 of
+    `shadow_atlas` at the pixel's light-space position, with the
+    reference's atlas-space bounds expressions (the any() quirk); with
+    tex_samples None and `textures` given, every slot is sampled through
+    texture.sample_textures at the material's transform of `uv0` (2, N)
+    with gradients `duv` (4, N) rows [du/dx, dv/dx, du/dy, dv/dy] or None."""
     dev = mdata.device
     N = mdata.shape[1]
 
     def fl(bit):
         return ((mflags & bit) != 0)[None, :]
 
+    coords = None
+    if tex_samples is None and textures is not None and mtex is not None:
+        u, vv = uv0[0:1], uv0[1:2]
+        coords = torch.cat([
+            mdata[PBR_UVT0 + 0 : PBR_UVT0 + 1] * u + mdata[PBR_UVT0 + 1 : PBR_UVT0 + 2] * vv
+            + mdata[PBR_UVT0 + 2 : PBR_UVT0 + 3],
+            mdata[PBR_UVT0 + 3 : PBR_UVT0 + 4] * u + mdata[PBR_UVT0 + 4 : PBR_UVT0 + 5] * vv
+            + mdata[PBR_UVT0 + 5 : PBR_UVT0 + 6],
+        ])
+
     def sample(slot):
+        if coords is not None:
+            from .texture import sample_textures
+
+            duv_nm = None if duv is None else duv.T.reshape(N, 2, 2)
+            return sample_textures(textures, mtex[slot], coords.T, duv_nm, mflags).T
         if tex_samples is None:
             return None
         s = tex_samples[slot]
@@ -322,8 +526,15 @@ def _shade_pixels(
     view3 = uniforms.view[:3, :3]
 
     color = emissive
+    if shadow_values is None:
+        iv = uniforms.inv_view
+        world = [((iv[a, 0] * view_pos[0] + iv[a, 1] * view_pos[1]) + iv[a, 2] * view_pos[2]) + iv[a, 3]
+                 for a in range(3)]
     for i in range(dir_lights.mask.shape[0]):
-        shadow_value = shadow_values[i][None, :]
+        if shadow_values is None:
+            shadow_value = _atlas_shadow(dir_lights, i, world, shadow_atlas)[None, :]
+        else:
+            shadow_value = shadow_values[i][None, :]
         dvec = view3 @ (-dir_lights.direction[i])
         dn = sqrt32((dvec * dvec).sum())
         l = dvec / torch.where(dn == 0.0, torch.ones_like(dn), dn)
@@ -357,6 +568,31 @@ def _shade_pixels(
     out_rgb = torch.where(unlit, albedo[:3], lit_rgb)
     out_a = torch.where(unlit, albedo[3:4], lit_a)
     return out_rgb, out_a
+
+
+def _atlas_shadow(dir_lights: DirLightArrays, i: int, world, atlas):
+    """Light i's shadow factor at world positions (three (N,) rows) from
+    the shadow atlas (shade.py:617-650): PCF5 inside the reference's
+    atlas-space bounds, including its any() quirk, 1.0 outside."""
+    vp = dir_lights.view_proj[i]
+    ndc = [((vp[a, 0] * world[0] + vp[a, 1] * world[1]) + vp[a, 2] * world[2]) + vp[a, 3] for a in range(3)]
+    flipped_x = ndc[0] * 0.5 + 0.5
+    flipped_y = ndc[1] * 0.5 + 0.5
+    top_left = dir_lights.atlas_offset[i]
+    size = dir_lights.atlas_size[i]
+    sc_u = top_left[0] + size[0] * flipped_x
+    sc_v = top_left[1] + size[1] * (1.0 - flipped_y)
+    border = dir_lights.inv_resolution[i] * 1.5
+    tl_b = top_left + border
+    tr_b = top_left + size - border
+    in_bounds = (
+        ((flipped_x >= tl_b[0]) | (flipped_y >= tl_b[1]))
+        & ((flipped_x <= tr_b[0]) | (flipped_y <= tr_b[1]))
+        & (ndc[2] >= 0.0)
+        & (ndc[2] <= 1.0)
+    )
+    pcf = shadow_sample_pcf5(atlas, torch.stack([sc_u, sc_v], dim=-1), ndc[2])
+    return torch.where(in_bounds, pcf, torch.ones_like(pcf))
 
 
 def albedo_alpha(mdata, mflags, vcol, tex_a):

@@ -9,6 +9,9 @@ every (G-buffer, light) entry resolves through one K3 launch
 and pcf5_from_occlusion (shadow.py:51-577, 769-792) compute the same
 occluder depths straight from the caster triangles, with no map; the frame
 does not use them (rend3_tpu_torch.probe_shadow drives them).
+sample_shadow_map and sample_shadow_maps (shadow.py:581-666) read the
+occluder depth at the 12 PCF texels of every pixel from rasterized maps
+through K5 (samplers.sample_grid).
 """
 
 from __future__ import annotations
@@ -19,12 +22,13 @@ import torch
 
 from .deferred import fma32, plane_eval
 from .geometry import S_EA, S_EB, S_EC, S_ZA, S_ZB, S_ZC, BinnedTris, TriSetup
-from .samplers import sample_grid_pcf5
+from .samplers import sample_grid, sample_grid_pcf5
 
 __all__ = [
     "stack_shadow_maps", "resolve_shadow_pcf5", "PCF_OFFSETS", "N_OFF", "STILE_H", "STILE_W",
     "rect_lists", "cell_lists", "occlusion_from_lists", "shadow_occlusion", "shadow_occlusion_plain",
     "shadow_occlusion_lt", "shadow_occlusion_lt_plain", "occlusion_pairs", "pcf5_from_occlusion",
+    "sample_shadow_map", "sample_shadow_maps",
 ]
 
 # Gap unit: maps are padded to a multiple of GAP rows plus one more GAP of
@@ -88,6 +92,45 @@ def resolve_shadow_pcf5(smaps, entries, stacked=None, capture=None):
     # Invalid pixels read 0 from the sampler; they are lit (1.0).
     pcf_all = torch.where(ok_all, pcf_all, torch.ones_like(pcf_all))
     return [p.reshape(e[1].shape) for p, e in zip(torch.split(pcf_all, [e[1].numel() for e in entries]), entries)]
+
+
+def _base_texel(s):
+    return torch.floor(s - 0.5).to(torch.int32)
+
+
+def sample_shadow_map(smap, sx, sy, hit):
+    """Occluder depth at the 12 PCF texel centres (PCF_OFFSETS) of every
+    pixel from a rasterized (size, size) max-depth map, through one K5
+    launch: ((12, H, W), need). sx, sy (H, W) are each pixel's light-space
+    texel coordinates, hit (H, W) bool; texels no caster touched, taps
+    outside the map and pixels not hit read 0.0. JAX's second value is the
+    pair count its capped gather needed; K5 has no pair cap, so it is 0."""
+    out = sample_grid(
+        smap.contiguous(), _base_texel(sx).contiguous(), _base_texel(sy).contiguous(), hit.contiguous(), PCF_OFFSETS,
+    )
+    return out, 0
+
+
+def sample_shadow_maps(smaps, entries):
+    """All PCF tap gathers of a frame in one K5 launch (shadow.py:608-666):
+    the maps stacked row-wise with zero gap rows (stack_shadow_maps), every
+    entry's pixels stacked too. entries: (map index, sx, sy, hit) per
+    (G-buffer, light), each (H_e, W) with one W. Returns (list of (12, H_e,
+    W) occluder depths, overflow); K5 has no pair cap, so overflow is 0."""
+    if not entries:
+        return [], 0
+    stacked, bases = stack_shadow_maps(smaps)
+    bxs, bys, oks = [], [], []
+    for mi, sx, sy, hit in entries:
+        h_m, w_m = smaps[mi].shape
+        bx, by = _base_texel(sx), _base_texel(sy)
+        # A base texel outside its own map reads nothing; taps past a map's
+        # edge read the zero gap.
+        oks.append(hit & (bx >= 0) & (bx < w_m) & (by >= 0) & (by < h_m))
+        bxs.append(bx)
+        bys.append(by + bases[mi])
+    occ = sample_grid(stacked, *(torch.cat(t, dim=0).contiguous() for t in (bxs, bys, oks)), PCF_OFFSETS)
+    return list(torch.split(occ, [int(e[1].shape[0]) for e in entries], dim=1)), 0
 
 
 # ---------------------------------------------------------------------------

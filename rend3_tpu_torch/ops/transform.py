@@ -16,6 +16,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from .fp import dot3, fma32
+
 __all__ = [
     "ClippedTris",
     "object_uniforms",
@@ -81,12 +83,20 @@ def gather_tri_clip(
     base_position: torch.Tensor,  # (O,) per-object position arena base
     mvp: torch.Tensor,           # (O, 4, 4)
     tri_pos: torch.Tensor = None,  # optional pre-gathered (T, 3, 3) corners
+    *,
+    contract: bool = False,
 ) -> torch.Tensor:
-    """Gather corner positions and transform to clip space: (T, 3, 4)."""
+    """Gather corner positions and transform to clip space: (T, 3, 4).
+
+    contract: the form XLA:CPU gives the JAX function inside a jitted
+    program, fma(m2, p2, fma(m1, p1, m0*p0)) + m3 (the frame's form); the
+    default is the form of the eager JAX function."""
     if tri_pos is None:
         tri_pos = positions[tri_global_ids(tri_vlocal, tri_obj, base_position, positions.shape[0])]
     m = mvp[tri_obj.clamp_min(0).long()]                     # (T, 4, 4)
     p = tri_pos
+    if contract:
+        return dot3(*(t for k in range(3) for t in (m[:, None, :, k], p[:, :, None, k]))) + m[:, None, :, 3]
     # clip[t, c, a] = ((m[a,0] p0 + m[a,1] p1) + m[a,2] p2) + m[a,3]
     return (
         m[:, None, :, 0] * p[:, :, None, 0]
@@ -96,7 +106,7 @@ def gather_tri_clip(
     )
 
 
-def _clip_one_plane(verts, bary, count, plane_fn):
+def _clip_one_plane(verts, bary, count, plane_fn, contract=False):
     """Sutherland-Hodgman step against one plane for polygons of up to 4
     vertices in 5-slot buffers, vectorized over the leading axis.
 
@@ -136,15 +146,19 @@ def _clip_one_plane(verts, bary, count, plane_fn):
         crosses = live & (ini != inj)
         den = di - dj
         t = di / torch.where(den.abs() < 1e-30, torch.full_like(den, 1e-30), den)
-        v_int = vi + (vj - vi) * t[:, None]
-        b_int = bi + (bj - bi) * t[:, None]
+        if contract:
+            v_int = fma32(vj - vi, t[:, None], vi)
+            b_int = fma32(bj - bi, t[:, None], bi)
+        else:
+            v_int = vi + (vj - vi) * t[:, None]
+            b_int = bi + (bj - bi) * t[:, None]
         out_v = put(out_v, out_n, v_int, crosses)
         out_b = put(out_b, out_n, b_int, crosses)
         out_n = out_n + crosses.long()
     return out_v, out_b, out_n
 
 
-def _clip_triangles_full(clip: torch.Tensor) -> ClippedTris:
+def _clip_triangles_full(clip: torch.Tensor, contract: bool = False) -> ClippedTris:
     """Full Sutherland-Hodgman against w >= eps and w - z >= 0 with fan
     triangulation, for the (already compacted) crossing triangles."""
     T = clip.shape[0]
@@ -153,8 +167,8 @@ def _clip_triangles_full(clip: torch.Tensor) -> ClippedTris:
     eye3 = torch.eye(3, device=dev, dtype=dt).expand(T, 3, 3)
     bary = torch.cat([eye3, torch.zeros(T, 2, 3, device=dev, dtype=dt)], dim=1)
     count = torch.full((T,), 3, dtype=torch.long, device=dev)
-    verts, bary, count = _clip_one_plane(verts, bary, count, lambda v: v[..., 3] - W_EPS)
-    verts, bary, count = _clip_one_plane(verts, bary, count, lambda v: v[..., 3] - v[..., 2])
+    verts, bary, count = _clip_one_plane(verts, bary, count, lambda v: v[..., 3] - W_EPS, contract)
+    verts, bary, count = _clip_one_plane(verts, bary, count, lambda v: v[..., 3] - v[..., 2], contract)
     outs_v, outs_b, outs_m = [], [], []
     for k in range(3):
         outs_v.append(torch.stack([verts[:, 0], verts[:, k + 1], verts[:, k + 2]], dim=1))
@@ -166,12 +180,16 @@ def _clip_triangles_full(clip: torch.Tensor) -> ClippedTris:
     )
 
 
-def clip_triangles(clip: torch.Tensor, tri_valid: torch.Tensor) -> ClippedTris:
+def clip_triangles(clip: torch.Tensor, tri_valid: torch.Tensor, *, contract: bool = False) -> ClippedTris:
     """Near-plane clipping with crossing-only expansion.
 
     Triangles fully inside (w > eps and w - z >= 0 at every corner) pass
     through untouched; fully outside ones are dropped; only crossing
     triangles are clipped, appending <= 3 fan triangles each.
+
+    contract: the form XLA:CPU gives the JAX function inside a jitted
+    program (the frame's form): each intersection vi + (vj - vi) * t as
+    fma(vj - vi, t, vi). The default is the eager JAX form.
 
     Host read: `nonzero` sizes the crossing set (one device sync)."""
     T = clip.shape[0]
@@ -180,7 +198,7 @@ def clip_triangles(clip: torch.Tensor, tri_valid: torch.Tensor) -> ClippedTris:
     all_in = inside.all(dim=-1)
     crossing = tri_valid & inside.any(dim=-1) & ~all_in
     g = torch.nonzero(crossing).flatten()
-    sub = _clip_triangles_full(clip[g])
+    sub = _clip_triangles_full(clip[g], contract)
     eye3 = torch.eye(3, device=clip.device, dtype=clip.dtype).expand(T, 3, 3)
     return ClippedTris(
         clip=torch.cat([clip, sub.clip]),

@@ -32,14 +32,22 @@ geometry.cull_and_setup, geometry.bin_triangles, the plain raster versions'
 fragment count) and where a peel loop sizes itself (_cutout_peels and
 _blend_peels count theirs).
 
-The reference forward backend of `raster_scene` raises NotImplementedError,
-naming the ROADMAP item that will port it.
+The reference forward backend (REND3_TPU_RASTER=reference,
+`default_raster_backend`) renders the JAX package's forward frame instead
+(base.py:1249-2050 with use_deferred off): a shadow atlas rasterized by
+raster.rasterize every frame, the skybox background, the main raster, then
+shade.shade_deferred, and the blend triangles drawn one by one in order
+(`_blend_pass`). It has no occlusion culling, draws cutout triangles as
+opaque ones (JAX passes no fragment mask), and shades with the PBR table
+only, so registered archetypes do not draw; injected passes get no
+G-buffer. `raster_scene(backend="reference")` is raster.rasterize.
 """
 
 from __future__ import annotations
 
 import hashlib
 import inspect
+import os
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -51,6 +59,7 @@ import torch
 from ..core.renderer import InstructionEvaluationOutput, Renderer
 from ..ops import blit as blit_ops
 from ..ops import deferred as def_ops
+from ..ops import fp as fp_ops
 from ..ops import geometry as geom_ops
 from ..ops import hi_z as hiz_ops
 from ..ops import lighting as light_ops
@@ -67,8 +76,11 @@ from ..types.error import DeviceOutOfMemoryError
 from ..utils.profiling import scope as profiling_scope
 
 __all__ = [
-    "BaseRenderGraph", "BaseRenderGraphSettings", "FrameRenderTarget", "StageTimer", "raster_scene", "sky_directions",
+    "BaseRenderGraph", "BaseRenderGraphSettings", "FrameRenderTarget", "StageTimer", "default_raster_backend",
+    "raster_scene", "sky_directions",
 ]
+
+RASTER_BACKENDS = ("pallas", "binned_xla", "reference")
 
 
 @dataclass(frozen=True)
@@ -90,8 +102,15 @@ def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1: {item})")
+def default_raster_backend() -> str:
+    """The raster backend the frame uses (base.py:66-74): the value of
+    REND3_TPU_RASTER, else "pallas". "pallas" and "binned_xla" both select
+    the deferred frame on the hand-written kernels; "reference" selects the
+    forward frame on raster.rasterize."""
+    env = os.environ.get("REND3_TPU_RASTER") or "pallas"
+    if env not in RASTER_BACKENDS:
+        raise ValueError(f"REND3_TPU_RASTER={env!r}: the raster backend is one of {RASTER_BACKENDS}")
+    return env
 
 
 def raster_scene(
@@ -108,10 +127,12 @@ def raster_scene(
     """The scene's (S, height, width) visibility buffer (base.py:95-124):
     cull and set up (sub-pixel cull only at one sample), bin at K6's 8x128
     tiles, K6, crop. "pallas" and "binned_xla" both run K6 on a card and
-    its plain version on the CPU; "reference" (raster.rasterize, the
-    O(T x P) oracle) is not ported."""
+    its plain version on the CPU; "reference" is raster.rasterize, the
+    O(T x P) oracle."""
     if backend == "reference":
-        raise _not_ported("the reference raster backend (raster.rasterize)", "Reference forward backend")
+        return raster_ops.rasterize(
+            clip, valid, width, height, cull_mode=cull_mode, front_is_cw=front_is_cw, sample_offsets=sample_offsets,
+        )
     if backend not in ("pallas", "binned_xla"):
         raise ValueError(f"unknown raster backend {backend!r}")
     wp = _round_up(width, geom_ops.TILE_W)
@@ -252,9 +273,11 @@ class BaseRenderGraph:
 
     # -- stages ----------------------------------------------------------------
 
-    def _upload(self, eval_output, target, settings, skybox_slot) -> _Frame:
+    def _upload(self, eval_output, target, settings, skybox_slot, forward: bool = False) -> _Frame:
         """Host scene state -> device tables (static tables cached against
-        the managers' versions, as the JAX build does)."""
+        the managers' versions, as the JAX build does). forward: the
+        forward frame's tables, in which no registered archetype draws
+        (base.py:862-873)."""
         from .pbr.material import PbrMaterial
 
         r = self.renderer
@@ -298,7 +321,7 @@ class BaseRenderGraph:
         named_extras = []  # (name, (base, count, routine, data, flags))
         gbase = self.last_stats["pbr_slots"] = int(data.shape[0])
         for n in sorted(mm.archetypes):
-            if n == arch or mm.archetypes[n].next_slot == 0 or n not in self.routines:
+            if n == arch or mm.archetypes[n].next_slot == 0 or n not in self.routines or forward:
                 continue
             d, fl, _t = mm.evaluate(n)
             named_extras.append((n, (gbase, int(d.shape[0]), self.routines[n], d, fl)))
@@ -456,15 +479,16 @@ class BaseRenderGraph:
             _, smvp = transform_ops.object_uniforms(f.transforms, f.dir_lights.view_proj[k], eye)
             svalid = f.shadow_visible[k][f.tri_obj.long()]
             sclip = transform_ops.gather_tri_clip(
-                f.geo.position, f.tri_vlocal, f.tri_obj, f.bases[:, 0], smvp, tri_pos=f.tri_pos
+                f.geo.position, f.tri_vlocal, f.tri_obj, f.bases[:, 0], smvp, tri_pos=f.tri_pos, contract=True
             )
-            sclipped = transform_ops.clip_triangles(sclip, svalid)
+            sclipped = transform_ops.clip_triangles(sclip, svalid, contract=True)
             swp = _round_up(size, def_ops.DTILE_W)
             shp = _round_up(size, def_ops.DTILE_H)
             stris = geom_ops.cull_and_setup(
                 sclipped.clip, sclipped.valid, size, size,
                 cull_mode=geom_ops.CullMode.FRONT, front_is_cw=f.front_cw,
                 subpixel=True,  # sub-texel casters can't mark any texel center
+                contract=True,
             )
             sbinned = geom_ops.bin_triangles(
                 stris, swp, shp, tile_h=def_ops.DTILE_H, tile_w=def_ops.DTILE_W
@@ -481,15 +505,16 @@ class BaseRenderGraph:
         f.mv, f.mvp = transform_ops.object_uniforms(f.transforms, f.view, f.proj)
         valid = f.visible[f.tri_obj.long()]
         clip = transform_ops.gather_tri_clip(
-            f.geo.position, f.tri_vlocal, f.tri_obj, f.bases[:, 0], f.mvp, tri_pos=f.tri_pos
+            f.geo.position, f.tri_vlocal, f.tri_obj, f.bases[:, 0], f.mvp, tri_pos=f.tri_pos, contract=True
         )
-        return transform_ops.clip_triangles(clip, valid)
+        return transform_ops.clip_triangles(clip, valid, contract=True)
 
     def _cull(self, f: _Frame, stage, table, valid, name: str, hiz=None) -> geom_ops.TriSetup:
         with stage(name):
             return geom_ops.cull_and_setup(
                 table.clip, valid, f.width, f.height,
                 cull_mode=geom_ops.CullMode.BACK, front_is_cw=f.front_cw, subpixel=f.subpixel, hiz=hiz,
+                contract=True,
             )
 
     def _planes_bin(self, f: _Frame, stage, tris, table, tri_vlocal, tri_obj, names):
@@ -498,7 +523,7 @@ class BaseRenderGraph:
         with stage(names[0]):
             planes = def_ops.attribute_planes(
                 tris, table.clip, table.bary, table.orig, tri_vlocal, tri_obj,
-                f.bases, f.geo, f.mv, f.material_slots, f.width, f.height,
+                f.bases, f.geo, f.mv, f.material_slots, f.width, f.height, contract=True,
             )
         with stage(names[1]):
             binned = geom_ops.bin_triangles(tris, f.wp, f.hp, tile_h=def_ops.DTILE_H, tile_w=def_ops.DTILE_W)
@@ -610,9 +635,9 @@ class BaseRenderGraph:
         count's maximum and per peel the `nonzero` of its hit pixels."""
         with stage("blend_geom"):
             bclip = transform_ops.gather_tri_clip(
-                f.geo.position, f.blend_vlocal, f.blend_obj, f.bases[:, 0], f.mvp
+                f.geo.position, f.blend_vlocal, f.blend_obj, f.bases[:, 0], f.mvp, contract=True
             )
-            table = transform_ops.clip_triangles(bclip, f.visible[f.blend_obj.long()])
+            table = transform_ops.clip_triangles(bclip, f.visible[f.blend_obj.long()], contract=True)
             # Timed as a whole under "blend_geom".
             tris = self._cull(f, _no_timer, table, table.valid, "blend_geom")
             planes, binned = self._planes_bin(
@@ -664,16 +689,13 @@ class BaseRenderGraph:
         fragments of a (CH, H, W) G-buffer (the padded frame, or compacted
         pixels as (CH, 1, N)): world reconstruct -> light NDC, with the
         reference's atlas-space bounds expressions including the any()
-        quirk (opaque.wgsl:509-514, base.py:1642-1680)."""
+        quirk (opaque.wgsl:509-514, base.py:1642-1680). Both matrix
+        products take the form XLA:CPU gives the JAX frame's:
+        fma(m2, v2, fma(m0, v0, m1*v1)), then the translation added."""
 
-        def mat_img(m, rows, img):  # matrix x image channels, left to right
-            out = []
-            for a in range(rows):
-                acc = m[a, 0] * img[0]
-                for b in range(1, img.shape[0]):
-                    acc = acc + m[a, b] * img[b]
-                out.append(acc)
-            return torch.stack(out)
+        def mat_img(m, rows, img):  # (rows, 3) of m x three image channels, all rows at once
+            col = [m[:rows, k].reshape(rows, *([1] * (img.dim() - 1))) for k in range(3)]
+            return fp_ops.fma32(col[2], img[2:3], fp_ops.fma32(col[0], img[0:1], col[1] * img[1:2]))
 
         den = gbuf[def_ops.G_DEN]
         invden = torch.where(den.abs() < 1e-30, torch.ones_like(den), 1.0 / den)
@@ -681,11 +703,11 @@ class BaseRenderGraph:
         hitp = gbuf[def_ops.G_HIT] > 0.0
         iv = f.uniforms.inv_view
         world = mat_img(iv[:3, :3], 3, vp_img) + iv[:3, 3][:, None, None]
-        world4 = torch.cat([world, torch.ones_like(world[:1])], dim=0)
         dl = f.dir_lights
         out = []
         for k, (_li, _off, size) in enumerate(plan):
-            ndc = mat_img(dl.view_proj[k], 4, world4)
+            vp = dl.view_proj[k]
+            ndc = mat_img(vp, 4, world) + vp[:, 3][:, None, None]
             ndcw = torch.where(ndc[3] == 0.0, torch.ones_like(ndc[3]), ndc[3])
             ndc_xyz = ndc[:3] / ndcw[None]
             sx = (ndc_xyz[0] * 0.5 + 0.5) * size
@@ -754,6 +776,8 @@ class BaseRenderGraph:
 
     def _render_frame_stages(self, eval_output, target, settings, skybox_slot):
         raster_ops.sample_offsets(target.samples)  # raises unless 1 or 4
+        if default_raster_backend() == "reference":
+            return self._render_forward(eval_output, target, settings, skybox_slot)
         stage = self.timer if self.timer is not None else _no_timer
         width, height = target.width, target.height
         plan = eval_output.shadow_plan
@@ -874,6 +898,7 @@ class BaseRenderGraph:
             if self.captured is not None:
                 # Light 0 at sample 0's opaque pixels (rend3_tpu_torch.probe_shadow).
                 self.captured["shadow_light0"] = (coord_sets[0][0], svals[0][0], plan[0][2])
+                self.captured["shadow_coords"] = coord_sets[0]  # every light, sample 0's opaque pixels
             shadow_s = [sv[:, :height, :width] for sv in svals[:S]]
             rest = iter(svals[S:])
             blend_sv = [None if b is None else next(rest) for b in bgbufs]
@@ -913,7 +938,8 @@ class BaseRenderGraph:
 
     def _run_passes(self, stage, img, want_stage: str, gbuf0, uniforms):
         """The registered passes of one stage, in order (base.py:2061-2080);
-        gbuf0 is sample 0's padded G-buffer."""
+        gbuf0 is sample 0's padded G-buffer (None in the forward frame,
+        whose passes get no G-buffer)."""
         for fn, pstage in self.injected_passes:
             if pstage != want_stage:
                 continue
@@ -922,8 +948,77 @@ class BaseRenderGraph:
             except (TypeError, ValueError):
                 wants_row0 = False
             with stage("passes"):
-                img = fn(img, def_ops.GBuffer(gbuf0), uniforms, *((0,) if wants_row0 else ()))
+                gbuf = None if gbuf0 is None else def_ops.GBuffer(gbuf0)
+                img = fn(img, gbuf, uniforms, *((0,) if wants_row0 else ()))
         return img
+
+    # -- the forward frame (REND3_TPU_RASTER=reference) ---------------------
+
+    def _shadow_atlas(self, eval_output, f: _Frame) -> torch.Tensor:
+        """The (ah, aw) shadow atlas, every plan entry's map rasterized by
+        raster.rasterize into its rect, every frame (base.py:1249-1269);
+        texels no caster covers hold 0.0."""
+        aw, ah = eval_output.shadow_atlas_extent
+        atlas = torch.zeros(ah, aw, dtype=torch.float32, device=f.view.device)
+        eye = torch.eye(4, dtype=torch.float32, device=f.view.device)
+        for k, (_li, (ox, oy), size) in enumerate(eval_output.shadow_plan):
+            _, smvp = transform_ops.object_uniforms(f.transforms, f.dir_lights.view_proj[k], eye)
+            sclip = transform_ops.gather_tri_clip(
+                f.geo.position, f.tri_vlocal, f.tri_obj, f.bases[:, 0], smvp, tri_pos=f.tri_pos, contract=True
+            )
+            sclipped = transform_ops.clip_triangles(sclip, f.shadow_visible[k][f.tri_obj.long()], contract=True)
+            svis = raster_ops.rasterize(
+                sclipped.clip, sclipped.valid, size, size, cull_mode=raster_ops.CullMode.FRONT,
+                front_is_cw=f.front_cw, sample_offsets=raster_ops.CENTER_OFFSET,
+            )
+            atlas[oy : oy + size, ox : ox + size] = svis.depth[0]
+        return atlas
+
+    def _render_forward(self, eval_output, target, settings, skybox_slot):
+        """The JAX package's forward frame (base.py:1249-2080 with
+        use_deferred off): shadow atlas, main raster (raster.rasterize),
+        skybox background, shade.shade_deferred, the ordered blend pass,
+        f16 round trip, resolve, passes and blit."""
+        stage = self.timer if self.timer is not None else _no_timer
+        width, height = target.width, target.height
+        offsets = raster_ops.sample_offsets(target.samples)
+        st = self.last_stats
+        st["samples"] = len(offsets)
+        with stage("upload"), profiling_scope("BaseRenderGraph::build_frame_callable"):
+            f = self._upload(eval_output, target, settings, skybox_slot, forward=True)
+        with stage("shadow_maps"):
+            atlas = self._shadow_atlas(eval_output, f)
+        with stage("clip"):
+            clipped = self._clip(f)
+        S = len(offsets)
+        if f.cube is not None:
+            with stage("skybox"):
+                background = _skybox_background(f.cube, f.skybox_slot + 1, f.uniforms, width, height, offsets)
+        else:
+            background = f.clear_color.expand(S, height, width, 4)
+        with stage("raster"):
+            vis = raster_ops.rasterize(
+                clipped.clip, clipped.valid, width, height, cull_mode=raster_ops.CullMode.BACK,
+                front_is_cw=f.front_cw, sample_offsets=offsets,
+            )
+        st["forward_px"] = int((vis.tri >= 0).sum())
+        if self.captured is not None:
+            self.captured["forward"] = (vis, atlas, eval_output.shadow_plan)
+        with stage("shade"):
+            img = shade_ops.shade_deferred(
+                vis, clipped, f.tri_vlocal, f.tri_obj, f.geo, f.bases, f.mv, f.material_slots, f.materials,
+                f.dir_lights, f.point_lights, atlas, f.uniforms, width, height, offsets,
+                textures=f.textures, background=background,
+            )
+        if f.blend_obj is not None:
+            with stage("blend_shade"):
+                img, st["blend_px"] = _blend_pass(img, vis, f, atlas, width, height, offsets)
+        with stage("blit"):
+            img = blit_ops.resolve_samples(blit_ops.f16_roundtrip(img))
+        img = self._run_passes(stage, img, "hdr", None, f.uniforms)
+        with stage("blit"):
+            out = blit_ops.hdr_to_srgb_u8(img)
+        return self._run_passes(stage, out, "srgb", None, f.uniforms)
 
     def _skybox(self, f: _Frame, gbufs):
         """Per sample, the (H, W, 4) background: the skybox where no
@@ -983,3 +1078,129 @@ class BaseRenderGraph:
         C = C.reshape(f.hp, f.wp, 3)[: f.height, : f.width]
         A = A.reshape(f.hp, f.wp)[: f.height, : f.width]
         return torch.cat([C + (1.0 - A)[..., None] * img[..., :3], (A + (1.0 - A) * img[..., 3])[..., None]], dim=-1)
+
+
+def _skybox_background(cube, slot: int, uniforms, width: int, height: int, offsets) -> torch.Tensor:
+    """(S, H, W, 4) skybox colour with alpha 1 at every pixel of every
+    sample (base.py:2116-2144), sampled per pixel by texture.sample_cube;
+    slot is the 1-based cube slot."""
+    outs = []
+    for sofs in offsets:
+        dirs = sky_directions(uniforms.inv_origin_view_proj, width, height, height, width, sofs)
+        rgba = tex_ops.sample_cube(cube, slot, dirs)
+        rgba = torch.cat([rgba[:, :3], torch.ones_like(rgba[:, 3:4])], dim=1)
+        outs.append(rgba.reshape(height, width, 4))
+    return torch.stack(outs)
+
+
+def _blend_pass(img, vis, f: _Frame, atlas, width: int, height: int, offsets):
+    """The alpha-blended triangles drawn over the shaded (S, H, W, 4) image
+    one by one in their far-first order (base.py:2147-2228): each is
+    rasterized against the running depth (blend writes depth), shaded at
+    the pixels it covers and composited src-alpha over. Returns (image,
+    covered sample count). Each triangle's edges are evaluated only over
+    its pixel window (its bounding box grown by one pixel), and it is
+    shaded only where it covers: per pixel the same values the JAX pass
+    computes over the whole image."""
+    dev = img.device
+    valid = f.visible[f.blend_obj.long()]
+    clip = transform_ops.gather_tri_clip(
+        f.geo.position, f.blend_vlocal, f.blend_obj, f.bases[:, 0], f.mvp, contract=True
+    )
+    clipped = transform_ops.clip_triangles(clip, valid, contract=True)
+    # The clip expansion back in source-triangle order: the scan keeps the
+    # far-first order.
+    order = torch.sort(clipped.orig, stable=True).indices
+    cclip, cbary, corig, cvalid = clipped.clip[order], clipped.bary[order], clipped.orig[order], clipped.valid[order]
+    xs, ys, zs, ws, keep, _ = raster_ops.prepare_tris(
+        cclip, cvalid, width, height, raster_ops.CullMode.BACK, f.front_cw
+    )
+    img = img.clone()
+    depth = vis.depth.clone()
+    S = len(offsets)
+    kept = torch.nonzero(keep).flatten()
+    # Host reads: the blend triangles to draw and their pixel windows.
+    wins = raster_ops.pixel_windows(xs[kept], ys[kept], width, height).tolist()
+    n_px = 0
+
+    def c4(v):
+        return v[:, None, None, None]
+
+    for t, (x0, y0, x1, y1) in zip(kept.tolist(), wins):
+        if x1 <= x0 or y1 <= y0:
+            continue
+        cols = torch.arange(x0, x1, dtype=torch.float32, device=dev)
+        rows = torch.arange(y0, y1, dtype=torch.float32, device=dev)
+        grids = [torch.meshgrid(rows + oy, cols + ox, indexing="ij") for ox, oy in offsets]
+        pys = torch.stack([g[0] for g in grids])
+        pxs = torch.stack([g[1] for g in grids])
+        x, y = xs[t], ys[t]
+        ax, bx = x, torch.roll(x, -1)
+        ay, by = y, torch.roll(y, -1)
+        tl = raster_ops._top_left(ax, ay, bx, by)
+        e = raster_ops._edge_canonical(c4(ax), c4(ay), c4(bx), c4(by), pxs[None], pys[None])
+        inside = (e > 0.0) | ((e == 0.0) & c4(tl))
+        bar = torch.stack([e[1], e[2], e[0]])
+        bsum = (bar[0] + bar[1]) + bar[2]
+        bar = bar / torch.where(bsum == 0.0, torch.ones_like(bsum), bsum)
+        z = zs[t]
+        zf = def_ops.fma32(bar[2], z[2], def_ops.fma32(bar[1], z[1], bar[0] * z[0]))
+        dwin = depth[:, y0:y1, x0:x1]
+        cov = inside.all(dim=0) & (zf >= dwin) & (zf >= 0.0) & (zf <= 1.0)
+        sel = torch.nonzero(cov.flatten()).flatten()
+        if sel.numel() == 0:
+            continue
+        n_px += int(sel.numel())
+        pb = bar.reshape(3, -1)[:, sel] / ws[t][:, None]
+        pb = pb / ((pb[0] + pb[1]) + pb[2])
+        beta = (pb[:, :, None] * cbary[t][:, None, :]).sum(0)  # (n, 3) source barycentrics
+        rgba = _shade_blend_tri(int(corig[t]), beta, f, atlas)
+        win = img[:, y0:y1, x0:x1].reshape(-1, 4)
+        prev = win[sel]
+        a = rgba[:, 3:4]
+        win[sel] = torch.cat([rgba[:, :3] * a + prev[:, :3] * (1.0 - a), a + prev[:, 3:4] * (1.0 - a)], dim=1)
+        img[:, y0:y1, x0:x1] = win.reshape(S, y1 - y0, x1 - x0, 4)
+        dflat = dwin.reshape(-1).clone()
+        dflat[sel] = zf.reshape(-1)[sel]
+        depth[:, y0:y1, x0:x1] = dflat.reshape(dwin.shape)
+    return img, n_px
+
+
+def _shade_blend_tri(orig_id: int, beta, f: _Frame, atlas):
+    """One blend triangle's (n, 4) RGBA at n pixels from their source
+    barycentrics beta (n, 3) (base.py:2231-2278): its corners' attributes,
+    one material, shadows from the atlas, textures with no gradients."""
+    dev = beta.device
+    vloc = f.blend_vlocal[orig_id].long()
+    obj = int(f.blend_obj[orig_id].clamp_min(0))
+    base = f.bases[obj].long()
+
+    def gather(arena, ai, default):
+        has = 1.0 if int(base[ai]) >= 0 else 0.0
+        vals = arena[(vloc + base[ai]).clamp(0, arena.shape[0] - 1)]
+        return has * vals + (1.0 - has) * torch.tensor(default, dtype=torch.float32, device=dev)
+
+    m = f.mv[obj]
+    mv3 = m[:3, :3]
+    n = beta.shape[0]
+    view_pos = (beta @ gather(f.geo.position, 0, [0.0, 0.0, 0.0])) @ mv3.T + m[:3, 3]
+    inv_scale_sq = 1.0 / torch.clamp_min((mv3 * mv3).sum(0), 1e-30)
+
+    def corner_dirs(ai):
+        d = (gather(f.geo.normal if ai == 1 else f.geo.tangent, ai, [0.0, 0.0, 0.0]) * inv_scale_sq) @ mv3.T
+        return d / torch.clamp_min(def_ops.sqrt32((d * d).sum(-1, keepdim=True)), 1e-20)
+
+    nrm = beta @ corner_dirs(1)
+    tan = beta @ corner_dirs(2)
+    uv0 = beta @ gather(f.geo.uv0, 3, [0.0, 0.0])
+    vcol = beta @ gather(f.geo.color0, 5, [1.0, 1.0, 1.0, 1.0])
+    midx = int(f.material_slots[obj])
+    mats = f.materials
+    mdata = mats.data[midx][:, None].expand(mats.data.shape[1], n)
+    mflags = mats.flags[midx].expand(n)
+    mtex = mats.textures[midx][:, None].expand(mats.textures.shape[1], n) if f.textures is not None else None
+    out_rgb, out_a = shade_ops._shade_pixels(
+        mdata, mflags, mtex, vcol.T, nrm.T, tan.T, view_pos.T, f.dir_lights, f.point_lights, f.uniforms, None,
+        textures=f.textures, uv0=uv0.T, duv=None, shadow_atlas=atlas,
+    )
+    return torch.cat([out_rgb, out_a], dim=0).T

@@ -32,7 +32,9 @@ bit-exact at hit pixels. A K1 launch that cannot be made raises, and so
 does a K7 launch given too small a plan buffer. The app layer: the
 overlay's device pass against its host compositor on the card (within 1
 u8), and testing.make_test_gltf()'s animated scene (three poses through
-framework.start) on the card against the CPU (within 1 u8).
+framework.start) on the card against the CPU (within 1 u8). The reference
+forward backend: rasterize card = CPU bit for bit, the forward frame card
+vs CPU within 1 u8, K5 through shadow.sample_shadow_map(s) bit-exact.
 """
 
 import numpy as np
@@ -500,3 +502,40 @@ def test_gltf_scene_on_card_matches_cpu():
     for a, b in zip(imgs["cuda"], imgs["cpu"]):
         assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
     assert not np.array_equal(imgs["cuda"][0], imgs["cuda"][1])
+
+
+def test_reference_path_on_card_matches_cpu(monkeypatch):
+    """The reference forward backend: rasterize on a perspective soup
+    (MSAA 4) card = CPU bit for bit; the forward frame of scenes.peel_slice
+    at 64x64 on the card within 1 u8 of the CPU; sample_shadow_map and
+    sample_shadow_maps (K5) on the card bit for bit against their plain
+    version on the CPU, one K5 launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(4)
+    w = rng.uniform(0.5, 2.0, (64, 3, 1)).astype(np.float32)
+    soup = np.concatenate([rng.uniform(-1.2, 1.2, (64, 3, 2)).astype(np.float32) * w,
+                           rng.uniform(0.0, 1.0, (64, 3, 1)).astype(np.float32) * w, w], axis=2)
+    clip, valid = torch.from_numpy(soup), torch.ones(64, dtype=torch.bool)
+    a = R.rasterize(clip.cuda(), valid.cuda(), 192, 128, cull_mode=R.CullMode.NONE, sample_offsets=R.MSAA4_OFFSETS)
+    b = R.rasterize(clip, valid, 192, 128, cull_mode=R.CullMode.NONE, sample_offsets=R.MSAA4_OFFSETS)
+    assert torch.equal(a.tri.cpu(), b.tri) and torch.equal(a.depth.cpu().view(torch.int32), b.depth.view(torch.int32))
+    monkeypatch.setenv("REND3_TPU_RASTER", "reference")
+    imgs = []
+    for dev in ("cuda", "cpu"):
+        runner = TestRunner(device=dev)
+        keep = scenes.peel_slice(runner)
+        imgs.append(runner.render_frame(FrameRenderSettings(size=64)))
+        del keep
+    assert np.abs(imgs[0].astype(int) - imgs[1].astype(int)).max() <= 1
+    maps = [torch.from_numpy(rng.uniform(0.0, 1.0, (s, s)).astype(np.float32)) for s in (128, 64)]
+    entries = [(mi, torch.from_numpy(rng.uniform(-3.0, 131.0, (32, 128)).astype(np.float32)),
+                torch.from_numpy(rng.uniform(-3.0, 131.0, (32, 128)).astype(np.float32)),
+                torch.from_numpy(rng.random((32, 128)) > 0.2)) for mi in (0, 1, 0)]
+    before = S.launches["gather"]
+    k0, _ = SH.sample_shadow_map(maps[0].cuda(), *(t.cuda() for t in entries[0][1:]))
+    ks, _ = SH.sample_shadow_maps([m.cuda() for m in maps], [(mi, *(t.cuda() for t in e)) for mi, *e in entries])
+    assert S.launches["gather"] == before + 2
+    assert torch.equal(k0.cpu(), SH.sample_shadow_map(maps[0], *entries[0][1:])[0])
+    for k, p in zip(ks, SH.sample_shadow_maps(maps, entries)[0]):
+        assert torch.equal(k.cpu(), p)

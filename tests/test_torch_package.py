@@ -32,7 +32,8 @@ def test_import_leaves_jax_out():
         "rend3_tpu_torch.examples, rend3_tpu_torch.examples.cube, rend3_tpu_torch.examples.cube_no_framework, "
         "rend3_tpu_torch.examples.overlay, rend3_tpu_torch.examples.textured_quad, "
         "rend3_tpu_torch.examples.static_gltf, rend3_tpu_torch.examples.skinning, "
-        "rend3_tpu_torch.examples.animation, rend3_tpu_torch.examples.scene_viewer; "
+        "rend3_tpu_torch.examples.animation, rend3_tpu_torch.examples.scene_viewer, "
+        "rend3_tpu_torch.ops.fp, rend3_tpu_torch.ops.raster, rend3_tpu_torch.tools.bench_host; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'rend3_tpu' or m.startswith('rend3_tpu.')); print(bad)"
     )
@@ -54,18 +55,20 @@ def test_cuda_renderer_needs_a_card():
 
 
 @pytest.mark.parametrize(
-    "entry", ["Renderer", "TestRunner", "framework.start", "render_single_frame", "OverlayRoutine", "serve_app"]
+    "entry",
+    ["Renderer", "TestRunner", "framework.start", "render_single_frame", "OverlayRoutine", "serve_app", "bench_host"],
 )
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Renderer(), TestRunner(), framework.start, render_single_frame,
-    OverlayRoutine() and serve_app render on the card unless asked for the
-    CPU; without a card they raise instead of falling back, before the app
+    OverlayRoutine(), serve_app and tools.bench_host run on the card unless
+    asked for the CPU; without a card they raise instead of falling back, before the app
     is set up or a frame rendered, and serve_app before it binds a socket."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from rend3_tpu_torch import framework
     from rend3_tpu_torch.framework import viewer
     from rend3_tpu_torch.overlay import OverlayRoutine
+    from rend3_tpu_torch.tools import bench_host
 
     class App(framework.App):
         def setup(self, context):
@@ -82,6 +85,7 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         "render_single_frame": lambda: framework.render_single_frame(App(), 64, 64),
         "OverlayRoutine": OverlayRoutine,
         "serve_app": lambda: viewer.serve_app(App(), 64, 64, port=0),
+        "bench_host": lambda: bench_host.main(["10"]),
     }[entry]
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         make()

@@ -81,10 +81,3 @@ def test_visibility_raster_matches_jax(seed, cull, samples):
     js = interop.vis_buffer(jscene.depth, jscene.tri)
     assert torch.equal(pscene.tri, js.tri)
     assert torch.equal(pscene.depth, js.depth)
-
-
-def test_reference_backend_not_ported():
-    clip = torch.from_numpy(random_clip_tris(4, 0))
-    with pytest.raises(NotImplementedError, match="Reference forward backend"):
-        raster_scene(clip, torch.ones(4, dtype=torch.bool), W, H, cull_mode=1, front_is_cw=True,
-                     sample_offsets=PR.CENTER_OFFSET, backend="reference")
