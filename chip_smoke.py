@@ -18,7 +18,8 @@ feature city (the representative frame with a skybox, skinned columns,
 registered material routines and injected passes) at 1 and 4 samples,
 then the app layer (framework, overlay, glTF, animation and the examples)
 at 1280x720, then the reference forward backend on the representative
-city cut in depth, and the host-loop micro-bench. It checks every hand-written kernel of those paths, K1 in
+city cut in depth, the host-loop micro-bench, and row bands of the frame on
+the one card. It checks every hand-written kernel of those paths, K1 in
 each of its modes, against its plain PyTorch version.
 Phases (each raises on failure; any failure exits nonzero; each prints its
 wall time):
@@ -122,7 +123,19 @@ wall time):
    the deferred frame of the same scene (the forward frame draws cutouts
    as opaque);
 15. bench_host: tools.bench_host at 50,000 objects on the card (swap +
-   evaluate + the frame's host upload, 20 iterations), its median logged.
+   evaluate + the frame's host upload, 20 iterations), its median logged;
+16. bands: row bands (rend3_tpu_torch.parallel.tiles) through
+   build_tiled_frame_callable on the local mesh (n bands on the one card,
+   in lockstep): the representative frame at 2, 4 and 8 bands, at MSAA 4
+   with 4 bands, and the feature frame with 4 bands, two frames each (all
+   predicted, then the carried mask), each bit for bit against the
+   one-device frames of the same scene, with each frame's host time and
+   peak memory beside the one-device frame's (a diagnostic); launches
+   counted over the banded frames (K1 at a band's first row past 0 counts
+   as raster_band, a row of the kernels line); K1 at every band's first row
+   against its plain version on the band's captured inputs; one frame
+   through a world-size-1 NCCL process group and the distributed mesh,
+   bit for bit against the one-device frame.
 
 The last two lines are the card (nvidia-smi) and one JSON object
 {"ok": true, "device": {...}}; the line before them lists the kernels.
@@ -143,8 +156,8 @@ WIDTH, HEIGHT = 1920, 1080
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 KERNEL_NAMES = (
-    "raster_resolve", "raster_msaa", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather",
-    "raster_vis", "shadow_occ", "shadow_occ_lt", "probe_dot", "probe_reduce", "probe_lerp",
+    "raster_resolve", "raster_msaa", "raster_count", "raster_bound", "raster_band", "raster_depth", "pcf5", "bilinear",
+    "gather", "raster_vis", "shadow_occ", "shadow_occ_lt", "probe_dot", "probe_reduce", "probe_lerp",
 )
 # The kernels each frame path must launch.
 FRAME_KERNELS = ("raster_resolve", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather")
@@ -689,9 +702,10 @@ def _bound(bytes_moved, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _raster_fragments(tris, binned, width, tile_h=32, tile_w=128):
+def _raster_fragments(tris, binned, width, tile_h=32, tile_w=128, y0=0):
     """Pixels the raster kernels must test this run: per listed
-    (tile, triangle) pair, the tile's pixels inside the triangle's bbox."""
+    (tile, triangle) pair, the tile's pixels inside the triangle's bbox
+    (tile rows from target row y0 on, a row band's first row)."""
     import torch
 
     offs = binned.offsets.long()
@@ -699,7 +713,7 @@ def _raster_fragments(tris, binned, width, tile_h=32, tile_w=128):
     bb = tris.bbox[binned.ids.long()]
     n_cols = width // tile_w
     tx0 = (tile % n_cols) * tile_w
-    ty0 = (tile // n_cols) * tile_h
+    ty0 = (tile // n_cols) * tile_h + y0
     nx = (torch.minimum(torch.ceil(bb[:, 2]).long(), tx0 + tile_w) - torch.maximum(torch.floor(bb[:, 0]).long(), tx0))
     ny = (torch.minimum(torch.ceil(bb[:, 3]).long(), ty0 + tile_h) - torch.maximum(torch.floor(bb[:, 1]).long(), ty0))
     return int((nx.clamp_min(0) * ny.clamp_min(0)).sum())
@@ -718,12 +732,13 @@ K1_FINALIZE_OPS = 21 * 3 + 4 * 6
 OCC_PAIR_OPS = 4 * 3 + 12 * (4 * 3 + 5)
 
 
-def _k1_bound(tris, planes, binned, w, h, extra_in=(), extra_out=()):
+def _k1_bound(tris, planes, binned, w, h, extra_in=(), extra_out=(), y0=0):
     """K1's bound; its bound or floor images (extra_in) count only over the
-    tiles whose lists are not empty, the only ones that need them."""
+    tiles whose lists are not empty, the only ones that need them; y0 as
+    in raster_resolve."""
     from rend3_tpu_torch.ops import deferred as D
 
-    frags = _raster_fragments(tris, binned, w)
+    frags = _raster_fragments(tris, binned, w, y0=y0)
     listed = float((binned.offsets[1:] > binned.offsets[:-1]).float().mean())
     bytes_moved = _nbytes(tris.setup, tris.bbox, planes, binned.offsets, binned.ids, *extra_out)
     bytes_moved += listed * _nbytes(*extra_in) + D.GB_CH * w * h * 4
@@ -1822,6 +1837,224 @@ def phase_bench_host(device="cuda", n_objects=50_000):
     return statistics.median(res["ms"])
 
 
+# Row bands (phase 16): the band counts of the representative frame at 1
+# sample, and the frames banded 4 ways (MSAA 4, the feature frame).
+BAND_COUNTS = (2, 4, 8)
+# The kernels the banded frames must launch: K1 at every band's first row
+# past 0 ("raster_band") and band 0's K1 modes, K2 for the shadow maps
+# (rebuilt in the first banded frame of each scene), K3, K4 and K5.
+BAND_KERNELS = ("raster_band", "raster_resolve", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear",
+                "gather")
+
+
+def _peak_start(cuda):
+    """Synchronizes and resets the peak; returns the bytes allocated now."""
+    import torch
+
+    if not cuda:
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_text(cuda, start):
+    import torch
+
+    if not cuda:
+        return "peak not measured on the CPU"
+    peak = torch.cuda.max_memory_allocated()
+    return f"peak {(peak - start) / 2**20:.1f} MiB above the frame's start ({peak / 2**20:.1f} MiB in all)"
+
+
+def _band_run(runner, target, settings, mesh, label, skybox_slot=None, frames=2):
+    """`frames` frames of runner's scene through
+    parallel.tiles.build_tiled_frame_callable on `mesh`, the first from no
+    carried mask; logs each frame's host time (synchronized) and peak
+    memory; returns the images."""
+    import torch
+
+    from rend3_tpu_torch.parallel.tiles import build_tiled_frame_callable
+
+    graph = runner.base_graph
+    cuda = mesh.device.type == "cuda"
+    graph._prev_visible_mask = None
+    imgs = []
+    for k in range(frames):
+        runner.renderer.swap_instruction_buffers()
+        ev = runner.renderer.evaluate_instructions()
+        start = _peak_start(cuda)
+        t0 = time.perf_counter()
+        program, args = build_tiled_frame_callable(graph, ev, target, settings, skybox_slot, mesh=mesh)
+        img, _mask, aux = program(*args)
+        img = img.cpu().numpy()
+        ms = (time.perf_counter() - t0) * 1e3
+        log(f"bands {label} frame {k + 1}: host {ms:.3f} ms (synchronized), {_peak_text(cuda, start)}, stats {aux}")
+        imgs.append(img)
+    return imgs
+
+
+def _single_run(runner, target, settings, label, skybox_slot=None, frames=2):
+    """The one-device frames that _band_run's are held to, timed alike."""
+    import torch
+
+    graph = runner.base_graph
+    cuda = runner.renderer.device.type == "cuda"
+    graph._prev_visible_mask = None
+    imgs = []
+    for k in range(frames):
+        runner.renderer.swap_instruction_buffers()
+        ev = runner.renderer.evaluate_instructions()
+        start = _peak_start(cuda)
+        t0 = time.perf_counter()
+        imgs.append(graph.render_frame(ev, target, settings, skybox_slot))
+        ms = (time.perf_counter() - t0) * 1e3
+        log(f"bands {label} one-device frame {k + 1}: host {ms:.3f} ms (synchronized), {_peak_text(cuda, start)}")
+    return imgs
+
+
+def _same_images(label, got, want):
+    import numpy as np
+
+    for k, (a, b) in enumerate(zip(got, want)):
+        if not np.array_equal(a, b):
+            n = int((a != b).any(-1).sum())
+            raise AssertionError(f"bands {label} frame {k + 1} differs from the one-device frame at {n} pixels")
+    log(f"bands {label}: {len(got)} frames equal the one-device frames bit for bit")
+
+
+def _distributed_one_rank(runner, target, settings, want, device):
+    """One frame through a world-size-1 process group (NCCL on the card,
+    gloo on the CPU) and parallel.tiles' distributed mesh, held to the
+    one-device frame; the group is destroyed before returning."""
+    import datetime
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rend3_tpu_torch.parallel.tiles import build_tiled_frame_callable, device_mesh
+
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    # One rank talks to no other host: NCCL's bootstrap binds to loopback.
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = device_mesh(device=device, distributed=True)
+            runner.base_graph._prev_visible_mask = None
+            runner.renderer.swap_instruction_buffers()
+            program, args = build_tiled_frame_callable(
+                runner.base_graph, runner.renderer.evaluate_instructions(), target, settings, mesh=mesh
+            )
+            img = program(*args)[0].cpu().numpy()
+        finally:
+            dist.destroy_process_group()
+    if not np.array_equal(img, want):
+        raise AssertionError(f"the {backend} world-size-1 frame differs from the one-device frame at "
+                             f"{int((img != want).any(-1).sum())} pixels")
+    log(f"bands: a world-size-1 {backend} group ({mesh}) through build_tiled_frame_callable equals the "
+        f"one-device frame bit for bit ({(time.perf_counter() - t0):.2f} s with the group's set-up)")
+
+
+def phase_bands(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600, sky_size=512, n_columns=64,
+                timed=True):
+    """Row bands (rend3_tpu_torch.parallel.tiles) on one device: the
+    representative frame through the local mesh at each of BAND_COUNTS
+    bands, at MSAA 4 with 4 bands, and the feature frame (skybox, skinned
+    columns, routines, passes) with 4 bands, each two frames (all
+    predicted, then the carried mask) held bit for bit to the one-device
+    frames of the same scene; launches counted over the banded frames only
+    (each scene's shadow maps dropped before its banded frames, so K2 runs
+    on the path); then K1 against its plain version at every band's first
+    row on that band's captured inputs, and one frame through a
+    world-size-1 NCCL group. Returns (counts, [the raster_band kernel row])."""
+    import torch
+
+    from rend3_tpu_torch import scenes
+    from rend3_tpu_torch.ops import deferred as D
+    from rend3_tpu_torch.parallel.tiles import device_mesh
+    from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget
+    from rend3_tpu_torch.testing import TestRunner
+
+    settings = BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0))
+    t0 = time.perf_counter()
+    rep = TestRunner(device=device)
+    rep_keep = scenes.build_city_scene(rep, n_buildings=n_buildings, representative=True)
+    scenes.set_bench_camera(rep, width, height)
+    feat = TestRunner(device=device)
+    feat_keep, info = scenes.feature_city(feat, n_buildings=n_buildings, sky_size=sky_size, n_columns=n_columns)
+    scenes.set_bench_camera(feat, width, height)
+    log(f"bands: representative and feature cities built in {time.perf_counter() - t0:.2f} s")
+    # (scene, runner, samples, skybox slot) and the band counts of each.
+    scenes_ = {"representative": (rep, 1, None), "msaa4": (rep, 4, None), "features": (feat, 1, info["sky"].idx)}
+    runs = [("representative", n) for n in BAND_COUNTS] + [("msaa4", 4), ("features", 4)]
+    singles = {name: _single_run(r, FrameRenderTarget(width, height, s), settings, name, slot)
+               for name, (r, s, slot) in scenes_.items()}
+
+    _reset_launch_counts()
+    banded, caps = {}, {}
+    for name, n in runs:
+        runner, samples, slot = scenes_[name]
+        graph = runner.base_graph
+        graph._shadow_cache = None
+        graph.captured = {}
+        label = f"{name} {n} bands"
+        banded[label] = _band_run(runner, FrameRenderTarget(width, height, samples), settings,
+                                  device_mesh(n, device=device), label, slot)
+        caps[label] = graph.captured.get("raster_band", {})
+        graph.captured = None
+    counts = _launch_counts()
+    log(f"launches during the banded frames: {counts}")
+    if torch.device(device).type == "cuda":
+        _check_launched(counts, BAND_KERNELS)
+    for name, n in runs:
+        label = f"{name} {n} bands"
+        for img in banded[label]:
+            _check_image(img, width, height)
+        _same_images(label, banded[label], singles[name])
+
+    # K1 at every band's first row, on the band's inputs of its last frame.
+    err = 0.0
+    for label, bands in caps.items():
+        if sorted(bands) != [i * (height // len(bands)) for i in range(len(bands))]:
+            raise AssertionError(f"bands {label}: captured first rows {sorted(bands)}")
+        for row0, (tris, planes, binned, wp, hp, _r) in sorted(bands.items()):
+            err = max(err, _k1_check(
+                f"K1 {label} at row0 {row0} ({tris.count} triangles, {wp}x{hp})",
+                D.raster_resolve(tris, planes, binned, wp, hp, y0=row0).data,
+                D.raster_resolve_plain(tris, planes, binned, wp, hp, y0=row0),
+            ))
+
+    _distributed_one_rank(rep, FrameRenderTarget(width, height, 1), settings, singles["representative"][0], device)
+
+    # The kernel row: K1 on the band of the representative frame at 8 bands
+    # that lists the most triangles.
+    bands = caps[f"representative {BAND_COUNTS[-1]} bands"]
+    row0 = max(bands, key=lambda r: bands[r][0].count)
+    tris, planes, binned, wp, hp, _r = bands[row0]
+    bound_ms, bound_by = _k1_bound(tris, planes, binned, wp, hp, y0=row0)
+    kfn = lambda: D.raster_resolve(tris, planes, binned, wp, hp, y0=row0)  # noqa: E731
+    pfn = lambda: D.raster_resolve_plain(tris, planes, binned, wp, hp, y0=row0)  # noqa: E731
+    ms = _graph_ms(kfn) if timed else None
+    call_ms = _median_ms(kfn, 20) if timed else None
+    plain_ms = _median_ms(pfn, 5) if timed else None
+    log(f"raster_band (K1 at row0 {row0} of the representative frame's {BAND_COUNTS[-1]} bands, "
+        f"{tris.count} triangles, {wp}x{hp}): kernel {ms} ms (device, graph of {DEVICE_CALLS} calls), call "
+        f"{call_ms} ms (host included, median), plain {plain_ms} ms (median); bound {bound_ms:.6f} ms ({bound_by}); "
+        f"{counts['raster_band']} launches on the banded frames")
+    del rep_keep, feat_keep
+    return counts, [{
+        "name": "raster_band", "route": "cuda", "source": "rend3_tpu_torch/csrc/raster.cu",
+        "replaces": "rend3_tpu/ops/deferred.py:505", "launches": counts["raster_band"], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "ms_method": f"graph of {DEVICE_CALLS} calls", "call_ms": call_ms,
+    }]
+
+
 def main():
     try:
         import torch
@@ -1870,6 +2103,12 @@ def main():
         log("launches on the measured paths with the reference path: "
             + json.dumps({row["name"]: row["launches"] for row in kernels}))
         timed("bench_host", phase_bench_host)
+        band_counts, band_rows = timed("bands", phase_bands)
+        for row in kernels:
+            row["launches"] += band_counts[row["name"]]
+        kernels += band_rows
+        log("launches on the measured paths with the reference and banded paths: "
+            + json.dumps({row["name"]: row["launches"] for row in kernels}))
         smi = nvidia_smi_line()
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()

@@ -83,10 +83,12 @@ def _resolve_device(device, owner: str = "Renderer") -> torch.device:
     """One device per renderer, the card unless the caller asks for "cpu".
     A CUDA device needs a card: there is no CPU fall-back, so a missing card
     raises here instead of rendering slowly. `owner` names the caller in
-    the error."""
+    the error. A renderer keeps one device, as JAX's does: a frame is split
+    across devices by rend3_tpu_torch.parallel.tiles."""
     if isinstance(device, (list, tuple)):
         raise NotImplementedError(
-            "multi-device rendering is not ported yet (ROADMAP queue 1, item 15 'Multi-GPU row bands')"
+            f"{owner} keeps one device; render row bands across devices with "
+            "rend3_tpu_torch.parallel.tiles (device_mesh, build_tiled_frame_callable)"
         )
     dev = torch.device(device)
     if dev.type == "cuda":

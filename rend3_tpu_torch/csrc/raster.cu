@@ -27,6 +27,14 @@
 // skip stays valid for both: a skipped triangle covers no pixel of the
 // warp, so it neither wins nor counts anywhere there.
 //
+// Row bands (parallel/tiles.py). K1 and K2 take `row0`, the target row of
+// the output's row 0: a pixel's row is row0 + its local row, added as
+// integers before the float conversion (deferred.py:573, :402), and the
+// warp block's rows that the bbox and edge rejects read are the target's
+// too, so a band's pixels are the whole frame's bit for bit. The output,
+// bound, floor and count images are the band's (local rows); the setup
+// rows and bboxes are in target coordinates. The shadow maps take row0 = 0.
+//
 // Numerics. Every plane a*px + b*py + c is fma(a, px, b*py) + c, written
 // with explicit __fmaf_rn / __fmul_rn / __fadd_rn and built with
 // --fmad=false, so the compiler contracts nothing else. That is the form
@@ -194,6 +202,7 @@ struct Params {
     float* counts;
     const int* plan;  // K2's segments (tile_lists::plan_kernel)
     int width, height, n_tiles, strict;
+    int row0;         // K1 / K2: the target row of the output's row 0 (a row band's first row)
     float ox[MAX_SAMPLES], oy[MAX_SAMPLES];  // sample offsets (K1 and K2 take the first)
 };
 
@@ -360,7 +369,10 @@ __global__ void __launch_bounds__(NT, WINNER ? K1_MIN_CTAS : K2_MIN_CTAS) tiles_
     const int n_cols = p.width / TILE_W;
     const int trow = tile / n_cols, tcol = tile - trow * n_cols;
     const int x0 = tcol * TILE_W + q * QW;
-    const int y0 = trow * TILE_H + warp * ROWS;
+    const int y0 = trow * TILE_H + warp * ROWS;  // the output's row
+    // The target's row: a band's first row added as an integer before any
+    // float math, so a band's pixels are the whole frame's bit for bit.
+    const int ya = p.row0 + y0;
     const int x = x0 + lane;
     const float px[1] = {__fadd_rn(float(x), p.ox[0])};
     float py[1][ROWS], d[1][ROWS], bnd[ROWS], flr[ROWS];
@@ -368,7 +380,7 @@ __global__ void __launch_bounds__(NT, WINNER ? K1_MIN_CTAS : K2_MIN_CTAS) tiles_
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
         const size_t pix = (size_t)(y0 + r) * p.width + x;
-        py[0][r] = __fadd_rn(float(y0 + r), p.oy[0]);
+        py[0][r] = __fadd_rn(float(ya + r), p.oy[0]);
         d[0][r] = 0.0f;
         win[0][r] = -1;
         // An empty list reads neither image: its pixels win nothing and count nothing.
@@ -376,7 +388,7 @@ __global__ void __launch_bounds__(NT, WINNER ? K1_MIN_CTAS : K2_MIN_CTAS) tiles_
         flr[r] = COUNT && beg < end ? p.cfloor[pix] : 0.0f;
         cnt[r] = 0;
     }
-    walk_chunks<WINNER, BOUND, COUNT, !WINNER, 1>(p, beg, end, px, py, float(x0), float(y0), bnd, flr, d, win, cnt,
+    walk_chunks<WINNER, BOUND, COUNT, !WINNER, 1>(p, beg, end, px, py, float(x0), float(ya), bnd, flr, d, win, cnt,
                                                   sm);
     const size_t hw = (size_t)p.width * p.height;
 #pragma unroll
@@ -449,7 +461,7 @@ __global__ void __launch_bounds__(NT, NS == 1 ? K6_MIN_CTAS_1 : K6_MIN_CTAS_4) v
 
 Params make_params(const void* setup, const void* bbox, const void* planes, const void* offs, const void* ids,
                    void* out, const void* bound, const void* cfloor, void* counts, const void* plan,
-                   int width, int height, int strict, float sofs_x, float sofs_y)
+                   int width, int height, int strict, int row0, float sofs_x, float sofs_y)
 {
     Params p = {};
     p.setup = (const float*)setup;
@@ -466,6 +478,7 @@ Params make_params(const void* setup, const void* bbox, const void* planes, cons
     p.height = height;
     p.n_tiles = (width / TILE_W) * (height / TILE_H);
     p.strict = strict;
+    p.row0 = row0;
     p.ox[0] = sofs_x;
     p.oy[0] = sofs_y;
     return p;
@@ -481,14 +494,17 @@ extern "C" {
 // (height, width) f32 exclusive upper bound, and an optional (height,
 // width) f32 count floor whose per-pixel counts go to `counts` (height,
 // width) f32; a null pointer leaves a mode off. strict != 0 counts
-// z > floor, else z >= floor. Returns the first CUDA error of the launch.
+// z > floor, else z >= floor. row0: the target row of out's row 0 (a row
+// band's first row; setup rows and bboxes are in target coordinates, the
+// bound, floor, counts and out are the band's). Returns the first CUDA
+// error of the launch.
 int k1_raster_resolve(const void* setup, const void* bbox, const void* planes,
                       const void* offs, const void* ids, void* out,
                       const void* bound, const void* cfloor, void* counts,
-                      int width, int height, int strict, float sofs_x, float sofs_y, void* stream)
+                      int width, int height, int strict, int row0, float sofs_x, float sofs_y, void* stream)
 {
     const Params p = make_params(setup, bbox, planes, offs, ids, out, bound, cfloor, counts, nullptr,
-                                 width, height, strict, sofs_x, sofs_y);
+                                 width, height, strict, row0, sofs_x, sofs_y);
     const cudaStream_t s = (cudaStream_t)stream;
     if (bound && cfloor) return launch_tiles<true, true, true>(p, p.n_tiles, s);
     if (bound) return launch_tiles<true, true, false>(p, p.n_tiles, s);
@@ -497,14 +513,14 @@ int k1_raster_resolve(const void* setup, const void* bbox, const void* planes,
 }
 
 // K2: out (height, width) f32 (zeroed here, then written); inputs as K1
-// without the planes, n_entries = P; plan: 1 + 2 (n_tiles + P / 128) int32
-// of scratch (the segments, written here).
+// without the planes, n_entries = P, row0 as K1's; plan: 1 + 2 (n_tiles +
+// P / 128) int32 of scratch (the segments, written here).
 int k2_raster_depth(const void* setup, const void* bbox, const void* offs, const void* ids,
-                    void* out, void* plan, int width, int height, int n_entries, float sofs_x, float sofs_y,
-                    void* stream)
+                    void* out, void* plan, int width, int height, int n_entries, int row0, float sofs_x,
+                    float sofs_y, void* stream)
 {
     const Params p = make_params(setup, bbox, nullptr, offs, ids, out, nullptr, nullptr, nullptr, plan,
-                                 width, height, 0, sofs_x, sofs_y);
+                                 width, height, 0, row0, sofs_x, sofs_y);
     const cudaStream_t s = (cudaStream_t)stream;
     if (p.n_tiles <= 0) return (int)cudaGetLastError();
     const cudaError_t e = cudaMemsetAsync(out, 0, (size_t)width * height * sizeof(float), s);
@@ -543,7 +559,7 @@ int k6_raster_vis(const void* setup, const void* bbox, const void* offs, const v
                   void* stream)
 {
     Params p = make_params(setup, bbox, nullptr, offs, ids, depth, nullptr, nullptr, nullptr, nullptr,
-                           width, height, 0, ox0, oy0);
+                           width, height, 0, 0, ox0, oy0);
     p.tri = (int*)tri;
     const float ox[MAX_SAMPLES] = {ox0, ox1, ox2, ox3}, oy[MAX_SAMPLES] = {oy0, oy1, oy2, oy3};
     for (int s = 0; s < MAX_SAMPLES; ++s) {

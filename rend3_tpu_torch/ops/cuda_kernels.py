@@ -45,8 +45,8 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-lineinfo", "-X
 
 # name -> (tensor args, int args, float args); every function ends with the stream.
 _SIGNATURES = {
-    "k1_raster_resolve": (9, 3, 2),
-    "k2_raster_depth": (6, 3, 2),
+    "k1_raster_resolve": (9, 4, 2),
+    "k2_raster_depth": (6, 4, 2),
     "k3_pcf5": (8, 3, 0),
     "k4_bilinear": (8, 3, 0),
     "k5_gather": (5, 4 + 2 * 12, 0),

@@ -78,8 +78,12 @@ G_DUV = 21   # 4: du/dx, dv/dx, du/dy, dv/dy (analytic, post-divide)
 # Launch counts of the CUDA kernels (plain-version runs do not count). K1
 # counts its modes apart: plain (opaque and residual G-buffers) at the pixel
 # centre, plain at another sample offset (MSAA), with a count floor (peel 0
-# of a peel loop), with a bound only (later peels).
-launches = {"raster_resolve": 0, "raster_msaa": 0, "raster_count": 0, "raster_bound": 0, "raster_depth": 0}
+# of a peel loop), with a bound only (later peels); a launch for a row band
+# that does not start at the target's row 0 counts as "raster_band", in any
+# mode.
+launches = {
+    "raster_resolve": 0, "raster_msaa": 0, "raster_count": 0, "raster_bound": 0, "raster_band": 0, "raster_depth": 0,
+}
 
 
 class GBuffer(NamedTuple):
@@ -223,12 +227,16 @@ def attribute_planes(
 _PLAIN_BATCH = 1 << 22
 
 
-def _fragments(tris: TriSetup, binned: BinnedTris, width: int, sofs, tile_h: int = DTILE_H, tile_w: int = DTILE_W):
+def _fragments(
+    tris: TriSetup, binned: BinnedTris, width: int, sofs, tile_h: int = DTILE_H, tile_w: int = DTILE_W, row0: int = 0,
+):
     """Yield (tri ids, pixel index, px, py) for every pixel the kernels
     test a binned triangle against and that could be covered: the pixels
     of the triangle's tiles (tile_h x tile_w) inside its bbox grown by one
     pixel (rounding can put a covered sample a hair outside the float bbox,
-    never a whole pixel)."""
+    never a whole pixel). row0: the target row of the output's row 0 (a row
+    band's first row); rows are row0 + local as integers before the float
+    conversion, pixel indices local."""
     dev = tris.setup.device
     n_cols = width // tile_w
     offs = binned.offsets.long()
@@ -239,7 +247,7 @@ def _fragments(tris: TriSetup, binned: BinnedTris, width: int, sofs, tile_h: int
         return
     bb = tris.bbox[tri]
     tx0 = (tile % n_cols) * tile_w
-    ty0 = (tile // n_cols) * tile_h
+    ty0 = (tile // n_cols) * tile_h + row0
     x0 = torch.maximum(torch.floor(bb[:, 0]).clamp(-2, 1 << 20).long() - 1, tx0)
     x1 = torch.minimum(torch.ceil(bb[:, 2]).clamp(-2, 1 << 20).long() + 1, tx0 + tile_w)
     y0 = torch.maximum(torch.floor(bb[:, 1]).clamp(-2, 1 << 20).long() - 1, ty0)
@@ -264,7 +272,7 @@ def _fragments(tris: TriSetup, binned: BinnedTris, width: int, sofs, tile_h: int
         ys = rep(y0[lo:hi]) + local // nxr
         px = xs.float() + float(sofs[0])
         py = ys.float() + float(sofs[1])
-        yield rep(tri[lo:hi]), ys * width + xs, px, py
+        yield rep(tri[lo:hi]), (ys - row0) * width + xs, px, py
 
 
 def _coverage(s: torch.Tensor, px, py):
@@ -279,11 +287,12 @@ def _coverage(s: torch.Tensor, px, py):
     return cov & (z >= 0.0) & (z <= 1.0), z
 
 
-def raster_depth_plain(tris: TriSetup, binned: BinnedTris, width: int, height: int, sofs=(0.5, 0.5)):
+def raster_depth_plain(tris: TriSetup, binned: BinnedTris, width: int, height: int, sofs=(0.5, 0.5), y0: int = 0):
     """Plain version of K2: per pixel the greatest reverse-Z depth over the
-    covering triangles of its tile list, 0 where none covers."""
+    covering triangles of its tile list, 0 where none covers; y0 as in
+    raster_depth."""
     depth = torch.zeros(height * width, dtype=torch.float32, device=tris.setup.device)
-    for tri, pix, px, py in _fragments(tris, binned, width, sofs):
+    for tri, pix, px, py in _fragments(tris, binned, width, sofs, row0=y0):
         cov, z = _coverage(tris.setup[tri], px, py)
         depth.scatter_reduce_(0, pix[cov], z[cov], reduce="amax")
     return depth.reshape(height, width)
@@ -291,7 +300,7 @@ def raster_depth_plain(tris: TriSetup, binned: BinnedTris, width: int, height: i
 
 def _winners_plain(
     tris: TriSetup, binned: BinnedTris, width: int, height: int, sofs,
-    bound=None, count_floor=None, count_strict=False, tile_h: int = DTILE_H, tile_w: int = DTILE_W,
+    bound=None, count_floor=None, count_strict=False, tile_h: int = DTILE_H, tile_w: int = DTILE_W, y0: int = 0,
 ):
     """Per pixel the winning setup row (-1 = none): greatest depth, and on
     equal depth the later list entry, i.e. the higher row id. Packs
@@ -299,14 +308,14 @@ def _winners_plain(
     (H, W) a fragment also needs z < bound (deferred.py:617-618). With
     `count_floor` (H, W), counts per pixel every covered fragment at
     z >= floor (z > floor when count_strict), before the bound and whatever
-    the depth test decides (deferred.py:611-616). Returns (win, depth,
-    counts or None)."""
+    the depth test decides (deferred.py:611-616). y0: _fragments' row0.
+    Returns (win, depth, counts or None)."""
     dev = tris.setup.device
     key = torch.full((height * width,), -1, dtype=torch.int64, device=dev)
     bnd = None if bound is None else bound.reshape(-1)
     flr = None if count_floor is None else count_floor.reshape(-1)
     counts = None if flr is None else torch.zeros(height * width, dtype=torch.int64, device=dev)
-    for tri, pix, px, py in _fragments(tris, binned, width, sofs, tile_h, tile_w):
+    for tri, pix, px, py in _fragments(tris, binned, width, sofs, tile_h, tile_w, y0):
         cov, z = _coverage(tris.setup[tri], px, py)
         if flr is not None:
             above = (z > flr[pix]) if count_strict else (z >= flr[pix])
@@ -352,15 +361,18 @@ def resolve_channels(planes_w: torch.Tensor, depth, px, py) -> torch.Tensor:
 
 
 def raster_resolve_plain(
-    tris, planes, binned, width, height, sofs=(0.5, 0.5), bound=None, count_floor=None, count_strict=False,
+    tris, planes, binned, width, height, sofs=(0.5, 0.5), bound=None, count_floor=None, count_strict=False, y0=0,
 ):
     """Plain version of K1: the (GB_CH, H, W) G-buffer, and with
-    `count_floor` also the (H, W) f32 counts: (gbuf, counts)."""
-    win, depth, counts = _winners_plain(tris, binned, width, height, sofs, bound, count_floor, count_strict)
+    `count_floor` also the (H, W) f32 counts: (gbuf, counts); y0 as in
+    raster_resolve."""
+    win, depth, counts = _winners_plain(
+        tris, binned, width, height, sofs, bound, count_floor, count_strict, y0=y0
+    )
     out = torch.zeros(GB_CH, height * width, dtype=torch.float32, device=planes.device)
     pix = torch.nonzero(win >= 0).flatten()
     px = (pix % width).float() + float(sofs[0])
-    py = (pix // width).float() + float(sofs[1])
+    py = (pix // width + y0).float() + float(sofs[1])
     out[:, pix] = resolve_channels(planes[win[pix]], depth[pix], px, py)
     out = out.reshape(GB_CH, height, width)
     return out if counts is None else (out, counts)
@@ -409,6 +421,7 @@ def raster_resolve(
     bound: Optional[torch.Tensor] = None,
     count_floor: Optional[torch.Tensor] = None,
     count_strict: bool = False,
+    y0: int = 0,
 ):
     """K1, the fused raster + G-buffer resolve over CSR tile lists (the
     counterpart of deferred.raster_resolve_packed): the (GB_CH, H, W)
@@ -420,6 +433,12 @@ def raster_resolve(
     z >= floor (z > floor with count_strict), before the bound, and the
     call returns (GBuffer, counts (H, W) f32). JAX returns (GBuffer,
     overflow, counts); the port has no overflow, so counts come second.
+    y0: the target row of the output's row 0, a row band's first row
+    (parallel/tiles.py): tile rows start there, and pixel rows are y0 +
+    local, added as integers before the float conversion
+    (deferred.py:573), so a band equals the same rows of the whole frame
+    bit for bit; the setup table and its bboxes are in target coordinates,
+    `bound`, `count_floor` and the outputs are the band's (H, W).
     CUDA tensors launch the kernel in csrc/raster.cu; CPU tensors run
     raster_resolve_plain."""
     dev = _check(tris, binned, width, height, planes)
@@ -430,7 +449,7 @@ def raster_resolve(
         ):
             raise ValueError(f"{name} must be a contiguous ({height}, {width}) f32 image on {dev}")
     if dev.type == "cpu":
-        out = raster_resolve_plain(tris, planes, binned, width, height, sofs, bound, count_floor, count_strict)
+        out = raster_resolve_plain(tris, planes, binned, width, height, sofs, bound, count_floor, count_strict, y0)
         return (GBuffer(out[0]), out[1]) if count_floor is not None else GBuffer(out)
     from . import cuda_kernels
 
@@ -439,16 +458,17 @@ def raster_resolve(
     cuda_kernels.call(
         "k1_raster_resolve",
         tris.setup, tris.bbox, planes, binned.offsets, binned.ids, out, bound, count_floor, counts,
-        ints=(width, height, int(count_strict)), floats=sofs,
+        ints=(width, height, int(count_strict), y0), floats=sofs,
     )
-    if counts is not None:
+    if y0 != 0:
+        launches["raster_band"] += 1
+    elif counts is not None:
         launches["raster_count"] += 1
-        return GBuffer(out), counts
-    if bound is not None:
+    elif bound is not None:
         launches["raster_bound"] += 1
     else:
         launches["raster_resolve" if tuple(sofs) == (0.5, 0.5) else "raster_msaa"] += 1
-    return GBuffer(out)
+    return (GBuffer(out), counts) if counts is not None else GBuffer(out)
 
 
 def raster_depth(
@@ -458,13 +478,15 @@ def raster_depth(
     height: int,
     *,
     sofs: Tuple[float, float] = (0.5, 0.5),
+    y0: int = 0,
 ) -> torch.Tensor:
     """K2, the depth-only raster (the counterpart of deferred._depth_launch):
-    (H, W) f32, 0 where no triangle covers. CUDA tensors launch the kernel
-    in csrc/raster.cu; CPU tensors run raster_depth_plain."""
+    (H, W) f32, 0 where no triangle covers; y0 as in raster_resolve (the
+    shadow maps take 0). CUDA tensors launch the kernel in csrc/raster.cu;
+    CPU tensors run raster_depth_plain."""
     dev = _check(tris, binned, width, height)
     if dev.type == "cpu":
-        return raster_depth_plain(tris, binned, width, height, sofs)
+        return raster_depth_plain(tris, binned, width, height, sofs, y0)
     from . import cuda_kernels
 
     out = torch.empty(height, width, dtype=torch.float32, device=dev)
@@ -475,7 +497,7 @@ def raster_depth(
     cuda_kernels.call(
         "k2_raster_depth",
         tris.setup, tris.bbox, binned.offsets, binned.ids, out, plan,
-        ints=(width, height, n_entries), floats=sofs,
+        ints=(width, height, n_entries, y0), floats=sofs,
     )
     launches["raster_depth"] += 1
     return out

@@ -94,11 +94,12 @@ def _opp(a: torch.Tensor) -> torch.Tensor:
 
 def _screen_tests(
     clip, valid, width, height, *, cull_mode, front_is_cw, subpixel, hiz=None, capture=None, contract=False,
+    y_range=None,
 ):
     """Degenerate / winding / viewport / sub-pixel culls (cull.wgsl), and
     the Hi-Z occlusion test against `hiz` (a hi_z.build_pyramid list) when
-    given; `capture` as in hi_z.occlusion_test; `contract` as in
-    cull_and_setup. Returns (keep, x, y, z, area2)."""
+    given; `capture` as in hi_z.occlusion_test; `contract` and `y_range` as
+    in cull_and_setup. Returns (keep, x, y, z, area2)."""
     d2 = ab_minus_cd if contract else _ab_minus_cd_eager
     w = clip[..., 3]
     inv_w = 1.0 / torch.where(w == 0.0, torch.ones_like(w), w)
@@ -116,7 +117,8 @@ def _screen_tests(
 
     xmin, xmax = x.amin(dim=1), x.amax(dim=1)
     ymin, ymax = y.amin(dim=1), y.amax(dim=1)
-    keep = keep & (xmax > 0.0) & (xmin < width) & (ymax > 0.0) & (ymin < height)
+    y_lo, y_hi = (0.0, float(height)) if y_range is None else (float(y_range[0]), float(y_range[1]))
+    keep = keep & (xmax > 0.0) & (xmin < width) & (ymax > y_lo) & (ymin < y_hi)
     if subpixel:
         # Sub-pixel cull: the bbox holds no pixel center (cull.wgsl:221-236).
         cx = torch.floor(xmin - 0.5) + 1.5
@@ -155,6 +157,7 @@ def cull_and_setup(
     hiz=None,
     capture=None,
     contract: bool = False,
+    y_range=None,
 ) -> TriSetup:
     """Cull, compute edge/depth planes, compact to the survivors. With
     `hiz` (a hi_z.build_pyramid list) the survivors also pass the Hi-Z
@@ -169,10 +172,15 @@ def cull_and_setup(
     -(yn - yo) as fma(yp, height, -yn), yo's product fused in. The default
     is the eager JAX form.
 
+    y_range: optional (y0, y1) target rows, a row band's
+    (parallel/tiles.py): only the viewport reject is restricted to
+    [y0, y1), as geometry.py:108-135 does; the viewport transform and so
+    every setup row stay in whole-target coordinates.
+
     Host read: `nonzero` sizes the survivor table (one device sync)."""
     keep, x, y, z, area2 = _screen_tests(
         clip, valid, width, height, cull_mode=cull_mode, front_is_cw=front_is_cw,
-        subpixel=subpixel, hiz=hiz, capture=capture, contract=contract,
+        subpixel=subpixel, hiz=hiz, capture=capture, contract=contract, y_range=y_range,
     )
     d2 = ab_minus_cd if contract else _ab_minus_cd_eager
     g = torch.nonzero(keep).flatten()
@@ -239,11 +247,13 @@ def cull_and_setup(
 
 
 def bin_triangles(
-    tris: TriSetup, width: int, height: int, *, tile_h: int, tile_w: int
+    tris: TriSetup, width: int, height: int, *, tile_h: int, tile_w: int, y0: int = 0
 ) -> BinnedTris:
     """Per-tile triangle lists (CSR) by bbox overlap with the tile, the
     test of geometry.py bin_triangles: xmax > tx0, xmin < tx0 + tile_w,
     ymax > ty0, ymin < ty0 + tile_h. width/height are padded to tiles.
+    y0: the target row of the first tile row (a row band's first row,
+    geometry.py:306, :433): tile row r covers rows [y0 + r*tile_h, ...).
 
     Each triangle's candidate tiles come from its bbox (one tile of slack
     on each side), the exact float test above decides, and a stable sort of
@@ -266,7 +276,7 @@ def bin_triangles(
         return a.clamp(0, n - 1), b.clamp(0, n - 1)
 
     c0, c1 = span(xmin, xmax, tile_w, n_cols)
-    r0, r1 = span(ymin, ymax, tile_h, n_rows)
+    r0, r1 = span(ymin - y0, ymax - y0, tile_h, n_rows)
     nc = (c1 - c0 + 1).clamp_min(0)
     nr = (r1 - r0 + 1).clamp_min(0)
     cnt = nc * nr
@@ -277,7 +287,7 @@ def bin_triangles(
     row = r0[tri] + local // nc[tri]
     col = c0[tri] + local % nc[tri]
     tx0 = (col * tile_w).to(torch.float32)
-    ty0 = (row * tile_h).to(torch.float32)
+    ty0 = (row * tile_h).to(torch.float32) + float(y0)
     hit = (
         (xmax[tri] > tx0)
         & (xmin[tri] < tx0 + tile_w)

@@ -20,6 +20,15 @@ here each stage is a function over torch tensors on the renderer's device:
     registered routines, blend shading and compositing -> f16 round trip ->
     resolve (mean over samples) -> [hdr passes] -> blit -> [srgb passes]
 
+A row band (parallel/tiles.py) is the same frame restricted to the target
+rows [row0, row0 + band_h) (JAX's band frame, base.py:1120-1203): the
+viewport reject, the binning and K1 take the band's first row, every pixel
+position stays in target coordinates (integer row offsets added before any
+float math), and the phase-1 occluder depth of every band is gathered into
+the target's Hi-Z pyramid, so a band's pixels equal the whole frame's bit
+for bit. `_render_frame_stages` is the frame as a generator that yields the band's
+occluder depth rows and is sent the target's; `drive_frame` runs one.
+
 Under MSAA the geometry work (cull, setup, planes, binning) runs once per
 pass and K1 runs once per sample offset (base.py:1353-1374); sub-pixel
 culling, a pixel-centre test, is off (base.py:1326-1329).
@@ -77,7 +86,7 @@ from ..utils.profiling import scope as profiling_scope
 
 __all__ = [
     "BaseRenderGraph", "BaseRenderGraphSettings", "FrameRenderTarget", "StageTimer", "default_raster_backend",
-    "raster_scene", "sky_directions",
+    "drive_frame", "raster_scene", "sky_directions",
 ]
 
 RASTER_BACKENDS = ("pallas", "binned_xla", "reference")
@@ -148,9 +157,11 @@ def raster_scene(
     return vis
 
 
-def sky_directions(inv: torch.Tensor, width: int, height: int, hp: int, wp: int, sofs) -> torch.Tensor:
+def sky_directions(inv: torch.Tensor, width: int, height: int, hp: int, wp: int, sofs, row0: int = 0) -> torch.Tensor:
     """(hp * wp, 3) unit world view directions of the padded frame's pixels
-    at sample offset sofs (base.py:1576-1591): ndc from the sample position,
+    at sample offset sofs (base.py:1576-1591), the rows from target row
+    row0 on (a row band's first row, added as an integer before the float
+    conversion, base.py:1578): ndc from the sample position,
     times inv_origin_view_proj, divided by w and normalised. The product is
     summed column by column in order, with no fma, as XLA:CPU computes the
     JAX frame's (N, 4) x (4, 4) dot (bit for bit); the normalisation agrees
@@ -158,7 +169,7 @@ def sky_directions(inv: torch.Tensor, width: int, height: int, hp: int, wp: int,
     ox, oy = sofs
     dev = inv.device
     cols = torch.arange(wp, dtype=torch.float32, device=dev) + ox
-    rows = torch.arange(hp, dtype=torch.int32, device=dev).float() + oy
+    rows = (torch.arange(hp, dtype=torch.int32, device=dev) + row0).float() + oy
     py, px = torch.meshgrid(rows, cols, indexing="ij")
     ndc_x = (px / width * 2.0 - 1.0).reshape(-1)
     ndc_y = (1.0 - py / height * 2.0).reshape(-1)
@@ -211,6 +222,19 @@ class _Frame:
     """One frame's device inputs (the upload stage's output)."""
 
 
+def drive_frame(steps, gather):
+    """Runs a BaseRenderGraph._render_frame_stages generator to its end and
+    returns its image, answering its request (the band's (band_h, W)
+    phase-1 occluder depth rows, with occlusion culling on) with
+    gather(rows), the target's (H, W) occluder depth."""
+    try:
+        rows = next(steps)
+        while True:
+            rows = steps.send(gather(rows))
+    except StopIteration as done:
+        return done.value
+
+
 class BaseRenderGraph:
     def __init__(self, renderer: Renderer):
         self.renderer = renderer
@@ -261,7 +285,8 @@ class BaseRenderGraph:
 
         fn(img, gbuf, uniforms) -> img, where gbuf is sample 0's padded
         G-buffer (deferred.GBuffer); a 4-parameter fn also gets row0, the
-        target row of the image's first row (0 on one device)."""
+        target row of the image's first row (a row band's; 0 for a whole
+        frame)."""
         if stage not in ("srgb", "hdr"):
             raise ValueError(f"register_pass stage must be 'srgb' or 'hdr', got {stage!r}")
         self.injected_passes.append((fn, stage))
@@ -514,7 +539,7 @@ class BaseRenderGraph:
             return geom_ops.cull_and_setup(
                 table.clip, valid, f.width, f.height,
                 cull_mode=geom_ops.CullMode.BACK, front_is_cw=f.front_cw, subpixel=f.subpixel, hiz=hiz,
-                contract=True,
+                contract=True, y_range=f.y_range,
             )
 
     def _planes_bin(self, f: _Frame, stage, tris, table, tri_vlocal, tri_obj, names):
@@ -526,7 +551,9 @@ class BaseRenderGraph:
                 f.bases, f.geo, f.mv, f.material_slots, f.width, f.height, contract=True,
             )
         with stage(names[1]):
-            binned = geom_ops.bin_triangles(tris, f.wp, f.hp, tile_h=def_ops.DTILE_H, tile_w=def_ops.DTILE_W)
+            binned = geom_ops.bin_triangles(
+                tris, f.wp, f.hp, tile_h=def_ops.DTILE_H, tile_w=def_ops.DTILE_W, y0=f.row0
+            )
         return planes, binned
 
     def _capture(self, key: str, value) -> None:
@@ -583,12 +610,12 @@ class BaseRenderGraph:
                     floor = torch.where(ohit, odepth, torch.full_like(odepth, -1.0))
                     self._capture("raster_count", (tris, planes, binned, wp, hp, floor, True))
                     g, counts = def_ops.raster_resolve(
-                        tris, planes, binned, wp, hp, sofs=sofs, count_floor=floor, count_strict=True
+                        tris, planes, binned, wp, hp, sofs=sofs, count_floor=floor, count_strict=True, y0=f.row0
                     )
                     layers = int(torch.round(counts.max()))
                 else:
                     self._capture("raster_bound", (tris, planes, binned, wp, hp, bound))
-                    g = def_ops.raster_resolve(tris, planes, binned, wp, hp, sofs=sofs, bound=bound)
+                    g = def_ops.raster_resolve(tris, planes, binned, wp, hp, sofs=sofs, bound=bound, y0=f.row0)
                 gc = g.data
             peels += 1
             with stage("cut_alpha"):
@@ -667,11 +694,13 @@ class BaseRenderGraph:
             with stage("blend_raster"):
                 if n == 0:
                     floor = torch.where(ohit, odepth, torch.full_like(odepth, -1.0))
-                    g, counts = def_ops.raster_resolve(tris, planes, binned, wp, hp, sofs=sofs, count_floor=floor)
+                    g, counts = def_ops.raster_resolve(
+                        tris, planes, binned, wp, hp, sofs=sofs, count_floor=floor, y0=f.row0
+                    )
                     need = int(torch.round(counts.max()))
                 else:
                     self._capture("raster_bound", (tris, planes, binned, wp, hp, bound))
-                    g = def_ops.raster_resolve(tris, planes, binned, wp, hp, sofs=sofs, bound=bound)
+                    g = def_ops.raster_resolve(tris, planes, binned, wp, hp, sofs=sofs, bound=bound, y0=f.row0)
                 g = g.data
                 n += 1
                 bdepth = g[def_ops.G_DEPTH]
@@ -768,18 +797,31 @@ class BaseRenderGraph:
         caller as DeviceOutOfMemoryError, its cause chained, as JAX's
         render_frame maps RESOURCE_EXHAUSTED (rend3_tpu/routine/base.py:252-259)."""
         try:
-            return self._render_frame_stages(eval_output, target, settings, skybox_slot)
+            steps = self._render_frame_stages(eval_output, target, settings, skybox_slot)
+            return drive_frame(steps, lambda rows: rows)
         except RuntimeError as e:  # torch.cuda.OutOfMemoryError is one
             if isinstance(e, torch.cuda.OutOfMemoryError) or "out of memory" in str(e).lower():
                 raise DeviceOutOfMemoryError(str(e)) from e
             raise
 
-    def _render_frame_stages(self, eval_output, target, settings, skybox_slot):
+    def _render_frame_stages(self, eval_output, target, settings, skybox_slot, band=None):
+        """The frame's stages as a generator that returns the u8 image. With
+        occlusion culling on it yields once, the (band_h, W) phase-1
+        occluder depth rows, and must be sent the target's (H, W) occluder
+        depth (drive_frame). band: None for the whole target, or (row0,
+        band_h) for the rows [row0, row0 + band_h) of the JAX band frame
+        (base.py:1120-1203), whose image is (band_h, W, 4); the deferred
+        frame only (base.py:1143-1145)."""
         raster_ops.sample_offsets(target.samples)  # raises unless 1 or 4
         if default_raster_backend() == "reference":
+            if band is not None:
+                raise ValueError(
+                    "row bands need the deferred frame; REND3_TPU_RASTER=reference renders whole frames only"
+                )
             return self._render_forward(eval_output, target, settings, skybox_slot)
         stage = self.timer if self.timer is not None else _no_timer
         width, height = target.width, target.height
+        row0, bh = (0, height) if band is None else band
         plan = eval_output.shadow_plan
         if self.captured is not None:
             for key in ("raster_count", "raster_bound", "bilinear_cutout", "bilinear_sky"):
@@ -797,9 +839,14 @@ class BaseRenderGraph:
         with stage("clip"):
             clipped = self._clip(f)
         f.clipped = clipped
+        # Setup, planes and pixel positions stay in target coordinates; the
+        # band's rows start at target row row0 (0 for the whole target), its
+        # padded G-buffers hold hp rows, and rows past bh are dropped.
         f.width, f.height = width, height
+        f.row0, f.bh = row0, bh
+        f.y_range = None if band is None else (row0, row0 + bh)
         f.wp = wp = _round_up(width, def_ops.DTILE_W)
-        f.hp = hp = _round_up(height, def_ops.DTILE_H)
+        f.hp = hp = _round_up(bh, def_ops.DTILE_H)
         f.offsets = offsets = raster_ops.sample_offsets(target.samples)
         f.subpixel = len(offsets) == 1
         S = st["samples"] = len(offsets)
@@ -813,7 +860,7 @@ class BaseRenderGraph:
         def raster_at(tris, planes, binned, sofs, name):
             """The G-buffer (K1) of shared geometry at one sample offset."""
             with stage(name):
-                return def_ops.raster_resolve(tris, planes, binned, wp, hp, sofs=sofs).data
+                return def_ops.raster_resolve(tris, planes, binned, wp, hp, sofs=sofs, y0=row0).data
 
         T = f.tri_vlocal.shape[0]
         pm = None
@@ -829,7 +876,10 @@ class BaseRenderGraph:
             pm = pm_tri[clipped.orig.long()]
         tris = self._cull(f, stage, clipped, opaque_valid if pm is None else opaque_valid & pm, "setup")
         planes, binned = self._planes_bin(f, stage, tris, clipped, f.tri_vlocal, f.tri_obj, ("planes", "bin"))
-        if self.captured is not None:
+        if self.captured is not None and band is not None:
+            # Each band's phase-1 inputs, by its first row.
+            self.captured.setdefault("raster_band", {})[row0] = (tris, planes, binned, wp, hp, row0)
+        elif self.captured is not None:
             self.captured["raster_resolve"] = (tris, planes, binned, wp, hp)
             if S > 1:
                 self.captured["raster_sample"] = (tris, planes, binned, wp, hp, offsets[1])
@@ -848,7 +898,13 @@ class BaseRenderGraph:
                 depth = gbufs[0][def_ops.G_DEPTH]
                 for g in gbufs[1:]:
                     depth = torch.minimum(depth, g[def_ops.G_DEPTH])
-                pyramid = hiz_ops.build_pyramid(depth[:height, :width])
+            # The band's rows go out, the target's occluder depth comes back
+            # (every band's rows, gathered in order: base.py:1430-1435), so
+            # every band builds the same pyramid and tests visibility at
+            # target coordinates, and the carried mask is the same in all.
+            depth = yield depth[:bh, :width]
+            with stage("hiz"):
+                pyramid = hiz_ops.build_pyramid(depth)
                 vis = geom_ops.visibility_mask(
                     clipped.clip, opaque_valid, width, height,
                     cull_mode=geom_ops.CullMode.BACK, front_is_cw=f.front_cw, subpixel=f.subpixel,
@@ -881,7 +937,7 @@ class BaseRenderGraph:
             with stage("skybox"):
                 backgrounds = self._skybox(f, gbufs)
         else:
-            backgrounds = [f.clear_color.expand(height, width, 4)] * S
+            backgrounds = [f.clear_color.expand(bh, width, 4)] * S
         peels_s = self._blend_peels(f, stage, gbufs) if f.blend_obj is not None else [[] for _ in offsets]
         # Each sample's blend peels' hit pixels, compacted into one
         # (CH, 1, N) G-buffer that shares the opaque pixels' K3 launch and
@@ -899,18 +955,18 @@ class BaseRenderGraph:
                 # Light 0 at sample 0's opaque pixels (rend3_tpu_torch.probe_shadow).
                 self.captured["shadow_light0"] = (coord_sets[0][0], svals[0][0], plan[0][2])
                 self.captured["shadow_coords"] = coord_sets[0]  # every light, sample 0's opaque pixels
-            shadow_s = [sv[:, :height, :width] for sv in svals[:S]]
+            shadow_s = [sv[:, :bh, :width] for sv in svals[:S]]
             rest = iter(svals[S:])
             blend_sv = [None if b is None else next(rest) for b in bgbufs]
         else:
-            shadow_s = [torch.ones(L, height, width, dtype=torch.float32, device=dev)] * S
+            shadow_s = [torch.ones(L, bh, width, dtype=torch.float32, device=dev)] * S
             blend_sv = [None if b is None else torch.ones(L, *b.shape[1:], device=dev) for b in bgbufs]
         # Lighting (timed as "textures" and "lighting") on each sample's
         # cropped G-buffer: the padding pixels are never hit, so lighting
         # them (as the JAX package's texture path does) changes nothing.
         imgs = []
         for si in range(S):
-            gbuf = def_ops.GBuffer(gbufs[si][:, :height, :width])
+            gbuf = def_ops.GBuffer(gbufs[si][:, :bh, :width])
             img = light_ops.light_gbuffer(
                 gbuf, f.materials, f.dir_lights, f.point_lights, f.uniforms, backgrounds[si], shadow_s[si],
                 textures=f.textures, active_tex_slots=f.active_tex_slots,
@@ -931,15 +987,15 @@ class BaseRenderGraph:
         with stage("blit"):
             # f16 round trip per sample, then the resolve (base.py:2053-2054).
             img = blit_ops.resolve_samples(blit_ops.f16_roundtrip(torch.stack(imgs)))
-        img = self._run_passes(stage, img, "hdr", gbufs[0], f.uniforms)
+        img = self._run_passes(stage, img, "hdr", gbufs[0], f.uniforms, row0)
         with stage("blit"):
             out = blit_ops.hdr_to_srgb_u8(img)
-        return self._run_passes(stage, out, "srgb", gbufs[0], f.uniforms)
+        return self._run_passes(stage, out, "srgb", gbufs[0], f.uniforms, row0)
 
-    def _run_passes(self, stage, img, want_stage: str, gbuf0, uniforms):
+    def _run_passes(self, stage, img, want_stage: str, gbuf0, uniforms, row0: int = 0):
         """The registered passes of one stage, in order (base.py:2061-2080);
         gbuf0 is sample 0's padded G-buffer (None in the forward frame,
-        whose passes get no G-buffer)."""
+        whose passes get no G-buffer), row0 the target row of img's row 0."""
         for fn, pstage in self.injected_passes:
             if pstage != want_stage:
                 continue
@@ -949,7 +1005,7 @@ class BaseRenderGraph:
                 wants_row0 = False
             with stage("passes"):
                 gbuf = None if gbuf0 is None else def_ops.GBuffer(gbuf0)
-                img = fn(img, gbuf, uniforms, *((0,) if wants_row0 else ()))
+                img = fn(img, gbuf, uniforms, *((row0,) if wants_row0 else ()))
         return img
 
     # -- the forward frame (REND3_TPU_RASTER=reference) ---------------------
@@ -1028,9 +1084,9 @@ class BaseRenderGraph:
         hp, wp, dev = f.hp, f.wp, gbufs[0].device
         inv = f.uniforms.inv_origin_view_proj
         in_frame = (
-            (torch.arange(hp, device=dev)[:, None] < f.height) & (torch.arange(wp, device=dev)[None, :] < f.width)
+            (torch.arange(hp, device=dev)[:, None] < f.bh) & (torch.arange(wp, device=dev)[None, :] < f.width)
         ).reshape(-1)
-        dirs_list = [sky_directions(inv, f.width, f.height, hp, wp, sofs) for sofs in f.offsets]
+        dirs_list = [sky_directions(inv, f.width, f.height, hp, wp, sofs, f.row0) for sofs in f.offsets]
         need_list = [~(g[def_ops.G_HIT] > 0.0).reshape(-1) & in_frame for g in gbufs]
         cap = {} if self.captured is not None else None
         k4_before = samplers_ops.launches["bilinear"]
@@ -1043,7 +1099,7 @@ class BaseRenderGraph:
         for si in range(len(f.offsets)):
             rgba = torch.cat([sky[si][:, :3], torch.ones_like(sky[si][:, 3:4])], dim=1)
             bg = torch.where(need_list[si][:, None], rgba, f.clear_color[None, :])
-            out.append(bg.reshape(hp, wp, 4)[: f.height, : f.width])
+            out.append(bg.reshape(hp, wp, 4)[: f.bh, : f.width])
         return out
 
     def _blend_composite(self, f: _Frame, peels, bgbuf, blend_sv, img):
@@ -1075,8 +1131,8 @@ class BaseRenderGraph:
             a = full[:, 3]   # alpha x the peel's hit flag (0 off its pixels)
             C = C + ((1.0 - A) * a)[:, None] * full[:, :3]
             A = A + (1.0 - A) * a
-        C = C.reshape(f.hp, f.wp, 3)[: f.height, : f.width]
-        A = A.reshape(f.hp, f.wp)[: f.height, : f.width]
+        C = C.reshape(f.hp, f.wp, 3)[: f.bh, : f.width]
+        A = A.reshape(f.hp, f.wp)[: f.bh, : f.width]
         return torch.cat([C + (1.0 - A)[..., None] * img[..., :3], (A + (1.0 - A) * img[..., 3])[..., None]], dim=-1)
 
 

@@ -12,8 +12,10 @@ skinned columns, registered material routines, injected passes).
 shader; `stacked_cutout`, `glass_stack` and `peel_slice` are small cutout,
 blend and whole-slice scenes (the first two those of tests/test_caps.py and
 tests/test_blend.py); `skinned_columns`, `registry_scene` and
-`skybox_cube` small skinning, routine and skybox scenes. The small scenes take the modules they build with, so
-another package can build the same scene.
+`skybox_cube` small skinning, routine and skybox scenes; `shadow_cube`,
+`band_features` and `mipmapped_floor` the scenes of tests/test_multichip.py
+(the row bands' tests). The small scenes take the modules they build with,
+so another package can build the same scene.
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ __all__ = [
     "build_city_scene", "textured_city", "textured_planes", "stacked_cutout", "glass_stack", "peel_slice",
     "set_bench_camera", "skinned_column_mesh", "column_pose", "add_skinned_columns", "pose_columns",
     "skinned_columns", "flat_material_class", "registry_scene", "skybox_cube", "sky_faces", "feature_city",
+    "shadow_cube", "band_features", "mipmapped_floor",
 ]
 
 
@@ -699,7 +702,8 @@ def feature_city(runner, n_buildings=600, seed=7, sky_size=512, n_columns=64):
       magenta quads of an archetype with no routine ("HiddenSignMaterial"),
       which must not draw;
     - an "hdr" pass (an exposure scale of 1.1) and an "srgb" pass (a 64x64
-      tint in the top-left corner) on runner.base_graph.
+      tint in the top-left corner of the target; it takes the image's first
+      row, so a row band tints the same pixels) on runner.base_graph.
 
     Returns (handles to keep, dict with "sky" (the cube texture's handle),
     "skeletons", "passes" ((hdr fn, srgb fn)), "routines" and "classes"
@@ -771,9 +775,12 @@ def feature_city(runner, n_buildings=600, seed=7, sky_size=512, n_columns=64):
     def exposure(img, gbuf, uniforms):
         return img * 1.1
 
-    def corner_tint(img, gbuf, uniforms):
+    def corner_tint(img, gbuf, uniforms, row0=0):
+        # The target's rows 0-63: img's first row is target row row0 (a
+        # row band's first row), so a banded frame tints the same pixels.
         out = img.clone()
-        out[:64, :64, :3] = (out[:64, :64, :3].float() * 0.5 + 100.0).to(img.dtype)
+        n = max(0, 64 - row0)
+        out[:n, :64, :3] = (out[:n, :64, :3].float() * 0.5 + 100.0).to(img.dtype)
         return out
 
     runner.base_graph.register_pass(exposure, stage="hdr")
@@ -782,3 +789,101 @@ def feature_city(runner, n_buildings=600, seed=7, sky_size=512, n_columns=64):
     return keep, {
         "sky": sky, "skeletons": skeletons, "passes": (exposure, corner_tint), "routines": routines, "classes": classes,
     }
+
+
+# ---------------------------------------------------------------------------
+# The row bands' scenes (tests/test_multichip.py)
+# ---------------------------------------------------------------------------
+
+
+def shadow_cube(runner, mat=None, types=None, m3=None):
+    """A lit cube on a lit plane under one shadowed light, orthographic
+    (__graft_entry__._build_scene, the scene of tests/test_shadow.py).
+    Modules as in textured_planes. Returns the handles to keep."""
+    mat, types, m3 = _modules(mat, types, m3)
+    keep = [runner.add_directional_light(np.array([-1.0, -1.0, 1.0], np.float32))]
+    mat1 = runner.add_lit_material([0.25, 0.5, 0.75, 1.0])
+    keep += [mat1, runner.plane(mat1, m3.rotation_x(-np.pi / 2))]
+    mat2 = runner.add_lit_material([0.75, 0.5, 0.25, 1.0])
+    keep += [mat2, runner.cube(mat2, m3.translation([0.25, 0.25, -0.25]) @ m3.scale(0.25))]
+    runner.set_camera_data(types.Camera(
+        projection=types.Orthographic(size=np.array([2.5, 2.5, 5.0], np.float32)),
+        view=m3.look_at_lh([0.0, 1.0, -1.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]),
+    ))
+    return keep
+
+
+def band_features(runner, mat=None, types=None, m3=None):
+    """A textured (mip-mapped) opaque plane, a cutout quad with alternate
+    rows of its texture transparent and a blended glass pane under one
+    shadowed light, orthographic (test_multichip.py's
+    test_tiled_textured_cutout_blend_bit_exact). Modules as in
+    textured_planes. Returns the handles to keep."""
+    mat, types, m3 = _modules(mat, types, m3)
+    r = runner.renderer
+    keep = [runner.add_directional_light(np.array([-1.0, -1.0, 1.0], np.float32))]
+    rng = np.random.default_rng(11)
+    tex_data = (rng.random((32, 32, 4)) * 255).astype(np.uint8)
+    tex_data[..., 3] = 255
+    alb = r.add_texture_2d(types.Texture(
+        label="t", data=tex_data, format=types.TextureFormat.RGBA8_UNORM_SRGB, mip_count=types.MipmapCount.MAXIMUM,
+    ))
+    mat_tex = r.add_material(mat.PbrMaterial(albedo=mat.AlbedoComponent.new_texture(alb)))
+    keep += [alb, mat_tex, runner.plane(mat_tex, m3.rotation_x(-np.pi / 2))]
+    cut_data = (rng.random((32, 32, 4)) * 255).astype(np.uint8)
+    cut_data[..., 3] = np.where(np.arange(32)[:, None] % 2 == 0, 255, 0).astype(np.uint8)
+    ctex = r.add_texture_2d(types.Texture(
+        label="c", data=cut_data, format=types.TextureFormat.RGBA8_UNORM_SRGB, mip_count=types.MipmapCount.ONE,
+    ))
+    mat_cut = r.add_material(mat.PbrMaterial(
+        albedo=mat.AlbedoComponent.new_texture(ctex), transparency=mat.Transparency.cutout_at(0.5),
+    ))
+    quad_v = np.array([[-1, 1, 0], [1, 1, 0], [1, -1, 0], [-1, -1, 0]], np.float32)
+    quad_uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    quad = r.add_mesh(
+        types.MeshBuilder(quad_v, types.Handedness.LEFT)
+        .with_vertex_uv0(quad_uv)
+        .with_indices(np.array([0, 1, 2, 2, 3, 0], np.uint32))
+        .build()
+    )
+    keep += [ctex, mat_cut, quad, r.add_object(types.Object(
+        mesh_kind=types.StaticMeshKind(quad), material=mat_cut,
+        transform=m3.translation([0.0, 0.5, -0.3]) @ m3.scale(0.4),
+    ))]
+    mat_glass = r.add_material(mat.PbrMaterial(
+        albedo=mat.AlbedoComponent.new_value(np.array([0.4, 0.7, 0.9, 0.4], np.float32)),
+        transparency=mat.Transparency.blend(),
+    ))
+    keep += [mat_glass, r.add_object(types.Object(
+        mesh_kind=types.StaticMeshKind(quad), material=mat_glass,
+        transform=m3.translation([0.2, 0.4, -0.5]) @ m3.scale(0.5),
+    ))]
+    runner.set_camera_data(types.Camera(
+        projection=types.Orthographic(size=np.array([2.5, 2.5, 5.0], np.float32)),
+        view=m3.look_at_lh([0.0, 1.0, -1.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]),
+    ))
+    return keep
+
+
+def mipmapped_floor(runner, mat=None, types=None, m3=None):
+    """A mip-mapped textured ground plane receding under perspective, so
+    mip selection reads the uv derivatives across band boundaries
+    (test_multichip.py's _mipmapped_perspective_scene). Modules as in
+    textured_planes. Returns the handles to keep."""
+    mat, types, m3 = _modules(mat, types, m3)
+    r = runner.renderer
+    keep = [runner.add_directional_light(np.array([-1.0, -1.0, 1.0], np.float32))]
+    rng = np.random.default_rng(7)
+    tex_data = (rng.random((64, 64, 4)) * 255).astype(np.uint8)
+    tex_data[..., 3] = 255
+    alb = r.add_texture_2d(types.Texture(
+        label="ground", data=tex_data, format=types.TextureFormat.RGBA8_UNORM_SRGB,
+        mip_count=types.MipmapCount.MAXIMUM,
+    ))
+    mat_g = r.add_material(mat.PbrMaterial(albedo=mat.AlbedoComponent.new_texture(alb)))
+    keep += [alb, mat_g, runner.plane(mat_g, m3.rotation_x(-np.pi / 2) @ m3.scale(4.0))]
+    runner.set_camera_data(types.Camera(
+        projection=types.Perspective(vfov=60.0, near=0.1),
+        view=m3.look_at_lh([1.5, 1.2, -2.5], [0.0, 0.3, 0.0], [0.0, 1.0, 0.0]),
+    ))
+    return keep

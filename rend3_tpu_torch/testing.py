@@ -762,3 +762,86 @@ class GltfAnimationApp(App):
 
     def handle_redraw(self, context):
         anim.pose_animation_frame(context.renderer, self.loaded, self.instance, self.anim_data, 0, context.elapsed)
+
+
+# ---------------------------------------------------------------------------
+# One rank of a distributed row-band run
+# ---------------------------------------------------------------------------
+
+BAND_RANK_SIZE = (128, 64)
+
+
+def run_band_ranks(tmp_dir: str, world: int, device: str = "cpu", timeout: float = 150.0):
+    """Runs band_rank in `world` processes of this interpreter (a file://
+    rendezvous in tmp_dir; `device` may name the rank, as "cuda:{rank}"),
+    joins them with a timeout of their own (killing any left) and returns
+    each rank's saved arrays. Raises with the processes' output if one
+    failed."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")  # the ranks share this host: NCCL's bootstrap stays on loopback
+    init = "file://" + os.path.join(tmp_dir, "rendezvous")
+    outs = [os.path.join(tmp_dir, f"rank{rank}.npz") for rank in range(world)]
+    code = "import sys; from rend3_tpu_torch.testing import band_rank; band_rank(*sys.argv[1:])"
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", code, str(rank), str(world), init, outs[rank], device.format(rank=rank)],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for rank in range(world)
+    ]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError("a band rank failed:\n" + "\n".join(logs))
+    return [np.load(o) for o in outs]
+
+
+def band_rank(rank, world, init: str, out: str, device: str = "cpu", frames: int = 2) -> None:
+    """One rank of a distributed row-band run (run_band_ranks), each rank
+    its own process: joins a `world`-rank process group at `init` (gloo on the
+    CPU; NCCL with `device` a card, one rank a card), renders `frames`
+    frames of scenes.band_features at BAND_RANK_SIZE through
+    parallel.tiles' distributed mesh (the first from no carried mask) and
+    saves the images and carried masks to `out` (.npz)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from . import scenes
+    from .parallel.tiles import build_tiled_frame_callable, device_mesh
+
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        runner = TestRunner(device=device)
+        keep = scenes.band_features(runner)
+        mesh = device_mesh(world, device=device, distributed=True)
+        imgs, masks = [], []
+        for _ in range(frames):
+            runner.renderer.swap_instruction_buffers()
+            program, args = build_tiled_frame_callable(
+                runner.base_graph, runner.renderer.evaluate_instructions(), FrameRenderTarget(*BAND_RANK_SIZE),
+                mesh=mesh,
+            )
+            img, mask, _aux = program(*args)
+            imgs.append(img.cpu().numpy())
+            masks.append(mask.cpu().numpy())
+        np.savez(out, imgs=np.stack(imgs), masks=np.stack(masks))
+        del keep
+    finally:
+        dist.destroy_process_group()

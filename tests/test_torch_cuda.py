@@ -34,7 +34,13 @@ overlay's device pass against its host compositor on the card (within 1
 u8), and testing.make_test_gltf()'s animated scene (three poses through
 framework.start) on the card against the CPU (within 1 u8). The reference
 forward backend: rasterize card = CPU bit for bit, the forward frame card
-vs CPU within 1 u8, K5 through shadow.sample_shadow_map(s) bit-exact.
+vs CPU within 1 u8, K5 through shadow.sample_shadow_map(s) bit-exact. Row
+bands: K1 in every mode at a band's first row (row0 = 32 and 64 of the
+stress soup, through the band front end) bit for bit against its plain
+version, and 4-band local-mesh frames on the card (the textured, cutout and
+blend scene; the mip-mapped floor at 4 samples) bit for bit against the
+card's one-device frame; with two or more cards, one NCCL rank a card,
+bit for bit against the one-device frame (skips on one card).
 """
 
 import numpy as np
@@ -383,6 +389,126 @@ def test_k1_stress_matches_plain(stress, mode):
         assert int((g[D.G_MAT] >= 100).sum()) > 0
 
 
+BAND_H = 64
+
+
+@pytest.fixture(scope="module")
+def band_stress():
+    """The stress soup's row bands [row0, row0 + 64) for row0 = 32 and 64,
+    through the port's band front end (cull_and_setup(y_range=),
+    bin_triangles(y0=)) on the card, with peel images from the plain K1's
+    band (its depth at hit pixels, 0 or -1 elsewhere, a third random)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    clip, planes = testing.raster_stress_input(0)
+    c = torch.from_numpy(clip).cuda()
+    rng = np.random.default_rng(5)
+    out = {}
+    for row0 in (32, 64):
+        tris = G.cull_and_setup(
+            c, torch.ones(c.shape[0], dtype=torch.bool, device="cuda"), testing.STRESS_W, testing.STRESS_H,
+            cull_mode=G.CullMode.NONE, front_is_cw=True, subpixel=True, y_range=(row0, row0 + BAND_H),
+        )
+        pl = torch.from_numpy(planes).cuda()[tris.src].contiguous()
+        binned = G.bin_triangles(tris, testing.STRESS_W, BAND_H, tile_h=D.DTILE_H, tile_w=D.DTILE_W, y0=row0)
+        g0 = D.raster_resolve_plain(tris, pl, binned, testing.STRESS_W, BAND_H, y0=row0)
+        depth, hit = g0[D.G_DEPTH].cpu().numpy(), (g0[D.G_HIT] > 0).cpu().numpy()
+        noise = rng.random(depth.shape) < 0.33
+        rand = rng.uniform(0.0, 0.7, depth.shape).astype(np.float32)
+        bound = np.where(noise, rand, np.where(hit, depth, 0.0)).astype(np.float32)
+        floor = np.where(noise, rand, np.where(hit, depth, -1.0)).astype(np.float32)
+        out[row0] = dict(tris=tris, planes=pl, binned=binned, bound=torch.from_numpy(bound).cuda(),
+                         floor=torch.from_numpy(floor).cuda())
+    return out
+
+
+@pytest.mark.parametrize("row0", [32, 64])
+@pytest.mark.parametrize("mode", list(K1_MODES))
+def test_k1_band_offset_matches_plain(band_stress, mode, row0):
+    """K1 at a band's first row (row0 != 0) in every mode against its plain
+    version on the same band tables: the whole G-buffer and the counts bit
+    for bit, and the band launch counted as such."""
+    m = K1_MODES[mode]
+    c = band_stress[row0]
+    kw = dict(
+        sofs=m.get("sofs", (0.5, 0.5)), bound=c["bound"] if m.get("bound") else None,
+        count_floor=c["floor"] if m.get("floor") else None, count_strict=bool(m.get("strict")), y0=row0,
+    )
+    args = (c["tris"], c["planes"], c["binned"], testing.STRESS_W, BAND_H)
+    before = D.launches["raster_band"]
+    k, p = D.raster_resolve(*args, **kw), D.raster_resolve_plain(*args, **kw)
+    assert D.launches["raster_band"] == before + 1
+    if m.get("floor"):
+        assert torch.equal(k[0].data, p[0]) and torch.equal(k[1], p[1])
+        g = k[0].data
+    else:
+        assert torch.equal(k.data, p)
+        g = k.data
+    assert int((g[D.G_HIT] > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["textured-cutout-blend", "mipmapped-floor-msaa4"])
+def test_card_bands_match_card_frame(case):
+    """A 4-band local-mesh frame on the card equals the card's one-device
+    frame bit for bit (two frames: all predicted, then the carried mask),
+    and its bands launch K1 at their first rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rend3_tpu_torch.parallel.tiles import build_tiled_frame_callable, device_mesh
+
+    build, w, h, samples = {
+        "textured-cutout-blend": (scenes.band_features, 128, 64, 1),
+        "mipmapped-floor-msaa4": (scenes.mipmapped_floor, 64, 64, 4),
+    }[case]
+    runner = TestRunner(device="cuda")
+    keep = build(runner)
+    graph = runner.base_graph
+    target = FrameRenderTarget(w, h, samples)
+    imgs = {}
+    for mode in ("bands", "single"):
+        graph._prev_visible_mask = None
+        imgs[mode] = []
+        for _ in range(2):
+            runner.renderer.swap_instruction_buffers()
+            ev = runner.renderer.evaluate_instructions()
+            if mode == "bands":
+                before = D.launches["raster_band"]
+                program, args = build_tiled_frame_callable(graph, ev, target, mesh=device_mesh(4))
+                imgs[mode].append(program(*args)[0].cpu().numpy())
+                assert D.launches["raster_band"] > before
+            else:
+                imgs[mode].append(graph.render_frame(ev, target))
+    for a, b in zip(imgs["bands"], imgs["single"]):
+        np.testing.assert_array_equal(a, b)
+    del keep
+
+
+def test_nccl_ranks_match_one_device(tmp_path):
+    """With two or more cards, one NCCL rank a card (the most of 8, 4, 2
+    that the cards allow; testing.run_band_ranks, processes joined with a
+    timeout of their own) renders the textured, cutout and blend scene in
+    row bands, two frames; every rank's image and carried mask equal the
+    one-device frame's on cuda:0 bit for bit."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices (one NCCL rank a card)")
+    world = max(w for w in (8, 4, 2) if w <= n)
+    runner = TestRunner(device="cuda:0")
+    keep = scenes.band_features(runner)
+    single = []
+    for _ in range(2):
+        runner.renderer.swap_instruction_buffers()
+        img = runner.base_graph.render_frame(
+            runner.renderer.evaluate_instructions(), FrameRenderTarget(*testing.BAND_RANK_SIZE)
+        )
+        single.append((img, runner.base_graph._prev_visible_mask.cpu().numpy()))
+    for got in testing.run_band_ranks(str(tmp_path), world, "cuda:{rank}"):
+        for k, (img, mask) in enumerate(single):
+            np.testing.assert_array_equal(got["imgs"][k], img)
+            np.testing.assert_array_equal(got["masks"][k], mask)
+    del keep
+
+
 @pytest.mark.parametrize("sofs", [(0.5, 0.5), R.MSAA4_OFFSETS[2]], ids=["centre", "msaa"])
 def test_k2_stress_matches_plain(stress, sofs):
     c = stress
@@ -447,7 +573,7 @@ def test_k1_launch_failure_raises():
     i = torch.zeros(64, dtype=torch.int32, device="cuda")
     with pytest.raises(RuntimeError, match="k1_raster_resolve: CUDA error"):
         cuda_kernels.call("k1_raster_resolve", t, t, t, i, i, t, None, None, None,
-                          ints=(128 << 15, 32 << 14, 0), floats=(0.5, 0.5))
+                          ints=(128 << 15, 32 << 14, 0, 0), floats=(0.5, 0.5))
 
 
 def _overlay_jobs(ov):

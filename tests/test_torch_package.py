@@ -33,7 +33,8 @@ def test_import_leaves_jax_out():
         "rend3_tpu_torch.examples.overlay, rend3_tpu_torch.examples.textured_quad, "
         "rend3_tpu_torch.examples.static_gltf, rend3_tpu_torch.examples.skinning, "
         "rend3_tpu_torch.examples.animation, rend3_tpu_torch.examples.scene_viewer, "
-        "rend3_tpu_torch.ops.fp, rend3_tpu_torch.ops.raster, rend3_tpu_torch.tools.bench_host; "
+        "rend3_tpu_torch.ops.fp, rend3_tpu_torch.ops.raster, rend3_tpu_torch.tools.bench_host, "
+        "rend3_tpu_torch.parallel, rend3_tpu_torch.parallel.tiles; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'rend3_tpu' or m.startswith('rend3_tpu.')); print(bad)"
     )
@@ -56,18 +57,23 @@ def test_cuda_renderer_needs_a_card():
 
 @pytest.mark.parametrize(
     "entry",
-    ["Renderer", "TestRunner", "framework.start", "render_single_frame", "OverlayRoutine", "serve_app", "bench_host"],
+    ["Renderer", "TestRunner", "framework.start", "render_single_frame", "OverlayRoutine", "serve_app", "bench_host",
+     "device_mesh", "build_tiled_frame_callable"],
 )
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Renderer(), TestRunner(), framework.start, render_single_frame,
-    OverlayRoutine(), serve_app and tools.bench_host run on the card unless
-    asked for the CPU; without a card they raise instead of falling back, before the app
-    is set up or a frame rendered, and serve_app before it binds a socket."""
+    OverlayRoutine(), serve_app, tools.bench_host and the row bands'
+    parallel.tiles.device_mesh() and build_tiled_frame_callable (its mesh
+    left to the default) run on the card unless asked for the CPU; without
+    a card they raise instead of falling back, before the app is set up or
+    a frame rendered, and serve_app before it binds a socket."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from rend3_tpu_torch import framework
     from rend3_tpu_torch.framework import viewer
     from rend3_tpu_torch.overlay import OverlayRoutine
+    from rend3_tpu_torch.parallel import tiles
+    from rend3_tpu_torch.routine.base import FrameRenderTarget
     from rend3_tpu_torch.tools import bench_host
 
     class App(framework.App):
@@ -78,6 +84,7 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         raise AssertionError("serve_app bound a socket without a card")
 
     monkeypatch.setattr(viewer, "ThreadingHTTPServer", no_socket)
+    cpu_runner = TestRunner(device="cpu")
     make = {
         "Renderer": P.Renderer,
         "TestRunner": TestRunner,
@@ -86,6 +93,10 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         "OverlayRoutine": OverlayRoutine,
         "serve_app": lambda: viewer.serve_app(App(), 64, 64, port=0),
         "bench_host": lambda: bench_host.main(["10"]),
+        "device_mesh": tiles.device_mesh,
+        "build_tiled_frame_callable": lambda: tiles.build_tiled_frame_callable(
+            cpu_runner.base_graph, cpu_runner.renderer.evaluate_instructions(), FrameRenderTarget(64, 64)
+        ),
     }[entry]
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         make()
@@ -137,7 +148,7 @@ def test_probe_public_functions_need_the_card(fn):
 
 
 def test_multi_device_not_ported():
-    with pytest.raises(NotImplementedError, match=r"item 15 'Multi-GPU row bands'"):
+    with pytest.raises(NotImplementedError, match=r"rend3_tpu_torch\.parallel\.tiles"):
         P.Renderer(device=["cuda:0", "cuda:1"])
 
 
