@@ -18,8 +18,9 @@ feature city (the representative frame with a skybox, skinned columns,
 registered material routines and injected passes) at 1 and 4 samples,
 then the app layer (framework, overlay, glTF, animation and the examples)
 at 1280x720, then the reference forward backend on the representative
-city cut in depth, the host-loop micro-bench, and row bands of the frame on
-the one card. It checks every hand-written kernel of those paths, K1 in
+city cut in depth, the host-loop micro-bench, row bands of the frame on
+the one card, the bench line (rend3_tpu_torch.bench, with its 2.04M-triangle
+heavy city) and the graft entry points (rend3_tpu_torch.graft_entry). It checks every hand-written kernel of those paths, K1 in
 each of its modes, against its plain PyTorch version.
 Phases (each raises on failure; any failure exits nonzero; each prints its
 wall time):
@@ -135,7 +136,19 @@ wall time):
    as raster_band, a row of the kernels line); K1 at every band's first row
    against its plain version on the band's captured inputs; one frame
    through a world-size-1 NCCL process group and the distributed mesh,
-   bit for bit against the one-device frame.
+   bit for bit against the one-device frame;
+17. bench: `python -m rend3_tpu_torch.bench --flat --heavy` in a child
+   process (exit 0, exactly one stdout line with bench.py's keys, printed
+   on a line of its own), then, counted, the representative city and the
+   heavy city (1,000 buildings at subdiv 12, about 2.04M triangles) at
+   1920x1080: two warm-up frames through render_frame_tensor, then three
+   calls of build_frame_callable's program, each bit for bit the warm-up
+   frame, the last logging each stage's peak memory; the heavy frame's
+   K1 (opaque, count and bound modes), K2, K3, K4 and K5 against their
+   plain versions on its captured inputs;
+18. entry: rend3_tpu_torch.graft_entry, counted: entry()'s program on the
+   rich scene at 256x256, then dryrun_multichip(n) for n = 2, 4, 8 bands,
+   each bit for bit against the one-device program.
 
 The last two lines are the card (nvidia-smi) and one JSON object
 {"ok": true, "device": {...}}; the line before them lists the kernels.
@@ -2055,6 +2068,191 @@ def phase_bands(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600, sky_
     }]
 
 
+# bench.py's keys (bench.py:418-440), with --flat and --heavy.
+BENCH_LINE_KEYS = ("metric", "value", "unit", "vs_baseline", "static_ms", "shadow_pass_ms", "dynamic_ms",
+                   "steady_caps", "stats", "flat_scene_ms", "heavy_ms", "heavy_caps")
+BENCH_TIMEOUT_S = 600
+
+
+class _StagePeaks:
+    """A stage hook for graph.timer that keeps each stage's peak device
+    memory (MiB, the largest over the stage's runs): the peak is reset as
+    a stage begins and read as it ends."""
+
+    def __init__(self):
+        self.peaks = {}
+
+    def __call__(self, name):
+        import contextlib
+
+        import torch
+
+        @contextlib.contextmanager
+        def span():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            yield
+            torch.cuda.synchronize()
+            mib = torch.cuda.max_memory_allocated() / 2**20
+            self.peaks[name] = max(self.peaks.get(name, 0.0), mib)
+
+        return span()
+
+
+def _bench_line():
+    """`python -m rend3_tpu_torch.bench --flat --heavy` in a child process
+    (its stderr logged): exit 0 and exactly one stdout line, a JSON object
+    with bench.py's keys whose times are positive and whose dynamic_ms is
+    static_ms + shadow_pass_ms. Returns the line."""
+    import math
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "rend3_tpu_torch.bench", "--flat", "--heavy"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+    )
+    for line in out.stderr.splitlines():
+        log("  " + line)
+    if out.returncode != 0:
+        raise AssertionError(f"the bench exited {out.returncode}")
+    lines = [ln for ln in out.stdout.splitlines() if ln.strip()]
+    if len(lines) != 1:
+        raise AssertionError(f"the bench printed {len(lines)} stdout lines, not one: {lines[:3]}")
+    r = json.loads(lines[0])
+    if tuple(r) != BENCH_LINE_KEYS:
+        raise AssertionError(f"the bench line's keys {list(r)} are not bench.py's {list(BENCH_LINE_KEYS)}")
+    times = [r[k] for k in ("value", "static_ms", "shadow_pass_ms", "dynamic_ms", "flat_scene_ms", "heavy_ms")]
+    if not all(isinstance(t, float) and math.isfinite(t) and t > 0 for t in times):
+        raise AssertionError(f"the bench line's times are not all positive: {times}")
+    if r["dynamic_ms"] != round(r["static_ms"] + r["shadow_pass_ms"], 3) or r["steady_caps"] or r["heavy_caps"]:
+        raise AssertionError("the bench line's dynamic_ms or caps are wrong")
+    log(f"bench: exit 0 in {time.perf_counter() - t0:.2f} s; its line:")
+    print(lines[0], flush=True)
+    return lines[0]
+
+
+def _check_peel_kernels(label, cap):
+    """K1's count and bound modes against their plain versions on a frame's
+    captured inputs (cutout peel 0, the first later peel)."""
+    from rend3_tpu_torch.ops import deferred as D
+
+    c_tris, c_planes, c_binned, c_wp, c_hp, floor, strict = cap["raster_count"]
+    kg, kc = D.raster_resolve(c_tris, c_planes, c_binned, c_wp, c_hp, count_floor=floor, count_strict=strict)
+    pg, pc = D.raster_resolve_plain(c_tris, c_planes, c_binned, c_wp, c_hp, count_floor=floor, count_strict=strict)
+    _k1_check(f"{label} K1 count mode ({c_tris.count} triangles)", kg.data, pg, kc, pc)
+    b_tris, b_planes, b_binned, b_wp, b_hp, bnd = cap["raster_bound"]
+    _k1_check(f"{label} K1 bound mode ({b_tris.count} triangles)",
+              D.raster_resolve(b_tris, b_planes, b_binned, b_wp, b_hp, bound=bnd).data,
+              D.raster_resolve_plain(b_tris, b_planes, b_binned, b_wp, b_hp, bound=bnd))
+
+
+def phase_bench(device="cuda", width=WIDTH, height=HEIGHT, cities=None, line=True):
+    """The bench line and the frame callable behind it. First (`line`) the
+    bench line in a child process (_bench_line). Then, counted, for each
+    of `cities` (name: (buildings, subdivision); default bench.py's
+    representative city and its heavy one, about 2.04M triangles) at
+    width x height: two warm-up frames through render_frame_tensor (the
+    first from no carried mask), then build_frame_callable and its program
+    called three times, each image bit for bit the second warm-up frame's;
+    the third call under a stage hook that logs each stage's peak memory.
+    The heavy city's kernels (K1 in its opaque, count and bound modes, K2,
+    K3, K4 on the textures and the cutout alpha test, K5) are held against
+    their plain versions on its captured inputs. Returns the launch counts
+    over the cities' frames."""
+    import torch
+
+    from rend3_tpu_torch import bench
+
+    if line:
+        _bench_line()
+    cities = cities or {"representative": (600, 3), "heavy": bench.HEAVY}
+    cuda = torch.device(device).type == "cuda"
+    total = {name: 0 for name in KERNEL_NAMES}
+    cap = None
+    for name, (n_buildings, subdiv) in cities.items():
+        t0 = time.perf_counter()
+        runner, keep, ev, target, settings = bench.scene(device, True, n_buildings, subdiv, width, height)
+        graph = runner.base_graph
+        log(f"bench {name}: {n_buildings} buildings at subdiv {subdiv} built in {time.perf_counter() - t0:.2f} s")
+        heavy = name == "heavy"
+        graph.captured = {} if heavy else None
+        _reset_launch_counts()
+        warm = []
+        for k in range(2):
+            start = _peak_start(cuda)
+            t0 = time.perf_counter()
+            warm.append(graph.render_frame_tensor(ev, target, settings).cpu().numpy())
+            log(f"bench {name} warm-up frame {k + 1}: host {(time.perf_counter() - t0) * 1e3:.3f} ms (synchronized), "
+                f"{_peak_text(cuda, start)}")
+        t0 = time.perf_counter()
+        program, args = graph.build_frame_callable(ev, target, settings)
+        log(f"bench {name}: build_frame_callable {(time.perf_counter() - t0) * 1e3:.3f} ms, "
+            f"{args[1].tri_vlocal.shape[0]} triangles in the opaque table")
+        imgs = []
+        for k in range(3):
+            if k == 2 and cuda:
+                graph.timer = _StagePeaks()
+            start = _peak_start(cuda)
+            t0 = time.perf_counter()
+            img, mask, stats = program(*args)
+            imgs.append(img.cpu().numpy())
+            log(f"bench {name} program call {k + 1}: host {(time.perf_counter() - t0) * 1e3:.3f} ms "
+                f"(synchronized), {_peak_text(cuda, start)}")
+        peaks, graph.timer = getattr(graph.timer, "peaks", {}), None
+        counts = _launch_counts()
+        for key in total:
+            total[key] += counts[key]
+        log(f"bench {name}: stats {stats}; main_pairs {stats['main_pairs']}; launches {counts}")
+        if peaks:
+            log(f"bench {name}: peak MiB by stage " + json.dumps({k: round(v, 1) for k, v in peaks.items()}))
+        _check_image(warm[1], width, height)
+        for k, img in enumerate([warm[0]] + imgs):
+            if not (img == warm[1]).all():
+                raise AssertionError(f"bench {name}: image {k} differs from render_frame_tensor's at "
+                                     f"{int((img != warm[1]).any(-1).sum())} pixels")
+        log(f"bench {name}: three program calls equal render_frame_tensor's frame bit for bit; "
+            f"{int(mask.sum())} of {mask.numel()} triangles predicted visible")
+        if heavy:
+            cap, graph.captured = graph.captured, None
+            if cuda:
+                _check_launched(counts, FRAME_KERNELS)
+        del keep, runner, graph, program, args
+    if cap is not None:
+        checked = _check_frame_kernels("bench heavy", cap)
+        _check_peel_kernels("bench heavy", cap)
+        log(f"bench heavy: {checked} and K1's count and bound modes equal their plain versions")
+    return total
+
+
+def phase_entry(device="cuda", bands=(2, 4, 8), size=None):
+    """The graft entry points (rend3_tpu_torch.graft_entry), counted:
+    entry()'s program on the rich scene at 256x256 (an image that is not
+    empty, two calls bit for bit equal), then dryrun_multichip(n) for each
+    of `bands`, each bit for bit against the one-device program. Returns the
+    launch counts."""
+    import numpy as np
+
+    from rend3_tpu_torch import graft_entry
+
+    size = size or graft_entry.SIZE
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    program, args = graft_entry.entry(device=device, size=size)
+    a, _mask, stats = program(*args)
+    b = program(*args)[0]
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    if a.shape != (size, size, 4) or not a[..., :3].max() > 0:
+        raise AssertionError(f"entry(): an empty or misshapen image {a.shape}")
+    if not np.array_equal(a, b):
+        raise AssertionError("entry(): two calls of its program differ")
+    log(f"entry: {a.shape} image in {(time.perf_counter() - t0) * 1e3:.1f} ms with the scene, stats {stats}")
+    for n in bands:
+        graft_entry.dryrun_multichip(n, device=device, size=size, log=log)
+    counts = _launch_counts()
+    log(f"entry: launches {counts}")
+    return counts
+
+
 def main():
     try:
         import torch
@@ -2108,6 +2306,12 @@ def main():
             row["launches"] += band_counts[row["name"]]
         kernels += band_rows
         log("launches on the measured paths with the reference and banded paths: "
+            + json.dumps({row["name"]: row["launches"] for row in kernels}))
+        for name, phase in (("bench", phase_bench), ("entry", phase_entry)):
+            counts = timed(name, phase)
+            for row in kernels:
+                row["launches"] += counts[row["name"]]
+        log("launches on the measured paths with the reference, banded, bench and entry paths: "
             + json.dumps({row["name"]: row["launches"] for row in kernels}))
         smi = nvidia_smi_line()
     except Exception:  # noqa: BLE001 - any failed phase fails the run

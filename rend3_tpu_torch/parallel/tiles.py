@@ -117,17 +117,15 @@ def _max_stats(stats):
     return out
 
 
-def _run_local(graph, mesh: LocalMesh, eval_output, target, settings, skybox_slot):
+def _run_local(graph, mesh: LocalMesh, eval_output, frame):
     """The n bands in lockstep: each band's frame runs to its gather (its
     phase 1, which reads the carried mask before any band writes it), the
     bands' occluder rows are concatenated, and each band's frame runs on to
     its image. Each band keeps its own stats while it runs."""
     n = mesh.size
-    bh = _band_h(target, n)
+    bh = _band_h(frame.target, n)
     stats = [dict(graph.last_stats) for _ in range(n)]
-    steps = [
-        graph._render_frame_stages(eval_output, target, settings, skybox_slot, band=(i * bh, bh)) for i in range(n)
-    ]
+    steps = [graph._render_frame_stages(eval_output, frame, band=(i * bh, bh)) for i in range(n)]
     images = [None] * n
 
     def resume(i, value):
@@ -164,13 +162,13 @@ def _all_gather(mesh: DistributedMesh, t: torch.Tensor):
     return out
 
 
-def _run_distributed(graph, mesh: DistributedMesh, eval_output, target, settings, skybox_slot):
+def _run_distributed(graph, mesh: DistributedMesh, eval_output, frame):
     import torch.distributed as dist
 
     from ..routine.base import drive_frame
 
-    bh = _band_h(target, mesh.size)
-    steps = graph._render_frame_stages(eval_output, target, settings, skybox_slot, band=(mesh.rank * bh, bh))
+    bh = _band_h(frame.target, mesh.size)
+    steps = graph._render_frame_stages(eval_output, frame, band=(mesh.rank * bh, bh))
     # NCCL's object gather stages through the current CUDA device.
     with torch.cuda.device(mesh.device) if mesh.device.type == "cuda" else contextlib.nullcontext():
         band = drive_frame(steps, lambda rows: torch.cat(_all_gather(mesh, rows), dim=0))
@@ -191,13 +189,13 @@ def build_tiled_frame_callable(
     mesh=None,
 ):
     """(program, args): the row-band frame of `graph` over `mesh` (default
-    device_mesh(): the card). args are the one-device frame's arguments
-    (eval_output, target, settings, skybox_slot); program(*args) returns
-    (image, predicted_mask, aux) like JAX's: the whole (H, W, 4) u8 image
-    on the mesh's device (on every rank of a distributed mesh), the carried
-    predicted-visible mask over the triangle table (the same on every band;
-    the graph also keeps it for the next frame, as render_frame does; left
-    as it was with occlusion culling off) and the frame's stats, each the
+    device_mesh(): the card). args are the one-device frame's, from
+    graph.build_frame_callable (its upload, done once for every band);
+    program(*args) returns (image, predicted_mask, aux) like the one-device
+    program: the whole (H, W, 4) u8 image on the mesh's device (on every
+    rank of a distributed mesh), the carried predicted-visible mask over the
+    triangle table (the same on every band; the graph also keeps it for the
+    next frame, as render_frame does) and the frame's stats, each the
     largest over the bands. The full pass list survives banding: two-phase
     occlusion culling, MSAA 1 and 4, cutout and blend peels, shadows over
     the cached maps, textures, the skybox and injected passes (4-parameter
@@ -211,9 +209,10 @@ def build_tiled_frame_callable(
     if graph.renderer.device != mesh.device:
         raise ValueError(f"the graph renders on {graph.renderer.device}, the mesh is on {mesh.device}")
     run = _run_local if isinstance(mesh, LocalMesh) else _run_distributed
+    _one_device, args = graph.build_frame_callable(eval_output, target, settings, skybox_slot)
 
-    def program(eval_output, target, settings, skybox_slot):
-        image = run(graph, mesh, eval_output, target, settings, skybox_slot)
+    def program(eval_output, frame):
+        image = run(graph, mesh, eval_output, frame)
         return image, graph._prev_visible_mask, dict(graph.last_stats)
 
-    return program, (eval_output, target, settings, skybox_slot)
+    return program, args

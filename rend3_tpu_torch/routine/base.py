@@ -20,14 +20,19 @@ here each stage is a function over torch tensors on the renderer's device:
     registered routines, blend shading and compositing -> f16 round trip ->
     resolve (mean over samples) -> [hdr passes] -> blit -> [srgb passes]
 
+As in JAX, `build_frame_callable` does the upload once and returns
+(program, args); program(*args) runs the rest of the frame, and
+`render_frame` is the two together.
+
 A row band (parallel/tiles.py) is the same frame restricted to the target
 rows [row0, row0 + band_h) (JAX's band frame, base.py:1120-1203): the
 viewport reject, the binning and K1 take the band's first row, every pixel
 position stays in target coordinates (integer row offsets added before any
 float math), and the phase-1 occluder depth of every band is gathered into
 the target's Hi-Z pyramid, so a band's pixels equal the whole frame's bit
-for bit. `_render_frame_stages` is the frame as a generator that yields the band's
-occluder depth rows and is sent the target's; `drive_frame` runs one.
+for bit. `_render_frame_stages` is the frame after its upload as a generator
+that yields the band's occluder depth rows and is sent the target's;
+`drive_frame` runs one.
 
 Under MSAA the geometry work (cull, setup, planes, binning) runs once per
 pass and K1 runs once per sample offset (base.py:1353-1374); sub-pixel
@@ -54,6 +59,7 @@ G-buffer. `raster_scene(backend="reference")` is raster.rasterize.
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import inspect
 import os
@@ -218,6 +224,19 @@ def _no_timer(_name):
     yield
 
 
+@contextmanager
+def _device_oom():
+    """A device out-of-memory inside reaches the caller as
+    DeviceOutOfMemoryError, its cause chained; any other error passes
+    through unchanged."""
+    try:
+        yield
+    except RuntimeError as e:  # torch.cuda.OutOfMemoryError is one
+        if isinstance(e, torch.cuda.OutOfMemoryError) or "out of memory" in str(e).lower():
+            raise DeviceOutOfMemoryError(str(e)) from e
+        raise
+
+
 class _Frame:
     """One frame's device inputs (the upload stage's output)."""
 
@@ -255,6 +274,8 @@ class BaseRenderGraph:
         self._cut_key = None
         self._cut_dev = None
         self._shadow_cache = None
+        # (shadow pass, its inputs) of the last shadow maps rendered.
+        self._last_shadow_call = None
         self._skin_key = None
         self._skin = None
         self._skinned = None
@@ -498,20 +519,34 @@ class BaseRenderGraph:
         )
         if self._shadow_cache is not None and self._shadow_cache[0] == state:
             return self._shadow_cache[1]
-        eye = torch.eye(4, dtype=torch.float32, device=f.view.device)
+        inputs = (
+            plan, f.front_cw, f.transforms, f.dir_lights.view_proj, f.shadow_visible, f.geo.position, f.tri_vlocal,
+            f.tri_obj, f.bases[:, 0], f.tri_pos,
+        )
+        bundle = self._shadow_pass(*inputs)
+        self._shadow_cache = (state, bundle)
+        # A fully dynamic scene (a caster moving every frame) pays this pass
+        # on every frame; the bench times it (base.py:728-735).
+        self._last_shadow_call = (self._shadow_pass, inputs)
+        return bundle
+
+    def _shadow_pass(self, plan, front_cw, transforms, light_vp, shadow_visible, position, tri_vlocal, tri_obj,
+                     base0, tri_pos):
+        """Every map of the shadow plan (K2) and their PCF stack, from these
+        inputs alone: (maps, stack_shadow_maps(maps)). Reads no cache."""
+        eye = torch.eye(4, dtype=torch.float32, device=transforms.device)
         smaps = []
         for k, (_li, _off, size) in enumerate(plan):
-            _, smvp = transform_ops.object_uniforms(f.transforms, f.dir_lights.view_proj[k], eye)
-            svalid = f.shadow_visible[k][f.tri_obj.long()]
-            sclip = transform_ops.gather_tri_clip(
-                f.geo.position, f.tri_vlocal, f.tri_obj, f.bases[:, 0], smvp, tri_pos=f.tri_pos, contract=True
-            )
+            _, smvp = transform_ops.object_uniforms(transforms, light_vp[k], eye)
+            svalid = shadow_visible[k][tri_obj.long()]
+            sclip = transform_ops.gather_tri_clip(position, tri_vlocal, tri_obj, base0, smvp, tri_pos=tri_pos,
+                                                  contract=True)
             sclipped = transform_ops.clip_triangles(sclip, svalid, contract=True)
             swp = _round_up(size, def_ops.DTILE_W)
             shp = _round_up(size, def_ops.DTILE_H)
             stris = geom_ops.cull_and_setup(
                 sclipped.clip, sclipped.valid, size, size,
-                cull_mode=geom_ops.CullMode.FRONT, front_is_cw=f.front_cw,
+                cull_mode=geom_ops.CullMode.FRONT, front_is_cw=front_cw,
                 subpixel=True,  # sub-texel casters can't mark any texel center
                 contract=True,
             )
@@ -522,9 +557,7 @@ class BaseRenderGraph:
                 self.captured["raster_depth"] = (stris, sbinned, swp, shp)
             smaps.append(def_ops.raster_depth(stris, sbinned, swp, shp)[:size, :size])
             self.last_stats[f"shadow_survivors_{k}"] = stris.count
-        bundle = (smaps, shadow_ops.stack_shadow_maps(smaps))
-        self._shadow_cache = (state, bundle)
-        return bundle
+        return smaps, shadow_ops.stack_shadow_maps(smaps)
 
     def _clip(self, f: _Frame) -> transform_ops.ClippedTris:
         f.mv, f.mvp = transform_ops.object_uniforms(f.transforms, f.view, f.proj)
@@ -793,32 +826,65 @@ class BaseRenderGraph:
         skybox_slot: Optional[int] = None,
     ) -> torch.Tensor:
         """render_frame without the copy to the host: (H, W, 4) u8 on the
-        renderer's device. A device out-of-memory in any stage reaches the
-        caller as DeviceOutOfMemoryError, its cause chained, as JAX's
-        render_frame maps RESOURCE_EXHAUSTED (rend3_tpu/routine/base.py:252-259)."""
-        try:
-            steps = self._render_frame_stages(eval_output, target, settings, skybox_slot)
-            return drive_frame(steps, lambda rows: rows)
-        except RuntimeError as e:  # torch.cuda.OutOfMemoryError is one
-            if isinstance(e, torch.cuda.OutOfMemoryError) or "out of memory" in str(e).lower():
-                raise DeviceOutOfMemoryError(str(e)) from e
-            raise
+        renderer's device. build_frame_callable plus one call of its
+        program, as JAX's render_frame is (rend3_tpu/routine/base.py:247-262);
+        a device out-of-memory in any stage reaches the caller as
+        DeviceOutOfMemoryError, its cause chained."""
+        program, args = self.build_frame_callable(eval_output, target, settings, skybox_slot)
+        return program(*args)[0]
 
-    def _render_frame_stages(self, eval_output, target, settings, skybox_slot, band=None):
-        """The frame's stages as a generator that returns the u8 image. With
-        occlusion culling on it yields once, the (band_h, W) phase-1
-        occluder depth rows, and must be sent the target's (H, W) occluder
-        depth (drive_frame). band: None for the whole target, or (row0,
-        band_h) for the rows [row0, row0 + band_h) of the JAX band frame
+    def build_frame_callable(
+        self,
+        eval_output: InstructionEvaluationOutput,
+        target: FrameRenderTarget,
+        settings: BaseRenderGraphSettings = BaseRenderGraphSettings(),
+        skybox_slot: Optional[int] = None,
+    ):
+        """(program, args) of this frame (rend3_tpu/routine/base.py:737-749).
+        The host's share, the `upload` stage (scene state into device
+        tables), runs once here; program(*args) runs every later stage, from
+        the shadow maps through the passes, and returns (image,
+        predicted_mask, stats): the (H, W, 4) u8 image on the renderer's
+        device, the carried predicted-visible mask over the triangle table
+        (graph state, as in JAX; it is what the next frame predicts) and a
+        copy of last_stats. program leaves args as they were, so a second
+        call renders the same frame again (on a static scene the same image,
+        bit for bit) without uploading anything. A device out-of-memory in
+        either reaches the caller as DeviceOutOfMemoryError, its cause
+        chained, as JAX's render_frame maps RESOURCE_EXHAUSTED
+        (rend3_tpu/routine/base.py:252-259)."""
+        with _device_oom(), profiling_scope("BaseRenderGraph::build_frame_callable"):
+            raster_ops.sample_offsets(target.samples)  # raises unless 1 or 4
+            forward = default_raster_backend() == "reference"
+            with (self.timer or _no_timer)("upload"):
+                frame = self._upload(eval_output, target, settings, skybox_slot, forward=forward)
+            frame.target, frame.forward = target, forward
+
+        def program(eval_output, frame):
+            with _device_oom():
+                image = drive_frame(self._render_frame_stages(eval_output, frame), lambda rows: rows)
+            return image, self._prev_visible_mask, dict(self.last_stats)
+
+        return program, (eval_output, frame)
+
+    def _render_frame_stages(self, eval_output, frame: _Frame, band=None):
+        """The stages after the upload of a frame that build_frame_callable
+        uploaded, as a generator that returns the u8 image. With occlusion
+        culling on it yields once, the (band_h, W) phase-1 occluder depth
+        rows, and must be sent the target's (H, W) occluder depth
+        (drive_frame). band: None for the whole target, or (row0, band_h)
+        for the rows [row0, row0 + band_h) of the JAX band frame
         (base.py:1120-1203), whose image is (band_h, W, 4); the deferred
-        frame only (base.py:1143-1145)."""
-        raster_ops.sample_offsets(target.samples)  # raises unless 1 or 4
-        if default_raster_backend() == "reference":
+        frame only (base.py:1143-1145). The stages keep their tables on a
+        copy of `frame`, which stays as it was."""
+        f = copy.copy(frame)
+        target = f.target
+        if f.forward:
             if band is not None:
                 raise ValueError(
                     "row bands need the deferred frame; REND3_TPU_RASTER=reference renders whole frames only"
                 )
-            return self._render_forward(eval_output, target, settings, skybox_slot)
+            return self._render_forward(eval_output, f)
         stage = self.timer if self.timer is not None else _no_timer
         width, height = target.width, target.height
         row0, bh = (0, height) if band is None else band
@@ -829,10 +895,6 @@ class BaseRenderGraph:
         st = self.last_stats
         for key in ("cut_survivors", "cut_peels", "cut_layers", "blend_survivors", "blend_peels", "blend_px"):
             st[key] = 0
-        # The host's share of the frame: scene state into device tables (the
-        # JAX package assembles its program's inputs under this name).
-        with stage("upload"), profiling_scope("BaseRenderGraph::build_frame_callable"):
-            f = self._upload(eval_output, target, settings, skybox_slot)
         if plan:
             with stage("shadow_maps"):
                 smaps, stacked = self._ensure_shadow_maps(eval_output, f)
@@ -1030,18 +1092,16 @@ class BaseRenderGraph:
             atlas[oy : oy + size, ox : ox + size] = svis.depth[0]
         return atlas
 
-    def _render_forward(self, eval_output, target, settings, skybox_slot):
+    def _render_forward(self, eval_output, f: _Frame):
         """The JAX package's forward frame (base.py:1249-2080 with
-        use_deferred off): shadow atlas, main raster (raster.rasterize),
-        skybox background, shade.shade_deferred, the ordered blend pass,
-        f16 round trip, resolve, passes and blit."""
+        use_deferred off) after its upload: shadow atlas, main raster
+        (raster.rasterize), skybox background, shade.shade_deferred, the
+        ordered blend pass, f16 round trip, resolve, passes and blit."""
         stage = self.timer if self.timer is not None else _no_timer
-        width, height = target.width, target.height
-        offsets = raster_ops.sample_offsets(target.samples)
+        width, height = f.target.width, f.target.height
+        offsets = raster_ops.sample_offsets(f.target.samples)
         st = self.last_stats
         st["samples"] = len(offsets)
-        with stage("upload"), profiling_scope("BaseRenderGraph::build_frame_callable"):
-            f = self._upload(eval_output, target, settings, skybox_slot, forward=True)
         with stage("shadow_maps"):
             atlas = self._shadow_atlas(eval_output, f)
         with stage("clip"):

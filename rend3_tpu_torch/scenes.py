@@ -14,8 +14,9 @@ blend and whole-slice scenes (the first two those of tests/test_caps.py and
 tests/test_blend.py); `skinned_columns`, `registry_scene` and
 `skybox_cube` small skinning, routine and skybox scenes; `shadow_cube`,
 `band_features` and `mipmapped_floor` the scenes of tests/test_multichip.py
-(the row bands' tests). The small scenes take the modules they build with,
-so another package can build the same scene.
+(the row bands' tests); `rich_scene` the graft entry points' scene
+(__graft_entry__._build_rich_scene). The small scenes take the modules
+they build with, so another package can build the same scene.
 """
 
 import numpy as np
@@ -24,7 +25,7 @@ __all__ = [
     "build_city_scene", "textured_city", "textured_planes", "stacked_cutout", "glass_stack", "peel_slice",
     "set_bench_camera", "skinned_column_mesh", "column_pose", "add_skinned_columns", "pose_columns",
     "skinned_columns", "flat_material_class", "registry_scene", "skybox_cube", "sky_faces", "feature_city",
-    "shadow_cube", "band_features", "mipmapped_floor",
+    "shadow_cube", "band_features", "mipmapped_floor", "rich_scene",
 ]
 
 
@@ -887,3 +888,60 @@ def mipmapped_floor(runner, mat=None, types=None, m3=None):
         view=m3.look_at_lh([1.5, 1.2, -2.5], [0.0, 0.3, 0.0], [0.0, 1.0, 0.0]),
     ))
     return keep
+
+
+def rich_scene(runner, mat=None, types=None, m3=None):
+    """__graft_entry__._build_rich_scene (__graft_entry__.py:40-126): a
+    textured ground plane, a lit cube casting a shadow, an alpha-cutout quad,
+    a blended glass pane and a 6-face gradient skybox under one shadowed
+    light, perspective; every path of the frame in one small scene, from the
+    same seed and in the same order. Modules as in textured_planes. Returns
+    the handles to keep; the last is the cube texture (its idx is the
+    skybox slot)."""
+    mat, types, m3 = _modules(mat, types, m3)
+    r = runner.renderer
+    rng = np.random.default_rng(5)
+    keep = [runner.add_directional_light(np.array([-1.0, -1.0, 1.0], np.float32))]
+    tex_data = (rng.random((64, 64, 4)) * 255).astype(np.uint8)
+    tex_data[..., 3] = 255
+    alb = r.add_texture_2d(types.Texture(
+        label="ground", data=tex_data, format=types.TextureFormat.RGBA8_UNORM_SRGB,
+        mip_count=types.MipmapCount.MAXIMUM,
+    ))
+    mat_ground = r.add_material(mat.PbrMaterial(albedo=mat.AlbedoComponent.new_texture(alb)))
+    keep += [alb, mat_ground, runner.plane(mat_ground, m3.rotation_x(-np.pi / 2) @ m3.scale(4.0))]
+    mat_cube = runner.add_lit_material([0.75, 0.5, 0.25, 1.0])
+    keep += [mat_cube, runner.cube(mat_cube, m3.translation([0.5, 0.4, -0.5]) @ m3.scale(0.4))]
+    cut = (rng.random((32, 32, 4)) * 255).astype(np.uint8)
+    cut[..., 3] = np.where(np.arange(32)[:, None] % 2 == 0, 255, 0).astype(np.uint8)
+    ctex = r.add_texture_2d(types.Texture(
+        label="cut", data=cut, format=types.TextureFormat.RGBA8_UNORM_SRGB, mip_count=types.MipmapCount.ONE,
+    ))
+    mat_cut = r.add_material(mat.PbrMaterial(
+        albedo=mat.AlbedoComponent.new_texture(ctex), transparency=mat.Transparency.cutout_at(0.5),
+    ))
+    quad = _quad_mesh(r, types)
+    keep += [ctex, mat_cut, quad, r.add_object(types.Object(
+        mesh_kind=types.StaticMeshKind(quad), material=mat_cut,
+        transform=m3.translation([-0.7, 0.6, -0.2]) @ m3.scale(0.5),
+    ))]
+    mat_glass = r.add_material(mat.PbrMaterial(
+        albedo=mat.AlbedoComponent.new_value(np.array([0.4, 0.7, 0.9, 0.4], np.float32)),
+        transparency=mat.Transparency.blend(),
+    ))
+    keep += [mat_glass, r.add_object(types.Object(
+        mesh_kind=types.StaticMeshKind(quad), material=mat_glass,
+        transform=m3.translation([0.1, 0.5, -1.0]) @ m3.scale(0.6),
+    ))]
+    faces = np.zeros((6, 32, 32, 4), np.uint8)
+    for f in range(6):
+        faces[f, ..., f % 3] = np.linspace(40, 220, 32, dtype=np.uint8)[None, :]
+        faces[f, ..., 3] = 255
+    sky = r.add_texture_cube(types.Texture(
+        label="sky", data=faces, format=types.TextureFormat.RGBA8_UNORM_SRGB, mip_count=types.MipmapCount.ONE,
+    ))
+    runner.set_camera_data(types.Camera(
+        projection=types.Perspective(vfov=60.0, near=0.1),
+        view=m3.look_at_lh([1.5, 1.2, -2.5], [0.0, 0.3, 0.0], [0.0, 1.0, 0.0]),
+    ))
+    return keep + [sky]

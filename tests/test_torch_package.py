@@ -34,7 +34,8 @@ def test_import_leaves_jax_out():
         "rend3_tpu_torch.examples.static_gltf, rend3_tpu_torch.examples.skinning, "
         "rend3_tpu_torch.examples.animation, rend3_tpu_torch.examples.scene_viewer, "
         "rend3_tpu_torch.ops.fp, rend3_tpu_torch.ops.raster, rend3_tpu_torch.tools.bench_host, "
-        "rend3_tpu_torch.parallel, rend3_tpu_torch.parallel.tiles; "
+        "rend3_tpu_torch.parallel, rend3_tpu_torch.parallel.tiles, rend3_tpu_torch.bench, "
+        "rend3_tpu_torch.graft_entry, rend3_tpu_torch.utils.devbench; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'rend3_tpu' or m.startswith('rend3_tpu.')); print(bad)"
     )
@@ -58,18 +59,21 @@ def test_cuda_renderer_needs_a_card():
 @pytest.mark.parametrize(
     "entry",
     ["Renderer", "TestRunner", "framework.start", "render_single_frame", "OverlayRoutine", "serve_app", "bench_host",
-     "device_mesh", "build_tiled_frame_callable"],
+     "device_mesh", "build_tiled_frame_callable", "bench.main", "bench.run", "graft_entry.entry",
+     "dryrun_multichip"],
 )
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """Renderer(), TestRunner(), framework.start, render_single_frame,
-    OverlayRoutine(), serve_app, tools.bench_host and the row bands'
+    OverlayRoutine(), serve_app, tools.bench_host, the row bands'
     parallel.tiles.device_mesh() and build_tiled_frame_callable (its mesh
-    left to the default) run on the card unless asked for the CPU; without
-    a card they raise instead of falling back, before the app is set up or
-    a frame rendered, and serve_app before it binds a socket."""
+    left to the default), the bench line (bench.main, bench.run) and the
+    graft entry points (graft_entry.entry, dryrun_multichip) run on the
+    card unless asked for the CPU; without a card they raise instead of
+    falling back, before the app is set up or a frame rendered, and
+    serve_app before it binds a socket."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    from rend3_tpu_torch import framework
+    from rend3_tpu_torch import bench, framework, graft_entry
     from rend3_tpu_torch.framework import viewer
     from rend3_tpu_torch.overlay import OverlayRoutine
     from rend3_tpu_torch.parallel import tiles
@@ -97,6 +101,10 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
         "build_tiled_frame_callable": lambda: tiles.build_tiled_frame_callable(
             cpu_runner.base_graph, cpu_runner.renderer.evaluate_instructions(), FrameRenderTarget(64, 64)
         ),
+        "bench.main": lambda: bench.main(["--flat"]),
+        "bench.run": lambda: bench.run(n_buildings=4, width=64, height=36),
+        "graft_entry.entry": graft_entry.entry,
+        "dryrun_multichip": lambda: graft_entry.dryrun_multichip(2),
     }[entry]
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         make()
@@ -109,7 +117,7 @@ def test_scenes_import_no_jax_package_when_called():
         "import sys, numpy as np; from rend3_tpu_torch import scenes; "
         "from rend3_tpu_torch.testing import TestRunner; "
         "r = TestRunner(device='cpu'); k = scenes.textured_planes(r); "
-        "k2 = scenes.build_city_scene(r, n_buildings=4, representative=True); "
+        "k2 = scenes.build_city_scene(r, n_buildings=4, representative=True); k3 = scenes.rich_scene(r); "
         "scenes.set_bench_camera(r, 256, 128); "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'rend3_tpu' or m.startswith('rend3_tpu.')); print(bad)"
