@@ -88,11 +88,22 @@ wall time):
    and on K5's grid); the registers, spills, shared memory and resident
    CTAs per SM of every hand-written kernel; and rule 2's order of the
    kernels still to redesign (rend3_tpu_torch.testing.redesign_order), or
-   that none is left;
+   that none is left. F1, the float32 fma forms (ops/fp.py fma32, dot3,
+   ab_minus_cd; csrc/fma.cu), bit for bit with NaN positions equal against
+   their plain versions (the float64 emulation): in each form on
+   testing.fma_stress_case at 2^24 rows (one call is one device kernel that
+   makes no float64 tensor, testing.f1_call_trace), and at every call site
+   of the representative frames (fp.capture: the largest call of each form
+   from each site, among them _shadow_coords, the texture query and the
+   clip); each form's row timed at its largest site in routine/base.py
+   (_shadow_coords), ops/transform.py (the clip transform) and
+   ops/geometry.py (setup), the fma row's library yardstick
+   torch.addcmul(c, a, b) with whether its bits match;
 12. parity: the shadow golden scene, the textured-planes scene, the stacked
    cutout scene and the glass stack at 256x256, test_msaa's triangle at
    64x64 and 4 samples, a 64x64 skybox scene, a skinned scene and the
-   routine-registry scene, on the card and on the CPU;
+   routine-registry scene, on the card and on the CPU: images within 1
+   u8, every shadow map bit for bit;
 13. framework: the app layer through its entry points at 1280x720 (the
    reference screenshots' size), each example's launches counted from
    zero and each kernel it launched (K1-K5) held against its plain version
@@ -143,9 +154,13 @@ wall time):
    heavy city (1,000 buildings at subdiv 12, about 2.04M triangles) at
    1920x1080: two warm-up frames through render_frame_tensor, then three
    calls of build_frame_callable's program, each bit for bit the warm-up
-   frame, the last logging each stage's peak memory; the heavy frame's
-   K1 (opaque, count and bound modes), K2, K3, K4 and K5 against their
-   plain versions on its captured inputs;
+   frame, the last logging each stage's peak memory (the clip stage's
+   above the frame's start on a line of its own); for the representative
+   city, the kernel launches, copies, float64 kernels and device busy time
+   per static frame (the program) and per shadow pass, by torch.profiler
+   over three calls each (tools.frame_launches.profile_calls); the heavy
+   frame's K1 (opaque, count and bound modes), K2, K3, K4 and K5 against
+   their plain versions on its captured inputs;
 18. entry: rend3_tpu_torch.graft_entry, counted: entry()'s program on the
    rich scene at 256x256, then dryrun_multichip(n) for n = 2, 4, 8 bands,
    each bit for bit against the one-device program.
@@ -171,10 +186,16 @@ F32_OPS_PER_S = 67e12
 KERNEL_NAMES = (
     "raster_resolve", "raster_msaa", "raster_count", "raster_bound", "raster_band", "raster_depth", "pcf5", "bilinear",
     "gather", "raster_vis", "shadow_occ", "shadow_occ_lt", "probe_dot", "probe_reduce", "probe_lerp",
+    "fma", "fma_dot3", "fma_ab_minus_cd",
 )
+# F1's forms (ops/fp.py fma32, dot3, ab_minus_cd): every frame's clip,
+# setup and light-space products launch all three.
+F1_KERNELS = ("fma", "fma_dot3", "fma_ab_minus_cd")
 # The kernels each frame path must launch.
-FRAME_KERNELS = ("raster_resolve", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather")
-MSAA_KERNELS = ("raster_msaa", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather")
+FRAME_KERNELS = ("raster_resolve", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather",
+                 *F1_KERNELS)
+MSAA_KERNELS = ("raster_msaa", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather",
+                *F1_KERNELS)
 # The kernels the feature frame must launch at 1 / 4 samples (K4 also for
 # the skybox, K2 for the new pose's shadow maps).
 FEATURE_KERNELS = {1: FRAME_KERNELS, 4: MSAA_KERNELS}
@@ -224,9 +245,10 @@ def phase_build():
 
 
 def _counters():
-    from rend3_tpu_torch.ops import deferred, probe_bf16, raster_binned, samplers, shadow
+    from rend3_tpu_torch.ops import deferred, fp, probe_bf16, raster_binned, samplers, shadow
 
-    return (deferred.launches, samplers.launches, raster_binned.launches, shadow.launches, probe_bf16.launches)
+    return (deferred.launches, samplers.launches, raster_binned.launches, shadow.launches, probe_bf16.launches,
+            fp.launches)
 
 
 def _launch_counts():
@@ -335,7 +357,7 @@ def phase_slice(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
         raise AssertionError("moving a building did not invalidate the shadow map")
     log(f"launches during the three flat frames: {counts}")
     if cuda:
-        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5"))
+        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", *F1_KERNELS))
     for img in (img1, img2, img3):
         _check_image(img, width, height)
     if not np.array_equal(img1, img2):
@@ -390,7 +412,7 @@ def phase_textured(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
     log(f"launches during the three textured frames: {counts}")
     log(f"frame 2 survivors: main + resid = {s_on2} vs {s_off} with occlusion off")
     if cuda:
-        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", "bilinear", "gather"))
+        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", "bilinear", "gather", *F1_KERNELS))
     for img in (ref, img1, img2, img3):
         _check_image(img, width, height)
     if not s_on2 < s_off:
@@ -414,6 +436,7 @@ def phase_representative(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=
     import torch
 
     from rend3_tpu_torch import scenes
+    from rend3_tpu_torch.ops import fp
     from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget
     from rend3_tpu_torch.testing import TestRunner
     from rend3_tpu_torch.utils import math as m3
@@ -439,12 +462,17 @@ def phase_representative(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=
     s_off = graph.last_stats["main_survivors"]
     graph.occlusion_culling = True
     _reset_launch_counts()
-    img1 = frame(f"{name} 1 (occlusion on, predicts every triangle)")
-    img2 = frame(f"{name} 2 (occlusion on, the carried mask)")
-    st = dict(graph.last_stats)
-    s_on2 = st["main_survivors"] + st["resid_survivors"]
-    runner.renderer.set_object_transform(building, m3.translation([24.0, 25.0, -40.0]) @ m3.scale([3.0, 25.0, 3.0]))
-    img3 = frame(f"{name} 3 (occlusion on, a building moved)")
+    fp.capture = {}  # F1's inputs at every call site of the counted frames, for phase 11
+    try:
+        img1 = frame(f"{name} 1 (occlusion on, predicts every triangle)")
+        img2 = frame(f"{name} 2 (occlusion on, the carried mask)")
+        st = dict(graph.last_stats)
+        s_on2 = st["main_survivors"] + st["resid_survivors"]
+        runner.renderer.set_object_transform(building,
+                                             m3.translation([24.0, 25.0, -40.0]) @ m3.scale([3.0, 25.0, 3.0]))
+        img3 = frame(f"{name} 3 (occlusion on, a building moved)")
+    finally:
+        graph.captured["fma_sites"], fp.capture = fp.capture, None
     counts = _launch_counts()
     log(f"launches during the three {name} frames: {counts}")
     log(f"frame 2 opaque survivors: main + resid = {s_on2} vs {s_off} with occlusion off")
@@ -1056,6 +1084,7 @@ def phase_kernels(paths, extra_rows=(), timed=True):
                  lambda: S.sample_grid(*a5), lambda: S.sample_grid_plain(*a5), 0.0, b5,
                  lambda: img5[by5.long()[:, None] + dy, bx5.long()[:, None] + dx]))
 
+    rows += phase_f1(rcap["fma_sites"], tris.setup.device)
     phase_stress(tris.setup.device)
     if tris.setup.is_cuda:
         log_kernel_info()
@@ -1100,6 +1129,124 @@ def phase_kernels(paths, extra_rows=(), timed=True):
             log("rule 2 is done: every kernel has been redesigned for this card, or runs at half its bound or better "
                 "and no library call beats it")
     return kernels
+
+
+F1_SOURCE = "rend3_tpu_torch/csrc/fma.cu"
+# No pallas_call emits an fma: the lines of the JAX frame whose sums
+# XLA:CPU contracts into each form (the light-space product, the clip
+# transform, the screen-space area).
+F1_REPLACES = {"fma": "rend3_tpu/routine/base.py:1663", "fma_dot3": "rend3_tpu/ops/transform.py:96",
+               "fma_ab_minus_cd": "rend3_tpu/ops/geometry.py:121"}
+# Each form's timed row: the frame's largest call from this file of the
+# package (routine.base._shadow_coords, transform.gather_tri_clip,
+# geometry's setup).
+F1_TIMED_SITE = {"fma": "routine/base.py", "fma_dot3": "ops/transform.py", "fma_ab_minus_cd": "ops/geometry.py"}
+# f32 operations per output element (an fma counts two).
+F1_OPS = {"fma": 2, "fma_dot3": 5, "fma_ab_minus_cd": 3}
+F1_STRESS_ROWS = 1 << 24
+
+
+def _f1_same(label, k, p):
+    """F1 against its plain version: bit for bit as int32 patterns, NaN
+    positions equal (payloads free)."""
+    import torch
+
+    nan = torch.isnan(p)
+    bad = (torch.isnan(k) != nan) | ((k.view(torch.int32) != p.view(torch.int32)) & ~nan)
+    if bool(bad.any()):
+        raise AssertionError(f"{label}: F1 differs from its plain version at {int(bad.sum())} of {k.numel()} values")
+
+
+def _distinct_bytes(t):
+    """Bytes of the distinct float32 elements of a tensor (a broadcast
+    dimension, stride 0, holds one)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride != 0 else 1
+    return 4 * n
+
+
+def _f1_functions():
+    """({form: its public function}, {form: its plain version}) of F1's forms."""
+    from rend3_tpu_torch.ops import fp
+
+    return ({"fma": fp.fma32, "fma_dot3": fp.dot3, "fma_ab_minus_cd": fp.ab_minus_cd},
+            {"fma": fp.fma32_plain, "fma_dot3": fp.dot3_plain, "fma_ab_minus_cd": fp.ab_minus_cd_plain})
+
+
+def _check_f1_sites(label, sites):
+    """F1 against its plain version, bit for bit with NaN positions equal,
+    on the inputs fp.capture recorded at each call site (`sites`); returns
+    the forms checked."""
+    public, plain = _f1_functions()
+    for (form, site), xs in sorted(sites.items()):
+        k = public[form](*xs)
+        _f1_same(f"{label} {form} at {site}", k, plain[form](*xs))
+        log(f"{label} {form} at {site}: {tuple(k.shape)} bit for bit, inputs {[tuple(x.shape) for x in xs]}")
+    return {form for form, _site in sites}
+
+
+def phase_f1(sites, device="cuda"):
+    """F1 (ops/fp.py fma32, dot3, ab_minus_cd; csrc/fma.cu) against its
+    plain versions, the float64 emulation, bit for bit with NaN positions
+    equal: in each form on testing.fma_stress_case (2^24 rows on the card),
+    where on the card one call must be one device kernel that makes no
+    float64 tensor (testing.f1_call_trace); then at every call site of the
+    representative frames (`sites`: fp.capture's record, the largest call
+    of each form from each site). Returns each form's kernel row, timed at
+    its largest site in F1_TIMED_SITE's file, with torch.addcmul(c, a, b)
+    as the fma row's library yardstick (its bits compared, not required)."""
+    import torch
+
+    from rend3_tpu_torch import testing
+    from rend3_tpu_torch.ops import fp
+
+    public, plain = _f1_functions()
+    cuda = torch.device(device).type == "cuda"
+    n = F1_STRESS_ROWS if cuda else 4096
+    traced = []
+    for form in F1_KERNELS:
+        xs = [torch.from_numpy(x).to(device) for x in testing.fma_stress_case(form, n, seed=11)]
+        k = public[form](*xs)
+        _f1_same(f"F1 {form} (stress)", k, plain[form](*xs))
+        fin = torch.isfinite(k)
+        log(f"F1 {form}: bit for bit against its plain version on testing.fma_stress_case, {n} rows "
+            f"({int(torch.isnan(k).sum())} NaN, {int(torch.isinf(k).sum())} inf, "
+            f"{int((fin & (k != 0) & (k.abs() < 2.0**-126)).sum())} subnormal, {int((k == 0).sum())} zero results)")
+        traced.append((public[form], [x[:4096].clone() for x in xs]))
+    if cuda:
+        # Each form's call is one device kernel, its own instance, and makes no float64 tensor.
+        kernels, dtypes = testing.f1_call_trace(traced)
+        want = [f"_kernel<{fp._FORMS[form]}" for form in F1_KERNELS]
+        if len(kernels) != len(want) or any(w not in k for w, k in zip(want, kernels)) or any(
+                torch.float64 in d for d in dtypes):
+            raise AssertionError(f"F1: the three calls launched {kernels} and made tensors of {dtypes}")
+        for form, kernel, d in zip(F1_KERNELS, kernels, dtypes):
+            log(f"F1 {form}: one call is one device kernel ({kernel[:90]}) and makes tensors of "
+                f"{sorted({str(t) for t in d})} only")
+    _check_f1_sites("F1", sites)
+    rows = []
+    for form in F1_KERNELS:
+        cands = [(site, xs) for (f, site), xs in sites.items() if f == form and site.startswith(F1_TIMED_SITE[form])]
+        site, xs = max(cands, key=lambda c: torch.broadcast_shapes(*(x.shape for x in c[1])).numel())
+        out = public[form](*xs)
+        bytes_moved = sum(_distinct_bytes(x) for x in xs) + _nbytes(out)
+        libfn = None
+        if form == "fma":
+            a, b, c = xs
+            lib = torch.addcmul(c, a, b)
+            nan = torch.isnan(out)
+            diff = int(((lib.view(torch.int32) != out.view(torch.int32)) & ~nan).sum())
+            log(f"F1 fma's library yardstick torch.addcmul(c, a, b) at {site}: its bits "
+                f"{'equal' if diff == 0 else f'differ at {diff} of {out.numel()} values from'} F1's "
+                f"(timed, not used: no PyTorch op promises a fused fma)")
+            libfn = lambda a=a, b=b, c=c: torch.addcmul(c, a, b)  # noqa: E731
+        log(f"F1 {form} row: timed at {site}, output {tuple(out.shape)}, {bytes_moved} distinct bytes read and "
+            f"written")
+        rows.append((form, F1_SOURCE, F1_REPLACES[form], lambda f=form, xs=xs: public[f](*xs),
+                     lambda f=form, xs=xs: plain[f](*xs), 0.0, _bound(bytes_moved, out.numel() * F1_OPS[form]),
+                     libfn))
+    return rows
 
 
 def phase_stress(device="cuda"):
@@ -1197,8 +1344,8 @@ def log_kernel_info():
     """Registers, spills, shared memory and resident CTAs per SM (CUDA
     runtime) of each instance of K1 / K2's tiles_kernel, K6's vis_kernel,
     K7 / K8's occ_kernel, of P1's dot_kernel at the probes' K = 72, of
-    K5's gather_kernel for the four Hi-Z taps, of P2's reduce_kernel and of
-    P3's lerp_kernel (x-lerp and 128-lane sum)."""
+    K5's gather_kernel for the four Hi-Z taps, of P2's reduce_kernel, of
+    P3's lerp_kernel (x-lerp and 128-lane sum) and of F1's nine instances."""
     from rend3_tpu_torch.ops import cuda_kernels
 
     rows = [(f"{'vis' if name.startswith('K6') else 'tiles'}_kernel {name}", "raster_kernel_info", (i,))
@@ -1207,6 +1354,7 @@ def log_kernel_info():
     rows += [(f"P1 dot_kernel {name}", "p1_kernel_info", (i, 72)) for i, name in enumerate(cuda_kernels.P1_INSTANCES)]
     rows.append(("K5 gather_kernel, 4 taps", "k5_kernel_info", (4,)))
     rows += [(name, "p23_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.P23_INSTANCES)]
+    rows += [(name, "f1_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.F1_INSTANCES)]
     for label, fn, args in rows:
         info = cuda_kernels.kernel_info(fn, *args)
         log(f"{label}: {info['registers']} registers, {info['local_bytes']} local (spill) bytes, "
@@ -1398,6 +1546,7 @@ def registry_scene(runner):
 
 def phase_parity(device="cuda"):
     import numpy as np
+    import torch
 
     from rend3_tpu_torch import scenes
     from rend3_tpu_torch.routine.base import FrameRenderTarget
@@ -1413,7 +1562,7 @@ def phase_parity(device="cuda"):
         ("skinned columns", skinned_scene, 64, 1),
         ("routine registry", registry_scene, 128, 1),
     ):
-        imgs = []
+        imgs, maps = [], []
         for dev in (device, "cpu"):
             runner = TestRunner(device=dev)
             keep = build(runner)
@@ -1425,11 +1574,19 @@ def phase_parity(device="cuda"):
                 ))
             else:
                 imgs.append(runner.render_frame(FrameRenderSettings(size=size, samples=samples)))
+            cache = runner.base_graph._shadow_cache
+            maps.append([m.cpu() for m in cache[1][0]] if cache is not None else [])
             del keep
         diff = int(np.abs(imgs[0].astype(np.int32) - imgs[1].astype(np.int32)).max())
-        log(f"parity: {name} scene {size}x{size} at {samples} sample(s), {device} vs cpu max u8 diff {diff}")
+        log(f"parity: {name} scene {size}x{size} at {samples} sample(s), {device} vs cpu max u8 diff {diff}; "
+            f"{len(maps[0])} shadow map(s) {[tuple(m.shape) for m in maps[0]]}")
         if diff > 1:
             raise AssertionError(f"card and CPU renders of the {name} scene differ by {diff}")
+        # The maps are where near-ties show: card and CPU bit for bit.
+        if len(maps[0]) != len(maps[1]) or any(
+                not torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(*maps)):
+            n = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum()) for a, b in zip(*maps))
+            raise AssertionError(f"the {name} scene's shadow maps differ between card and CPU ({n} texels)")
 
 
 EXAMPLE_W, EXAMPLE_H = 1280, 720  # the reference screenshots' size
@@ -1478,12 +1635,13 @@ def _check_frame_kernels(label, cap):
 def _example_frame(label, make_app, device, width=EXAMPLE_W, height=EXAMPLE_H, **start_kw):
     """The app's frames through framework.start with the launch counters
     zeroed just before and read just after; logs the host time and the
-    launches. On the card the base graph captures each kernel's inputs, and
-    each kernel launched is then held against its plain version. Returns
-    (app, images, counts)."""
+    launches. On the card the base graph captures each kernel's inputs (and
+    fp.capture F1's at each call site), and each kernel launched is then
+    held against its plain version. Returns (app, images, counts)."""
     import torch
 
     from rend3_tpu_torch import framework
+    from rend3_tpu_torch.ops import fp
 
     cuda = torch.device(device).type == "cuda"
     smi = nvidia_smi_line() if cuda else "cpu"
@@ -1501,8 +1659,12 @@ def _example_frame(label, make_app, device, width=EXAMPLE_W, height=EXAMPLE_H, *
     _reset_launch_counts()
     if cuda:
         torch.cuda.synchronize()
+        fp.capture = {}
     t0 = time.perf_counter()
-    imgs = framework.start(app, width, height, device=device, **start_kw)
+    try:
+        imgs = framework.start(app, width, height, device=device, **start_kw)
+    finally:
+        sites, fp.capture = fp.capture, None
     ms = (time.perf_counter() - t0) * 1e3
     counts = _launch_counts()
     log(f"{label}: {len(imgs)} frame(s) at {width}x{height} in {ms:.3f} ms host (setup included); "
@@ -1513,6 +1675,7 @@ def _example_frame(label, make_app, device, width=EXAMPLE_W, height=EXAMPLE_H, *
     if cuda:
         checked = {k.split("_")[0] if k.startswith("bilinear") else k
                    for k in _check_frame_kernels(label, graphs[0].captured)}
+        checked |= _check_f1_sites(f"{label} F1", sites)
         graphs[0].captured = None
         unchecked = {k for k, v in counts.items() if v} - checked
         if unchecked:
@@ -1857,7 +2020,7 @@ BAND_COUNTS = (2, 4, 8)
 # past 0 ("raster_band") and band 0's K1 modes, K2 for the shadow maps
 # (rebuilt in the first banded frame of each scene), K3, K4 and K5.
 BAND_KERNELS = ("raster_band", "raster_resolve", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear",
-                "gather")
+                "gather", *F1_KERNELS)
 
 
 def _peak_start(cuda):
@@ -2146,6 +2309,21 @@ def _check_peel_kernels(label, cap):
               D.raster_resolve_plain(b_tris, b_planes, b_binned, b_wp, b_hp, bound=bnd))
 
 
+def _log_frame_launches(name, program, args, shadow_call):
+    """Kernel launches, copies, float64 kernels and device busy time per
+    static frame (program) and per shadow pass, from torch.profiler over
+    three calls of each (tools.frame_launches.profile_calls; uncounted: the
+    launch counters are read before)."""
+    from rend3_tpu_torch.tools.frame_launches import profile_calls
+
+    fn, inputs = shadow_call
+    for label, res in (("static frame", profile_calls(program, args)), ("shadow pass", profile_calls(fn, inputs))):
+        log(f"bench {name}: per {label} (torch.profiler, 3 calls): {res['kernels']:g} kernel launches, "
+            f"{res['copies']:g} copies, {res['float64_kernels']:g} float64 kernels; device busy "
+            f"{res['busy_ms']:.3f} ms of {res['wall_ms']:.3f} ms (share {res['busy_share']:.3f})")
+        log("  most launched: " + "; ".join(f"{t['launches']:g} x {t['name'][:70]}" for t in res["top"][:6]))
+
+
 def phase_bench(device="cuda", width=WIDTH, height=HEIGHT, cities=None, line=True):
     """The bench line and the frame callable behind it. First (`line`) the
     bench line in a child process (_bench_line). Then, counted, for each
@@ -2205,6 +2383,10 @@ def phase_bench(device="cuda", width=WIDTH, height=HEIGHT, cities=None, line=Tru
         log(f"bench {name}: stats {stats}; main_pairs {stats['main_pairs']}; launches {counts}")
         if peaks:
             log(f"bench {name}: peak MiB by stage " + json.dumps({k: round(v, 1) for k, v in peaks.items()}))
+            log(f"bench {name}: clip stage peak {peaks['clip']:.1f} MiB, {peaks['clip'] - start / 2**20:.1f} MiB "
+                f"above the frame's start")
+        if cuda and name == "representative":
+            _log_frame_launches(name, program, args, graph._last_shadow_call)
         _check_image(warm[1], width, height)
         for k, img in enumerate([warm[0]] + imgs):
             if not (img == warm[1]).all():

@@ -1,6 +1,6 @@
 """Time this tree's kernels against other trees' on the same inputs.
 
-    python3 kernel_ab.py OTHER_DIR [OTHER_DIR ...] [K1 K2 P1 K5 K6 K7 P2 P3]
+    python3 kernel_ab.py OTHER_DIR [OTHER_DIR ...] [K1 K2 P1 K5 K6 K7 P2 P3 F1]
 
 Each OTHER_DIR holds another tree: another commit's, for example the
 parent's, unpacked with `git archive` into the ignored `_checkout/`, or a
@@ -13,8 +13,10 @@ wrappers
 `ops.shadow.occlusion_from_lists`), whatever its kernels' C interface; P2
 and P3 run as raw launches through the tree's own `ops.cuda_kernels.call`
 (P3's wrapper reads the device on the host, so no CUDA graph takes it), on
-the C interface of P2 and P3, unchanged since their port. The groups named (all eight
-by default) choose the cases. The inputs come from
+the C interface of P2 and P3, unchanged since their port; F1 through
+`ops.fp.fma32`, `dot3` and `ab_minus_cd` (a tree without F1 runs its
+float64 emulation there). The groups named (all nine by default) choose
+the cases. The inputs come from
 this tree on the card, as chip_smoke.py makes them, at 1920x1080:
 
 - K1 opaque and K2 (the 2048² map) from the flat city after a building
@@ -38,7 +40,12 @@ this tree on the card, as chip_smoke.py makes them, at 1920x1080:
   from zeros, as chip_smoke.py phase 11 times it) and in its 128-lane-sum
   variant (bf16 no-ohx-lerp), on testing.probe_lerp_stress_case (x-lerp
   without and with init steps, the 128-lane sum without), and on P2 v3's
-  (one step of 128-lane sums over 4,096 pixels) and v7's (bf16) inputs.
+  (one step of 128-lane sums over 4,096 pixels) and v7's (bf16) inputs;
+- F1 at the representative frame's largest call of each form from
+  routine/base.py (_shadow_coords' light-space product), ops/texture.py
+  (the texture query), ops/transform.py (the clip transform) and
+  ops/geometry.py (setup), with torch.addcmul(c, a, b) as the fma's
+  library call.
 
 Every tree's outputs must equal this tree's bit for bit (NaN at the same
 places; K7 and K8 at hit pixels, the only ones where their values are
@@ -72,7 +79,7 @@ import sys
 import chip_smoke as cs
 
 WIDTH, HEIGHT = cs.WIDTH, cs.HEIGHT
-GROUPS = ("K1", "K2", "P1", "K5", "K6", "K7", "P2", "P3")
+GROUPS = ("K1", "K2", "P1", "K5", "K6", "K7", "P2", "P3", "F1")
 
 
 def load_other(root, name="rend3_other"):
@@ -207,6 +214,34 @@ def k5_case():
     label = f"K5 Hi-Z taps (textured, {bx.numel()} queries, atlas {tuple(img.shape)})"
     return {label: ("samplers", "sample_grid", args, {},
                     lambda: img[by.long()[:, None] + dy, bx.long()[:, None] + dx], None, None)}
+
+
+# F1's cases: (form, fp's function, the call site's file in the package).
+F1_SITES = (("fma", "fma32", "routine/base.py"), ("fma", "fma32", "ops/texture.py"),
+            ("fma_dot3", "dot3", "ops/transform.py"), ("fma_ab_minus_cd", "ab_minus_cd", "ops/geometry.py"))
+
+
+def f1_cases():
+    """F1 at the largest call of a form from each of F1_SITES' files, as
+    fp.capture records them over the representative frame's two frames
+    (occlusion on); torch.addcmul(c, a, b) beside the fma."""
+    import torch
+
+    from rend3_tpu_torch.ops import fp
+
+    fp.capture = {}
+    try:
+        capture("representative", occlusion=True)
+    finally:
+        sites, fp.capture = fp.capture, None
+    cases = {}
+    for form, fname, prefix in F1_SITES:
+        site, xs = max(((s, xs) for (f, s), xs in sites.items() if f == form and s.startswith(prefix)),
+                       key=lambda c: torch.broadcast_shapes(*(x.shape for x in c[1])).numel())
+        lib = (lambda a=xs[0], b=xs[1], c=xs[2]: torch.addcmul(c, a, b)) if form == "fma" else None
+        shape = tuple(torch.broadcast_shapes(*(x.shape for x in xs)))
+        cases[f"F1 {form} at {site} {shape}"] = ("fp", fname, xs, {}, lib, None, None)
+    return cases
 
 
 def emptied(lists, k):
@@ -417,6 +452,8 @@ def main(argv):
         cases.update(vis_occ_cases(groups))
     if "P2" in groups or "P3" in groups:
         cases.update(probe_cases(groups))
+    if "F1" in groups:
+        cases.update(f1_cases())
     other_cks = [(d, importlib.import_module(f"{pkg}.ops.cuda_kernels")) for d, pkg in others]
     if "P1" in groups or "K5" in groups:
         log_kernels(cuda_kernels, other_cks)

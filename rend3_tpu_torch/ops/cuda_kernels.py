@@ -38,7 +38,7 @@ __all__ = ["build", "library", "call", "kernel_info", "SOURCES", "HEADERS", "NVC
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("raster.cu", "pcf5.cu", "bilinear.cu", "gather.cu", "shadow_occ.cu", "probe_bf16.cu")
+SOURCES = ("raster.cu", "pcf5.cu", "bilinear.cu", "gather.cu", "shadow_occ.cu", "probe_bf16.cu", "fma.cu")
 HEADERS = ("kernel_info.cuh", "tile_lists.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-lineinfo", "-Xcompiler", "-fPIC")
@@ -56,10 +56,11 @@ _SIGNATURES = {
     "p2_probe_reduce": (3, 2, 0),
     "p3_probe_lerp": (7, 10, 0),
     "launch_floor": (0, 2, 0),
+    "f1_fma": (7, 2 + 6 + 6 * 6, 0),
 }
 # name -> int args of the kernel-info functions, which end with an int[5].
 _INFO_SIGNATURES = {"raster_kernel_info": 1, "p1_kernel_info": 2, "k5_kernel_info": 1, "occ_kernel_info": 1,
-                    "p23_kernel_info": 1}
+                    "p23_kernel_info": 1, "f1_kernel_info": 1}
 
 _lib: Optional[ctypes.CDLL] = None
 last_build: dict = {}
@@ -152,13 +153,14 @@ def call(name: str, *tensors: torch.Tensor, ints=(), floats=()) -> None:
     if dev.type != "cuda":
         raise ValueError(f"{name}: CUDA kernel called with tensors on {dev}")
     lib = library()
+    # Plain Python values: the argtypes set in library() convert them.
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, name)(
-            *[ctypes.c_void_p(None if t is None else t.data_ptr()) for t in tensors],
-            *[ctypes.c_int(int(i)) for i in ints],
-            *[ctypes.c_float(float(f)) for f in floats],
-            ctypes.c_void_p(stream),
+            *[None if t is None else t.data_ptr() for t in tensors],
+            *[int(i) for i in ints],
+            *[float(f) for f in floats],
+            stream,
         )
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}: {lib.rend3_cuda_error_string(rc).decode()}")
@@ -174,6 +176,10 @@ P1_INSTANCES = ("f32 scalar", "bf16 scalar", "f32 vector", "bf16 vector", "f32 v
                 "bf16 vector transposed")
 # P2's reduce_kernel and P3's lerp_kernel instances, by p23_kernel_info's index.
 P23_INSTANCES = ("P2 reduce_kernel", "P3 lerp_kernel x-lerp", "P3 lerp_kernel 128-lane sum")
+# F1's instances (csrc/fma.cu), by f1_kernel_info's index: 4 * form + path.
+F1_INSTANCES = tuple(f"F1 {form} {path}" for form in ("fma", "dot3", "ab_minus_cd")
+                     for path in ("strided_kernel 32-bit", "strided_kernel 64-bit", "rows4_kernel 32-bit",
+                                  "rows4_kernel 64-bit"))
 
 
 def kernel_info(fn: str, *ints: int) -> dict:
@@ -183,7 +189,8 @@ def kernel_info(fn: str, *ints: int) -> dict:
     RASTER_INSTANCES[which], `occ_kernel_info(which)` for
     OCC_INSTANCES[which], `p1_kernel_info(which, K)` for P1_INSTANCES[which]
     at K's dynamic shared memory, `k5_kernel_info(n)` for K5 with n taps,
-    `p23_kernel_info(which)` for P23_INSTANCES[which]."""
+    `p23_kernel_info(which)` for P23_INSTANCES[which], `f1_kernel_info(which)`
+    for F1_INSTANCES[which]."""
     lib = library()
     info = (ctypes.c_int * 5)()
     rc = getattr(lib, fn)(*ints, ctypes.cast(info, ctypes.c_void_p))

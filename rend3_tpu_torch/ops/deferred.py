@@ -21,8 +21,9 @@ depth or attribute plane a*px + b*py + c is evaluated as fma(a, px, b*py) + c.
 That is what the JAX kernels compute under XLA:CPU (the reference the parity
 tests run), where LLVM contracts the first product into an fma. The form is
 symmetric under negation, so the watertight shared-edge scheme
-(geometry.py:226-239) still holds. The plain versions emulate the fma
-exactly in float64 (`fma32`).
+(geometry.py:226-239) still holds. The plain versions take the fma from
+`fma32` (ops/fp.py, re-exported here): the correctly rounded fma, the F1
+kernel on CUDA tensors and its float64 emulation on CPU tensors.
 """
 
 from __future__ import annotations

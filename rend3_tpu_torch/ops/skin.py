@@ -11,7 +11,9 @@ The JAX package runs no Pallas kernel here, and neither does the port.
 Numerics, bit for bit with the JAX function as XLA:CPU runs it (found by
 matching): the blended matrix is M0*w0, then fma(Mk, wk, acc) for joints 1-3;
 the 3x3 product is a0*v0, then fma(a1, v1, .) and fma(a2, v2, .); positions
-then add the translation column. `deferred.fma32` emulates the fma exactly.
+then add the translation column. `deferred.fma32` (ops/fp.py) is the
+correctly rounded fma: the F1 kernel on the card, its float64 emulation on
+the CPU.
 """
 
 from __future__ import annotations

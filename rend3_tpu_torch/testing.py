@@ -508,6 +508,163 @@ def probe_lerp_stress_case(device="cuda", seed: int = 0, *, bf16: bool = True, x
 
 
 # ---------------------------------------------------------------------------
+# F1: inputs that stress a float32 fma
+# ---------------------------------------------------------------------------
+
+# The kinds of fma_stress_case's rows, in order, each about n / 8 of them.
+FMA_STRESS_KINDS = ("bits", "cancel", "tie", "double_rounding", "subnormal", "overflow", "zero", "nan")
+FMA_ARITY = {"fma": 3, "fma_ab_minus_cd": 4, "fma_dot3": 6}
+F32_MAX = float(np.finfo(np.float32).max)
+
+
+def _rand_f32(rng, m, lo, hi):
+    """m float32 values of random sign, mantissa and exponent in [lo, hi]."""
+    sign = rng.choice(np.array([-1.0, 1.0]), m)
+    return (sign * rng.uniform(1.0, 2.0, m) * np.exp2(rng.integers(lo, hi + 1, m))).astype(np.float32)
+
+
+def _signs(rng, m):
+    return rng.choice(np.array([-1.0, 1.0]), m)
+
+
+def _fma_kind(kind, rng, m):
+    """(a, b, c) float32 arrays of m rows of one kind of fma_stress_case
+    (all but "bits", which fma_stress_case draws for every input)."""
+    f32 = np.float32
+    if kind == "cancel":  # c within 3 ulps of -(a*b): the sum cancels to its last bits
+        a, b = _rand_f32(rng, m, -60, 60), _rand_f32(rng, m, -60, 60)
+        c = (-(a.astype(np.float64) * b)).astype(f32)
+        return a, b, (c.view(np.int32) + rng.integers(-3, 4, m).astype(np.int32)).view(f32)
+    if kind == "tie":
+        # a = A 2^ea, b = B 2^eb with odd 12-bit A, B; c = C 2^(ea+eb-d), C
+        # odd and small, d so that A B 2^d has 25 bits: a*b + c lies halfway
+        # between two floats (or, where C carries past 25 bits, a quarter).
+        A = 2 * rng.integers(2**10, 2**11, m) + 1
+        B = 2 * rng.integers(2**10, 2**11, m) + 1
+        d = np.where(A * B >= 2**23, 1, 2)
+        C = 2 * rng.integers(-(2**9), 2**9, m) + 1
+        ea, eb = rng.integers(-50, 51, m), rng.integers(-50, 51, m)
+        a = (_signs(rng, m) * A * np.exp2(ea)).astype(f32)
+        b = (_signs(rng, m) * B * np.exp2(eb)).astype(f32)
+        return a, b, (C * np.exp2(ea + eb - d)).astype(f32)
+    if kind == "double_rounding":
+        # A B = 2^47 + r with 24-bit A, B and 0 < |r| < 2^18, c = C 2^(ea+eb+48)
+        # with a 24-bit C: a*b + c is a float's midpoint plus or minus a
+        # sliver below a double's half ulp, so a float64 sum rounded again to
+        # float32 (double rounding) lands on the midpoint and ties wrongly.
+        A = rng.integers(2**23, 2**24, 64 * m)
+        B = np.rint(2.0**47 / A).astype(np.int64)
+        r = A * B - 2**47
+        ok = (r != 0) & (np.abs(r) < 2**18) & (B >= 2**23) & (B < 2**24)
+        A, B = A[ok][:m], B[ok][:m]
+        if A.size < m:
+            raise RuntimeError("fma_stress_case: too few double-rounding pairs; raise the sample")
+        ea, eb = rng.integers(-60, 26, m), rng.integers(-60, 26, m)
+        C = rng.integers(2**23, 2**24, m)
+        a = (_signs(rng, m) * A * np.exp2(ea)).astype(f32)
+        b = (_signs(rng, m) * B * np.exp2(eb)).astype(f32)
+        return a, b, (_signs(rng, m) * C * np.exp2(ea + eb + 48)).astype(f32)
+    if kind == "subnormal":  # products near and below 2^-126, subnormal or zero addends
+        a, b = _rand_f32(rng, m, -78, -58), _rand_f32(rng, m, -78, -58)
+        c = (rng.integers(0, 2**23, m).astype(np.uint32) | np.where(rng.random(m) < 0.5, 2**31, 0).astype(
+            np.uint32)).view(f32)
+        near = rng.random(m) < 0.3  # or the subnormal nearest -(a*b): a result in the last bits
+        c = np.where(near, (-(a.astype(np.float64) * b)).astype(f32), c)
+        return a, b, c
+    if kind == "overflow":  # sums around the float32 range's end, including its midpoint to 2^128
+        a, b = _rand_f32(rng, m, 58, 66), _rand_f32(rng, m, 58, 66)
+        c = _rand_f32(rng, m, 100, 127)
+        edge = np.arange(m) % 4  # every other row: FLT_MAX + 2^103 (ties to inf) or just below
+        under = np.float32((2**24 - 1) * 2.0**27)  # 2^51 - 2^27
+        pick = rng.random(m) < 0.5
+        a = np.where(pick, np.float32(2.0**52) * np.where(edge % 2 == 0, 1, -1).astype(f32), a)
+        b = np.where(pick, np.where(edge < 2, np.float32(2.0**51), under), b)
+        c = np.where(pick, np.float32(F32_MAX) * np.where(edge % 2 == 0, 1, -1).astype(f32), c)
+        return a.astype(f32), b.astype(f32), c.astype(f32)
+    if kind == "zero":  # signed zeros: a*b and c zero, and sums that cancel exactly
+        a = rng.choice(np.array([0.0, -0.0, 1.5, -1.5], f32), m)
+        b = rng.choice(np.array([0.0, -0.0, 2.0, -2.0], f32), m)
+        which = rng.integers(0, 3, m)
+        c = np.where(which == 0, rng.choice(np.array([0.0, -0.0], f32), m),
+                     np.where(which == 1, -(a * b), rng.choice(np.array([3.0, -3.0], f32), m)))
+        return a, b, c.astype(f32)
+    if kind == "nan":  # NaNs, infinities, inf * 0 and inf - inf
+        pool = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, -2.5, F32_MAX, 1e-40], f32)
+        return tuple(rng.choice(pool, m) for _ in range(3))
+    raise ValueError(kind)
+
+
+def fma_stress_case(form: str = "fma", n: int = 1 << 12, seed: int = 0):
+    """Inputs that stress F1 and its plain versions (ops/fp.py): n rows,
+    about n / 8 of each kind of FMA_STRESS_KINDS (random bit patterns over
+    all exponents, cancellation, exact halfway cases, double-rounding traps,
+    subnormal results, overflow to +-inf at the range's end, signed zeros,
+    NaN and infinity operands). A tuple of FMA_ARITY[form] float32 numpy
+    arrays, the form's inputs in order: fma (a, b, c); fma_ab_minus_cd (a,
+    b, c, d), where outside the "bits" rows c*d = -c' exactly for the fma's
+    addend c'; fma_dot3 (a0, b0, a1, b1, a2, b2), where outside the "bits"
+    rows a0*b0 is the addend and the stressed product is (a1, b1) with a2 =
+    +-0 in half the rows and (a2, b2) with (a1, b1) = (+-0, 1) in the
+    others."""
+    rng = np.random.default_rng(seed)
+    k = len(FMA_STRESS_KINDS)
+    sizes = [n // k + (1 if i < n % k else 0) for i in range(k)]
+    cols = [[] for _ in range(FMA_ARITY[form])]
+    one = np.float32(1.0)
+    for kind, m in zip(FMA_STRESS_KINDS, sizes):
+        if kind == "bits":  # any bit pattern: every exponent, subnormals, infinities, NaNs
+            rows = tuple(rng.integers(0, 2**32, m, dtype=np.uint64).astype(np.uint32).view(np.float32)
+                         for _ in cols)
+        else:
+            a, b, c = _fma_kind(kind, rng, m)
+            ones = np.full(m, one)
+            if form == "fma":
+                rows = (a, b, c)
+            elif form == "fma_ab_minus_cd":
+                rows = (a, b, -c, ones)
+            else:
+                inner = rng.random(m) < 0.5
+                zero = rng.choice(np.array([0.0, -0.0], np.float32), m)
+                rows = (c, ones, np.where(inner, a, zero), np.where(inner, b, ones),
+                        np.where(inner, zero, a), np.where(inner, ones, b))
+        for col, x in zip(cols, rows):
+            col.append(np.asarray(x, np.float32))
+    return tuple(np.concatenate(col) for col in cols)
+
+
+def f1_call_trace(calls):
+    """What each call fn(*args) of `calls` does on the card, all traced in
+    one torch.profiler context (CPU and CUDA activity): (the names of the
+    device kernels launched, in launch order; per call, the dtypes of every
+    tensor its aten ops returned, from a dispatch mode). Synchronized."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class _Dtypes(TorchDispatchMode):
+        def __init__(self, out):
+            super().__init__()
+            self.out = out
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            res = func(*args, **(kwargs or {}))
+            self.out.extend(t.dtype for t in tree_flatten(res)[0] if isinstance(t, torch.Tensor))
+            return res
+
+    dtypes = [[] for _ in calls]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for (fn, args), out in zip(calls, dtypes):
+            with _Dtypes(out):
+                fn(*args)
+        torch.cuda.synchronize()
+    device = sorted((e.time_range.start, e.name) for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return [name for _t, name in device], dtypes
+
+
+# ---------------------------------------------------------------------------
 # Rule 2: which hand-written kernel to redesign next
 # ---------------------------------------------------------------------------
 
@@ -516,12 +673,18 @@ KERNEL_OF_ROW = {
     "raster_resolve": "K1", "raster_msaa": "K1", "raster_count": "K1", "raster_bound": "K1",
     "raster_depth": "K2", "pcf5": "K3", "bilinear": "K4", "gather": "K5", "raster_vis": "K6",
     "shadow_occ": "K7", "shadow_occ_lt": "K8", "probe_dot": "P1", "probe_reduce": "P2", "probe_lerp": "P3",
+    "fma": "F1", "fma_dot3": "F1", "fma_ab_minus_cd": "F1",
 }
 # Kernels redesigned for the H100 after their port; rule 2 does not take
 # them again. K8 came with K7: both are instances of one CUDA kernel
 # (csrc/shadow_occ.cu occ_kernel), so redesigning K7's redesigned K8's.
-# With P2 and P3 every kernel but K3 and K4 (at their bounds) is here.
-REDESIGNED = frozenset({"K1", "K2", "P1", "K5", "K6", "K7", "K8", "P2", "P3"})
+# With P2 and P3 every kernel but K3 and K4 (at their bounds) is here. F1's
+# first design (one element a thread wherever a broadcast left more than
+# one dimension) gave way to rows of four (csrc/fma.cu rows4_kernel),
+# timed against it in turns by kernel_ab.py's F1 group; what stays over its
+# bound is its smallest row, setup's ab_minus_cd, which sits at the launch
+# floor.
+REDESIGNED = frozenset({"K1", "K2", "P1", "K5", "K6", "K7", "K8", "P2", "P3", "F1"})
 
 
 def redesign_order(rows, frame_launches, redesigned=REDESIGNED):

@@ -40,7 +40,14 @@ stress soup, through the band front end) bit for bit against its plain
 version, and 4-band local-mesh frames on the card (the textured, cutout and
 blend scene; the mip-mapped floor at 4 samples) bit for bit against the
 card's one-device frame; with two or more cards, one NCCL rank a card,
-bit for bit against the one-device frame (skips on one card).
+bit for bit against the one-device frame (skips on one card). F1, the
+float32 fma forms (fp.fma32, ab_minus_cd, dot3; csrc/fma.cu): one launch
+each, bit for bit against the float64 emulation with NaN positions equal,
+on testing.fma_stress_case at 2^24 rows, on broadcast (a 0-d input, (V, 1,
+3) against (V, 3, 1), _shadow_coords' (rows, 1, 1) x (1, H, W)), strided
+(select, the clip transform's matrix columns), unaligned (roll) and
+odd-length inputs, and an input reaching past 2^31 elements; an empty output launches nothing; the profiler sees one
+kernel and no float64 tensor is made; a failed launch raises.
 """
 
 import numpy as np
@@ -49,6 +56,7 @@ import torch
 
 from rend3_tpu_torch import framework, probe_shadow, scenes, testing
 from rend3_tpu_torch.ops import deferred as D
+from rend3_tpu_torch.ops import fp
 from rend3_tpu_torch.ops import geometry as G
 from rend3_tpu_torch.ops import raster as R
 from rend3_tpu_torch.ops import raster_binned as RB
@@ -665,3 +673,136 @@ def test_reference_path_on_card_matches_cpu(monkeypatch):
     assert torch.equal(k0.cpu(), SH.sample_shadow_map(maps[0], *entries[0][1:])[0])
     for k, p in zip(ks, SH.sample_shadow_maps(maps, entries)[0]):
         assert torch.equal(k.cpu(), p)
+
+
+# -- F1: the float32 fma forms (csrc/fma.cu) ------------------------------------
+
+F1_FORMS = ("fma", "fma_ab_minus_cd", "fma_dot3")
+F1_PUBLIC = {"fma": fp.fma32, "fma_ab_minus_cd": fp.ab_minus_cd, "fma_dot3": fp.dot3}
+F1_PLAIN = {"fma": fp.fma32_plain, "fma_ab_minus_cd": fp.ab_minus_cd_plain, "fma_dot3": fp.dot3_plain}
+
+
+def _f1_same(got, want, label):
+    """Bit for bit as int32 patterns, NaN positions equal (payloads free)."""
+    assert got.shape == want.shape and got.dtype == torch.float32 and got.is_contiguous(), label
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan), f"{label}: NaN positions differ"
+    bad = (got.view(torch.int32) != want.contiguous().view(torch.int32)) & ~nan
+    assert not bool(bad.any()), f"{label}: {int(bad.sum())} of {got.numel()} values differ"
+
+
+def _f1_check(form, xs, label, launches=1):
+    before = fp.launches[form]
+    got = F1_PUBLIC[form](*xs)
+    torch.cuda.synchronize()
+    assert fp.launches[form] == before + launches, label
+    _f1_same(got, F1_PLAIN[form](*xs), label)
+    return got
+
+
+@pytest.mark.parametrize("form", F1_FORMS)
+def test_f1_stress_matches_plain(form):
+    """testing.fma_stress_case at 2^24 rows, one launch, bit for bit
+    against the float64 emulation on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    xs = [torch.from_numpy(x).cuda() for x in testing.fma_stress_case(form, 1 << 24, seed=11)]
+    _f1_check(form, xs, f"{form} stress")
+
+
+def _f1_layout(case, n_in, rng):
+    """n_in inputs of one layout case on the card, values from rng."""
+    def t(*shape):
+        return torch.from_numpy(np.array(rng.standard_normal(shape) * 4.0, dtype=np.float32)).cuda()
+
+    if case == "0-d":  # one 0-d input among (1000,) ones, then all 0-d
+        return [t() if k == 1 else t(1000) for k in range(n_in)]
+    if case == "all 0-d":
+        return [t() for _ in range(n_in)]
+    if case == "(V, 1, 3) x (V, 3, 1)":
+        return [t(777, 1, 3) if k % 2 == 0 else t(777, 3, 1) for k in range(n_in)]
+    if case == "shadow_coords":  # (rows, 1, 1) x (1, H, W), then (rows, H, W)
+        return [t(4, 1, 1) if k % 3 == 0 else t(1, 270, 480) if k % 3 == 1 else t(4, 270, 480) for k in range(n_in)]
+    if case == "select":  # strided columns of (N, 3) and (3, N)
+        return [t(5001, 3).select(1, k % 3) if k % 2 == 0 else t(3, 5001).select(0, k % 3) for k in range(n_in)]
+    if case == "roll":  # contiguous but 4 bytes past a 16-byte boundary, and a strided column
+        return [torch.roll(t(4097), 1, 0)[1:] if k % 2 == 0 else t(4096, 2)[:, 1] for k in range(n_in)]
+    if case == "clip columns":  # the clip transform's m[:, None, :, k] x p[:, :, None, k]
+        m, q = t(3001, 4, 4), t(3001, 3, 3)
+        return [m[:, None, :, k // 2 % 3] if k % 2 == 0 else q[:, :, None, k // 2 % 3] for k in range(n_in)]
+    if case == "contiguous, n % 4 = 3":
+        return [t(1_000_003) for _ in range(n_in)]
+    if case == "7 dims, broadcast in 4":
+        return [t(2, 3, 2, 5, 1, 7, 4) if k % 2 == 0 else t(2, 1, 2, 1, 1, 7, 1) for k in range(n_in)]
+    raise ValueError(case)
+
+
+F1_LAYOUTS = ("0-d", "all 0-d", "(V, 1, 3) x (V, 3, 1)", "shadow_coords", "select", "roll",
+              "contiguous, n % 4 = 3", "7 dims, broadcast in 4", "clip columns")
+
+
+@pytest.mark.parametrize("form", F1_FORMS)
+@pytest.mark.parametrize("case", F1_LAYOUTS)
+def test_f1_layouts_match_plain(form, case):
+    """Broadcast, strided, unaligned and odd-length inputs: one launch,
+    bit for bit against the emulation, output contiguous."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(3 * F1_LAYOUTS.index(case) + F1_FORMS.index(form))
+    xs = _f1_layout(case, testing.FMA_ARITY[form], rng)
+    _f1_check(form, xs, f"{form} {case}")
+
+
+@pytest.mark.parametrize("form", F1_FORMS)
+def test_f1_empty_launches_nothing(form):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    xs = [torch.ones(0, 3, device="cuda") for _ in range(testing.FMA_ARITY[form])]
+    got = _f1_check(form, xs, f"{form} empty", launches=0)
+    assert got.shape == (0, 3)
+
+
+@pytest.mark.parametrize("n", [2049, 2048])
+def test_f1_wide_index_matches_plain(n):
+    """An input whose reach passes 2^31 elements (every (2^20 + 513)th of
+    an 8 GiB buffer) takes a 64-bit instance: the strided one at 2,049
+    elements, rows of four at 2,048."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    base = torch.empty(2**31 + 2**22, dtype=torch.float32, device="cuda")
+    a = base[:: 2**20 + 513][:n]
+    assert (n - 1) * a.stride(0) >= 2**31
+    a.copy_(torch.from_numpy(np.random.default_rng(2).standard_normal(a.numel()).astype(np.float32)).cuda())
+    b, c = torch.full_like(a, 1.5), torch.full_like(a, -0.25)
+    _f1_check("fma", [a, b, c], "fma wide index")
+
+
+@pytest.mark.parametrize("form", F1_FORMS)
+def test_f1_one_launch_no_float64(form):
+    """On CUDA tensors each form is one device kernel, F1's, and makes no
+    float64 tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    xs = [torch.from_numpy(x).cuda() for x in testing.fma_stress_case(form, 4096, seed=3)]
+    F1_PUBLIC[form](*xs)  # built and loaded before the trace
+    kernels, (dtypes,) = testing.f1_call_trace([(F1_PUBLIC[form], xs)])
+    assert len(kernels) == 1 and f"_kernel<{fp._FORMS[form]}" in kernels[0], kernels
+    assert torch.float64 not in dtypes and set(dtypes) <= {torch.float32}, dtypes
+
+
+def test_f1_launch_failure_raises(monkeypatch):
+    """A failed F1 launch (here a form code the kernel refuses) raises
+    from fp.fma32 and does not run the emulation instead."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+    def no_emulation(*args):
+        raise AssertionError("the emulation ran on the card")
+
+    monkeypatch.setitem(fp._FORMS, "fma", 7)
+    monkeypatch.setattr(fp, "fma32_plain", no_emulation)
+    x = torch.ones(16, device="cuda")
+    before = fp.launches["fma"]
+    with pytest.raises(RuntimeError, match="f1_fma: CUDA error"):
+        fp.fma32(x, x, x)
+    assert fp.launches["fma"] == before

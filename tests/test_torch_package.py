@@ -35,7 +35,8 @@ def test_import_leaves_jax_out():
         "rend3_tpu_torch.examples.animation, rend3_tpu_torch.examples.scene_viewer, "
         "rend3_tpu_torch.ops.fp, rend3_tpu_torch.ops.raster, rend3_tpu_torch.tools.bench_host, "
         "rend3_tpu_torch.parallel, rend3_tpu_torch.parallel.tiles, rend3_tpu_torch.bench, "
-        "rend3_tpu_torch.graft_entry, rend3_tpu_torch.utils.devbench; "
+        "rend3_tpu_torch.graft_entry, rend3_tpu_torch.utils.devbench, rend3_tpu_torch.tools.frame_launches, "
+        "rend3_tpu_torch.testing; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'rend3_tpu' or m.startswith('rend3_tpu.')); print(bad)"
     )
