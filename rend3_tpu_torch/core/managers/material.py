@@ -16,8 +16,15 @@ import numpy as np
 import torch
 
 from ...types.material import Sorting
+from ...utils.profiling import scope as profiling_scope
 
 __all__ = ["MaterialManager", "MaterialArchetype"]
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A copy of a host table on `device`."""
+    with profiling_scope("sync::upload.materials"):
+        return torch.from_numpy(a).to(device, copy=True)
 
 
 @dataclass
@@ -129,9 +136,6 @@ class MaterialManager:
         on the manager's device."""
         arch = self.archetypes[name]
         if arch.dirty or arch.device is None:
-            arch.device = tuple(
-                torch.from_numpy(a).to(self.device, copy=True)
-                for a in (arch.data, arch.flags, arch.textures)
-            )
+            arch.device = tuple(_upload(a, self.device) for a in (arch.data, arch.flags, arch.textures))
             arch.dirty = False
         return arch.device

@@ -21,6 +21,7 @@ import torch
 from ...types import attribute as attr
 from ...types.mesh import Mesh
 from ...utils.math import BoundingSphere
+from ...utils.profiling import scope as profiling_scope
 from ..framestate import ATTR_ORDER, GeometryArrays
 from .alloc import RangeAllocator
 
@@ -218,18 +219,17 @@ class MeshManager:
         ("color0", "color_0"),
     )
 
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        with profiling_scope("sync::upload.meshes"):
+            return torch.from_numpy(a).to(self.device, copy=True)
+
     def evaluate(self) -> GeometryArrays:
         """Upload dirty arenas: full on first use / resize, else only the
         dirty slot ranges are scattered into the resident device arenas
         (reference: rend3/src/util/scatter_copy.rs:69-135 — the GPU
         scatter-copy of changed slots; here in-place slice copies)."""
         if self._device_geo is None or self._resized:
-            self._device_geo = GeometryArrays(
-                **{
-                    f: torch.from_numpy(self._arenas[a]).to(self.device, copy=True)
-                    for f, a in self._GEO_FIELDS
-                }
-            )
+            self._device_geo = GeometryArrays(**{f: self._upload(self._arenas[a]) for f, a in self._GEO_FIELDS})
             self._resized = False
         elif self._dirty:
             # In place: a frame that still holds the old arenas has already
@@ -237,7 +237,8 @@ class MeshManager:
             for f, a in self._GEO_FIELDS:
                 arr = getattr(self._device_geo, f)
                 for s, e in self._dirty_ranges.get(a) or ():
-                    arr[s:e].copy_(torch.from_numpy(self._arenas[a][s:e]))
+                    with profiling_scope("sync::upload.meshes"):
+                        arr[s:e].copy_(torch.from_numpy(self._arenas[a][s:e]))
         self._dirty_ranges.clear()
         self._dirty = False
         return self._device_geo

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ...types.texture import Texture, TextureFormat, MipmapCount, MipmapSource
+from ...utils.profiling import scope as profiling_scope
 
 __all__ = ["TextureManager", "InternalTexture"]
 
@@ -134,7 +135,8 @@ class TextureManager:
         return handle.idx + 1
 
     def _block(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device).to(torch.bfloat16)
+        with profiling_scope("sync::upload.textures"):
+            return torch.from_numpy(a).to(self.device).to(torch.bfloat16)
 
     def _full_pack(self, tex_ops) -> None:
         atlas, rects, mip_counts, shelf = tex_ops.build_texture_atlas_state(self.data)
@@ -188,10 +190,10 @@ class TextureManager:
 
         if self._atlas_dev is None or not self._try_incremental(tex_ops):
             self._full_pack(tex_ops)
-        self._device_arrays = tex_ops.TextureArrays(
-            atlas=self._atlas_dev,
-            rects=torch.from_numpy(self._rects.copy()).to(self.device),
-            mip_counts=torch.from_numpy(self._mip_counts.copy()).to(self.device),
-        )
+        with profiling_scope("sync::upload.textures"):
+            rects = torch.from_numpy(self._rects.copy()).to(self.device)
+        with profiling_scope("sync::upload.textures"):
+            mip_counts = torch.from_numpy(self._mip_counts.copy()).to(self.device)
+        self._device_arrays = tex_ops.TextureArrays(atlas=self._atlas_dev, rects=rects, mip_counts=mip_counts)
         self.dirty = False
         return self._device_arrays

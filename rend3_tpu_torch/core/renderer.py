@@ -263,7 +263,10 @@ class Renderer:
     # -- frame ----------------------------------------------------------------
 
     def swap_instruction_buffers(self) -> None:
-        self.instructions.swap()
+        from ..utils.profiling import scope
+
+        with scope("Renderer::swap_instruction_buffers"):
+            self.instructions.swap()
 
     def evaluate_instructions(self) -> InstructionEvaluationOutput:
         from ..utils.profiling import scope

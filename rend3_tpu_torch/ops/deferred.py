@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.profiling import scope as profiling_scope
 from .fp import ab_minus_cd, dot3, fma32, sqrt32
 from .geometry import S_EA, S_EB, S_EC, S_TL, S_TL1, S_TL2, S_ZA, S_ZB, S_ZC, BinnedTris, TriSetup
 
@@ -142,8 +143,10 @@ def attribute_planes(
     xn = torch.roll(x, -1, dims=1)
     yn = torch.roll(y, -1, dims=1)
     if contract:
-        wt = torch.tensor(float(width), device=c.device)
-        ht = torch.tensor(float(height), device=c.device)
+        with profiling_scope("sync::const.planes_viewport"):
+            wt = torch.tensor(float(width), device=c.device)
+        with profiling_scope("sync::const.planes_viewport"):
+            ht = torch.tensor(float(height), device=c.device)
         ea = fma32(yp, ht, -yn)
         eb = fma32(-xp, wt, xn)
         ec = ab_minus_cd(yn - y, x, xn - x, y)
@@ -181,7 +184,8 @@ def attribute_planes(
         base = bs[:, ai]
         ids = (vloc + base[:, None]).clamp(0, arena.shape[0] - 1)
         vals = arena[ids]
-        dflt = torch.tensor(default, dtype=torch.float32, device=vals.device)
+        with profiling_scope("sync::const.planes_defaults"):
+            dflt = torch.tensor(default, dtype=torch.float32, device=vals.device)
         return torch.where((base >= 0)[:, None, None], vals, dflt)
 
     # Every attribute at once, side by side along the channel axis: each
@@ -454,21 +458,22 @@ def raster_resolve(
         return (GBuffer(out[0]), out[1]) if count_floor is not None else GBuffer(out)
     from . import cuda_kernels
 
-    out = torch.empty(GB_CH, height, width, dtype=torch.float32, device=dev)
-    counts = None if count_floor is None else torch.empty(height, width, dtype=torch.float32, device=dev)
-    cuda_kernels.call(
-        "k1_raster_resolve",
-        tris.setup, tris.bbox, planes, binned.offsets, binned.ids, out, bound, count_floor, counts,
-        ints=(width, height, int(count_strict), y0), floats=sofs,
-    )
-    if y0 != 0:
-        launches["raster_band"] += 1
-    elif counts is not None:
-        launches["raster_count"] += 1
-    elif bound is not None:
-        launches["raster_bound"] += 1
-    else:
-        launches["raster_resolve" if tuple(sofs) == (0.5, 0.5) else "raster_msaa"] += 1
+    with profiling_scope("kernel::K1"):
+        out = torch.empty(GB_CH, height, width, dtype=torch.float32, device=dev)
+        counts = None if count_floor is None else torch.empty(height, width, dtype=torch.float32, device=dev)
+        cuda_kernels.call(
+            "k1_raster_resolve",
+            tris.setup, tris.bbox, planes, binned.offsets, binned.ids, out, bound, count_floor, counts,
+            ints=(width, height, int(count_strict), y0), floats=sofs,
+        )
+        if y0 != 0:
+            launches["raster_band"] += 1
+        elif counts is not None:
+            launches["raster_count"] += 1
+        elif bound is not None:
+            launches["raster_bound"] += 1
+        else:
+            launches["raster_resolve" if tuple(sofs) == (0.5, 0.5) else "raster_msaa"] += 1
     return (GBuffer(out), counts) if counts is not None else GBuffer(out)
 
 
@@ -490,15 +495,16 @@ def raster_depth(
         return raster_depth_plain(tris, binned, width, height, sofs, y0)
     from . import cuda_kernels
 
-    out = torch.empty(height, width, dtype=torch.float32, device=dev)
-    # The kernel's segment plan: a count, then (tile, first entry) for each
-    # of at most n_tiles + P / 128 segments of 128 list entries.
-    n_entries = binned.ids.numel()
-    plan = torch.empty(1 + 2 * (binned.offsets.numel() - 1 + n_entries // 128), dtype=torch.int32, device=dev)
-    cuda_kernels.call(
-        "k2_raster_depth",
-        tris.setup, tris.bbox, binned.offsets, binned.ids, out, plan,
-        ints=(width, height, n_entries, y0), floats=sofs,
-    )
-    launches["raster_depth"] += 1
+    with profiling_scope("kernel::K2"):
+        out = torch.empty(height, width, dtype=torch.float32, device=dev)
+        # The kernel's segment plan: a count, then (tile, first entry) for each
+        # of at most n_tiles + P / 128 segments of 128 list entries.
+        n_entries = binned.ids.numel()
+        plan = torch.empty(1 + 2 * (binned.offsets.numel() - 1 + n_entries // 128), dtype=torch.int32, device=dev)
+        cuda_kernels.call(
+            "k2_raster_depth",
+            tris.setup, tris.bbox, binned.offsets, binned.ids, out, plan,
+            ints=(width, height, n_entries, y0), floats=sofs,
+        )
+        launches["raster_depth"] += 1
     return out

@@ -21,6 +21,8 @@ from typing import Optional
 
 import torch
 
+from ..utils.profiling import scope as profiling_scope
+
 __all__ = ["fma32", "sqrt32", "ab_minus_cd", "dot3", "fma32_plain", "ab_minus_cd_plain", "dot3_plain",
            "launches", "capture"]
 
@@ -81,21 +83,22 @@ def _launch(form: str, xs) -> torch.Tensor:
     tensor, one launch (none for an empty output)."""
     from . import cuda_kernels
 
-    xs = torch.broadcast_tensors(*xs)
-    out = torch.empty(xs[0].shape, dtype=torch.float32, device=xs[0].device)
-    if out.numel() == 0:
-        return out
-    sizes, strides = _collapse(out.shape, [x.stride() for x in xs])
-    if len(sizes) > MAX_DIMS:
-        raise ValueError(f"{form}: {len(sizes)} dimensions after merging, F1 takes at most {MAX_DIMS}")
-    if max(sizes + [s for st in strides for s in st], default=0) >= 2**31:
-        raise ValueError(f"{form}: a size or stride of {tuple(out.shape)} passes 2^31 elements")
-    pad = [0] * (MAX_DIMS - len(sizes))
-    ints = [_FORMS[form], len(sizes), *sizes, *pad]
-    for k in range(_MAX_IN):
-        ints += (strides[k] + pad) if k < len(xs) else [0] * MAX_DIMS
-    cuda_kernels.call("f1_fma", *xs, *([None] * (_MAX_IN - len(xs))), out, ints=ints)
-    launches[form] += 1
+    with profiling_scope("kernel::F1"):
+        xs = torch.broadcast_tensors(*xs)
+        out = torch.empty(xs[0].shape, dtype=torch.float32, device=xs[0].device)
+        if out.numel() == 0:
+            return out
+        sizes, strides = _collapse(out.shape, [x.stride() for x in xs])
+        if len(sizes) > MAX_DIMS:
+            raise ValueError(f"{form}: {len(sizes)} dimensions after merging, F1 takes at most {MAX_DIMS}")
+        if max(sizes + [s for st in strides for s in st], default=0) >= 2**31:
+            raise ValueError(f"{form}: a size or stride of {tuple(out.shape)} passes 2^31 elements")
+        pad = [0] * (MAX_DIMS - len(sizes))
+        ints = [_FORMS[form], len(sizes), *sizes, *pad]
+        for k in range(_MAX_IN):
+            ints += (strides[k] + pad) if k < len(xs) else [0] * MAX_DIMS
+        cuda_kernels.call("f1_fma", *xs, *([None] * (_MAX_IN - len(xs))), out, ints=ints)
+        launches[form] += 1
     return out
 
 

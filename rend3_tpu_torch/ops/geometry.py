@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import scope as profiling_scope
 from .fp import ab_minus_cd, dot3, fma32
 from .hi_z import occlusion_test
 
@@ -183,7 +184,8 @@ def cull_and_setup(
         subpixel=subpixel, hiz=hiz, capture=capture, contract=contract, y_range=y_range,
     )
     d2 = ab_minus_cd if contract else _ab_minus_cd_eager
-    g = torch.nonzero(keep).flatten()
+    with profiling_scope("sync::setup.survivors"):
+        g = torch.nonzero(keep).flatten()
     x, y, z, area2 = x[g], y[g], z[g], area2[g]
     flip = area2 < 0.0
     xmin, xmax = x.amin(dim=1), x.amax(dim=1)
@@ -201,7 +203,9 @@ def cull_and_setup(
         c = clip[g]
         w = c[..., 3]
         y_pre = _swap12(0.5 - c[..., 1] * (1.0 / torch.where(w == 0.0, torch.ones_like(w), w)) * 0.5, flip)
-        ea_row = fma32(y_pre, torch.tensor(float(height), device=y_pre.device), -yn)
+        with profiling_scope("sync::const.setup_height"):
+            height_t = torch.tensor(float(height), device=y_pre.device)
+        ea_row = fma32(y_pre, height_t, -yn)
     eb = xn - xo
     ec = d2(yn - yo, xo, xn - xo, yo)
     tl = _top_left(xo, yo, xn, yn).float()
@@ -258,7 +262,9 @@ def bin_triangles(
     Each triangle's candidate tiles come from its bbox (one tile of slack
     on each side), the exact float test above decides, and a stable sort of
     the (tile, triangle) keys gives each tile its list in ascending id.
-    Host read: the pair total sizes the pair table (one device sync)."""
+    Host reads: the candidate total (two repeat_interleave), the pair total
+    (two boolean selections) and bincount's range: five blocking calls, each
+    a sync:: span."""
     dev = tris.setup.device
     n_rows, n_cols = height // tile_h, width // tile_w
     n_tiles = n_rows * n_cols
@@ -280,10 +286,11 @@ def bin_triangles(
     nc = (c1 - c0 + 1).clamp_min(0)
     nr = (r1 - r0 + 1).clamp_min(0)
     cnt = nc * nr
-    tri = torch.repeat_interleave(torch.arange(V, device=dev), cnt)
-    local = torch.arange(tri.shape[0], device=dev) - torch.repeat_interleave(
-        torch.cumsum(cnt, 0) - cnt, cnt
-    )
+    with profiling_scope("sync::bin.candidates"):
+        tri = torch.repeat_interleave(torch.arange(V, device=dev), cnt)
+    with profiling_scope("sync::bin.candidates"):
+        first = torch.repeat_interleave(torch.cumsum(cnt, 0) - cnt, cnt)
+    local = torch.arange(tri.shape[0], device=dev) - first
     row = r0[tri] + local // nc[tri]
     col = c0[tri] + local % nc[tri]
     tx0 = (col * tile_w).to(torch.float32)
@@ -294,11 +301,14 @@ def bin_triangles(
         & (ymax[tri] > ty0)
         & (ymin[tri] < ty0 + tile_h)
     )
-    tile = (row * n_cols + col)[hit]
-    tri = tri[hit]
+    with profiling_scope("sync::bin.pairs"):
+        tile = (row * n_cols + col)[hit]
+    with profiling_scope("sync::bin.pairs"):
+        tri = tri[hit]
     key = tile * V + tri
     key, _ = torch.sort(key, stable=True)
-    counts = torch.bincount(key // V, minlength=n_tiles)
+    with profiling_scope("sync::bin.tile_counts"):
+        counts = torch.bincount(key // V, minlength=n_tiles)
     offsets = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
     offsets[1:] = torch.cumsum(counts, 0)
     return BinnedTris(offsets=offsets.to(torch.int32), ids=(key % V).to(torch.int32))

@@ -20,6 +20,7 @@ from typing import List
 
 import torch
 
+from ..utils.profiling import scope as profiling_scope
 from .samplers import sample_grid
 
 __all__ = ["build_pyramid", "occlusion_test", "HIZ_TAPS"]
@@ -76,7 +77,9 @@ def occlusion_test(pyramid, xmin, ymin, xmax, ymax, zmax, *, live=None, capture=
     receives the K5 launch's inputs under "gather"."""
     n_levels = len(pyramid)
     extent = torch.maximum(xmax - xmin, ymax - ymin)
-    ln2 = torch.log(torch.tensor(2.0, dtype=torch.float32, device=extent.device))
+    with profiling_scope("sync::const.hiz_ln2"):
+        two = torch.tensor(2.0, dtype=torch.float32, device=extent.device)
+    ln2 = torch.log(two)
     # log(x) / log(2): the form jnp.log2 takes.
     level = torch.ceil(torch.log(torch.clamp_min(extent, 1.0)) / ln2).to(torch.int32).clamp(0, n_levels - 1)
 

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.profiling import scope as profiling_scope
 from .fp import fma32
 from .geometry import CullMode
 
@@ -189,7 +190,8 @@ def rasterize(
     # The best (depth, triangle + 1) key per pixel; the initial buffer's
     # entries carry 0, so a triangle of equal depth replaces them.
     best = _ordered(depth) << 32
-    kept = torch.nonzero(keep).flatten()
+    with profiling_scope("sync::raster.kept"):
+        kept = torch.nonzero(keep).flatten()
     if kept.numel() == 0:
         return VisBuffer(depth=depth, tri=tri)
     win = pixel_windows(xs[kept], ys[kept], tile_w, tile_h, (ox0, oy0))
@@ -200,7 +202,8 @@ def rasterize(
     size_class = torch.floor(torch.log2(area.double() + 1.0)).long()
     cells_x = tile_w // 64 + 1
     order = torch.argsort(size_class * (1 << 40) + (win[:, 1] // 64) * cells_x + win[:, 0] // 64, stable=True)
-    kept, win = kept[order], win[order].cpu()  # host read: the windows size each step
+    with profiling_scope("sync::raster.windows"):
+        kept, win = kept[order], win[order].cpu()  # host read: the windows size each step
     chunk = max(1, int(chunk))
     for i, j, window in _steps(win.tolist(), chunk, S):
         best, depth, tri = _raster_step(

@@ -24,6 +24,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..utils.profiling import scope as profiling_scope
 from . import deferred as def_ops
 from .geometry import S_ID, TILE_H, TILE_W, BinnedTris, TriSetup
 from .raster import VisBuffer
@@ -69,14 +70,15 @@ def rasterize_binned(
         return rasterize_binned_plain(tris, binned, width, height, sample_offsets)
     from . import cuda_kernels
 
-    depth = torch.empty(ns, height, width, dtype=torch.float32, device=dev)
-    tri = torch.empty(ns, height, width, dtype=torch.int32, device=dev)
-    # The C entry takes four (x, y) pairs; those past ns are ignored.
-    offs = [float(v) for o in sample_offsets for v in o] + [0.0] * (8 - 2 * ns)
-    cuda_kernels.call(
-        "k6_raster_vis",
-        tris.setup, tris.bbox, binned.offsets, binned.ids, depth, tri,
-        ints=(width, height, ns), floats=offs,
-    )
-    launches["raster_vis"] += 1
+    with profiling_scope("kernel::K6"):
+        depth = torch.empty(ns, height, width, dtype=torch.float32, device=dev)
+        tri = torch.empty(ns, height, width, dtype=torch.int32, device=dev)
+        # The C entry takes four (x, y) pairs; those past ns are ignored.
+        offs = [float(v) for o in sample_offsets for v in o] + [0.0] * (8 - 2 * ns)
+        cuda_kernels.call(
+            "k6_raster_vis",
+            tris.setup, tris.bbox, binned.offsets, binned.ids, depth, tri,
+            ints=(width, height, ns), floats=offs,
+        )
+        launches["raster_vis"] += 1
     return VisBuffer(depth=depth, tri=tri)

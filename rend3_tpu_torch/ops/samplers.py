@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import scope as profiling_scope
+
 __all__ = [
     "sample_grid_pcf5",
     "sample_grid_pcf5_plain",
@@ -101,12 +103,13 @@ def sample_grid_pcf5(img, bx, by, fx, fy, ref, valid):
         return sample_grid_pcf5_plain(img, bx, by, fx, fy, ref, valid)
     from . import cuda_kernels
 
-    out = torch.empty(shape, dtype=torch.float32, device=dev)
-    cuda_kernels.call(
-        "k3_pcf5", img, bx, by, fx, fy, ref, valid, out,
-        ints=(img.shape[0], img.shape[1], bx.numel()),
-    )
-    launches["pcf5"] += 1
+    with profiling_scope("kernel::K3"):
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+        cuda_kernels.call(
+            "k3_pcf5", img, bx, by, fx, fy, ref, valid, out,
+            ints=(img.shape[0], img.shape[1], bx.numel()),
+        )
+        launches["pcf5"] += 1
     return out
 
 
@@ -161,12 +164,13 @@ def sample_grid_bilinear(atlas, bx, by, fx, fy, wt, valid):
         return sample_grid_bilinear_plain(atlas, bx, by, fx, fy, wt, valid)
     from . import cuda_kernels
 
-    out = torch.empty((4,) + tuple(shape), dtype=torch.float32, device=dev)
-    cuda_kernels.call(
-        "k4_bilinear", atlas, bx, by, fx, fy, wt, valid, out,
-        ints=(atlas.shape[0], atlas.shape[1], bx.numel()),
-    )
-    launches["bilinear"] += 1
+    with profiling_scope("kernel::K4"):
+        out = torch.empty((4,) + tuple(shape), dtype=torch.float32, device=dev)
+        cuda_kernels.call(
+            "k4_bilinear", atlas, bx, by, fx, fy, wt, valid, out,
+            ints=(atlas.shape[0], atlas.shape[1], bx.numel()),
+        )
+        launches["bilinear"] += 1
     return out
 
 
@@ -209,11 +213,12 @@ def sample_grid(img, bx, by, valid, offsets):
         return sample_grid_plain(img, bx, by, valid, offsets)
     from . import cuda_kernels
 
-    out = torch.empty((len(offsets),) + tuple(shape), dtype=torch.float32, device=dev)
-    taps = [int(d) for tap in offsets for d in tap]  # by value, padded to MAX_TAPS pairs
-    cuda_kernels.call(
-        "k5_gather", img, bx, by, valid, out,
-        ints=(img.shape[0], img.shape[1], bx.numel(), len(offsets), *taps, *(0,) * (2 * MAX_TAPS - len(taps))),
-    )
-    launches["gather"] += 1
+    with profiling_scope("kernel::K5"):
+        out = torch.empty((len(offsets),) + tuple(shape), dtype=torch.float32, device=dev)
+        taps = [int(d) for tap in offsets for d in tap]  # by value, padded to MAX_TAPS pairs
+        cuda_kernels.call(
+            "k5_gather", img, bx, by, valid, out,
+            ints=(img.shape[0], img.shape[1], bx.numel(), len(offsets), *taps, *(0,) * (2 * MAX_TAPS - len(taps))),
+        )
+        launches["gather"] += 1
     return out

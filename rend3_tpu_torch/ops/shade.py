@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import scope as profiling_scope
 from .fp import sqrt32
 
 __all__ = [
@@ -424,7 +425,8 @@ def _shade_pixels(
         return (mtex[slot] != 0)[None, :]
 
     def vec3(a, b, c):
-        return torch.tensor([a, b, c], dtype=torch.float32, device=dev)[:, None]
+        with profiling_scope("sync::const.shade_defaults"):
+            return torch.tensor([a, b, c], dtype=torch.float32, device=dev)[:, None]
 
     # --- albedo (opaque.wgsl get_pixel_data_inner) ---
     albedo = torch.ones(4, N, dtype=torch.float32, device=dev)
@@ -437,9 +439,9 @@ def _shade_pixels(
         vcol,
     )
     albedo = torch.where(fl(MF.ALBEDO_BLEND), albedo * blend_col, albedo)
-    albedo = torch.where(
-        fl(MF.ALBEDO_ACTIVE), albedo, torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)[:, None]
-    )
+    with profiling_scope("sync::const.shade_defaults"):
+        no_albedo = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)[:, None]
+    albedo = torch.where(fl(MF.ALBEDO_ACTIVE), albedo, no_albedo)
     albedo = albedo * mdata[PBR_ALBEDO : PBR_ALBEDO + 4]
 
     # --- normals ---

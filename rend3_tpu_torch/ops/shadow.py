@@ -20,6 +20,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from ..utils.profiling import scope as profiling_scope
 from .deferred import fma32, plane_eval
 from .geometry import S_EA, S_EB, S_EC, S_ZA, S_ZB, S_ZC, BinnedTris, TriSetup
 from .samplers import sample_grid, sample_grid_pcf5
@@ -217,7 +218,8 @@ def _csr_from_rows(mask_rows, n_rows: int, V: int, dev) -> BinnedTris:
     for r0 in range(0, n_rows, step):
         m = mask_rows(r0, min(n_rows, r0 + step))
         counts.append(m.sum(dim=1))
-        ids.append(torch.nonzero(m)[:, 1])
+        with profiling_scope("sync::shadow.caster_lists"):
+            ids.append(torch.nonzero(m)[:, 1])
     offsets = torch.zeros(n_rows + 1, dtype=torch.int64, device=dev)
     offsets[1:] = torch.cumsum(torch.cat(counts), 0)
     return BinnedTris(offsets=offsets.to(torch.int32), ids=torch.cat(ids).to(torch.int32))
@@ -253,7 +255,8 @@ def cell_lists(tris: TriSetup, sx, sy, hit, width: int, height: int, size: int, 
     n_rows, n_cols = height // STILE_H, width // STILE_W
     n_tiles = n_rows * n_cols
     G = -(-size // lt)
-    ys, xs = torch.nonzero(hit, as_tuple=True)
+    with profiling_scope("sync::shadow.hit_pixels"):
+        ys, xs = torch.nonzero(hit, as_tuple=True)
     tile = (ys // STILE_H) * n_cols + xs // STILE_W
     cx = torch.floor(sx[ys, xs] / lt).clamp(0, G - 1).long()
     cy = torch.floor(sy[ys, xs] / lt).clamp(0, G - 1).long()
@@ -421,16 +424,17 @@ def occlusion_from_lists(tris: TriSetup, binned: BinnedTris, sx, sy, hit, width:
         raise ValueError("setup rows must be aligned to 16 bytes (the kernel copies them 16 bytes at a time)")
     from . import cuda_kernels
 
-    out = torch.empty(N_OFF, height, width, dtype=torch.float32, device=dev)
-    # The kernel's segment plan: a count, then (tile, first entry) for each
-    # of at most n_tiles + P / OCC_SEG segments.
-    n_entries = binned.ids.numel()
-    plan = torch.empty(1 + 2 * (n_tiles + n_entries // OCC_SEG), dtype=torch.int32, device=dev)
-    cuda_kernels.call(
-        "k7_shadow_occ", tris.setup, tris.bbox, binned.offsets, binned.ids, sx, sy, hit, out, plan,
-        ints=(width, height, int(lt_form), n_entries, plan.numel()),
-    )
-    launches["shadow_occ_lt" if lt_form else "shadow_occ"] += 1
+    with profiling_scope("kernel::K8" if lt_form else "kernel::K7"):
+        out = torch.empty(N_OFF, height, width, dtype=torch.float32, device=dev)
+        # The kernel's segment plan: a count, then (tile, first entry) for each
+        # of at most n_tiles + P / OCC_SEG segments.
+        n_entries = binned.ids.numel()
+        plan = torch.empty(1 + 2 * (n_tiles + n_entries // OCC_SEG), dtype=torch.int32, device=dev)
+        cuda_kernels.call(
+            "k7_shadow_occ", tris.setup, tris.bbox, binned.offsets, binned.ids, sx, sy, hit, out, plan,
+            ints=(width, height, int(lt_form), n_entries, plan.numel()),
+        )
+        launches["shadow_occ_lt" if lt_form else "shadow_occ"] += 1
     return out
 
 

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import scope as profiling_scope
 from .deferred import fma32
 
 __all__ = ["SkinInputs", "build_skin_inputs", "apply_skinning"]
@@ -46,7 +47,14 @@ def direction_list(src: np.ndarray, dst: np.ndarray, device):
     """(rows, src, dst) int64 tensors of the work-list rows whose normal or
     tangent source and destination both exist (not -1)."""
     ok = np.nonzero((src >= 0) & (dst >= 0))[0]
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (ok, src[ok], dst[ok]))
+    return tuple(_upload(a, device) for a in (ok, src[ok], dst[ok]))
+
+
+def _upload(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """A host array on `device`, as `dtype` when given."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    with profiling_scope("sync::upload.skin"):
+        return (t if dtype is None else t.to(dtype)).to(device)
 
 
 def build_skin_inputs(skeleton_mgr, mesh_mgr, device="cpu") -> Optional[SkinInputs]:
@@ -79,15 +87,12 @@ def build_skin_inputs(skeleton_mgr, mesh_mgr, device="cpu") -> Optional[SkinInpu
         joint_base += len(mats[-1])
     cat = {k: np.concatenate(v) for k, v in lists.items()}
 
-    def up(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(device)
-
     return SkinInputs(
-        src_ids=up(cat["sp"], torch.int64),
-        dst_ids=up(cat["dp"], torch.int64),
-        joint_ids=up(cat["j"], torch.int64),
-        joint_weights=up(cat["w"], torch.float32),
-        joint_matrices=up(np.concatenate(mats), torch.float32),
+        src_ids=_upload(cat["sp"], device, torch.int64),
+        dst_ids=_upload(cat["dp"], device, torch.int64),
+        joint_ids=_upload(cat["j"], device, torch.int64),
+        joint_weights=_upload(cat["w"], device, torch.float32),
+        joint_matrices=_upload(np.concatenate(mats), device, torch.float32),
         normal=direction_list(cat["sn"], cat["dn"], device),
         tangent=direction_list(cat["stg"], cat["dtg"], device),
     )

@@ -32,6 +32,7 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import scope as profiling_scope
 from .deferred import fma32, sqrt32
 from .samplers import sample_grid_bilinear
 
@@ -216,7 +217,9 @@ def _nearest_from_rect(atlas, rect, u, v):
 
 def _log2(x: torch.Tensor) -> torch.Tensor:
     """log(x) / log(2) in float32, the form jnp.log2 takes."""
-    return torch.log(x) / torch.log(torch.tensor(2.0, dtype=x.dtype, device=x.device))
+    with profiling_scope("sync::const.texture_ln2"):
+        two = torch.tensor(2.0, dtype=x.dtype, device=x.device)
+    return torch.log(x) / torch.log(two)
 
 
 def sample_textures(tex: TextureArrays, slots, uv, duv, mflags) -> torch.Tensor:
@@ -379,11 +382,13 @@ def cube_arrays(faces: np.ndarray, sizes: np.ndarray, device="cpu"):
         g[:, e + 1, 1 : e + 1] = f[:, e - 1]
         g[:, :, 0] = g[:, :, 1]
         g[:, :, e + 1] = g[:, :, e]
-    return CubeArrays(
-        faces=torch.tensor(faces, dtype=torch.float32, device=device),
-        sizes=torch.tensor(sizes, dtype=torch.int32, device=device),
-        store=torch.from_numpy(grid.reshape(-1, P, 4)).to(device).to(torch.bfloat16),
-    )
+    with profiling_scope("sync::upload.cube"):
+        faces_t = torch.tensor(faces, dtype=torch.float32, device=device)
+    with profiling_scope("sync::upload.cube"):
+        sizes_t = torch.tensor(sizes, dtype=torch.int32, device=device)
+    with profiling_scope("sync::upload.cube"):
+        store = torch.from_numpy(grid.reshape(-1, P, 4)).to(device).to(torch.bfloat16)
+    return CubeArrays(faces=faces_t, sizes=sizes_t, store=store)
 
 
 def _cube_face_coords(cube: CubeArrays, slot: int, dirs: torch.Tensor):
@@ -399,7 +404,11 @@ def _cube_face_coords(cube: CubeArrays, slot: int, dirs: torch.Tensor):
         return torch.where(is_x, a, b)
 
     def sel(c, a, b):
-        return torch.where(c, torch.as_tensor(a, device=dirs.device), torch.as_tensor(b, device=dirs.device))
+        with profiling_scope("sync::const.cube_faces"):
+            ta = torch.as_tensor(a, device=dirs.device)
+        with profiling_scope("sync::const.cube_faces"):
+            tb = torch.as_tensor(b, device=dirs.device)
+        return torch.where(c, ta, tb)
 
     face = pick(sel(x > 0, 0, 1), torch.where(is_y, sel(y > 0, 2, 3), sel(z > 0, 4, 5)))
     ma = torch.clamp_min(pick(ax, torch.where(is_y, ay, az)), 1e-20)

@@ -16,6 +16,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils.profiling import scope as profiling_scope
 from .fp import dot3, fma32
 
 __all__ = [
@@ -197,7 +198,8 @@ def clip_triangles(clip: torch.Tensor, tri_valid: torch.Tensor, *, contract: boo
     inside = (d >= 0.0) & (clip[..., 3] > W_EPS)
     all_in = inside.all(dim=-1)
     crossing = tri_valid & inside.any(dim=-1) & ~all_in
-    g = torch.nonzero(crossing).flatten()
+    with profiling_scope("sync::clip.crossing"):
+        g = torch.nonzero(crossing).flatten()
     sub = _clip_triangles_full(clip[g], contract)
     eye3 = torch.eye(3, device=clip.device, dtype=clip.dtype).expand(T, 3, 3)
     return ClippedTris(

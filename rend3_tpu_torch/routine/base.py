@@ -44,7 +44,9 @@ and the program cache have no counterpart. The counts are read on the host
 where a `nonzero` or a pair total sizes a table (transform.clip_triangles,
 geometry.cull_and_setup, geometry.bin_triangles, the plain raster versions'
 fragment count) and where a peel loop sizes itself (_cutout_peels and
-_blend_peels count theirs).
+_blend_peels count theirs). Each such read, and each upload that
+synchronizes the stream, is a `sync::<site>` span of utils/profiling.py;
+each stage is a `graph::<stage>` span (BaseRenderGraph.stage).
 
 The reference forward backend (REND3_TPU_RASTER=reference,
 `default_raster_backend`) renders the JAX package's forward frame instead
@@ -64,7 +66,7 @@ import hashlib
 import inspect
 import os
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -88,6 +90,7 @@ from ..ops import texture as tex_ops
 from ..ops import transform as transform_ops
 from ..types import Handedness
 from ..types.error import DeviceOutOfMemoryError
+from ..utils import profiling
 from ..utils.profiling import scope as profiling_scope
 
 __all__ = [
@@ -219,9 +222,21 @@ class StageTimer:
         return out
 
 
+# Span names of the graph's stages, by stage (built once each).
+_STAGE_SPANS: Dict[str, str] = {}
+# The stage of work timed as a part of its caller's stage: none of its own.
+_WITHIN = nullcontext()
+
+
+def _within(_name):
+    return _WITHIN
+
+
 @contextmanager
-def _no_timer(_name):
-    yield
+def _timed_stage(span, timed):
+    """A stage's span around the installed StageTimer's stage."""
+    with span, timed:
+        yield
 
 
 @contextmanager
@@ -319,6 +334,15 @@ class BaseRenderGraph:
 
     # -- stages ----------------------------------------------------------------
 
+    def stage(self, name: str):
+        """The context of the frame's stage `name`: the span graph::<name>
+        and, while a StageTimer is installed (graph.timer), its stage."""
+        span_name = _STAGE_SPANS.get(name)
+        if span_name is None:
+            span_name = _STAGE_SPANS[name] = "graph::" + name
+        span = profiling_scope(span_name)
+        return span if self.timer is None else _timed_stage(span, self.timer(name))
+
     def _upload(self, eval_output, target, settings, skybox_slot, forward: bool = False) -> _Frame:
         """Host scene state -> device tables (static tables cached against
         the managers' versions, as the JAX build does). forward: the
@@ -339,17 +363,19 @@ class BaseRenderGraph:
             self._cut_key = None
         opaque, blend_items = self._tri_cache
         if self._tri_dev is None:
-            self._tri_dev = (
-                torch.from_numpy(np.ascontiguousarray(opaque[:, :3])).to(dev),
-                torch.from_numpy(np.ascontiguousarray(opaque[:, 3])).to(dev),
-            )
+            with profiling_scope("sync::upload.triangles"):
+                tri_vlocal = torch.from_numpy(np.ascontiguousarray(opaque[:, :3])).to(dev)
+            with profiling_scope("sync::upload.triangles"):
+                tri_obj = torch.from_numpy(np.ascontiguousarray(opaque[:, 3])).to(dev)
+            self._tri_dev = (tri_vlocal, tri_obj)
         f.tri_vlocal, f.tri_obj = self._tri_dev
 
         if self._obj_tbl_key != om.version:
-            self._obj_tbl = (
-                torch.from_numpy(np.ascontiguousarray(om.transforms)).to(dev),
-                torch.from_numpy(np.ascontiguousarray(om.bases)).to(dev),
-            )
+            with profiling_scope("sync::upload.objects"):
+                transforms = torch.from_numpy(np.ascontiguousarray(om.transforms)).to(dev)
+            with profiling_scope("sync::upload.objects"):
+                bases = torch.from_numpy(np.ascontiguousarray(om.bases)).to(dev)
+            self._obj_tbl = (transforms, bases)
             self._obj_tbl_key = om.version
         f.transforms, f.bases = self._obj_tbl
 
@@ -392,7 +418,8 @@ class BaseRenderGraph:
                         obj_hidden[oidx] = True
                     else:
                         gslots[oidx] += b
-            self._gslot_cache = (torch.from_numpy(gslots).to(dev), obj_pbr, obj_hidden)
+            with profiling_scope("sync::upload.objects"):
+                self._gslot_cache = (torch.from_numpy(gslots).to(dev), obj_pbr, obj_hidden)
             self._gslot_key = gkey
         f.material_slots, obj_pbr, obj_hidden = self._gslot_cache
         live = om.enabled & ~obj_hidden
@@ -416,7 +443,8 @@ class BaseRenderGraph:
                 if rec.material_arch in cut_archs:
                     obj_cut[oidx] = True
             cutout_tri = obj_cut[opaque[:, 3]]
-            self._cut_dev = torch.from_numpy(cutout_tri).to(dev) if cutout_tri.any() else None
+            with profiling_scope("sync::upload.objects"):
+                self._cut_dev = torch.from_numpy(cutout_tri).to(dev) if cutout_tri.any() else None
             self._cut_key = cut_key
         f.cutout_tri = self._cut_dev
 
@@ -437,8 +465,10 @@ class BaseRenderGraph:
                 )
                 for i in order
             ]).astype(np.int32)
-            f.blend_vlocal = torch.from_numpy(np.ascontiguousarray(blend[:, :3])).to(dev)
-            f.blend_obj = torch.from_numpy(np.ascontiguousarray(blend[:, 3])).to(dev)
+            with profiling_scope("sync::upload.blend"):
+                f.blend_vlocal = torch.from_numpy(np.ascontiguousarray(blend[:, :3])).to(dev)
+            with profiling_scope("sync::upload.blend"):
+                f.blend_obj = torch.from_numpy(np.ascontiguousarray(blend[:, 3])).to(dev)
             if f.textures is not None:
                 # Only the slots blend materials reference (base.py:984-989).
                 bslots = np.unique(om.material_slots[np.unique(blend[:, 3])])
@@ -447,17 +477,20 @@ class BaseRenderGraph:
 
         spheres = om.world_spheres
         visible = live & cam.world_frustum.contains_spheres(spheres)
-        f.visible = torch.from_numpy(visible).to(dev)
+        with profiling_scope("sync::upload.visible"):
+            f.visible = torch.from_numpy(visible).to(dev)
         plan = eval_output.shadow_plan
         shadow_visible = np.zeros((max(1, len(plan)), om.cap), dtype=bool)
         for k, (li, _off, _sz) in enumerate(plan):
             sc = eval_output.shadow_cameras[li]
             shadow_visible[k] = live & sc.world_frustum.contains_spheres(spheres)
         f.shadow_visible_host = shadow_visible
-        f.shadow_visible = torch.from_numpy(shadow_visible).to(dev)
+        with profiling_scope("sync::upload.visible"):
+            f.shadow_visible = torch.from_numpy(shadow_visible).to(dev)
 
         def t(a, dtype=torch.float32):
-            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+            with profiling_scope("sync::upload.uniforms"):
+                return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
         f.view, f.proj = t(cam.view), t(cam.proj)
         f.uniforms = shade_ops.FrameUniformsArrays(
@@ -518,7 +551,9 @@ class BaseRenderGraph:
             f.tri_vlocal.shape[0],
         )
         if self._shadow_cache is not None and self._shadow_cache[0] == state:
+            profiling.count("shadow_cache.hit")
             return self._shadow_cache[1]
+        profiling.count("shadow_cache.miss")
         inputs = (
             plan, f.front_cw, f.transforms, f.dir_lights.view_proj, f.shadow_visible, f.geo.position, f.tri_vlocal,
             f.tri_obj, f.bases[:, 0], f.tri_pos,
@@ -645,7 +680,8 @@ class BaseRenderGraph:
                     g, counts = def_ops.raster_resolve(
                         tris, planes, binned, wp, hp, sofs=sofs, count_floor=floor, count_strict=True, y0=f.row0
                     )
-                    layers = int(torch.round(counts.max()))
+                    with profiling_scope("sync::cut.layers"):
+                        layers = int(torch.round(counts.max()))
                 else:
                     self._capture("raster_bound", (tris, planes, binned, wp, hp, bound))
                     g = def_ops.raster_resolve(tris, planes, binned, wp, hp, sofs=sofs, bound=bound, y0=f.row0)
@@ -657,7 +693,8 @@ class BaseRenderGraph:
                 nearer = ~ohit | (cdepth > odepth)
                 # The alpha test decides only where a pixel still searches
                 # and the fragment is nearer than the opaque one.
-                pix = torch.nonzero((~done & chit & nearer).flatten()).flatten()
+                with profiling_scope("sync::cut.pixels"):
+                    pix = torch.nonzero((~done & chit & nearer).flatten()).flatten()
                 passed = torch.zeros(hp * wp, dtype=torch.bool, device=gc.device)
                 searching = 0
                 if pix.numel():
@@ -669,7 +706,8 @@ class BaseRenderGraph:
                     if cap:
                         self._capture("bilinear_cutout", cap["bilinear"])
                     passed[pix] = ok
-                    searching = pix.numel() - int(ok.sum())
+                    with profiling_scope("sync::cut.searching"):
+                        searching = pix.numel() - int(ok.sum())
                 passed = passed.reshape(hp, wp)
                 # replace = ~done & chit & pass & nearer, which is `passed`.
                 gbuf = torch.where(passed[None], gc, gbuf)
@@ -699,9 +737,9 @@ class BaseRenderGraph:
             )
             table = transform_ops.clip_triangles(bclip, f.visible[f.blend_obj.long()], contract=True)
             # Timed as a whole under "blend_geom".
-            tris = self._cull(f, _no_timer, table, table.valid, "blend_geom")
+            tris = self._cull(f, _within, table, table.valid, "blend_geom")
             planes, binned = self._planes_bin(
-                f, _no_timer, tris, table, f.blend_vlocal, f.blend_obj, ("blend_geom",) * 2
+                f, _within, tris, table, f.blend_vlocal, f.blend_obj, ("blend_geom",) * 2
             )
         st = self.last_stats
         st["blend_survivors"] = tris.count
@@ -730,7 +768,8 @@ class BaseRenderGraph:
                     g, counts = def_ops.raster_resolve(
                         tris, planes, binned, wp, hp, sofs=sofs, count_floor=floor, y0=f.row0
                     )
-                    need = int(torch.round(counts.max()))
+                    with profiling_scope("sync::blend.layers"):
+                        need = int(torch.round(counts.max()))
                 else:
                     self._capture("raster_bound", (tris, planes, binned, wp, hp, bound))
                     g = def_ops.raster_resolve(tris, planes, binned, wp, hp, sofs=sofs, bound=bound, y0=f.row0)
@@ -738,7 +777,8 @@ class BaseRenderGraph:
                 n += 1
                 bdepth = g[def_ops.G_DEPTH]
                 bhit = (g[def_ops.G_HIT] > 0.0) & (~ohit | (bdepth >= odepth))
-                pix = torch.nonzero(bhit.flatten()).flatten()
+                with profiling_scope("sync::blend.pixels"):
+                    pix = torch.nonzero(bhit.flatten()).flatten()
                 if pix.numel():
                     peels.append((pix, g.reshape(def_ops.GB_CH, -1)[:, pix]))
                     bound = torch.where(bhit, bdepth, torch.zeros_like(bdepth))
@@ -830,8 +870,9 @@ class BaseRenderGraph:
         program, as JAX's render_frame is (rend3_tpu/routine/base.py:247-262);
         a device out-of-memory in any stage reaches the caller as
         DeviceOutOfMemoryError, its cause chained."""
-        program, args = self.build_frame_callable(eval_output, target, settings, skybox_slot)
-        return program(*args)[0]
+        with profiling_scope(profiling.ROOT):
+            program, args = self.build_frame_callable(eval_output, target, settings, skybox_slot)
+            return program(*args)[0]
 
     def build_frame_callable(
         self,
@@ -856,7 +897,7 @@ class BaseRenderGraph:
         with _device_oom(), profiling_scope("BaseRenderGraph::build_frame_callable"):
             raster_ops.sample_offsets(target.samples)  # raises unless 1 or 4
             forward = default_raster_backend() == "reference"
-            with (self.timer or _no_timer)("upload"):
+            with self.stage("upload"):
                 frame = self._upload(eval_output, target, settings, skybox_slot, forward=forward)
             frame.target, frame.forward = target, forward
 
@@ -885,7 +926,7 @@ class BaseRenderGraph:
                     "row bands need the deferred frame; REND3_TPU_RASTER=reference renders whole frames only"
                 )
             return self._render_forward(eval_output, f)
-        stage = self.timer if self.timer is not None else _no_timer
+        stage = self.stage
         width, height = target.width, target.height
         row0, bh = (0, height) if band is None else band
         plan = eval_output.shadow_plan
@@ -973,7 +1014,8 @@ class BaseRenderGraph:
                     hiz=pyramid, capture=self.captured,
                 )
                 new_mask = torch.zeros(T, dtype=torch.bool, device=vis.device)
-                new_mask[clipped.orig.long()[vis]] = True
+                with profiling_scope("sync::hiz.visible"):
+                    new_mask[clipped.orig.long()[vis]] = True
             tris_r = self._cull(f, stage, clipped, vis & ~pm, "resid")
             st["resid_survivors"] = tris_r.count
             if tris_r.count:
@@ -1032,7 +1074,7 @@ class BaseRenderGraph:
             img = light_ops.light_gbuffer(
                 gbuf, f.materials, f.dir_lights, f.point_lights, f.uniforms, backgrounds[si], shadow_s[si],
                 textures=f.textures, active_tex_slots=f.active_tex_slots,
-                stage=self.timer, capture=self.captured,
+                stage=stage, capture=self.captured,
             )
             if f.extras:
                 with stage("routines"):
@@ -1097,7 +1139,7 @@ class BaseRenderGraph:
         use_deferred off) after its upload: shadow atlas, main raster
         (raster.rasterize), skybox background, shade.shade_deferred, the
         ordered blend pass, f16 round trip, resolve, passes and blit."""
-        stage = self.timer if self.timer is not None else _no_timer
+        stage = self.stage
         width, height = f.target.width, f.target.height
         offsets = raster_ops.sample_offsets(f.target.samples)
         st = self.last_stats
@@ -1117,7 +1159,8 @@ class BaseRenderGraph:
                 clipped.clip, clipped.valid, width, height, cull_mode=raster_ops.CullMode.BACK,
                 front_is_cw=f.front_cw, sample_offsets=offsets,
             )
-        st["forward_px"] = int((vis.tri >= 0).sum())
+        with profiling_scope("sync::forward.pixels"):
+            st["forward_px"] = int((vis.tri >= 0).sum())
         if self.captured is not None:
             self.captured["forward"] = (vis, atlas, eval_output.shadow_plan)
         with stage("shade"):
@@ -1234,15 +1277,19 @@ def _blend_pass(img, vis, f: _Frame, atlas, width: int, height: int, offsets):
     img = img.clone()
     depth = vis.depth.clone()
     S = len(offsets)
-    kept = torch.nonzero(keep).flatten()
     # Host reads: the blend triangles to draw and their pixel windows.
-    wins = raster_ops.pixel_windows(xs[kept], ys[kept], width, height).tolist()
+    with profiling_scope("sync::forward.blend_kept"):
+        kept = torch.nonzero(keep).flatten()
+    with profiling_scope("sync::forward.blend_windows"):
+        wins = raster_ops.pixel_windows(xs[kept], ys[kept], width, height).tolist()
+    with profiling_scope("sync::forward.blend_kept"):
+        kept_ids = kept.tolist()
     n_px = 0
 
     def c4(v):
         return v[:, None, None, None]
 
-    for t, (x0, y0, x1, y1) in zip(kept.tolist(), wins):
+    for t, (x0, y0, x1, y1) in zip(kept_ids, wins):
         if x1 <= x0 or y1 <= y0:
             continue
         cols = torch.arange(x0, x1, dtype=torch.float32, device=dev)
@@ -1263,14 +1310,17 @@ def _blend_pass(img, vis, f: _Frame, atlas, width: int, height: int, offsets):
         zf = def_ops.fma32(bar[2], z[2], def_ops.fma32(bar[1], z[1], bar[0] * z[0]))
         dwin = depth[:, y0:y1, x0:x1]
         cov = inside.all(dim=0) & (zf >= dwin) & (zf >= 0.0) & (zf <= 1.0)
-        sel = torch.nonzero(cov.flatten()).flatten()
+        with profiling_scope("sync::forward.blend_pixels"):
+            sel = torch.nonzero(cov.flatten()).flatten()
         if sel.numel() == 0:
             continue
         n_px += int(sel.numel())
         pb = bar.reshape(3, -1)[:, sel] / ws[t][:, None]
         pb = pb / ((pb[0] + pb[1]) + pb[2])
         beta = (pb[:, :, None] * cbary[t][:, None, :]).sum(0)  # (n, 3) source barycentrics
-        rgba = _shade_blend_tri(int(corig[t]), beta, f, atlas)
+        with profiling_scope("sync::forward.blend_source"):
+            src = int(corig[t])
+        rgba = _shade_blend_tri(src, beta, f, atlas)
         win = img[:, y0:y1, x0:x1].reshape(-1, 4)
         prev = win[sel]
         a = rgba[:, 3:4]
@@ -1288,13 +1338,17 @@ def _shade_blend_tri(orig_id: int, beta, f: _Frame, atlas):
     one material, shadows from the atlas, textures with no gradients."""
     dev = beta.device
     vloc = f.blend_vlocal[orig_id].long()
-    obj = int(f.blend_obj[orig_id].clamp_min(0))
+    with profiling_scope("sync::forward.blend_object"):
+        obj = int(f.blend_obj[orig_id].clamp_min(0))
     base = f.bases[obj].long()
 
     def gather(arena, ai, default):
-        has = 1.0 if int(base[ai]) >= 0 else 0.0
+        with profiling_scope("sync::forward.blend_attrs"):
+            has = 1.0 if int(base[ai]) >= 0 else 0.0
         vals = arena[(vloc + base[ai]).clamp(0, arena.shape[0] - 1)]
-        return has * vals + (1.0 - has) * torch.tensor(default, dtype=torch.float32, device=dev)
+        with profiling_scope("sync::const.blend_defaults"):
+            dflt = torch.tensor(default, dtype=torch.float32, device=dev)
+        return has * vals + (1.0 - has) * dflt
 
     m = f.mv[obj]
     mv3 = m[:3, :3]
@@ -1310,7 +1364,8 @@ def _shade_blend_tri(orig_id: int, beta, f: _Frame, atlas):
     tan = beta @ corner_dirs(2)
     uv0 = beta @ gather(f.geo.uv0, 3, [0.0, 0.0])
     vcol = beta @ gather(f.geo.color0, 5, [1.0, 1.0, 1.0, 1.0])
-    midx = int(f.material_slots[obj])
+    with profiling_scope("sync::forward.blend_object"):
+        midx = int(f.material_slots[obj])
     mats = f.materials
     mdata = mats.data[midx][:, None].expand(mats.data.shape[1], n)
     mflags = mats.flags[midx].expand(n)

@@ -660,7 +660,10 @@ def f1_call_trace(calls):
             with _Dtypes(out):
                 fn(*args)
         torch.cuda.synchronize()
-    device = sorted((e.time_range.start, e.name) for e in prof.events() if e.device_type == DeviceType.CUDA)
+    # Device work only: a program span's range (utils.profiling) also shows
+    # on the device's timeline, as a user annotation.
+    device = sorted((e.time_range.start, e.name) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
     return [name for _t, name in device], dtypes
 
 

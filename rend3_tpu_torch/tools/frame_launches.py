@@ -59,7 +59,9 @@ def profile_calls(fn, args, calls: int = 3) -> dict:
     copies = 0
     busy_us = 0.0
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # Device work only: the program's span ranges (utils.profiling) also
+        # show on the device's timeline, as user annotations.
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
             continue
         busy_us += e.time_range.elapsed_us()
         if e.name.startswith(("Memcpy", "Memset")):

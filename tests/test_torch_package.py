@@ -23,7 +23,7 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, rend3_tpu_torch, rend3_tpu_torch.routine.base, rend3_tpu_torch.interop, "
         "rend3_tpu_torch.scenes, rend3_tpu_torch.ops.cuda_kernels, rend3_tpu_torch.probe_shadow, "
-        "rend3_tpu_torch.frame_profile, rend3_tpu_torch.routine.registry, rend3_tpu_torch.ops.skin, "
+        "rend3_tpu_torch.routine.registry, rend3_tpu_torch.ops.skin, "
         "rend3_tpu_torch.ops.probe_bf16, rend3_tpu_torch.tools.probe_bf16_dot, "
         "rend3_tpu_torch.tools.probe_bf16_kernel, rend3_tpu_torch.tools.probe_bf16_real, "
         "rend3_tpu_torch.utils.profiling, rend3_tpu_torch.overlay, rend3_tpu_torch.framework, "
