@@ -76,7 +76,12 @@ wall time):
    K7 and K8 on the shadow stress input (testing.shadow_stress_case), P3 on
    its stress input (testing.probe_lerp_stress_case) and P2's reduce at a
    width off its CTA's, K6-K8 on those of phases 7 and 8, P1-P3 on the
-   probes' inputs, against their plain versions on the card. Each kernel
+   probes' inputs, S1 and S2 (ops/shadow_front.py, csrc/shadow_front.cu)
+   on the representative frame's shadow pass (rows, tile offsets and
+   lists, and K2's maps on them), against their plain versions on the
+   card, with the whole shadow pass's host time beside the PyTorch
+   chain's; every example, band and bench frame that re-rasters a map also
+   holds S1 / S2 to their plain version (_check_frame_kernels). Each kernel
    and library row is timed on the device: 20 calls captured in one CUDA
    graph, replayed between two CUDA events, the median of five replays over
    20 (P3, whose wrapper reads its step cells on the host, through its raw
@@ -186,16 +191,19 @@ F32_OPS_PER_S = 67e12
 KERNEL_NAMES = (
     "raster_resolve", "raster_msaa", "raster_count", "raster_bound", "raster_band", "raster_depth", "pcf5", "bilinear",
     "gather", "raster_vis", "shadow_occ", "shadow_occ_lt", "probe_dot", "probe_reduce", "probe_lerp",
-    "fma", "fma_dot3", "fma_ab_minus_cd",
+    "fma", "fma_dot3", "fma_ab_minus_cd", "shadow_setup", "shadow_tiles",
 )
 # F1's forms (ops/fp.py fma32, dot3, ab_minus_cd): every frame's clip,
 # setup and light-space products launch all three.
 F1_KERNELS = ("fma", "fma_dot3", "fma_ab_minus_cd")
+# S1 and S2 (ops/shadow_front.py): every shadow pass on the card builds its
+# maps' caster tables and tile lists with them, then K2 rasters.
+SHADOW_KERNELS = ("shadow_setup", "shadow_tiles")
 # The kernels each frame path must launch.
 FRAME_KERNELS = ("raster_resolve", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather",
-                 *F1_KERNELS)
+                 *F1_KERNELS, *SHADOW_KERNELS)
 MSAA_KERNELS = ("raster_msaa", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather",
-                *F1_KERNELS)
+                *F1_KERNELS, *SHADOW_KERNELS)
 # The kernels the feature frame must launch at 1 / 4 samples (K4 also for
 # the skybox, K2 for the new pose's shadow maps).
 FEATURE_KERNELS = {1: FRAME_KERNELS, 4: MSAA_KERNELS}
@@ -245,10 +253,10 @@ def phase_build():
 
 
 def _counters():
-    from rend3_tpu_torch.ops import deferred, fp, probe_bf16, raster_binned, samplers, shadow
+    from rend3_tpu_torch.ops import deferred, fp, probe_bf16, raster_binned, samplers, shadow, shadow_front
 
     return (deferred.launches, samplers.launches, raster_binned.launches, shadow.launches, probe_bf16.launches,
-            fp.launches)
+            fp.launches, shadow_front.launches)
 
 
 def _launch_counts():
@@ -357,7 +365,7 @@ def phase_slice(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
         raise AssertionError("moving a building did not invalidate the shadow map")
     log(f"launches during the three flat frames: {counts}")
     if cuda:
-        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", *F1_KERNELS))
+        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", *F1_KERNELS, *SHADOW_KERNELS))
     for img in (img1, img2, img3):
         _check_image(img, width, height)
     if not np.array_equal(img1, img2):
@@ -412,7 +420,8 @@ def phase_textured(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
     log(f"launches during the three textured frames: {counts}")
     log(f"frame 2 survivors: main + resid = {s_on2} vs {s_off} with occlusion off")
     if cuda:
-        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", "bilinear", "gather", *F1_KERNELS))
+        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", "bilinear", "gather", *F1_KERNELS,
+                                 *SHADOW_KERNELS))
     for img in (ref, img1, img2, img3):
         _check_image(img, width, height)
     if not s_on2 < s_off:
@@ -1027,6 +1036,13 @@ def phase_kernels(paths, extra_rows=(), timed=True):
                  lambda: D.raster_depth(stris, sbinned, swp, shp),
                  lambda: D.raster_depth_plain(stris, sbinned, swp, shp), 0.0, b2, None))
 
+    # S1 and S2 on the representative frame's shadow pass: the rows, lists
+    # and maps of the plain version; each timed as its device launches
+    # alone (S1: the counters' memset and S1; S2: the scan and the fill),
+    # with the buffers and totals of a first call.
+    if "shadow_front" in rcap:  # captured on the card only
+        rows += _shadow_front_rows(rcap["shadow_front"], paths["representative"][0], timed)
+
     # K3: abs <= 1e-6. The maps are read only around valid queries (12 texels each).
     args = cap["pcf5"]
     k = S.sample_grid_pcf5(*args)
@@ -1129,6 +1145,65 @@ def phase_kernels(paths, extra_rows=(), timed=True):
             log("rule 2 is done: every kernel has been redesigned for this card, or runs at half its bound or better "
                 "and no library call beats it")
     return kernels
+
+
+# f32 operations S1 spends on a (map, triangle) (the clip transform's 12
+# dot3 + add, the near-plane tests) and on a survivor (the screen tests,
+# the edges, the depth plane), an fma counting two; the clipping of the
+# rare crossing triangles is left out.
+S1_OPS_PER_TRI = 12 * 6 + 9
+S1_OPS_PER_ROW = 160
+
+
+def _shadow_front_rows(args, graph, timed):
+    """S1 / S2 held to their plain version on `args` (a shadow pass's
+    captured arguments), and their phase-11 rows; logs the whole pass's
+    host time, S1 / S2 against the PyTorch chain."""
+    import torch
+
+    from rend3_tpu_torch.ops import deferred as D
+    from rend3_tpu_torch.ops import shadow_front as SF
+    from rend3_tpu_torch.routine.base import shadow_front_chain
+
+    got, want = _shadow_front_check("representative", args)
+    for g, w in zip(got, want):
+        k = D.raster_depth(g.tris, g.binned, g.width, g.height)
+        if not torch.equal(k, D.raster_depth(w.tris, w.binned, w.width, w.height)):
+            raise AssertionError("K2 on S1 / S2's tables differs from K2 on the plain version's")
+    sizes, cw, mvp, vis, tri_pos, tri_obj = args
+    bufs = SF.ShadowFrontBuffers()
+    SF.shadow_front(bufs, *args)
+    L = len(sizes)
+    totals = bufs.totals.tolist()
+    surv, pairs = totals[:L], totals[L:]
+    pair_base = [sum(pairs[:m]) for m in range(L)]
+    T, V, P = tri_pos.shape[0], sum(surv), sum(pairs)
+    n_tiles = sum(SF._n_tiles(s) for s in sizes)
+    # Bytes: each input once (the corners, object ids, the MVPs and
+    # visibility the maps read), each output once.
+    b1 = _bound(_nbytes(tri_pos, tri_obj, mvp[:L], vis[:L]) + V * (64 + 16 + 8 + 1) + 4 * (L + n_tiles),
+                L * T * S1_OPS_PER_TRI + V * S1_OPS_PER_ROW)
+    b2 = _bound(4 * (L + n_tiles) + 16 * V + 4 * (n_tiles + L) + 4 * n_tiles + 4 * 2 * L + 4 * P, 0)
+
+    def s1():
+        SF.launch_setup(bufs, sizes, cw, mvp, vis, tri_pos, tri_obj)
+
+    def s2():
+        SF.launch_scan(bufs, sizes)
+        SF.launch_fill(bufs, sizes, surv, pair_base)
+
+    if timed:
+        inputs = graph._last_shadow_call[1]
+        log(f"shadow pass (representative, maps {sizes}, {T} triangles): S1 / S2 and K2 "
+            f"{_median_ms(lambda: graph._shadow_pass(*inputs), 20)} ms, the PyTorch chain and K2 "
+            f"{_median_ms(lambda: [D.raster_depth(*f) for f in shadow_front_chain(*inputs)], 20)} ms (host "
+            f"included, median); S1 / S2 alone {_median_ms(lambda: SF.shadow_front(bufs, *args), 20)} ms")
+    src = "rend3_tpu_torch/csrc/shadow_front.cu"
+    repl = "none (XLA ops: rend3_tpu/routine/base.py:554-580)"
+    return [
+        ("shadow_setup", src, repl, s1, lambda: SF.shadow_front_plain(*args), 0.0, b1, None),
+        ("shadow_tiles", src, repl, s2, lambda: SF.shadow_front_plain(*args), 0.0, b2, None),
+    ]
 
 
 F1_SOURCE = "rend3_tpu_torch/csrc/fma.cu"
@@ -1345,7 +1420,8 @@ def log_kernel_info():
     runtime) of each instance of K1 / K2's tiles_kernel, K6's vis_kernel,
     K7 / K8's occ_kernel, of P1's dot_kernel at the probes' K = 72, of
     K5's gather_kernel for the four Hi-Z taps, of P2's reduce_kernel, of
-    P3's lerp_kernel (x-lerp and 128-lane sum) and of F1's nine instances."""
+    P3's lerp_kernel (x-lerp and 128-lane sum), of F1's nine instances
+    and of S1 / S2's three kernels."""
     from rend3_tpu_torch.ops import cuda_kernels
 
     rows = [(f"{'vis' if name.startswith('K6') else 'tiles'}_kernel {name}", "raster_kernel_info", (i,))
@@ -1355,6 +1431,7 @@ def log_kernel_info():
     rows.append(("K5 gather_kernel, 4 taps", "k5_kernel_info", (4,)))
     rows += [(name, "p23_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.P23_INSTANCES)]
     rows += [(name, "f1_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.F1_INSTANCES)]
+    rows += [(name, "shadow_front_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.SHADOW_FRONT_INSTANCES)]
     for label, fn, args in rows:
         info = cuda_kernels.kernel_info(fn, *args)
         log(f"{label}: {info['registers']} registers, {info['local_bytes']} local (spill) bytes, "
@@ -1592,6 +1669,24 @@ def phase_parity(device="cuda"):
 EXAMPLE_W, EXAMPLE_H = 1280, 720  # the reference screenshots' size
 
 
+def _shadow_front_check(label, args):
+    """S1 and S2 (ops/shadow_front.shadow_front, in fresh buffers) against
+    their plain version on a shadow pass's captured arguments: every map's
+    rows in slot order bit for bit, the tile offsets, each tile's list as
+    a set. Returns (S1 / S2's maps, the plain version's)."""
+    from rend3_tpu_torch import testing
+    from rend3_tpu_torch.ops import shadow_front as SF
+
+    got = SF.shadow_front(SF.ShadowFrontBuffers(), *args)
+    want = SF.shadow_front_plain(*args)
+    faults = testing.shadow_front_diff(got, want)
+    if faults:
+        raise AssertionError(f"{label} S1 / S2 differ from the plain version: {faults}")
+    log(f"{label} S1 / S2: rows, offsets and lists equal the plain version over {args[4].shape[0]} triangles, "
+        f"maps {args[0]}: survivors {[g.tris.count for g in got]}, list entries {[g.binned.ids.numel() for g in got]}")
+    return got, want
+
+
 def _check_frame_kernels(label, cap):
     """Each kernel that an example frame launched, against its plain version
     on the inputs the frame captured, with phase 11's tolerances: K1 depth,
@@ -1613,6 +1708,9 @@ def _check_frame_kernels(label, cap):
             raise AssertionError(f"{label} K2 differs from the plain version at {int((k != p).sum())} texels")
         log(f"{label} K2: bit-exact over {k.numel()} texels, {int((k > 0).sum())} covered")
         checked.append("raster_depth")
+    if "shadow_front" in cap:
+        _shadow_front_check(label, cap["shadow_front"])
+        checked += list(SHADOW_KERNELS)
     if "pcf5" in cap:
         err = float((S.sample_grid_pcf5(*cap["pcf5"]) - S.sample_grid_pcf5_plain(*cap["pcf5"])).abs().max())
         log(f"{label} K3: max abs err {err:.3g} over {int(cap['pcf5'][-1].sum())} valid queries")
@@ -1726,7 +1824,7 @@ def _phase_framework(device, width, height, tmp):
     _app, (img,), counts = _example_frame("cube", cube.CubeExample, device, width, height)
     launches["cube"] = counts
     if cuda:
-        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5"))
+        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", *SHADOW_KERNELS))
     log(f"cube: K5 (gather) launches {counts['gather']}")
     _card_vs_cpu("cube", cube.CubeExample, [img], width, height)
     if (width, height) == (EXAMPLE_W, EXAMPLE_H):
@@ -1835,7 +1933,7 @@ def _phase_framework(device, width, height, tmp):
         if np.array_equal(a, b):
             raise AssertionError("two poses of the glTF scene rendered the same image")
     if cuda:
-        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", "bilinear"))
+        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", "bilinear", *SHADOW_KERNELS))
     _card_vs_cpu("glTF scene", Timed, big, width, height, frames=3, frame_dt=dt)
 
     # Profiling: both scopes in the chrome trace, and a device trace.
@@ -2020,7 +2118,7 @@ BAND_COUNTS = (2, 4, 8)
 # past 0 ("raster_band") and band 0's K1 modes, K2 for the shadow maps
 # (rebuilt in the first banded frame of each scene), K3, K4 and K5.
 BAND_KERNELS = ("raster_band", "raster_resolve", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear",
-                "gather", *F1_KERNELS)
+                "gather", *F1_KERNELS, *SHADOW_KERNELS)
 
 
 def _peak_start(cuda):

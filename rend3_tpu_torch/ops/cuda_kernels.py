@@ -38,7 +38,8 @@ __all__ = ["build", "library", "call", "kernel_info", "SOURCES", "HEADERS", "NVC
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("raster.cu", "pcf5.cu", "bilinear.cu", "gather.cu", "shadow_occ.cu", "probe_bf16.cu", "fma.cu")
+SOURCES = ("raster.cu", "pcf5.cu", "bilinear.cu", "gather.cu", "shadow_occ.cu", "probe_bf16.cu", "fma.cu",
+           "shadow_front.cu")
 HEADERS = ("kernel_info.cuh", "tile_lists.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-lineinfo", "-Xcompiler", "-fPIC")
@@ -57,10 +58,13 @@ _SIGNATURES = {
     "p3_probe_lerp": (7, 10, 0),
     "launch_floor": (0, 2, 0),
     "f1_fma": (7, 2 + 6 + 6 * 6, 0),
+    "s1_shadow_setup": (10, 7 + 2 * 4, 0),
+    "s2_tile_scan": (5, 3 + 2 * 4, 0),
+    "s2_tile_fill": (4, 4 + 3 * 4, 0),
 }
 # name -> int args of the kernel-info functions, which end with an int[5].
 _INFO_SIGNATURES = {"raster_kernel_info": 1, "p1_kernel_info": 2, "k5_kernel_info": 1, "occ_kernel_info": 1,
-                    "p23_kernel_info": 1, "f1_kernel_info": 1}
+                    "p23_kernel_info": 1, "f1_kernel_info": 1, "shadow_front_kernel_info": 1}
 
 _lib: Optional[ctypes.CDLL] = None
 last_build: dict = {}
@@ -180,6 +184,8 @@ P23_INSTANCES = ("P2 reduce_kernel", "P3 lerp_kernel x-lerp", "P3 lerp_kernel 12
 F1_INSTANCES = tuple(f"F1 {form} {path}" for form in ("fma", "dot3", "ab_minus_cd")
                      for path in ("strided_kernel 32-bit", "strided_kernel 64-bit", "rows4_kernel 32-bit",
                                   "rows4_kernel 64-bit"))
+# csrc/shadow_front.cu's kernels, by shadow_front_kernel_info's index.
+SHADOW_FRONT_INSTANCES = ("S1 s1_kernel", "S2 scan_kernel", "S2 fill_kernel")
 
 
 def kernel_info(fn: str, *ints: int) -> dict:
@@ -190,7 +196,8 @@ def kernel_info(fn: str, *ints: int) -> dict:
     OCC_INSTANCES[which], `p1_kernel_info(which, K)` for P1_INSTANCES[which]
     at K's dynamic shared memory, `k5_kernel_info(n)` for K5 with n taps,
     `p23_kernel_info(which)` for P23_INSTANCES[which], `f1_kernel_info(which)`
-    for F1_INSTANCES[which]."""
+    for F1_INSTANCES[which], `shadow_front_kernel_info(which)` for
+    SHADOW_FRONT_INSTANCES[which]."""
     lib = library()
     info = (ctypes.c_int * 5)()
     rc = getattr(lib, fn)(*ints, ctypes.cast(info, ctypes.c_void_p))

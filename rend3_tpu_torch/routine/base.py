@@ -85,6 +85,7 @@ from ..ops import raster_binned as rb_ops
 from ..ops import samplers as samplers_ops
 from ..ops import shade as shade_ops
 from ..ops import shadow as shadow_ops
+from ..ops import shadow_front as shadow_front_ops
 from ..ops import skin as skin_ops
 from ..ops import texture as tex_ops
 from ..ops import transform as transform_ops
@@ -95,7 +96,7 @@ from ..utils.profiling import scope as profiling_scope
 
 __all__ = [
     "BaseRenderGraph", "BaseRenderGraphSettings", "FrameRenderTarget", "StageTimer", "default_raster_backend",
-    "drive_frame", "raster_scene", "sky_directions",
+    "drive_frame", "raster_scene", "shadow_front_chain", "sky_directions",
 ]
 
 RASTER_BACKENDS = ("pallas", "binned_xla", "reference")
@@ -269,6 +270,37 @@ def drive_frame(steps, gather):
         return done.value
 
 
+def shadow_front_chain(plan, front_cw, transforms, light_vp, shadow_visible, position, tri_vlocal, tri_obj,
+                       base0, tri_pos):
+    """Each plan entry's (caster table, tile lists, padded width, padded
+    height) for K2, as PyTorch ops on any device, a map at a time: the
+    light-space clip transform, the near clip, the FRONT cull and setup
+    and the binning of the view's front end, in the frame's contracted
+    forms. The CPU's shadow front end; on the card S1 / S2 compute the
+    same rows (ops/shadow_front.py)."""
+    eye = torch.eye(4, dtype=torch.float32, device=transforms.device)
+    out = []
+    for k, (_li, _off, size) in enumerate(plan):
+        _, smvp = transform_ops.object_uniforms(transforms, light_vp[k], eye)
+        svalid = shadow_visible[k][tri_obj.long()]
+        sclip = transform_ops.gather_tri_clip(position, tri_vlocal, tri_obj, base0, smvp, tri_pos=tri_pos,
+                                              contract=True)
+        sclipped = transform_ops.clip_triangles(sclip, svalid, contract=True)
+        swp = _round_up(size, def_ops.DTILE_W)
+        shp = _round_up(size, def_ops.DTILE_H)
+        stris = geom_ops.cull_and_setup(
+            sclipped.clip, sclipped.valid, size, size,
+            cull_mode=geom_ops.CullMode.FRONT, front_is_cw=front_cw,
+            subpixel=True,  # sub-texel casters can't mark any texel center
+            contract=True,
+        )
+        sbinned = geom_ops.bin_triangles(
+            stris, swp, shp, tile_h=def_ops.DTILE_H, tile_w=def_ops.DTILE_W
+        )
+        out.append((stris, sbinned, swp, shp))
+    return out
+
+
 class BaseRenderGraph:
     def __init__(self, renderer: Renderer):
         self.renderer = renderer
@@ -291,6 +323,8 @@ class BaseRenderGraph:
         self._shadow_cache = None
         # (shadow pass, its inputs) of the last shadow maps rendered.
         self._last_shadow_call = None
+        # S1 / S2's device tables, kept across shadow passes.
+        self._shadow_front_bufs = shadow_front_ops.ShadowFrontBuffers()
         self._skin_key = None
         self._skin = None
         self._skinned = None
@@ -568,26 +602,22 @@ class BaseRenderGraph:
     def _shadow_pass(self, plan, front_cw, transforms, light_vp, shadow_visible, position, tri_vlocal, tri_obj,
                      base0, tri_pos):
         """Every map of the shadow plan (K2) and their PCF stack, from these
-        inputs alone: (maps, stack_shadow_maps(maps)). Reads no cache."""
-        eye = torch.eye(4, dtype=torch.float32, device=transforms.device)
+        inputs alone: (maps, stack_shadow_maps(maps)). Reads no cache. The
+        caster tables and tile lists of every map come from S1 / S2 on CUDA
+        tensors (ops/shadow_front.py: a few launches and one host read), and
+        from shadow_front_chain on the CPU."""
+        if transforms.is_cuda:
+            args = ([size for _li, _off, size in plan], front_cw,
+                    shadow_front_ops.light_mvp(transforms, light_vp, len(plan)), shadow_visible, tri_pos, tri_obj)
+            if self.captured is not None:
+                self.captured["shadow_front"] = args
+            fronts = shadow_front_ops.shadow_front(self._shadow_front_bufs, *args)
+            profiling.count("shadow_front.maps", len(plan))
+        else:
+            fronts = shadow_front_chain(plan, front_cw, transforms, light_vp, shadow_visible, position, tri_vlocal,
+                                        tri_obj, base0, tri_pos)
         smaps = []
-        for k, (_li, _off, size) in enumerate(plan):
-            _, smvp = transform_ops.object_uniforms(transforms, light_vp[k], eye)
-            svalid = shadow_visible[k][tri_obj.long()]
-            sclip = transform_ops.gather_tri_clip(position, tri_vlocal, tri_obj, base0, smvp, tri_pos=tri_pos,
-                                                  contract=True)
-            sclipped = transform_ops.clip_triangles(sclip, svalid, contract=True)
-            swp = _round_up(size, def_ops.DTILE_W)
-            shp = _round_up(size, def_ops.DTILE_H)
-            stris = geom_ops.cull_and_setup(
-                sclipped.clip, sclipped.valid, size, size,
-                cull_mode=geom_ops.CullMode.FRONT, front_is_cw=front_cw,
-                subpixel=True,  # sub-texel casters can't mark any texel center
-                contract=True,
-            )
-            sbinned = geom_ops.bin_triangles(
-                stris, swp, shp, tile_h=def_ops.DTILE_H, tile_w=def_ops.DTILE_W
-            )
+        for k, ((_li, _off, size), (stris, sbinned, swp, shp)) in enumerate(zip(plan, fronts)):
             if self.captured is not None and k == 0:
                 self.captured["raster_depth"] = (stris, sbinned, swp, shp)
             smaps.append(def_ops.raster_depth(stris, sbinned, swp, shp)[:size, :size])

@@ -449,6 +449,102 @@ def shadow_stress_case(device="cuda", seed: int = 0) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Shadow-pass inputs for S1 / S2 (ops/shadow_front.py)
+# ---------------------------------------------------------------------------
+
+SHADOW_FRONT_KINDS = ("soup", "all_crossing", "none", "mixed", "stress")
+
+
+def shadow_front_case(kind: str = "soup", device="cpu", seed: int = 0, n: Optional[int] = None) -> tuple:
+    """A shadow pass's inputs (BaseRenderGraph._shadow_pass's arguments)
+    for a triangle soup from a numpy generator: 16 objects, each a matrix
+    that maps a corner to clip space as (x, y, a x + b y + c w + d, w), with
+    corners x, y in [-2, 2] and w in [-0.5, 3] (the near-clip soup of
+    tests/test_torch_shadow_forms.py), under two lights whose maps are 100
+    and 64 texels a side (light 1 shifts and scales x and y). Kinds:
+    "soup" (n = 600 triangles, about a third crossing w = W_EPS or w = z,
+    3 objects hidden from each light); "all_crossing" (every triangle has
+    one corner inside both planes and one behind w = 0); "none" (no object
+    visible to either light: no caster survives); "mixed" (the first 90%
+    of the triangles wholly inside, so S1's first CTAs hold no crossing
+    triangle, then the soup); "stress" (n = 200,000 soup triangles on
+    1,000 and 512 texel maps). Winding is random, so the FRONT cull drops
+    about half of what is in view."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = n if n is not None else (200_000 if kind == "stress" else 600)
+    n_obj = 16
+    obj = rng.integers(0, n_obj, n).astype(np.int32)
+    pos = rng.uniform(-2.0, 2.0, (n, 3, 3)).astype(np.float32)
+    pos[..., 2] = rng.uniform(-0.5, 3.0, (n, 3)).astype(np.float32)
+    if kind == "all_crossing":
+        pos[:, 0, 2] = rng.uniform(0.5, 3.0, n).astype(np.float32)
+        pos[:, 1, 2] = rng.uniform(-2.0, -0.1, n).astype(np.float32)
+    transforms = np.zeros((n_obj, 4, 4), np.float32)
+    transforms[:, 0, 0] = transforms[:, 1, 1] = transforms[:, 3, 2] = 1.0
+    # all_crossing: z = c w with c < 0.5 keeps corner 0 inside w - z >= 0.
+    soup = kind != "all_crossing"
+    transforms[:, 2, 0] = rng.uniform(-0.5, 0.5, n_obj) * soup
+    transforms[:, 2, 1] = rng.uniform(-0.5, 0.5, n_obj) * soup
+    transforms[:, 2, 2] = rng.uniform(0.0, 1.0 if soup else 0.45, n_obj)
+    transforms[:, 2, 3] = rng.uniform(-0.5, 0.5, n_obj) * soup
+    light_vp = np.stack([np.eye(4, dtype=np.float32)] * 2)
+    light_vp[1, 0, 0], light_vp[1, 1, 1], light_vp[1, 0, 3], light_vp[1, 1, 3] = 0.7, 1.3, 0.25, -0.2
+    visible = np.ones((2, n_obj), bool)
+    visible[0, :3] = visible[1, 5:8] = False
+    if kind == "none":
+        visible[:] = False
+    if kind == "mixed":
+        # The first 90% of the triangles wholly inside both planes (objects
+        # 0-7: z = w / 2, w in [0.5, 3]), the rest the soup (objects 8-15).
+        k = n * 9 // 10
+        obj[:k] = obj[:k] % 8
+        obj[k:] = obj[k:] % 8 + 8
+        pos[:k, :, 2] = rng.uniform(0.5, 3.0, (k, 3)).astype(np.float32)
+        transforms[:8, 2] = (0.0, 0.0, 0.5, 0.0)
+    sizes = (1000, 512) if kind == "stress" else (100, 64)
+    plan = tuple((k, (0, 0), s) for k, s in enumerate(sizes))
+    dev = torch.device(device)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return (plan, bool(seed % 2), t(transforms), t(light_vp), t(visible), t(np.zeros((1, 3), np.float32)),
+            t(np.zeros((n, 3), np.int32)), t(obj), t(np.zeros(n_obj, np.int32)), t(pos))
+
+
+def shadow_front_diff(got, want) -> list:
+    """Where shadow_front's maps (`got`, from S1 / S2) differ from
+    shadow_front_plain's (`want`): per map, the rows put in slot order by
+    src (setup and bbox bit for bit, src, flip), the tile offsets, and each
+    tile's list as a set of slot ids. Returns the faults, [] if none."""
+    import torch
+
+    def lists(fr):
+        offs = fr.binned.offsets.long()
+        tile = torch.repeat_interleave(torch.arange(offs.numel() - 1, device=offs.device), offs[1:] - offs[:-1])
+        return torch.sort(tile * (1 << 40) + fr.tris.src[fr.binned.ids.long()]).values
+
+    faults = []
+    for m, (g, w) in enumerate(zip(got, want)):
+        order = torch.argsort(g.tris.src)
+        for name, a, b in (
+            ("setup", g.tris.setup[order].view(torch.int32), w.tris.setup.view(torch.int32)),
+            ("bbox", g.tris.bbox[order].view(torch.int32), w.tris.bbox.view(torch.int32)),
+            ("src", g.tris.src[order], w.tris.src),
+            ("flip", g.tris.flip[order], w.tris.flip),
+            ("offsets", g.binned.offsets, w.binned.offsets),
+            ("lists", lists(g), lists(w)),
+        ):
+            if a.shape != b.shape or not torch.equal(a, b):
+                faults.append(f"map {m}: {name} differ ({tuple(a.shape)} vs {tuple(b.shape)})")
+    if len(got) != len(want):
+        faults.append(f"{len(got)} maps vs {len(want)}")
+    return faults
+
+
+# ---------------------------------------------------------------------------
 # A stress input for the step-list lerp (P3's probe_lerp)
 # ---------------------------------------------------------------------------
 
@@ -671,12 +767,13 @@ def f1_call_trace(calls):
 # Rule 2: which hand-written kernel to redesign next
 # ---------------------------------------------------------------------------
 
-# chip_smoke.py phase 11's kernel rows, by the TPU kernel each one ports.
+# chip_smoke.py phase 11's kernel rows, by the TPU kernel each one ports (F1,
+# S1 and S2 port none: XLA ops of the JAX frame).
 KERNEL_OF_ROW = {
     "raster_resolve": "K1", "raster_msaa": "K1", "raster_count": "K1", "raster_bound": "K1",
     "raster_depth": "K2", "pcf5": "K3", "bilinear": "K4", "gather": "K5", "raster_vis": "K6",
     "shadow_occ": "K7", "shadow_occ_lt": "K8", "probe_dot": "P1", "probe_reduce": "P2", "probe_lerp": "P3",
-    "fma": "F1", "fma_dot3": "F1", "fma_ab_minus_cd": "F1",
+    "fma": "F1", "fma_dot3": "F1", "fma_ab_minus_cd": "F1", "shadow_setup": "S1", "shadow_tiles": "S2",
 }
 # Kernels redesigned for the H100 after their port; rule 2 does not take
 # them again. K8 came with K7: both are instances of one CUDA kernel
@@ -686,8 +783,13 @@ KERNEL_OF_ROW = {
 # one dimension) gave way to rows of four (csrc/fma.cu rows4_kernel),
 # timed against it in turns by kernel_ab.py's F1 group; what stays over its
 # bound is its smallest row, setup's ab_minus_cd, which sits at the launch
-# floor.
-REDESIGNED = frozenset({"K1", "K2", "P1", "K5", "K6", "K7", "K8", "P2", "P3", "F1"})
+# floor. S1 and S2's first design (the fan slots' barriers and local
+# memory in every CTA, one atomic a tile and survivor) gave way to fans only
+# in CTAs with a crossing triangle and one atomic a tile for a warp's lanes
+# on it, timed against it in turns on the representative and heavy shadow
+# passes; S2 stays over its bound as two launches near the launch floor,
+# S1 at its CTA-wide appends.
+REDESIGNED = frozenset({"K1", "K2", "P1", "K5", "K6", "K7", "K8", "P2", "P3", "F1", "S1", "S2"})
 
 
 def redesign_order(rows, frame_launches, redesigned=REDESIGNED):

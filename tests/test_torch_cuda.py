@@ -47,7 +47,16 @@ on testing.fma_stress_case at 2^24 rows, on broadcast (a 0-d input, (V, 1,
 3) against (V, 3, 1), _shadow_coords' (rows, 1, 1) x (1, H, W)), strided
 (select, the clip transform's matrix columns), unaligned (roll) and
 odd-length inputs, and an input reaching past 2^31 elements; an empty output launches nothing; the profiler sees one
-kernel and no float64 tensor is made; a failed launch raises.
+kernel and no float64 tensor is made; a failed launch raises. S1 and S2,
+the shadow pass's front end (ops/shadow_front.py; csrc/shadow_front.cu):
+against shadow_front_plain on the representative city's shadow pass and
+on testing.shadow_front_case's soups (crossing, all crossing, no caster,
+and 200,000 triangles, many CTAs appending to one counter), rows in slot
+order bit for bit, tile offsets and each tile's list as a set; K2 on
+their tables against K2 on the PyTorch chain's, bit for bit; the graph's
+shadow pass twice in the same buffers; a moved frame counts
+shadow_front.maps 2 and one sync::shadow_front.totals read, a static one
+0; a refused S1 launch raises.
 """
 
 import numpy as np
@@ -62,9 +71,12 @@ from rend3_tpu_torch.ops import raster as R
 from rend3_tpu_torch.ops import raster_binned as RB
 from rend3_tpu_torch.ops import samplers as S
 from rend3_tpu_torch.ops import shadow as SH
+from rend3_tpu_torch.ops import shadow_front as SF
 from rend3_tpu_torch.overlay import OverlayRoutine, PaintJob
-from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget, raster_scene
+from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget, raster_scene, shadow_front_chain
 from rend3_tpu_torch.testing import FrameRenderSettings, TestRunner
+from rend3_tpu_torch.utils import math as m3
+from rend3_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -806,3 +818,124 @@ def test_f1_launch_failure_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="f1_fma: CUDA error"):
         fp.fma32(x, x, x)
     assert fp.launches["fma"] == before
+
+
+# -- S1 / S2, the shadow pass's front end (csrc/shadow_front.cu) ---------------
+
+
+@pytest.fixture(scope="module")
+def shadow_city():
+    """A 512x256 frame of the representative city (48 buildings, maps of
+    2048 and 1024 texels) on the card: (runner, its shadow pass's inputs,
+    the frame's captures, the objects)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    runner = TestRunner(device="cuda")
+    keep = scenes.build_city_scene(runner, n_buildings=48, seed=7, representative=True)
+    scenes.set_bench_camera(runner, 512, 256)
+    runner.base_graph.captured = {}
+    runner.renderer.swap_instruction_buffers()
+    runner.base_graph.render_frame(runner.renderer.evaluate_instructions(), FrameRenderTarget(512, 256, 1),
+                                   BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0)))
+    objects = [h for h in keep if getattr(h, "kind", None) == "object"]
+    return runner, runner.base_graph._last_shadow_call[1], runner.base_graph.captured, objects, keep
+
+
+def _front_args(inputs):
+    plan, cw, transforms, light_vp, vis, _p, _v, tri_obj, _b, tri_pos = inputs
+    return [s for _l, _o, s in plan], cw, SF.light_mvp(transforms, light_vp, len(plan)), vis, tri_pos, tri_obj
+
+
+def _front_inputs(case, shadow_city):
+    if case == "city":
+        return shadow_city[1]
+    return testing.shadow_front_case(case, device="cuda", seed=5)
+
+
+@pytest.mark.parametrize("case", ("city",) + testing.SHADOW_FRONT_KINDS)
+def test_s1_s2_match_plain(shadow_city, case):
+    """S1 and S2 against shadow_front_plain on the card: each map's rows
+    in slot order bit for bit (S_ID, src and flip too), the tile offsets,
+    and each tile's list as a set. "stress": 200,000 triangles, many CTAs'
+    appends to one counter; a CTA's 256 threads append up to 4 slots
+    each."""
+    args = _front_args(_front_inputs(case, shadow_city))
+    before = dict(SF.launches)
+    got = SF.shadow_front(SF.ShadowFrontBuffers(), *args)
+    assert {k: SF.launches[k] - before[k] for k in before} == {"shadow_setup": 1, "shadow_tiles": 2}
+    want = SF.shadow_front_plain(*args)
+    assert testing.shadow_front_diff(got, want) == []
+    if case != "none":
+        assert all(g.tris.count > 100 for g in got)
+    if case == "stress":
+        assert got[0].tris.count > 50_000 and bool((got[0].tris.src % SF.SLOTS > 0).any())
+
+
+@pytest.mark.parametrize("case", ("city", "soup", "all_crossing", "stress"))
+def test_shadow_front_maps_match_chain(shadow_city, case):
+    """K2 on S1 / S2's tables against K2 on the PyTorch chain's tables, on
+    the card and on the same inputs: every map bit for bit."""
+    inputs = _front_inputs(case, shadow_city)
+    got = SF.shadow_front(SF.ShadowFrontBuffers(), *_front_args(inputs))
+    for g, (tris, binned, w, h) in zip(got, shadow_front_chain(*inputs)):
+        assert tris.count == g.tris.count
+        k = D.raster_depth(g.tris, g.binned, g.width, g.height)
+        c = D.raster_depth(tris, binned, w, h)
+        assert torch.equal(k.view(torch.int32), c.view(torch.int32)) and (k > 0).sum() > 100
+
+
+def test_shadow_pass_on_card_matches_chain_and_keeps_its_buffers(shadow_city):
+    """The graph's shadow pass (S1 / S2, then K2) twice on the city: both
+    times the chain's maps bit for bit, the second time in the same
+    buffers; its captures are map 0's tables and S1's arguments."""
+    runner, inputs, captured, _objects, _keep = shadow_city
+    graph = runner.base_graph
+    want = [D.raster_depth(t, b, w, h)[:s, :s]
+            for (t, b, w, h), (_l, _o, s) in zip(shadow_front_chain(*inputs), inputs[0])]
+    setup = graph._shadow_front_bufs.setup
+    for _ in range(2):
+        maps, (stacked, _bases) = graph._shadow_pass(*inputs)
+        for got, w in zip(maps, want):
+            assert torch.equal(got.view(torch.int32), w.view(torch.int32))
+        assert graph._shadow_front_bufs.setup is setup
+    stris, sbinned, swp, shp = captured["raster_depth"]
+    assert stris.setup.data_ptr() == setup.data_ptr() and (swp, shp) == (2048, 2048)
+    assert captured["shadow_front"][0] == [2048, 1024]
+
+
+def test_shadow_front_counter_and_one_read(shadow_city):
+    """A frame whose objects moved rasters both maps through S1 / S2
+    (shadow_front.maps 2) with one sync:: read in the shadow_maps stage; a
+    frame with nothing changed hits the cache (0)."""
+    runner, _inputs, _captured, objects, _keep = shadow_city
+    target = FrameRenderTarget(512, 256, 1)
+    settings = BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0))
+
+    def frame():
+        runner.renderer.swap_instruction_buffers()
+        runner.base_graph.render_frame_tensor(runner.renderer.evaluate_instructions(), target, settings)
+
+    frame()
+    counts = {}
+    for kind in ("moved", "static"):
+        if kind == "moved":
+            runner.renderer.set_object_transform(objects[0], m3.translation([3.0, 2.0, 1.0]) @ m3.scale(2.0))
+        profiling.enable()
+        frame()
+        profiling.disable()
+        torch.cuda.synchronize()
+        st = profiling.stats()
+        counts[kind] = (st.counters.get("shadow_front.maps", 0), st.counts.get("sync::shadow_front.totals", 0))
+    assert counts == {"moved": (2, 1), "static": (0, 0)}
+
+
+def test_s1_launch_failure_raises(shadow_city):
+    """S1 refuses a group of no maps: the wrapper raises."""
+    from rend3_tpu_torch.ops import cuda_kernels
+
+    sizes, _cw, mvp, vis, tri_pos, tri_obj = _front_args(testing.shadow_front_case("soup", device="cuda"))
+    bufs = SF.ShadowFrontBuffers()
+    bufs.fit(tri_pos.shape[0], sizes, tri_pos.device)
+    with pytest.raises(RuntimeError, match="s1_shadow_setup: CUDA error"):
+        cuda_kernels.call("s1_shadow_setup", tri_pos, tri_obj, mvp, vis, bufs.setup, bufs.bbox, bufs.src, bufs.flip,
+                          bufs.counts, bufs.counts, ints=(tri_pos.shape[0], 16, 16, bufs.cap, 0, 0, 0) + (0,) * 8)

@@ -40,6 +40,7 @@ SYNC_SITES = {
     "sync::blend.layers", "sync::blend.pixels",
     "sync::const.setup_height", "sync::const.planes_viewport", "sync::const.planes_defaults",
     "sync::const.hiz_ln2", "sync::const.shade_defaults", "sync::const.texture_ln2", "sync::const.cube_faces",
+    "sync::shadow_front.totals",
 }
 SETTINGS = BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0))
 
