@@ -41,6 +41,12 @@ from .managers.texture import TextureManager
 
 __all__ = ["Renderer", "InstructionEvaluationOutput"]
 
+# The instructions applied under the span objects::evaluate.
+_OBJECT_KINDS = frozenset((
+    InstructionKind.ADD_OBJECT, InstructionKind.DUPLICATE_OBJECT, InstructionKind.SET_OBJECT_TRANSFORM,
+    InstructionKind.DELETE_OBJECT,
+))
+
 
 @dataclass
 class InstructionEvaluationOutput:
@@ -275,13 +281,28 @@ class Renderer:
             return self._evaluate_locked()
 
     def _evaluate_locked(self) -> InstructionEvaluationOutput:
+        from ..utils import profiling
+
         # Reclaim objects deleted last frame (eval.rs:14).
-        for idx in self._alloc["object"].reclaim():
-            self.object_manager.remove(idx)
+        reclaimed = self._alloc["object"].reclaim()
+        if reclaimed:
+            with profiling.scope("objects::evaluate"):
+                for idx in reclaimed:
+                    self.object_manager.remove(idx)
 
         K = InstructionKind
-        for ins in self.instructions.drain():
-            kind, p = ins.kind, ins.payload
+        drained = self.instructions.drain()
+        i, moved = 0, 0
+        while i < len(drained):
+            if drained[i].kind in _OBJECT_KINDS:
+                # One span per run of object instructions: one a frame where
+                # the application sends its object changes together.
+                with profiling.scope("objects::evaluate"):
+                    i, n = self._apply_objects(drained, i)
+                moved += n
+                continue
+            kind, p = drained[i].kind, drained[i].payload
+            i += 1
             if kind == K.ADD_SKELETON:
                 self.skeleton_manager.add(p[0], p[1], self.mesh_manager)
             elif kind == K.ADD_TEXTURE_2D:
@@ -294,25 +315,6 @@ class Renderer:
                 self.material_manager.add(p[0], p[1], self.d2_texture_manager)
             elif kind == K.CHANGE_MATERIAL:
                 self.material_manager.update(p[0], p[1], self.d2_texture_manager)
-            elif kind == K.ADD_OBJECT:
-                self.object_manager.add(
-                    p[0], p[1], self.mesh_manager, self.material_manager, self.skeleton_manager
-                )
-            elif kind == K.DUPLICATE_OBJECT:
-                src_obj = self.object_manager.duplicate(p[0])
-                change = p[2] if len(p) > 2 else {}
-                from ..types.object import Object as _Object
-
-                new_obj = _Object(
-                    mesh_kind=change.get("mesh_kind", src_obj.mesh_kind),
-                    material=change.get("material", src_obj.material),
-                    transform=change.get("transform", src_obj.transform),
-                )
-                self.object_manager.add(
-                    p[1], new_obj, self.mesh_manager, self.material_manager, self.skeleton_manager
-                )
-            elif kind == K.SET_OBJECT_TRANSFORM:
-                self.object_manager.set_transform(p[0], p[1])
             elif kind in (K.SET_SKELETON_JOINT_MATRICES, K.SET_SKELETON_JOINT_DELTAS):
                 self.skeleton_manager.set_joint_matrices(p[0], p[1])
             elif kind == K.ADD_DIRECTIONAL_LIGHT:
@@ -342,10 +344,6 @@ class Renderer:
             elif kind == K.DELETE_MATERIAL:
                 self.material_manager.remove(p.idx)
                 self._alloc["material"].deallocate(p.idx)
-            elif kind == K.DELETE_OBJECT:
-                # Disable now; slot reclaimed at the top of next frame.
-                self.object_manager.disable(p.idx)
-                self._alloc["object"].deallocate(p.idx)
             elif kind == K.DELETE_DIRECTIONAL_LIGHT:
                 self.directional_light_manager.remove(p.idx)
                 self._alloc["dirlight"].deallocate(p.idx)
@@ -354,6 +352,7 @@ class Renderer:
                 self._alloc["pointlight"].deallocate(p.idx)
             else:  # pragma: no cover
                 raise AssertionError(f"unhandled instruction {kind}")
+        profiling.count("objects.transforms", moved)
 
         # Managers evaluate in dependency order (eval.rs:158-184).
         mesh_buffer = self.mesh_manager.evaluate()
@@ -368,3 +367,35 @@ class Renderer:
             point_light_arrays=point_arrays,
             mesh_buffer=mesh_buffer,
         )
+
+    def _apply_objects(self, drained: list, i: int) -> Tuple[int, int]:
+        """Applies the run of object instructions (add, duplicate, transform,
+        delete) that begins at drained[i]: (the index after the run, the
+        transforms applied)."""
+        K = InstructionKind
+        om = self.object_manager
+        moved = 0
+        while i < len(drained):
+            kind, p = drained[i].kind, drained[i].payload
+            if kind is K.SET_OBJECT_TRANSFORM:
+                om.set_transform(p[0], p[1])
+                moved += 1
+            elif kind is K.ADD_OBJECT:
+                om.add(p[0], p[1], self.mesh_manager, self.material_manager, self.skeleton_manager)
+            elif kind is K.DUPLICATE_OBJECT:
+                src_obj = om.duplicate(p[0])
+                change = p[2] if len(p) > 2 else {}
+                new_obj = Object(
+                    mesh_kind=change.get("mesh_kind", src_obj.mesh_kind),
+                    material=change.get("material", src_obj.material),
+                    transform=change.get("transform", src_obj.transform),
+                )
+                om.add(p[1], new_obj, self.mesh_manager, self.material_manager, self.skeleton_manager)
+            elif kind is K.DELETE_OBJECT:
+                # Disable now; slot reclaimed at the top of next frame.
+                om.disable(p.idx)
+                self._alloc["object"].deallocate(p.idx)
+            else:
+                break
+            i += 1
+        return i, moved

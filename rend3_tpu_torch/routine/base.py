@@ -404,15 +404,6 @@ class BaseRenderGraph:
             self._tri_dev = (tri_vlocal, tri_obj)
         f.tri_vlocal, f.tri_obj = self._tri_dev
 
-        if self._obj_tbl_key != om.version:
-            with profiling_scope("sync::upload.objects"):
-                transforms = torch.from_numpy(np.ascontiguousarray(om.transforms)).to(dev)
-            with profiling_scope("sync::upload.objects"):
-                bases = torch.from_numpy(np.ascontiguousarray(om.bases)).to(dev)
-            self._obj_tbl = (transforms, bases)
-            self._obj_tbl_key = om.version
-        f.transforms, f.bases = self._obj_tbl
-
         # Materials (base.py:844-908): the PBR table first, then the table of
         # each registered archetype (name order) in one global slot space
         # carried by the G-buffer material channel. Objects of an archetype
@@ -437,50 +428,87 @@ class BaseRenderGraph:
         hidden_arch = any(
             n != arch and a.next_slot > 0 and n not in arch_bases for n, a in mm.archetypes.items()
         )
-        gkey = (om.version, tuple(sorted(arch_bases.items())), hidden_arch)
-        if self._gslot_key != gkey:
-            gslots = om.material_slots.astype(np.int32)
-            obj_pbr = np.ones(om.cap, bool)
-            obj_hidden = np.zeros(om.cap, bool)
-            if arch_bases or hidden_arch:
-                for oidx, rec in om.data.items():
-                    if rec.material_arch == arch:
-                        continue
-                    obj_pbr[oidx] = False
-                    b = arch_bases.get(rec.material_arch)
-                    if b is None:
-                        obj_hidden[oidx] = True
-                    else:
-                        gslots[oidx] += b
-            with profiling_scope("sync::upload.objects"):
-                self._gslot_cache = (torch.from_numpy(gslots).to(dev), obj_pbr, obj_hidden)
-            self._gslot_key = gkey
-        f.material_slots, obj_pbr, obj_hidden = self._gslot_cache
-        live = om.enabled & ~obj_hidden
         # Texture slots any material references (base.py:976-980); slots no
         # material uses are never sampled.
         f.textures = r.d2_texture_manager.evaluate() if r.d2_texture_manager.data else None
         f.active_tex_slots = tuple(int(q) for q in np.nonzero(host.textures.any(axis=0))[0])
-
-        # Cutout triangles: PBR objects whose material has an alpha cutoff
-        # (base.py:990-1022); the mask over the triangle table is cached
-        # against the topology, object and material versions. None when the
-        # frame has no cutout triangle.
-        # Registered cutout routines' objects ride the same peel loop.
+        # Registered cutout routines' objects ride the cutout peel loop.
         cut_archs = tuple(sorted(n for n, e in named_extras if e[2].transparency == "cutout"))
         f.cut_extras = [e for _n, e in named_extras if e[2].transparency == "cutout"]
-        cut_key = (om.version, host.version, cut_archs)
-        if self._cut_key != cut_key:
-            cutout_mat = host.data[:, shade_ops.PBR_ALPHA_CUTOUT] > 0.0
-            obj_cut = obj_pbr & cutout_mat[np.clip(om.material_slots, 0, len(cutout_mat) - 1)]
-            for oidx, rec in om.data.items():
-                if rec.material_arch in cut_archs:
-                    obj_cut[oidx] = True
-            cutout_tri = obj_cut[opaque[:, 3]]
-            with profiling_scope("sync::upload.objects"):
-                self._cut_dev = torch.from_numpy(cutout_tri).to(dev) if cutout_tri.any() else None
-            self._cut_key = cut_key
-        f.cutout_tri = self._cut_dev
+
+        # The host work that scales with the object count: the caches keyed
+        # on the object version (each rebuilt and copied whole on any object
+        # change) and every object's sphere against the camera's frustum and
+        # each shadow camera's. Counters: the cached tables' bytes copied
+        # this frame (0 while the caches hold; the masks, copied every frame,
+        # are not counted), the live objects, those in the camera's frustum.
+        with profiling_scope("upload::objects"):
+            copied = 0
+            if self._obj_tbl_key != om.version:
+                with profiling_scope("sync::upload.objects"):
+                    transforms = torch.from_numpy(np.ascontiguousarray(om.transforms)).to(dev)
+                with profiling_scope("sync::upload.objects"):
+                    bases = torch.from_numpy(np.ascontiguousarray(om.bases)).to(dev)
+                self._obj_tbl = (transforms, bases)
+                self._obj_tbl_key = om.version
+                copied += om.transforms.nbytes + om.bases.nbytes
+            f.transforms, f.bases = self._obj_tbl
+
+            gkey = (om.version, tuple(sorted(arch_bases.items())), hidden_arch)
+            if self._gslot_key != gkey:
+                gslots = om.material_slots.astype(np.int32)
+                obj_pbr = np.ones(om.cap, bool)
+                obj_hidden = np.zeros(om.cap, bool)
+                if arch_bases or hidden_arch:
+                    for oidx, rec in om.data.items():
+                        if rec.material_arch == arch:
+                            continue
+                        obj_pbr[oidx] = False
+                        b = arch_bases.get(rec.material_arch)
+                        if b is None:
+                            obj_hidden[oidx] = True
+                        else:
+                            gslots[oidx] += b
+                with profiling_scope("sync::upload.objects"):
+                    self._gslot_cache = (torch.from_numpy(gslots).to(dev), obj_pbr, obj_hidden)
+                self._gslot_key = gkey
+                copied += gslots.nbytes
+            f.material_slots, obj_pbr, obj_hidden = self._gslot_cache
+            live = om.enabled & ~obj_hidden
+
+            # Cutout triangles: PBR objects whose material has an alpha
+            # cutoff (base.py:990-1022); the mask over the triangle table is
+            # cached against the topology, object and material versions. None
+            # when the frame has no cutout triangle.
+            cut_key = (om.version, host.version, cut_archs)
+            if self._cut_key != cut_key:
+                cutout_mat = host.data[:, shade_ops.PBR_ALPHA_CUTOUT] > 0.0
+                obj_cut = obj_pbr & cutout_mat[np.clip(om.material_slots, 0, len(cutout_mat) - 1)]
+                for oidx, rec in om.data.items():
+                    if rec.material_arch in cut_archs:
+                        obj_cut[oidx] = True
+                cutout_tri = obj_cut[opaque[:, 3]]
+                with profiling_scope("sync::upload.objects"):
+                    self._cut_dev = torch.from_numpy(cutout_tri).to(dev) if cutout_tri.any() else None
+                self._cut_key = cut_key
+                copied += cutout_tri.nbytes if self._cut_dev is not None else 0
+            f.cutout_tri = self._cut_dev
+
+            spheres = om.world_spheres
+            visible = live & cam.world_frustum.contains_spheres(spheres)
+            with profiling_scope("sync::upload.visible"):
+                f.visible = torch.from_numpy(visible).to(dev)
+            plan = eval_output.shadow_plan
+            shadow_visible = np.zeros((max(1, len(plan)), om.cap), dtype=bool)
+            for k, (li, _off, _sz) in enumerate(plan):
+                sc = eval_output.shadow_cameras[li]
+                shadow_visible[k] = live & sc.world_frustum.contains_spheres(spheres)
+            f.shadow_visible_host = shadow_visible
+            with profiling_scope("sync::upload.visible"):
+                f.shadow_visible = torch.from_numpy(shadow_visible).to(dev)
+            profiling.count("upload.object_bytes", copied)
+            profiling.count("objects.live", int(np.count_nonzero(live)))
+            profiling.count("objects.visible", int(np.count_nonzero(visible)))
 
         # Blend triangles, sorted far first by object distance every frame
         # (base.py:780-814: a stable argsort of -distance, then one
@@ -508,19 +536,6 @@ class BaseRenderGraph:
                 bslots = np.unique(om.material_slots[np.unique(blend[:, 3])])
                 bl_tex = host.textures[np.clip(bslots, 0, len(host.textures) - 1)]
                 f.blend_tex_slots = tuple(int(q) for q in np.nonzero(bl_tex.any(axis=0))[0])
-
-        spheres = om.world_spheres
-        visible = live & cam.world_frustum.contains_spheres(spheres)
-        with profiling_scope("sync::upload.visible"):
-            f.visible = torch.from_numpy(visible).to(dev)
-        plan = eval_output.shadow_plan
-        shadow_visible = np.zeros((max(1, len(plan)), om.cap), dtype=bool)
-        for k, (li, _off, _sz) in enumerate(plan):
-            sc = eval_output.shadow_cameras[li]
-            shadow_visible[k] = live & sc.world_frustum.contains_spheres(spheres)
-        f.shadow_visible_host = shadow_visible
-        with profiling_scope("sync::upload.visible"):
-            f.shadow_visible = torch.from_numpy(shadow_visible).to(dev)
 
         def t(a, dtype=torch.float32):
             with profiling_scope("sync::upload.uniforms"):

@@ -20,12 +20,15 @@ chrome://tracing trace (scene_viewer 'P'). Here:
 - Off (disabled and no profiler recording), `scope` returns one shared
   no-op context manager and allocates nothing.
 
-Span names: `Renderer::*` (the scene steps), `BaseRenderGraph::*` (the
-frame and its upload), `graph::<stage>` (each stage of the frame),
-`sync::<site>` (a call that blocks the host until the device is done: its
-duration is the host's wait, its count the frame's device reads and
-stream-synchronizing uploads), `kernel::<name>` (a hand-written kernel's
-wrapper on the card from its launch preparation on: that call's host cost).
+Span names: `Renderer::*` (the scene steps), `objects::evaluate` (inside
+evaluate_instructions: a run of object instructions applied),
+`BaseRenderGraph::*` (the frame and its upload), `upload::objects` (the
+upload's host work that scales with the object count), `graph::<stage>`
+(each stage of the frame), `sync::<site>` (a call that blocks the host
+until the device is done: its duration is the host's wait, its count the
+frame's device reads and stream-synchronizing uploads), `kernel::<name>`
+(a hand-written kernel's wrapper on the card from its launch preparation
+on: that call's host cost).
 No name begins with `stage:` or `host:`, which benchmark ranges use.
 """
 

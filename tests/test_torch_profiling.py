@@ -6,7 +6,8 @@ one shared no-op scope while tracing is off; counters reset by enable();
 every program span a CPU range in device_trace's trace.json, beside
 spans.json; two identical static frames of a small city count the same
 sync:: spans, every one from SYNC_SITES; the shadow cache hits on a
-repeated frame and misses after an object moves.
+repeated frame and misses after an object moves (the object tables' cache
+with it: no bytes copied, then some).
 
 On the card (marked cuda; skips without one): one frame of each traffic
 kind (static, camera moving, objects moving) with PyTorch's sync debug mode
@@ -186,14 +187,22 @@ def test_static_frames_count_the_same_sync_sites(city, tmp_path):
 
 def test_shadow_cache_hits_then_misses_after_a_move(city):
     runner, _keep, objects, target = city
+    def counters():
+        c = profiling.stats().counters
+        return {k: v for k, v in c.items() if k.startswith("shadow_cache.")}, c
+
     profiling.enable()
     _frame(runner, target)
     _frame(runner, target)
-    assert profiling.stats().counters == {"shadow_cache.hit": 2}
+    shadow, c = counters()
+    assert shadow == {"shadow_cache.hit": 2}
+    assert c["objects.transforms"] == 0 and c["upload.object_bytes"] == 0  # the object caches hold too
     runner.renderer.set_object_transform(objects[0], m3.translation([3.0, 2.0, 1.0]) @ m3.scale(2.0))
     _frame(runner, target)
     profiling.disable()
-    assert profiling.stats().counters == {"shadow_cache.hit": 2, "shadow_cache.miss": 1}
+    shadow, c = counters()
+    assert shadow == {"shadow_cache.hit": 2, "shadow_cache.miss": 1}
+    assert c["objects.transforms"] == 1 and c["upload.object_bytes"] > 0
 
 
 @pytest.mark.cuda
