@@ -192,18 +192,26 @@ KERNEL_NAMES = (
     "raster_resolve", "raster_msaa", "raster_count", "raster_bound", "raster_band", "raster_depth", "pcf5", "bilinear",
     "gather", "raster_vis", "shadow_occ", "shadow_occ_lt", "probe_dot", "probe_reduce", "probe_lerp",
     "fma", "fma_dot3", "fma_ab_minus_cd", "shadow_setup", "shadow_tiles",
+    "view_clip", "view_setup", "view_planes", "view_tiles",
 )
 # F1's forms (ops/fp.py fma32, dot3, ab_minus_cd): every frame's clip,
 # setup and light-space products launch all three.
 F1_KERNELS = ("fma", "fma_dot3", "fma_ab_minus_cd")
+# The form every deferred frame on the card launches (the light-space
+# products, the texture queries): dot3 and ab_minus_cd left its front end
+# with V1-V4 (ab_minus_cd stays in the Hi-Z visibility mask, occlusion on).
+F1_FRAME_KERNELS = ("fma",)
 # S1 and S2 (ops/shadow_front.py): every shadow pass on the card builds its
 # maps' caster tables and tile lists with them, then K2 rasters.
 SHADOW_KERNELS = ("shadow_setup", "shadow_tiles")
+# V1-V4 (ops/view_front.py): every frame on the card builds its triangle
+# sets' front-end tables with them.
+VIEW_KERNELS = ("view_clip", "view_setup", "view_planes", "view_tiles")
 # The kernels each frame path must launch.
 FRAME_KERNELS = ("raster_resolve", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather",
-                 *F1_KERNELS, *SHADOW_KERNELS)
+                 *F1_FRAME_KERNELS, *SHADOW_KERNELS, *VIEW_KERNELS)
 MSAA_KERNELS = ("raster_msaa", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather",
-                *F1_KERNELS, *SHADOW_KERNELS)
+                *F1_FRAME_KERNELS, *SHADOW_KERNELS, *VIEW_KERNELS)
 # The kernels the feature frame must launch at 1 / 4 samples (K4 also for
 # the skybox, K2 for the new pose's shadow maps).
 FEATURE_KERNELS = {1: FRAME_KERNELS, 4: MSAA_KERNELS}
@@ -253,10 +261,10 @@ def phase_build():
 
 
 def _counters():
-    from rend3_tpu_torch.ops import deferred, fp, probe_bf16, raster_binned, samplers, shadow, shadow_front
+    from rend3_tpu_torch.ops import deferred, fp, probe_bf16, raster_binned, samplers, shadow, shadow_front, view_front
 
     return (deferred.launches, samplers.launches, raster_binned.launches, shadow.launches, probe_bf16.launches,
-            fp.launches, shadow_front.launches)
+            fp.launches, shadow_front.launches, view_front.launches)
 
 
 def _launch_counts():
@@ -365,7 +373,8 @@ def phase_slice(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
         raise AssertionError("moving a building did not invalidate the shadow map")
     log(f"launches during the three flat frames: {counts}")
     if cuda:
-        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", *F1_KERNELS, *SHADOW_KERNELS))
+        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", *F1_FRAME_KERNELS, *SHADOW_KERNELS,
+                                 *VIEW_KERNELS))
     for img in (img1, img2, img3):
         _check_image(img, width, height)
     if not np.array_equal(img1, img2):
@@ -420,7 +429,7 @@ def phase_textured(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
     log(f"launches during the three textured frames: {counts}")
     log(f"frame 2 survivors: main + resid = {s_on2} vs {s_off} with occlusion off")
     if cuda:
-        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", "bilinear", "gather", *F1_KERNELS,
+        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", "bilinear", "gather", *F1_FRAME_KERNELS,
                                  *SHADOW_KERNELS))
     for img in (ref, img1, img2, img3):
         _check_image(img, width, height)
@@ -1042,6 +1051,11 @@ def phase_kernels(paths, extra_rows=(), timed=True):
     # with the buffers and totals of a first call.
     if "shadow_front" in rcap:  # captured on the card only
         rows += _shadow_front_rows(rcap["shadow_front"], paths["representative"][0], timed)
+    # V1-V4 on the representative frame's main set: every site's tables
+    # against the plain version, then each kernel timed as its device
+    # launches alone (V1: count and fill; V2: cull, scan and setup).
+    if rcap["view_cull"]["setup"][2].setup.is_cuda:
+        rows += _view_front_rows(rcap, paths["representative"][0], timed)
 
     # K3: abs <= 1e-6. The maps are read only around valid queries (12 texels each).
     args = cap["pcf5"]
@@ -1206,6 +1220,111 @@ def _shadow_front_rows(args, graph, timed):
     ]
 
 
+# f32 operations V1 spends on a triangle (the clip transform's 12 dot3 +
+# add, the near-plane tests), V2 on a clipped row (the screen tests) and on
+# a survivor (the edges, the depth plane), V3 on a survivor (17 channels
+# at 3 corners, 18 planes of 3 coefficients, the normal and tangent
+# transforms), an fma counting two; the clipping of the crossing
+# triangles is left out.
+V1_OPS_PER_TRI = 12 * 6 + 9
+V2_OPS_PER_ROW = 40
+V2_OPS_PER_SURVIVOR = 120
+V3_OPS_PER_SURVIVOR = 17 * 3 * 5 + 18 * 3 * 7 + 2 * 3 * (3 * 6 + 9 + 5)
+
+
+def _view_front_rows(rcap, graph, timed):
+    """V1-V4 held to their plain version at every call site of the
+    representative frame (rcap: its captures), and their phase-11 rows on
+    its main set; logs the front end's host time on the main set, V1-V4
+    against the PyTorch chain."""
+    import torch
+
+    from rend3_tpu_torch.ops import deferred as D
+    from rend3_tpu_torch.ops import geometry as G
+    from rend3_tpu_torch.ops import transform as TR
+    from rend3_tpu_torch.ops import view_front as VF
+
+    _view_front_check("representative", rcap)
+    args, table = rcap["view_clip"]["main"]
+    (clip_rows, valid, width, height), kw, tris = rcap["view_cull"]["setup"]
+    pargs, (wp, hp, y0), _t, planes, binned = rcap["view_planes"]["planes"]
+    T, Tc, V, P = args[2].shape[0], clip_rows.shape[0], tris.count, int(binned.ids.numel())
+    culled = VF.cull(clip_rows, valid, width, height, wp=wp, hp=hp, y0=y0, **kw)
+    blk = torch.empty(T // VF.BLOCK + 2, dtype=torch.int32, device=clip_rows.device)
+    n_cross = (Tc - T) // 3
+    out = VF.clip(*args)
+    n_objects = args[4].shape[0]
+    # Bytes: each input once (corners through the position arena, object
+    # ids and matrices), each output once.
+    b1 = _bound(T * (12 + 4 + 36) + _nbytes(args[3], args[4], args[5]) + Tc * (48 + 36 + 8 + 1),
+                T * V1_OPS_PER_TRI)
+    b2 = _bound(Tc * (48 + 1) + V * (64 + 16 + 8 + 1) + _nbytes(culled.offsets),
+                Tc * V2_OPS_PER_ROW + V * V2_OPS_PER_SURVIVOR)
+    b3 = _bound(V * (8 + 1 + 48 + 36 + 8 + 12 + 4 + 24 + 64 + 3 * 17 * 4 + 4) + _nbytes(planes),
+                V * V3_OPS_PER_SURVIVOR)
+    b4 = _bound(V * 16 + _nbytes(binned.offsets, binned.ids), 0)
+    log(f"view front end (representative main set, {T} triangles, {n_cross} crossing, {V} survivors, {P} list "
+        f"entries, {n_objects} objects)")
+    if timed:
+        def chain():
+            c = TR.clip_triangles(TR.gather_tri_clip(args[0], args[1], args[2], args[3][:, 0], args[4],
+                                                     contract=True), args[5][args[2].long()], contract=True)
+            t = G.cull_and_setup(c.clip, valid, width, height, contract=True, **kw)
+            D.attribute_planes(t, c.clip, c.bary, c.orig, *pargs[1:], contract=True)
+            G.bin_triangles(t, wp, hp, tile_h=D.DTILE_H, tile_w=D.DTILE_W, y0=y0)
+
+        def card():
+            c = VF.clip(*args)
+            k = VF.cull(c.clip, valid, width, height, wp=wp, hp=hp, y0=y0, **kw)
+            VF.planes(k, c, *pargs[1:])
+            VF.tiles(k)
+
+        log(f"view front end (representative main set): V1-V4 {_median_ms(card, 20)} ms, the PyTorch chain "
+            f"{_median_ms(chain, 20)} ms (host included, median)")
+    src = "rend3_tpu_torch/csrc/view_front.cu"
+    return [
+        ("view_clip", src, "none (XLA ops: rend3_tpu/ops/transform.py gather_tri_clip, clip_triangles)",
+         lambda: VF.clip(*args), lambda: VF.clip_plain(*args), 0.0, b1, None,
+         lambda: (VF.launch_clip_count(args, blk), VF.launch_clip_fill(args, blk, n_cross, out))),
+        ("view_setup", src, "none (XLA ops: rend3_tpu/ops/geometry.py cull_and_setup)",
+         lambda: VF.cull(clip_rows, valid, width, height, wp=wp, hp=hp, y0=y0, **kw),
+         lambda: VF.cull_plain(clip_rows, valid, width, height, **kw), 0.0, b2, None,
+         lambda: (VF.launch_cull(culled), VF.launch_setup(culled))),
+        ("view_planes", src, "none (XLA ops: rend3_tpu/ops/deferred.py attribute_planes)",
+         lambda: VF.planes(culled, table, *pargs[1:]), lambda: VF.planes_plain(tris, *pargs), 0.0, b3, None),
+        ("view_tiles", src, "none (XLA ops: rend3_tpu/ops/geometry.py bin_triangles)",
+         lambda: VF.tiles(culled), lambda: VF.tiles_plain(tris, wp, hp, y0), 0.0, b4, None),
+    ]
+
+
+def _view_front_check(label, cap):
+    """The tables V1-V4 built at each call site of a frame on the card
+    (cap: its captures) against the plain version on the site's inputs:
+    bit for bit, in order."""
+    import torch
+
+    from rend3_tpu_torch.ops import view_front as VF
+
+    def same(a, b):
+        a, b = (t.view(torch.int32) if t.dtype == torch.float32 else t for t in (a, b))
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+
+    sites = []
+    for site, (args, table) in cap.get("view_clip", {}).items():
+        if not all(same(a, b) for a, b in zip(table, VF.clip_plain(*args))):
+            raise AssertionError(f"{label} V1 ({site}) differs from the plain version")
+    for name, ((clip_rows, valid, width, height), kw, tris) in cap.get("view_cull", {}).items():
+        if not all(same(a, b) for a, b in zip(tris, VF.cull_plain(clip_rows, valid, width, height, **kw))):
+            raise AssertionError(f"{label} V2 ({name}) differs from the plain version")
+        sites.append(f"{name} {tris.count}")
+    for name, (args, (wp, hp, y0), tris, planes, binned) in cap.get("view_planes", {}).items():
+        if not same(planes, VF.planes_plain(tris, *args)):
+            raise AssertionError(f"{label} V3 ({name}) differs from the plain version")
+        if not all(same(a, b) for a, b in zip(binned, VF.tiles_plain(tris, wp, hp, y0))):
+            raise AssertionError(f"{label} V4 ({name}) differs from the plain version")
+    log(f"{label} V1-V4: every table equals the plain version, in order (survivors: {', '.join(sites)})")
+
+
 F1_SOURCE = "rend3_tpu_torch/csrc/fma.cu"
 # No pallas_call emits an fma: the lines of the JAX frame whose sums
 # XLA:CPU contracts into each form (the light-space product, the clip
@@ -1219,6 +1338,8 @@ F1_TIMED_SITE = {"fma": "routine/base.py", "fma_dot3": "ops/transform.py", "fma_
 # f32 operations per output element (an fma counts two).
 F1_OPS = {"fma": 2, "fma_dot3": 5, "fma_ab_minus_cd": 3}
 F1_STRESS_ROWS = 1 << 24
+# Rows a form is timed at where the frames make no call from its file.
+F1_UNSITED_ROWS = 1 << 20
 
 
 def _f1_same(label, k, p):
@@ -1303,7 +1424,11 @@ def phase_f1(sites, device="cuda"):
     rows = []
     for form in F1_KERNELS:
         cands = [(site, xs) for (f, site), xs in sites.items() if f == form and site.startswith(F1_TIMED_SITE[form])]
-        site, xs = max(cands, key=lambda c: torch.broadcast_shapes(*(x.shape for x in c[1])).numel())
+        if cands:
+            site, xs = max(cands, key=lambda c: torch.broadcast_shapes(*(x.shape for x in c[1])).numel())
+        else:  # no call from that file on the card's frames: the stress input's first rows
+            site = f"testing.fma_stress_case[:{F1_UNSITED_ROWS}] (no call from {F1_TIMED_SITE[form]} on these frames)"
+            xs = [torch.from_numpy(x).to(device) for x in testing.fma_stress_case(form, F1_UNSITED_ROWS, seed=11)]
         out = public[form](*xs)
         bytes_moved = sum(_distinct_bytes(x) for x in xs) + _nbytes(out)
         libfn = None
@@ -1420,8 +1545,8 @@ def log_kernel_info():
     runtime) of each instance of K1 / K2's tiles_kernel, K6's vis_kernel,
     K7 / K8's occ_kernel, of P1's dot_kernel at the probes' K = 72, of
     K5's gather_kernel for the four Hi-Z taps, of P2's reduce_kernel, of
-    P3's lerp_kernel (x-lerp and 128-lane sum), of F1's nine instances
-    and of S1 / S2's three kernels."""
+    P3's lerp_kernel (x-lerp and 128-lane sum), of F1's nine instances,
+    of S1 / S2's three kernels and of V1-V4's seven."""
     from rend3_tpu_torch.ops import cuda_kernels
 
     rows = [(f"{'vis' if name.startswith('K6') else 'tiles'}_kernel {name}", "raster_kernel_info", (i,))
@@ -1432,6 +1557,7 @@ def log_kernel_info():
     rows += [(name, "p23_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.P23_INSTANCES)]
     rows += [(name, "f1_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.F1_INSTANCES)]
     rows += [(name, "shadow_front_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.SHADOW_FRONT_INSTANCES)]
+    rows += [(name, "view_front_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.VIEW_FRONT_INSTANCES)]
     for label, fn, args in rows:
         info = cuda_kernels.kernel_info(fn, *args)
         log(f"{label}: {info['registers']} registers, {info['local_bytes']} local (spill) bytes, "
@@ -1711,6 +1837,9 @@ def _check_frame_kernels(label, cap):
     if "shadow_front" in cap:
         _shadow_front_check(label, cap["shadow_front"])
         checked += list(SHADOW_KERNELS)
+    if any(table.clip.is_cuda for _args, table in cap.get("view_clip", {}).values()):
+        _view_front_check(label, cap)
+        checked += list(VIEW_KERNELS)
     if "pcf5" in cap:
         err = float((S.sample_grid_pcf5(*cap["pcf5"]) - S.sample_grid_pcf5_plain(*cap["pcf5"])).abs().max())
         log(f"{label} K3: max abs err {err:.3g} over {int(cap['pcf5'][-1].sum())} valid queries")
@@ -2116,9 +2245,9 @@ def phase_bench_host(device="cuda", n_objects=50_000):
 BAND_COUNTS = (2, 4, 8)
 # The kernels the banded frames must launch: K1 at every band's first row
 # past 0 ("raster_band") and band 0's K1 modes, K2 for the shadow maps
-# (rebuilt in the first banded frame of each scene), K3, K4 and K5.
+# (rebuilt in the first banded frame of each scene), K3, K4, K5 and V1-V4.
 BAND_KERNELS = ("raster_band", "raster_resolve", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear",
-                "gather", *F1_KERNELS, *SHADOW_KERNELS)
+                "gather", *F1_FRAME_KERNELS, *SHADOW_KERNELS, *VIEW_KERNELS)
 
 
 def _peak_start(cuda):

@@ -39,14 +39,13 @@
 // (__match_any_sync): neighbouring rows are neighbouring triangles of one
 // mesh and meet the same tiles, where atomics would queue on one address.
 //
-// Numerics. Every product, sum and fma is an _rn intrinsic and the library
-// is built with --fmad=false, so each setup row equals the chain's bit for
-// bit; 1/x is the IEEE quotient (__frcp_rn), as PyTorch's reciprocal. Only
-// the order of the rows, and of the ids within a tile's list, differs
-// (atomics). K2 cannot see either: its result is a per-texel max
-// (raster.cu), so the maps equal the chain's bit for bit. The view's K1
-// can see the order (its later-entry tie-break), so only the shadow pass
-// takes this path.
+// Numerics: front_end.cuh's (the near clip, the screen transform, the setup
+// row and the tile rectangles, shared with the view's V1-V4), so each setup
+// row equals the chain's bit for bit. Only the order of the rows, and of
+// the ids within a tile's list, differs (atomics). K2 cannot see either:
+// its result is a per-texel max (raster.cu), so the maps equal the chain's
+// bit for bit. The view's K1 can see the order (its later-entry
+// tie-break), so V1-V4 (view_front.cu) place the view's rows by scans.
 //
 // What bounds them on the H100: neither bytes nor operations. S1 reads 40
 // bytes a (map, triangle) and writes 89 a survivor (setup row, bbox, src,
@@ -59,19 +58,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "front_end.cuh"
 #include "kernel_info.cuh"
 
 namespace {
 
+using namespace front_end;
+
 constexpr int kThreads = 256;
 constexpr int kScanThreads = 1024;
 constexpr int kMaxMaps = 4;  // maps a launch; the wrapper launches once a group
-constexpr int SETUP_W = 16;
-constexpr int S_ID = 13;
-constexpr int TILE_H = 32;   // deferred.DTILE_H
-constexpr int TILE_W = 128;  // deferred.DTILE_W
-constexpr float W_EPS = 1e-6f;
-constexpr unsigned FULL = 0xffffffffu;
 
 struct Maps {
     int n;                    // maps of this launch
@@ -106,45 +102,6 @@ struct S1Params {
 __device__ __forceinline__ int n_cols(int size) { return (size + TILE_W - 1) / TILE_W; }
 __device__ __forceinline__ int n_rows(int size) { return (size + TILE_H - 1) / TILE_H; }
 
-// torch.amin / amax: a NaN wins.
-__device__ __forceinline__ float nmin(float a, float b) { return (a != a || a < b) ? a : b; }
-__device__ __forceinline__ float nmax(float a, float b) { return (a != a || a > b) ? a : b; }
-
-// fma(a, b, -(c*d)): ops/fp.py ab_minus_cd.
-__device__ __forceinline__ float ab_minus_cd(float a, float b, float c, float d)
-{
-    return __fmaf_rn(a, b, -__fmul_rn(c, d));
-}
-
-// bin_triangles' candidate span of one axis, [lo_t, hi_t] clamped to the
-// n tiles; the exact test decides within it.
-__device__ __forceinline__ void span(float lo, float hi, float tile, int n, int& a, int& b)
-{
-    const float fa = fminf(fmaxf(floorf(lo / tile), -1.0f), (float)n);
-    const float fb = fminf(fmaxf(floorf(hi / tile), -1.0f), (float)n);
-    a = min(max((int)fa - 1, 0), n - 1);
-    b = min(max((int)fb + 1, 0), n - 1);
-}
-
-// The tiles [lo, hi] along one axis (n tiles of `tile` texels) that the
-// bbox's [bmin, bmax] meets by bin_triangles' float test, bmax > t0 and
-// bmin < t0 + tile (hi < lo if none). The test is monotone in the tile, so
-// the tiles a bbox meets form a rectangle of the padded map.
-__device__ __forceinline__ void axis_hits(float bmin, float bmax, int tile, int n, int& lo, int& hi)
-{
-    int a, b;
-    span(bmin, bmax, (float)tile, n, a, b);
-    lo = b + 1;
-    hi = a - 1;
-    for (int i = a; i <= b; ++i) {
-        const float t0 = (float)(i * tile);
-        if (bmax > t0 && bmin < t0 + (float)tile) {
-            lo = min(lo, i);
-            hi = max(hi, i);
-        }
-    }
-}
-
 // Every DTILE_H x DTILE_W tile of the padded size x size map that each
 // lane's bbox meets (none where live is false), a round a tile: f(tile,
 // group) on every lane of the warp each round, tile -1 for a lane with no
@@ -153,130 +110,33 @@ __device__ __forceinline__ void axis_hits(float bmin, float bmax, int tile, int 
 template <typename F>
 __device__ __forceinline__ void warp_tiles(bool live, float4 bb, int size, F&& f)
 {
-    const int nc = n_cols(size), nr = n_rows(size);
-    int c0 = 0, c1 = -1, r0 = 0, r1 = -1;
-    if (live) {
-        axis_hits(bb.x, bb.z, TILE_W, nc, c0, c1);
-        axis_hits(bb.y, bb.w, TILE_H, nr, r0, r1);
-    }
-    const int w = c1 - c0 + 1, h = r1 - r0 + 1;
-    const int mine = w > 0 && h > 0 ? w * h : 0;
+    const int nc = n_cols(size);
+    const int4 rc = live ? tile_rect(bb, nc, n_rows(size), 0) : make_int4(0, 0, -1, -1);
+    const int w = rc.z - rc.x + 1;
+    const int mine = rect_size(rc);
     int most = mine;
 #pragma unroll
     for (int d = 16; d > 0; d >>= 1) most = max(most, __shfl_xor_sync(FULL, most, d));
     for (int k = 0; k < most; ++k) {
-        const int tile = k < mine ? (r0 + k / w) * nc + c0 + k % w : -1;
+        const int tile = k < mine ? (rc.y + k / w) * nc + rc.x + k % w : -1;
         f(tile, __match_any_sync(FULL, tile));
-    }
-}
-
-// One Sutherland-Hodgman step of _clip_one_plane: polygon v (n <= 4
-// corners) against d >= 0, d = w - W_EPS (PLANE 0) or w - z (PLANE 1).
-template <int PLANE>
-__device__ void clip_plane(const float (&v)[5][4], int n, float (&o)[5][4], int& on)
-{
-    float d[5];
-#pragma unroll
-    for (int i = 0; i < 5; ++i) d[i] = PLANE == 0 ? __fsub_rn(v[i][3], W_EPS) : __fsub_rn(v[i][3], v[i][2]);
-#pragma unroll
-    for (int i = 0; i < 5; ++i)
-#pragma unroll
-        for (int a = 0; a < 4; ++a) o[i][a] = 0.0f;
-    on = 0;
-    for (int i = 0; i < 4; ++i) {
-        if (i >= n) break;
-        const int j = i + 1 >= n ? 0 : i + 1;
-        const float di = d[i], dj = d[j];
-        const bool ini = di >= 0.0f, inj = dj >= 0.0f;
-        if (ini) {
-#pragma unroll
-            for (int a = 0; a < 4; ++a) o[on][a] = v[i][a];
-            ++on;
-        }
-        if (ini != inj) {
-            const float den = __fsub_rn(di, dj);
-            const float t = __fdiv_rn(di, fabsf(den) < 1e-30f ? 1e-30f : den);
-#pragma unroll
-            for (int a = 0; a < 4; ++a) o[on][a] = __fmaf_rn(__fsub_rn(v[j][a], v[i][a]), t, v[i][a]);
-            ++on;
-        }
     }
 }
 
 // cull_and_setup(cull_mode=FRONT, subpixel=True, contract=True) on one
 // clipped triangle c of a size x size map: whether it survives, and if so
 // its setup row (S_ID left to the caller) and bbox.
-__device__ bool setup_row(const float (&c)[3][4], float fsize, bool front_is_cw, float* row, float4& bb,
-                          bool& flip)
+__device__ bool caster_row(const float (&c)[3][4], float fsize, bool front_is_cw, float* row, float4& bb,
+                           bool& flip)
 {
-    float x[3], y[3], z[3], yp[3];
-    bool wpos = true;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-        const float w = c[i][3];
-        wpos = wpos && w > 0.0f;
-        const float inv_w = __frcp_rn(w == 0.0f ? 1.0f : w);
-        x[i] = __fmul_rn(__fadd_rn(__fmul_rn(__fmul_rn(c[i][0], inv_w), 0.5f), 0.5f), fsize);
-        yp[i] = __fsub_rn(0.5f, __fmul_rn(__fmul_rn(c[i][1], inv_w), 0.5f));
-        y[i] = __fmul_rn(yp[i], fsize);
-        z[i] = __fmul_rn(c[i][2], inv_w);
-    }
-    const float area2 = ab_minus_cd(__fsub_rn(x[1], x[0]), __fsub_rn(y[2], y[0]), __fsub_rn(x[2], x[0]),
-                                    __fsub_rn(y[1], y[0]));
-    const bool is_front = front_is_cw ? area2 > 0.0f : area2 < 0.0f;
-    bb.x = nmin(nmin(x[0], x[1]), x[2]);
-    bb.y = nmin(nmin(y[0], y[1]), y[2]);
-    bb.z = nmax(nmax(x[0], x[1]), x[2]);
-    bb.w = nmax(nmax(y[0], y[1]), y[2]);
-    bool keep = area2 != 0.0f && wpos && !is_front;
-    keep = keep && bb.z > 0.0f && bb.x < fsize && bb.w > 0.0f && bb.y < fsize;
-    // Sub-pixel cull: the bbox holds no texel centre.
-    const float cx = __fadd_rn(floorf(__fsub_rn(bb.x, 0.5f)), 1.5f);
-    const float cy = __fadd_rn(floorf(__fsub_rn(bb.y, 0.5f)), 1.5f);
-    keep = keep && cx <= bb.z && cy <= bb.w;
-    if (!keep) return false;
-
-    flip = area2 < 0.0f;
-    // Corners 1 and 2 swapped where flip (orientation fix).
-    const float xo[3] = {x[0], flip ? x[2] : x[1], flip ? x[1] : x[2]};
-    const float yo[3] = {y[0], flip ? y[2] : y[1], flip ? y[1] : y[2]};
-    const float zo[3] = {z[0], flip ? z[2] : z[1], flip ? z[1] : z[2]};
-    const float ypo[3] = {yp[0], flip ? yp[2] : yp[1], flip ? yp[1] : yp[2]};
-    float ea[3], eb[3], ec[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-        const int n = (i + 1) % 3;
-        const float xn = xo[n], yn = yo[n];
-        const float dy = __fsub_rn(yn, yo[i]);
-        ea[i] = -dy;
-        eb[i] = __fsub_rn(xn, xo[i]);
-        ec[i] = ab_minus_cd(dy, xo[i], eb[i], yo[i]);
-        row[i] = __fmaf_rn(ypo[i], fsize, -yn);  // the stored a: yo's product fused in
-        row[3 + i] = eb[i];
-        // Watertight shared edges: c anchored at the lexicographically
-        // smaller endpoint (geometry.py:226-239).
-        const bool swap = xn < xo[i] || (xn == xo[i] && yn < yo[i]);
-        const float lx = swap ? xn : xo[i], hx = swap ? xo[i] : xn;
-        const float ly = swap ? yn : yo[i], hy = swap ? yo[i] : yn;
-        const float cc = ab_minus_cd(__fsub_rn(hy, ly), lx, __fsub_rn(hx, lx), ly);
-        row[6 + i] = swap ? -cc : cc;
-    }
-    // Depth plane: z(p) = sum_i z_i * e_opp_i(p) / area, each sum
-    // fma(z2, e0, fma(z1, e2, z0 * e1)).
-    const float area_o = ab_minus_cd(__fsub_rn(xo[1], xo[0]), __fsub_rn(yo[2], yo[0]), __fsub_rn(xo[2], xo[0]),
-                                     __fsub_rn(yo[1], yo[0]));
-    const float inv_area = __frcp_rn(area_o == 0.0f ? 1.0f : area_o);
-    row[9] = __fmul_rn(__fmaf_rn(zo[2], ea[0], __fmaf_rn(zo[1], ea[2], __fmul_rn(zo[0], ea[1]))), inv_area);
-    row[10] = __fmul_rn(__fmaf_rn(zo[2], eb[0], __fmaf_rn(zo[1], eb[2], __fmul_rn(zo[0], eb[1]))), inv_area);
-    row[11] = __fmul_rn(__fmaf_rn(zo[2], ec[0], __fmaf_rn(zo[1], ec[2], __fmul_rn(zo[0], ec[1]))), inv_area);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-        const float dy = __fsub_rn(yo[(i + 1) % 3], yo[i]);
-        const float dx = __fsub_rn(xo[(i + 1) % 3], xo[i]);
-        const float tl = ((dy == 0.0f && dx > 0.0f) || dy < 0.0f) ? 1.0f : 0.0f;
-        row[i == 0 ? 12 : 13 + i] = tl;
-    }
-    return true;
+    Screen s;
+    to_screen(c, fsize, fsize, s);
+    bb = s.bb;
+    const bool is_front = front_is_cw ? s.area2 > 0.0f : s.area2 < 0.0f;
+    const bool keep = s.area2 != 0.0f && s.wpos && !is_front && bb.z > 0.0f && bb.x < fsize && bb.w > 0.0f &&
+                      bb.y < fsize && holds_centre(bb);
+    if (keep) setup_row(s, fsize, row, flip);
+    return keep;
 }
 
 // The survivors of one slot of the CTA take one atomicAdd on the map's
@@ -363,7 +223,7 @@ __global__ void __launch_bounds__(kThreads) s1_kernel(S1Params p)
 #pragma unroll
                 for (int a = 0; a < 4; ++a) {
                     const float* r = mm + 4 * a;
-                    c[i][a] = __fadd_rn(__fmaf_rn(r[2], p2, __fmaf_rn(r[1], p1, __fmul_rn(r[0], p0))), r[3]);
+                    c[i][a] = __fadd_rn(dot3(r[0], p0, r[1], p1, r[2], p2), r[3]);
                 }
                 const bool in = __fsub_rn(c[i][3], c[i][2]) >= 0.0f && c[i][3] > W_EPS;
                 any_in = any_in || in;
@@ -377,7 +237,7 @@ __global__ void __launch_bounds__(kThreads) s1_kernel(S1Params p)
         float row[SETUP_W];
         float4 bb;
         bool flip = false;
-        const bool keep = all_in && setup_row(c, fsize, cw, row, bb, flip);
+        const bool keep = all_in && caster_row(c, fsize, cw, row, bb, flip);
         const int v = append(keep, p.surv + m, warp_base);
         if (keep && v < p.cap) put_row(p, m, v, 4 * t, row, bb, flip);
         count_tiles(keep && v < p.cap, bb, size, tiles);
@@ -416,7 +276,7 @@ __global__ void __launch_bounds__(kThreads) s1_kernel(S1Params p)
         float row[SETUP_W];
         float4 bb;
         bool flip = false;
-        const bool keep = cand && setup_row(tri, fsize, cw, row, bb, flip);
+        const bool keep = cand && caster_row(tri, fsize, cw, row, bb, flip);
         const int v = append(keep, p.surv + m, warp_base);
         if (keep && v < p.cap) put_row(p, m, v, 4 * t + s, row, bb, flip);
         count_tiles(keep && v < p.cap, bb, size, tiles);

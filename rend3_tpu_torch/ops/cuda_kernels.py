@@ -39,8 +39,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("raster.cu", "pcf5.cu", "bilinear.cu", "gather.cu", "shadow_occ.cu", "probe_bf16.cu", "fma.cu",
-           "shadow_front.cu")
-HEADERS = ("kernel_info.cuh", "tile_lists.cuh")
+           "shadow_front.cu", "view_front.cu")
+HEADERS = ("kernel_info.cuh", "tile_lists.cuh", "front_end.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-lineinfo", "-Xcompiler", "-fPIC")
 
@@ -61,10 +61,17 @@ _SIGNATURES = {
     "s1_shadow_setup": (10, 7 + 2 * 4, 0),
     "s2_tile_scan": (5, 3 + 2 * 4, 0),
     "s2_tile_fill": (4, 4 + 3 * 4, 0),
+    "v1_clip_count": (7, 4, 0),
+    "v1_clip_fill": (11, 5, 0),
+    "v2_cull": (6, 8 + 3 * 12, 4),
+    "v2_setup": (7, 2, 2),
+    "v3_planes": (17, 7, 2),
+    "v4_tiles": (4, 4, 0),
 }
 # name -> int args of the kernel-info functions, which end with an int[5].
 _INFO_SIGNATURES = {"raster_kernel_info": 1, "p1_kernel_info": 2, "k5_kernel_info": 1, "occ_kernel_info": 1,
-                    "p23_kernel_info": 1, "f1_kernel_info": 1, "shadow_front_kernel_info": 1}
+                    "p23_kernel_info": 1, "f1_kernel_info": 1, "shadow_front_kernel_info": 1,
+                    "view_front_kernel_info": 1}
 
 _lib: Optional[ctypes.CDLL] = None
 last_build: dict = {}
@@ -186,6 +193,9 @@ F1_INSTANCES = tuple(f"F1 {form} {path}" for form in ("fma", "dot3", "ab_minus_c
                                   "rows4_kernel 64-bit"))
 # csrc/shadow_front.cu's kernels, by shadow_front_kernel_info's index.
 SHADOW_FRONT_INSTANCES = ("S1 s1_kernel", "S2 scan_kernel", "S2 fill_kernel")
+# csrc/view_front.cu's kernels, by view_front_kernel_info's index.
+VIEW_FRONT_INSTANCES = ("V1 clip_count_kernel", "V1 clip_fill_kernel", "V2 cull_kernel", "V2 cull_scan_kernel",
+                        "V2 setup_kernel", "V3 planes_kernel", "V4 tiles_kernel")
 
 
 def kernel_info(fn: str, *ints: int) -> dict:
@@ -197,7 +207,8 @@ def kernel_info(fn: str, *ints: int) -> dict:
     at K's dynamic shared memory, `k5_kernel_info(n)` for K5 with n taps,
     `p23_kernel_info(which)` for P23_INSTANCES[which], `f1_kernel_info(which)`
     for F1_INSTANCES[which], `shadow_front_kernel_info(which)` for
-    SHADOW_FRONT_INSTANCES[which]."""
+    SHADOW_FRONT_INSTANCES[which], `view_front_kernel_info(which)` for
+    VIEW_FRONT_INSTANCES[which]."""
     lib = library()
     info = (ctypes.c_int * 5)()
     rc = getattr(lib, fn)(*ints, ctypes.cast(info, ctypes.c_void_p))

@@ -11,8 +11,8 @@ CUDA tensors `shadow_front` builds them for all maps with S1 (one thread a
 fill), in place of the chain's ~630 PyTorch ops and 8 blocking reads a
 map. The rows equal the chain's bit for bit; their order and the order
 within a tile's list come from atomics, which K2's per-texel max cannot
-see. The view's front end keeps the chain: its K1 breaks depth ties by
-list order.
+see. The view's front end (ops/view_front.py) places its rows by scans
+instead: its K1 breaks depth ties by list order.
 
 `shadow_front_plain` is S1 and S2's algorithm in PyTorch on any device,
 with rows in the fixed slot order (row 4 t + s before compaction: slot 0

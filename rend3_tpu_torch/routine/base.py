@@ -41,10 +41,12 @@ culling, a pixel-centre test, is off (base.py:1326-1329).
 Every buffer is sized from the frame's real counts, so the TPU build's
 survivor / flat-list / queue / peel caps, their growth and re-render loop
 and the program cache have no counterpart. The counts are read on the host
-where a `nonzero` or a pair total sizes a table (transform.clip_triangles,
-geometry.cull_and_setup, geometry.bin_triangles, the plain raster versions'
-fragment count) and where a peel loop sizes itself (_cutout_peels and
-_blend_peels count theirs). Each such read, and each upload that
+where a `nonzero` or a pair total sizes a table (on the card the front end
+of each triangle set, ops/view_front.py: a clipped set's crossing
+triangles, a cull's survivor and pair totals; on the CPU its chain,
+transform.clip_triangles, geometry.cull_and_setup, geometry.bin_triangles;
+the plain raster versions' fragment count) and where a peel loop sizes
+itself (_cutout_peels and _blend_peels count theirs). Each such read, and each upload that
 synchronizes the stream, is a `sync::<site>` span of utils/profiling.py;
 each stage is a `graph::<stage>` span (BaseRenderGraph.stage).
 
@@ -89,6 +91,7 @@ from ..ops import shadow_front as shadow_front_ops
 from ..ops import skin as skin_ops
 from ..ops import texture as tex_ops
 from ..ops import transform as transform_ops
+from ..ops import view_front as view_front_ops
 from ..types import Handedness
 from ..types.error import DeviceOutOfMemoryError
 from ..utils import profiling
@@ -641,32 +644,65 @@ class BaseRenderGraph:
 
     def _clip(self, f: _Frame) -> transform_ops.ClippedTris:
         f.mv, f.mvp = transform_ops.object_uniforms(f.transforms, f.view, f.proj)
-        valid = f.visible[f.tri_obj.long()]
-        clip = transform_ops.gather_tri_clip(
-            f.geo.position, f.tri_vlocal, f.tri_obj, f.bases[:, 0], f.mvp, tri_pos=f.tri_pos, contract=True
-        )
-        return transform_ops.clip_triangles(clip, valid, contract=True)
+        return self._clip_table(f, f.tri_vlocal, f.tri_obj, "main", f.tri_pos)
 
-    def _cull(self, f: _Frame, stage, table, valid, name: str, hiz=None) -> geom_ops.TriSetup:
+    def _clip_table(self, f: _Frame, tri_vlocal, tri_obj, site: str, tri_pos=None) -> transform_ops.ClippedTris:
+        """The clipped table of one triangle set (the main set's, or the
+        blend set's): V1 on the card (ops/view_front.py: two launches, one
+        host read), the chain of gather_tri_clip and clip_triangles on the
+        CPU."""
+        args = (f.geo.position, tri_vlocal, tri_obj, f.bases, f.mvp, f.visible)
+        if view_front_ops.on_card(f.transforms):
+            table = view_front_ops.clip(*args)
+        else:
+            clip = transform_ops.gather_tri_clip(
+                f.geo.position, tri_vlocal, tri_obj, f.bases[:, 0], f.mvp, tri_pos=tri_pos, contract=True
+            )
+            table = transform_ops.clip_triangles(clip, f.visible[tri_obj.long()], contract=True)
+        if self.captured is not None:
+            self.captured.setdefault("view_clip", {})[site] = (args, table)
+        return table
+
+    def _cull(self, f: _Frame, stage, table, valid, name: str, hiz=None):
+        """(survivor table, the card's cull) of the rows `valid` of a
+        clipped table, timed under `name`: V2 on the card (one host read of
+        the survivor and pair totals, counter view_front.tables), the chain's
+        cull_and_setup on the CPU (the cull None)."""
         with stage(name):
-            return geom_ops.cull_and_setup(
-                table.clip, valid, f.width, f.height,
-                cull_mode=geom_ops.CullMode.BACK, front_is_cw=f.front_cw, subpixel=f.subpixel, hiz=hiz,
-                contract=True, y_range=f.y_range,
-            )
+            kw = dict(cull_mode=geom_ops.CullMode.BACK, front_is_cw=f.front_cw, subpixel=f.subpixel, hiz=hiz,
+                      y_range=f.y_range)
+            if view_front_ops.on_card(valid):
+                culled = view_front_ops.cull(table.clip, valid, f.width, f.height, wp=f.wp, hp=f.hp, y0=f.row0, **kw)
+                profiling.count("view_front.tables")
+                tris = culled.tris
+            else:
+                culled = None
+                tris = geom_ops.cull_and_setup(table.clip, valid, f.width, f.height, contract=True, **kw)
+            if self.captured is not None:
+                self.captured.setdefault("view_cull", {})[name] = ((table.clip, valid, f.width, f.height), kw, tris)
+            return tris, culled
 
-    def _planes_bin(self, f: _Frame, stage, tris, table, tri_vlocal, tri_obj, names):
+    def _planes_bin(self, f: _Frame, stage, tris, culled, table, tri_vlocal, tri_obj, names):
         """Attribute planes and CSR tile lists of a survivor table, timed
-        under names[0] and names[1]."""
+        under names[0] and names[1]: V3 and V4 after the card's cull, the
+        chain's attribute_planes and bin_triangles otherwise."""
+        args = (table, tri_vlocal, tri_obj, f.bases, f.geo, f.mv, f.material_slots, f.width, f.height)
         with stage(names[0]):
-            planes = def_ops.attribute_planes(
-                tris, table.clip, table.bary, table.orig, tri_vlocal, tri_obj,
-                f.bases, f.geo, f.mv, f.material_slots, f.width, f.height, contract=True,
-            )
+            if culled is not None:
+                planes = view_front_ops.planes(culled, *args)
+            else:
+                planes = def_ops.attribute_planes(
+                    tris, table.clip, table.bary, table.orig, *args[1:], contract=True,
+                )
         with stage(names[1]):
-            binned = geom_ops.bin_triangles(
-                tris, f.wp, f.hp, tile_h=def_ops.DTILE_H, tile_w=def_ops.DTILE_W, y0=f.row0
-            )
+            if culled is not None:
+                binned = view_front_ops.tiles(culled)
+            else:
+                binned = geom_ops.bin_triangles(
+                    tris, f.wp, f.hp, tile_h=def_ops.DTILE_H, tile_w=def_ops.DTILE_W, y0=f.row0
+                )
+        if self.captured is not None:
+            self.captured.setdefault("view_planes", {})[names[0]] = (args, (f.wp, f.hp, f.row0), tris, planes, binned)
         return planes, binned
 
     def _capture(self, key: str, value) -> None:
@@ -693,15 +729,17 @@ class BaseRenderGraph:
         largest, which gives the same images below its cap). The loop also
         stops once no pixel is still searching behind a failed fragment.
 
-        Host reads: cull and binning one each, and per sample the count's
-        maximum plus, per peel, the `nonzero` of its candidate pixels and,
+        Host reads: the cull's (one on the card, cull and binning one each
+        on the CPU), and per sample the count's maximum plus, per peel, the `nonzero` of its candidate pixels and,
         when there are any, the count of those that failed the test."""
-        tris = self._cull(f, stage, f.clipped, f.clipped.valid & cmask, "cut_setup", hiz=pyramid)
+        tris, culled = self._cull(f, stage, f.clipped, f.clipped.valid & cmask, "cut_setup", hiz=pyramid)
         st = self.last_stats
         st["cut_survivors"] = tris.count
         if tris.count == 0:
             return gbufs
-        planes, binned = self._planes_bin(f, stage, tris, f.clipped, f.tri_vlocal, f.tri_obj, ("cut_planes", "cut_bin"))
+        planes, binned = self._planes_bin(
+            f, stage, tris, culled, f.clipped, f.tri_vlocal, f.tri_obj, ("cut_planes", "cut_bin")
+        )
         for si, sofs in enumerate(f.offsets):
             gbufs[si], peels, layers = self._cutout_sample(f, stage, tris, planes, binned, sofs, gbufs[si])
             st["cut_peels"] = max(st["cut_peels"], peels)
@@ -774,17 +812,15 @@ class BaseRenderGraph:
         per peel, the hit pixels' flat ids and their (GB_CH, n) G-buffer
         columns (compacted per (sample, peel), base.py:1803-1830).
 
-        Host reads: clip, cull and binning one each, and per sample the
-        count's maximum and per peel the `nonzero` of its hit pixels."""
+        Host reads: the clip's and the cull's (binning one more on the CPU),
+        and per sample the count's maximum and per peel the `nonzero` of its
+        hit pixels."""
         with stage("blend_geom"):
-            bclip = transform_ops.gather_tri_clip(
-                f.geo.position, f.blend_vlocal, f.blend_obj, f.bases[:, 0], f.mvp, contract=True
-            )
-            table = transform_ops.clip_triangles(bclip, f.visible[f.blend_obj.long()], contract=True)
+            table = self._clip_table(f, f.blend_vlocal, f.blend_obj, "blend")
             # Timed as a whole under "blend_geom".
-            tris = self._cull(f, _within, table, table.valid, "blend_geom")
+            tris, culled = self._cull(f, _within, table, table.valid, "blend_geom")
             planes, binned = self._planes_bin(
-                f, _within, tris, table, f.blend_vlocal, f.blend_obj, ("blend_geom",) * 2
+                f, _within, tris, culled, table, f.blend_vlocal, f.blend_obj, ("blend_geom",) * 2
             )
         st = self.last_stats
         st["blend_survivors"] = tris.count
@@ -1022,8 +1058,10 @@ class BaseRenderGraph:
                 # First frame, or the triangle table changed size: predict all.
                 pm_tri = torch.ones(T, dtype=torch.bool, device=clipped.valid.device)
             pm = pm_tri[clipped.orig.long()]
-        tris = self._cull(f, stage, clipped, opaque_valid if pm is None else opaque_valid & pm, "setup")
-        planes, binned = self._planes_bin(f, stage, tris, clipped, f.tri_vlocal, f.tri_obj, ("planes", "bin"))
+        tris, culled = self._cull(f, stage, clipped, opaque_valid if pm is None else opaque_valid & pm, "setup")
+        planes, binned = self._planes_bin(
+            f, stage, tris, culled, clipped, f.tri_vlocal, f.tri_obj, ("planes", "bin")
+        )
         if self.captured is not None and band is not None:
             # Each band's phase-1 inputs, by its first row.
             self.captured.setdefault("raster_band", {})[row0] = (tris, planes, binned, wp, hp, row0)
@@ -1061,11 +1099,11 @@ class BaseRenderGraph:
                 new_mask = torch.zeros(T, dtype=torch.bool, device=vis.device)
                 with profiling_scope("sync::hiz.visible"):
                     new_mask[clipped.orig.long()[vis]] = True
-            tris_r = self._cull(f, stage, clipped, vis & ~pm, "resid")
+            tris_r, culled_r = self._cull(f, stage, clipped, vis & ~pm, "resid")
             st["resid_survivors"] = tris_r.count
             if tris_r.count:
                 planes_r, binned_r = self._planes_bin(
-                    f, stage, tris_r, clipped, f.tri_vlocal, f.tri_obj, ("resid", "resid")
+                    f, stage, tris_r, culled_r, clipped, f.tri_vlocal, f.tri_obj, ("resid", "resid")
                 )
                 for si, sofs in enumerate(offsets):
                     gbuf_r = raster_at(tris_r, planes_r, binned_r, sofs, "resid")

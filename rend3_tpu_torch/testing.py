@@ -545,6 +545,90 @@ def shadow_front_diff(got, want) -> list:
 
 
 # ---------------------------------------------------------------------------
+# Triangle sets for the view's front end (ops/view_front.py)
+# ---------------------------------------------------------------------------
+
+VIEW_FRONT_KINDS = ("soup", "hiz", "band", "msaa", "hidden", "one", "empty")
+
+
+def view_front_case(kind: str = "soup", device="cpu", seed: int = 0, n: Optional[int] = None) -> dict:
+    """One triangle set's front-end inputs, from a numpy generator: the clip
+    arguments (positions, tri_vlocal, tri_obj, bases, mvp, visible: 16
+    objects whose matrices map a corner to clip space as (x, y, a x + b y +
+    c w + d, w), corners x, y in [-2, 2] and w in [-0.5, 3], the near-clip
+    soup of shadow_front_case, about a third of the triangles crossing
+    w = W_EPS or w = z), a row mask `rows` (a quarter of the clipped rows
+    off), the cull's keywords (cull BACK, sub-pixel, front_is_cw by the
+    seed's parity),
+    the planes' arenas (geo, 3 corners a triangle; some objects lack normal,
+    uv1 or color), model_view, material, and the 160x96 target (width,
+    height, wp, hp, y0). Kinds: "soup" (n = 600); "hiz" (the soup tested
+    against the Hi-Z pyramid of a random depth image that occludes about
+    half); "band" (the rows [40, 88) of the target: y_range, y0 = 40, hp
+    64); "msaa" (no sub-pixel cull); "hidden" (no object visible: nothing
+    survives); "one" (one triangle, crossing the near plane, no cull by
+    winding); "empty" (no triangle)."""
+    import torch
+
+    from .core.framestate import GeometryArrays
+    from .ops import hi_z
+
+    rng = np.random.default_rng(seed)
+    n = {"one": 1, "empty": 0}.get(kind, n if n is not None else 600)
+    n_obj = 16
+    obj = rng.integers(0, n_obj, n).astype(np.int32)
+    pos = rng.uniform(-2.0, 2.0, (n, 3, 3)).astype(np.float32)
+    pos[..., 2] = rng.uniform(-0.5, 3.0, (n, 3)).astype(np.float32)
+    if kind == "one":
+        obj[0] = 9
+        pos[0] = ((-1.0, -1.0, 2.0), (1.5, -0.5, -0.3), (0.2, 1.2, 1.5))
+    mvp = np.zeros((n_obj, 4, 4), np.float32)
+    mvp[:, 0, 0] = mvp[:, 1, 1] = mvp[:, 3, 2] = 1.0
+    mvp[:, 2, 0] = rng.uniform(-0.5, 0.5, n_obj)
+    mvp[:, 2, 1] = rng.uniform(-0.5, 0.5, n_obj)
+    mvp[:, 2, 2] = rng.uniform(0.0, 1.0, n_obj)
+    mvp[:, 2, 3] = rng.uniform(-0.5, 0.5, n_obj)
+    bases = np.zeros((n_obj, 6), np.int32)
+    bases[:4, 1] = bases[4:6, 4] = bases[6:8, 5] = -1
+    visible = np.ones(n_obj, bool)
+    visible[:2] = False
+    if kind == "hidden":
+        visible[:] = False
+    nv = max(3 * n, 1)
+    unit = rng.normal(size=(nv, 3)).astype(np.float32)
+    arrays = dict(
+        position=pos.reshape(-1, 3) if n else np.zeros((1, 3), np.float32), normal=unit,
+        tangent=rng.normal(size=(nv, 3)).astype(np.float32), uv0=rng.uniform(0, 1, (nv, 2)).astype(np.float32),
+        uv1=rng.uniform(-1, 1, (nv, 2)).astype(np.float32), color0=rng.uniform(0, 1, (nv, 4)).astype(np.float32),
+    )
+    mv = rng.uniform(-1.0, 1.0, (n_obj, 4, 4)).astype(np.float32)
+    mv[:, 3] = (0.0, 0.0, 0.0, 1.0)
+    mv[3, :3, :3] = 0.0  # a degenerate matrix: the normals' scale clamps at 1e-30
+    dev = torch.device(device)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    width, height, y0, bh = 160, 96, 0, 96
+    if kind == "band":
+        y0, bh = 40, 48
+    hiz = None
+    if kind == "hiz":
+        depth = rng.uniform(0.3, 0.9, (height, width)).astype(np.float32)
+        hiz = hi_z.build_pyramid(t(depth))
+    geo = GeometryArrays(**{k: t(v) for k, v in arrays.items()})
+    return dict(
+        clip=(geo.position, t(np.arange(3 * n, dtype=np.int32).reshape(n, 3)), t(obj), t(bases), t(mvp),
+              t(visible)),
+        rows=t((rng.random(4 * n) >= 0.25) | (kind == "one")),  # at least as many as the clipped rows
+        cull=dict(cull_mode=0 if kind == "one" else 1, front_is_cw=bool(seed % 2), subpixel=kind != "msaa", hiz=hiz,
+                  y_range=(y0, y0 + bh) if kind == "band" else None),
+        geo=geo, model_view=t(mv), material=t(rng.integers(0, 9, n_obj).astype(np.int32)),
+        width=width, height=height, wp=-(-width // 128) * 128, hp=-(-bh // 32) * 32, y0=y0,
+    )
+
+
+# ---------------------------------------------------------------------------
 # A stress input for the step-list lerp (P3's probe_lerp)
 # ---------------------------------------------------------------------------
 
@@ -768,12 +852,13 @@ def f1_call_trace(calls):
 # ---------------------------------------------------------------------------
 
 # chip_smoke.py phase 11's kernel rows, by the TPU kernel each one ports (F1,
-# S1 and S2 port none: XLA ops of the JAX frame).
+# S1, S2 and V1-V4 port none: XLA ops of the JAX frame).
 KERNEL_OF_ROW = {
     "raster_resolve": "K1", "raster_msaa": "K1", "raster_count": "K1", "raster_bound": "K1",
     "raster_depth": "K2", "pcf5": "K3", "bilinear": "K4", "gather": "K5", "raster_vis": "K6",
     "shadow_occ": "K7", "shadow_occ_lt": "K8", "probe_dot": "P1", "probe_reduce": "P2", "probe_lerp": "P3",
     "fma": "F1", "fma_dot3": "F1", "fma_ab_minus_cd": "F1", "shadow_setup": "S1", "shadow_tiles": "S2",
+    "view_clip": "V1", "view_setup": "V2", "view_planes": "V3", "view_tiles": "V4",
 }
 # Kernels redesigned for the H100 after their port; rule 2 does not take
 # them again. K8 came with K7: both are instances of one CUDA kernel
@@ -788,8 +873,11 @@ KERNEL_OF_ROW = {
 # in CTAs with a crossing triangle and one atomic a tile for a warp's lanes
 # on it, timed against it in turns on the representative and heavy shadow
 # passes; S2 stays over its bound as two launches near the launch floor,
-# S1 at its CTA-wide appends.
-REDESIGNED = frozenset({"K1", "K2", "P1", "K5", "K6", "K7", "K8", "P2", "P3", "F1", "S1", "S2"})
+# S1 at its CTA-wide appends. V4's first design (eight warps a CTA in turns,
+# a 32-lane scan of their rectangles a tile round) gave way to a warp a
+# block over its survivors' distinct tiles, timed against it in turns on
+# the city frames' four sets and a 200,000-triangle soup.
+REDESIGNED = frozenset({"K1", "K2", "P1", "K5", "K6", "K7", "K8", "P2", "P3", "F1", "S1", "S2", "V4"})
 
 
 def redesign_order(rows, frame_launches, redesigned=REDESIGNED):

@@ -56,7 +56,13 @@ order bit for bit, tile offsets and each tile's list as a set; K2 on
 their tables against K2 on the PyTorch chain's, bit for bit; the graph's
 shadow pass twice in the same buffers; a moved frame counts
 shadow_front.maps 2 and one sync::shadow_front.totals read, a static one
-0; a refused S1 launch raises.
+0; a refused S1 launch raises. V1-V4, the view's front end
+(ops/view_front.py; csrc/view_front.cu): against the plain version on
+testing.view_front_case's sets (the near-clip soup, under a Hi-Z pyramid,
+a row band, without the sub-pixel cull, nothing visible, one triangle, no
+triangle, 200,000 triangles), every table bit for bit and in order; each
+call site (main, residual, cutout, blend) of a 1080p city frame likewise;
+and the frame itself against the PyTorch chain's on the card, bit for bit.
 """
 
 import numpy as np
@@ -939,3 +945,126 @@ def test_s1_launch_failure_raises(shadow_city):
     with pytest.raises(RuntimeError, match="s1_shadow_setup: CUDA error"):
         cuda_kernels.call("s1_shadow_setup", tri_pos, tri_obj, mvp, vis, bufs.setup, bufs.bbox, bufs.src, bufs.flip,
                           bufs.counts, bufs.counts, ints=(tri_pos.shape[0], 16, 16, bufs.cap, 0, 0, 0) + (0,) * 8)
+
+
+# -- V1-V4, the view's front end (csrc/view_front.cu) --------------------------
+
+
+def _view_tables(case, card):
+    """(clipped table, survivors, planes, tile lists) of a view_front_case
+    on the card's kernels (card) or the plain version."""
+    from rend3_tpu_torch.ops import view_front as VF
+
+    _p, tri_vlocal, tri_obj, bases, _m, _v = case["clip"]
+    table = (VF.clip if card else VF.clip_plain)(*case["clip"])
+    valid = table.valid & case["rows"][: table.valid.shape[0]]
+    size = (case["width"], case["height"])
+    rest = (tri_vlocal, tri_obj, bases, case["geo"], case["model_view"], case["material"], *size)
+    if card:
+        culled = VF.cull(table.clip, valid, *size, wp=case["wp"], hp=case["hp"], y0=case["y0"], **case["cull"])
+        return table, culled.tris, VF.planes(culled, table, *rest), VF.tiles(culled)
+    tris = VF.cull_plain(table.clip, valid, *size, **case["cull"])
+    return table, tris, VF.planes_plain(tris, table, *rest), VF.tiles_plain(tris, case["wp"], case["hp"], case["y0"])
+
+
+def _table_faults(got, want) -> list:
+    """Fields of two front-end results that differ in shape, dtype or bits,
+    order included (a part given as None on both sides is skipped)."""
+    faults = []
+    for part, g, w in zip(("clipped", "setup", "planes", "tiles"), got, want):
+        if g is None and w is None:
+            continue
+        g, w = ((g,), (w,)) if isinstance(g, torch.Tensor) else (g, w)
+        for k, (a, b) in enumerate(zip(g, w)):
+            a, b = (t.view(torch.int32) if t.dtype == torch.float32 else t for t in (a, b))
+            if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+                faults.append(f"{part}[{k}]: {tuple(a.shape)} vs {tuple(b.shape)}")
+    return faults
+
+
+@pytest.mark.parametrize("kind", testing.VIEW_FRONT_KINDS + ("stress",))
+def test_view_front_matches_plain(kind):
+    """V1-V4 against the plain version on the card, bit for bit and in
+    order: the clipped table, the survivors, the planes, the tile lists.
+    "stress": 200,000 soup triangles, some 700 blocks of rows whose
+    survivors share tiles; 1 + 2 + 3 + 1 + 1 launches a set with survivors."""
+    from rend3_tpu_torch.ops import view_front as VF
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = testing.view_front_case("soup" if kind == "stress" else kind, device="cuda", seed=5,
+                                   n=200_000 if kind == "stress" else None)
+    before = dict(VF.launches)
+    got = _view_tables(case, card=True)
+    launched = {k: VF.launches[k] - before[k] for k in before}
+    want = _view_tables(case, card=False)
+    assert _table_faults(got, want) == []
+    if kind == "stress":
+        assert got[1].count > 20_000 and int(got[3].offsets[-1]) > got[1].count
+    if got[1].count:
+        assert launched == {"view_clip": 2, "view_setup": 3, "view_planes": 1, "view_tiles": 1}
+
+
+@pytest.fixture(scope="module")
+def view_city():
+    """Two 1920x1080 frames of the representative city (48 buildings) with
+    occlusion on, the camera moved between them: (the images, the second
+    frame's captures), on V1-V4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return _view_city_frames()
+
+
+def _view_city_frames():
+    from rend3_tpu_torch.types import Camera, Perspective
+
+    runner = TestRunner(device="cuda")
+    keep = scenes.build_city_scene(runner, n_buildings=48, seed=7, representative=True)
+    scenes.set_bench_camera(runner, 1920, 1080)
+    graph = runner.base_graph
+    images = []
+    for k in range(2):
+        if k:
+            runner.set_camera_data(Camera(projection=Perspective(vfov=60.0, near=0.1),
+                                          view=m3.look_at_lh([30.0, 20.0, -50.0], [0.0, 4.0, 0.0], [0.0, 1.0, 0.0])))
+            graph.captured = {}
+        runner.renderer.swap_instruction_buffers()
+        images.append(graph.render_frame(runner.renderer.evaluate_instructions(), FrameRenderTarget(1920, 1080, 1),
+                                         BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0))))
+    del keep
+    return images, graph.captured
+
+
+@pytest.mark.parametrize("site", ("setup", "resid", "cut_setup", "blend_geom"))
+def test_view_front_sites_match_plain(view_city, site):
+    """Each call site of the 1080p city frame on the card: the tables V1-V4
+    built equal the plain version's on the frame's inputs, bit for bit."""
+    from rend3_tpu_torch.ops import view_front as VF
+
+    _images, cap = view_city
+    clip_site = {"setup": "main", "blend_geom": "blend"}.get(site)
+    if clip_site is not None:
+        args, table = cap["view_clip"][clip_site]
+        assert _table_faults((table,), (VF.clip_plain(*args),)) == []
+    (clip_rows, valid, width, height), kw, tris = cap["view_cull"][site]
+    plain = VF.cull_plain(clip_rows, valid, width, height, **kw)
+    assert _table_faults((None, tris), (None, plain)) == [] and tris.count > 0
+    if site == "resid" and ("resid" not in cap["view_planes"]):
+        return
+    args, (wp, hp, y0), _tris, planes, binned = cap["view_planes"][
+        {"setup": "planes", "cut_setup": "cut_planes"}.get(site, site)]
+    assert _table_faults((None, None, planes, binned),
+                         (None, None, VF.planes_plain(tris, *args), VF.tiles_plain(tris, wp, hp, y0))) == []
+
+
+def test_view_front_frame_matches_chain(view_city, monkeypatch):
+    """The same two 1080p frames with the PyTorch chain in place of V1-V4
+    on the card: both images bit for bit."""
+    from rend3_tpu_torch.ops import view_front as VF
+
+    images, _cap = view_city
+    monkeypatch.setattr(VF, "on_card", lambda t: False)
+    chain_images, _ = _view_city_frames()
+    for got, want in zip(images, chain_images):
+        assert np.array_equal(got, want)
+    assert (images[1] != images[0]).any()

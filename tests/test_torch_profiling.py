@@ -9,9 +9,13 @@ sync:: spans, every one from SYNC_SITES; the shadow cache hits on a
 repeated frame and misses after an object moves (the object tables' cache
 with it: no bytes copied, then some).
 
-On the card (marked cuda; skips without one): one frame of each traffic
-kind (static, camera moving, objects moving) with PyTorch's sync debug mode
-on; every synchronizing call it warns of lies inside a sync:: span. Run it
+On the CPU a frame's front end is the chain (no view_front.tables, no
+kernel::V* span). On the card (marked cuda; skips without one): one frame
+of each traffic kind (static, camera moving, objects moving) with
+PyTorch's sync debug mode on; every synchronizing call it warns of lies
+inside a sync:: span; a city frame builds its four front-end tables with
+V1-V4 (view_front.tables 4, the kernel::V1-V4 spans, two crossing reads
+and four totals reads), a frame of the cube lattice two. Run it
 there with python3 -m pytest tests/test_torch_profiling.py --noconftest -q.
 """
 
@@ -41,8 +45,10 @@ SYNC_SITES = {
     "sync::blend.layers", "sync::blend.pixels",
     "sync::const.setup_height", "sync::const.planes_viewport", "sync::const.planes_defaults",
     "sync::const.hiz_ln2", "sync::const.shade_defaults", "sync::const.texture_ln2", "sync::const.cube_faces",
-    "sync::shadow_front.totals",
+    "sync::shadow_front.totals", "sync::view_front.crossing", "sync::view_front.totals",
 }
+# The view's front end on the card (ops/view_front.py): its kernels' spans.
+VIEW_KERNEL_SPANS = {"kernel::V1", "kernel::V2", "kernel::V3", "kernel::V4"}
 SETTINGS = BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0))
 
 
@@ -203,6 +209,59 @@ def test_shadow_cache_hits_then_misses_after_a_move(city):
     shadow, c = counters()
     assert shadow == {"shadow_cache.hit": 2, "shadow_cache.miss": 1}
     assert c["objects.transforms"] == 1 and c["upload.object_bytes"] > 0
+
+
+def test_cpu_frame_counts_no_card_table(city):
+    """On the CPU the view's front end is the chain: no view_front.tables,
+    no kernel::V* span, and the chain's reads."""
+    runner, _keep, _objects, target = city
+    profiling.enable()
+    _frame(runner, target)
+    profiling.disable()
+    s = profiling.stats()
+    assert "view_front.tables" not in s.counters
+    assert not VIEW_KERNEL_SPANS & set(s.counts)
+    assert s.counts["sync::setup.survivors"] >= 3 and s.counts["sync::clip.crossing"] == 2
+
+
+def _card_counts(runner, target):
+    profiling.enable()
+    _frame(runner, target)
+    profiling.disable()
+    torch.cuda.synchronize()
+    return profiling.stats()
+
+
+@pytest.mark.cuda
+def test_card_view_front_spans_and_tables():
+    """On the card, a city frame with occlusion on builds its four tables
+    with V1-V4 (main, residual, cutout, blend: view_front.tables 4; the
+    residual cull runs and counts on the first frame too, whose set is
+    empty), with the kernel::V1-V4 spans, a crossing read per clipped set
+    (main, blend) and a totals read per table, and none of the chain's
+    reads; a frame of tools/bench_host's cube lattice (no cutout, no blend)
+    builds two."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rend3_tpu_torch.tools import bench_host
+
+    runner = TestRunner(device="cuda")
+    keep = scenes.build_city_scene(runner, n_buildings=48, seed=7, representative=True)
+    scenes.set_bench_camera(runner, 512, 256)
+    target = FrameRenderTarget(512, 256, 1)
+    for _ in range(2):
+        s = _card_counts(runner, target)
+        assert s.counters["view_front.tables"] == 4
+        assert VIEW_KERNEL_SPANS <= set(s.counts)
+        assert s.counts["sync::view_front.crossing"] == 2 and s.counts["sync::view_front.totals"] == 4
+        assert not {"sync::setup.survivors", "sync::clip.crossing", "sync::bin.pairs", "sync::bin.candidates",
+                    "sync::const.planes_defaults", "sync::const.setup_height"} & set(s.counts)
+    del keep
+    lattice = TestRunner(device="cuda")
+    keep = bench_host.build_scene(lattice, 300)
+    s = _card_counts(lattice, FrameRenderTarget(320, 180, 1))
+    assert s.counters["view_front.tables"] == 2 and s.counts["sync::view_front.crossing"] == 1
+    del keep
 
 
 @pytest.mark.cuda
