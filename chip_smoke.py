@@ -1049,7 +1049,7 @@ def phase_kernels(paths, extra_rows=(), timed=True):
     # and maps of the plain version; each timed as its device launches
     # alone (S1: the counters' memset and S1; S2: the scan and the fill),
     # with the buffers and totals of a first call.
-    if "shadow_front" in rcap:  # captured on the card only
+    if "shadow_front" in rcap and rcap["shadow_front"][2].is_cuda:  # S1 / S2 run on the card only
         rows += _shadow_front_rows(rcap["shadow_front"], paths["representative"][0], timed)
     # V1-V4 on the representative frame's main set: every site's tables
     # against the plain version, then each kernel timed as its device
@@ -1177,7 +1177,7 @@ def _shadow_front_rows(args, graph, timed):
 
     from rend3_tpu_torch.ops import deferred as D
     from rend3_tpu_torch.ops import shadow_front as SF
-    from rend3_tpu_torch.routine.base import shadow_front_chain
+    from rend3_tpu_torch.testing import shadow_front_chain
 
     got, want = _shadow_front_check("representative", args)
     for g, w in zip(got, want):
@@ -1834,7 +1834,7 @@ def _check_frame_kernels(label, cap):
             raise AssertionError(f"{label} K2 differs from the plain version at {int((k != p).sum())} texels")
         log(f"{label} K2: bit-exact over {k.numel()} texels, {int((k > 0).sum())} covered")
         checked.append("raster_depth")
-    if "shadow_front" in cap:
+    if "shadow_front" in cap and cap["shadow_front"][2].is_cuda:
         _shadow_front_check(label, cap["shadow_front"])
         checked += list(SHADOW_KERNELS)
     if any(table.clip.is_cuda for _args, table in cap.get("view_clip", {}).values()):

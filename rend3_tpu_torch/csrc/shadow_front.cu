@@ -6,8 +6,8 @@
 // clip_triangles, geometry.cull_and_setup and bin_triangles per map); the
 // port ran the same chain as some 630 PyTorch ops and 8 blocking reads a
 // map. These kernels compute its result for every map at once; the plain
-// version is ops/shadow_front.py shadow_front_plain, and the CPU keeps the
-// chain (routine/base.py shadow_front_chain).
+// version, which the CPU runs, is ops/shadow_front.py shadow_front_plain
+// (the chain is testing.py shadow_front_chain).
 //
 // S1, one thread per (map, source triangle) (a CTA row of the grid a map):
 //   - the clip-space corners through the object's light-space MVP in the

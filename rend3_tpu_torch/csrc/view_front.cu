@@ -11,8 +11,8 @@
 // These kernels compute its result bit for bit and in its order: K1 breaks
 // depth ties by the order of a tile's list, so every row and list entry is
 // placed by a scan, never by an atomic. The plain version is
-// ops/view_front.py (clip_plain, cull_plain, planes_plain, tiles_plain);
-// the CPU keeps the chain.
+// ops/view_front.py (clip_plain, cull_plain, planes_plain, tiles_plain),
+// which the CPU runs.
 //
 // V1, the clipped table (clip_triangles' rows): the T source rows, then
 // fan 0 of every near-plane-crossing triangle, then fan 1, then fan 2.

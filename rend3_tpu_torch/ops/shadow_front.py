@@ -14,11 +14,12 @@ within a tile's list come from atomics, which K2's per-texel max cannot
 see. The view's front end (ops/view_front.py) places its rows by scans
 instead: its K1 breaks depth ties by list order.
 
-`shadow_front_plain` is S1 and S2's algorithm in PyTorch on any device,
-with rows in the fixed slot order (row 4 t + s before compaction: slot 0
-the triangle when it lies wholly inside the near planes, slot 1 + k the
-k-th fan of its clipped polygon) and each tile's list ascending, so it is
-deterministic; the card's tables equal it as row multisets.
+`shadow_front_plain` is S1 and S2's algorithm in PyTorch on any device
+(built from ops/front_end.py's pieces), with rows in the fixed slot order
+(row 4 t + s before compaction: slot 0 the triangle when it lies wholly
+inside the near planes, slot 1 + k the k-th fan of its clipped polygon)
+and each tile's list ascending, so it is deterministic; the card's tables
+equal it as row multisets. On CPU tensors `shadow_front` returns it.
 """
 
 from __future__ import annotations
@@ -27,11 +28,12 @@ from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
+from ..utils import profiling
 from ..utils.profiling import scope as profiling_scope
+from . import front_end
 from .deferred import DTILE_H, DTILE_W
-from .fp import ab_minus_cd, dot3, fma32
-from .geometry import SETUP_W, BinnedTris, TriSetup
-from .transform import W_EPS, object_uniforms
+from .geometry import SETUP_W, BinnedTris, CullMode, TriSetup
+from .transform import object_uniforms
 
 __all__ = ["ShadowFrontBuffers", "MapFront", "light_mvp", "shadow_front", "shadow_front_plain", "launches",
            "MAX_MAPS", "SLOTS"]
@@ -212,12 +214,12 @@ def shadow_front(
     tri_obj: torch.Tensor,  # (T,) int32 object per triangle
 ) -> List[MapFront]:
     """Every map's caster table and tile lists (maps of sizes[m] texels a
-    side, culled FRONT, sub-texel casters dropped) on CUDA tensors: S1, S2's
-    scan, one blocking read of the totals, S2's fill. Raises on CPU
-    tensors (their path is the chain, or shadow_front_plain)."""
+    side, culled FRONT, sub-texel casters dropped): on CUDA tensors S1,
+    S2's scan, one blocking read of the totals, S2's fill (counter
+    shadow_front.maps); on CPU tensors shadow_front_plain."""
     dev = _check(sizes, mvp, vis, tri_pos, tri_obj)
-    if dev.type != "cuda":
-        raise ValueError(f"shadow_front launches CUDA kernels; got tensors on {dev}")
+    if dev.type == "cpu":
+        return shadow_front_plain(sizes, front_is_cw, mvp, vis, tri_pos, tri_obj)
     L = len(sizes)
     bufs.fit(tri_pos.shape[0], sizes, dev)
     with profiling_scope("kernel::S1"):
@@ -240,35 +242,11 @@ def shadow_front(
         binned = BinnedTris(offsets=bufs.offsets[b:b + _n_tiles(size) + 1],
                             ids=bufs.ids[pair_base[m]:pair_base[m] + pairs[m]])
         out.append(MapFront(tris, binned, *_padded(size)))
+    profiling.count("shadow_front.maps", L)
     return out
 
 
 # -- the plain version ---------------------------------------------------------
-
-
-def _clip_plane(v: torch.Tensor, n: torch.Tensor, d: torch.Tensor):
-    """One Sutherland-Hodgman step (S1's clip_plane) for polygons of n <= 4
-    corners in 5 slots: keep corners with d >= 0, add the crossing points
-    fma(vj - vi, t, vi)."""
-    N = v.shape[0]
-    rows = torch.arange(N, device=v.device)
-    out = torch.zeros_like(v)
-    on = torch.zeros_like(n)
-    for i in range(4):
-        live = i < n
-        j = torch.where(i + 1 >= n, torch.zeros_like(n), torch.full_like(n, i + 1))
-        vi, vj = v[:, i], v[rows, j]
-        di, dj = d[:, i], d[rows, j]
-        ini, inj = di >= 0.0, dj >= 0.0
-        emit = live & ini
-        out[rows[emit], on[emit]] = vi[emit]
-        on = on + emit.long()
-        cross = live & (ini != inj)
-        den = di - dj
-        t = di / torch.where(den.abs() < 1e-30, torch.full_like(den, 1e-30), den)
-        out[rows[cross], on[cross]] = fma32(vj - vi, t[:, None], vi)[cross]
-        on = on + cross.long()
-    return out, on
 
 
 def _candidates(mvp_m, vis_m, tri_pos, tri_obj):
@@ -278,103 +256,28 @@ def _candidates(mvp_m, vis_m, tri_pos, tri_obj):
     O, Ov = mvp_m.shape[0], vis_m.shape[0]
     obj = tri_obj.long()
     valid = (obj >= 0) & (obj < Ov) & (obj < O) & vis_m[obj.clamp(0, Ov - 1)]
-    m = mvp_m[obj.clamp(0, O - 1)]                      # (T, 4, 4)
-    p = tri_pos
-    c = dot3(*(t for k in range(3) for t in (m[:, None, :, k], p[:, :, None, k]))) + m[:, None, :, 3]
-    w = c[..., 3]
-    inside = ((w - c[..., 2]) >= 0.0) & (w > W_EPS)
-    all_in = inside.all(dim=-1)
-    crossing = valid & inside.any(dim=-1) & ~all_in
+    c, whole, crossing = front_end.clip_corners(mvp_m[obj.clamp(0, O - 1)], tri_pos, valid)
     tri = torch.zeros(T, SLOTS, 3, 4, dtype=torch.float32, device=c.device)
     cand = torch.zeros(T, SLOTS, dtype=torch.bool, device=c.device)
-    tri[:, 0] = c
-    cand[:, 0] = valid & all_in
+    tri[:, 0], cand[:, 0] = c, whole
     g = torch.nonzero(crossing).flatten()
     if g.numel():
-        v = torch.cat([c[g], torch.zeros(g.numel(), 2, 4, dtype=c.dtype, device=c.device)], dim=1)
-        n = torch.full((g.numel(),), 3, dtype=torch.long, device=c.device)
-        v, n = _clip_plane(v, n, v[..., 3] - W_EPS)
-        v, n = _clip_plane(v, n, v[..., 3] - v[..., 2])
-        for k in range(3):
-            tri[g, 1 + k] = torch.stack([v[:, 0], v[:, k + 1], v[:, k + 2]], dim=1)
-            cand[g, 1 + k] = n >= k + 3
+        fan, live = front_end.fans(c[g])
+        tri[g, 1:], cand[g, 1:] = fan[..., :4].transpose(0, 1), live.T
     return tri.reshape(T * SLOTS, 3, 4), cand.reshape(T * SLOTS)
-
-
-def _setup_plain(tri, ids, size: int, front_is_cw: bool) -> TriSetup:
-    """S1's cull and setup rows (cull_and_setup's FRONT, sub-pixel,
-    contracted arithmetic) for the candidate rows `ids` of `tri`; the
-    survivors in ascending id."""
-    c = tri[ids]
-    w = c[..., 3]
-    inv_w = 1.0 / torch.where(w == 0.0, torch.ones_like(w), w)
-    x = (c[..., 0] * inv_w * 0.5 + 0.5) * size
-    yp = 0.5 - c[..., 1] * inv_w * 0.5
-    y = yp * size
-    z = c[..., 2] * inv_w
-    area2 = ab_minus_cd(x[:, 1] - x[:, 0], y[:, 2] - y[:, 0], x[:, 2] - x[:, 0], y[:, 1] - y[:, 0])
-    is_front = (area2 > 0.0) if front_is_cw else (area2 < 0.0)
-    xmin, xmax = x.amin(dim=1), x.amax(dim=1)
-    ymin, ymax = y.amin(dim=1), y.amax(dim=1)
-    keep = (area2 != 0.0) & (w > 0.0).all(dim=-1) & ~is_front
-    keep = keep & (xmax > 0.0) & (xmin < size) & (ymax > 0.0) & (ymin < size)
-    keep = keep & (torch.floor(xmin - 0.5) + 1.5 <= xmax) & (torch.floor(ymin - 0.5) + 1.5 <= ymax)
-    k = torch.nonzero(keep).flatten()
-    x, yp, y, z, area2, ids = x[k], yp[k], y[k], z[k], area2[k], ids[k]
-    flip = area2 < 0.0
-    # Corners 1 and 2 swapped where flip (orientation fix).
-    xo, yo, zo, ypo = (torch.where(flip[:, None], torch.stack([a[:, 0], a[:, 2], a[:, 1]], dim=1), a)
-                       for a in (x, y, z, yp))
-    xn, yn = xo.roll(-1, dims=1), yo.roll(-1, dims=1)
-    dy, dx = yn - yo, xn - xo
-    ea = -dy
-    ea_row = fma32(ypo, torch.full_like(ypo, float(size)), -yn)
-    ec = ab_minus_cd(dy, xo, dx, yo)
-    tl = (((dy == 0.0) & (dx > 0.0)) | (dy < 0.0)).float()
-    swap = (xn < xo) | ((xn == xo) & (yn < yo))
-    lx, hx = torch.where(swap, xn, xo), torch.where(swap, xo, xn)
-    ly, hy = torch.where(swap, yn, yo), torch.where(swap, yo, yn)
-    cc = ab_minus_cd(hy - ly, lx, hx - lx, ly)
-    ec_canon = torch.where(swap, -cc, cc)
-    area_o = ab_minus_cd(xo[:, 1] - xo[:, 0], yo[:, 2] - yo[:, 0], xo[:, 2] - xo[:, 0], yo[:, 1] - yo[:, 0])
-    inv_area = 1.0 / torch.where(area_o == 0.0, torch.ones_like(area_o), area_o)
-    # Each depth-plane coefficient fma(z2, e0, fma(z1, e2, z0 * e1)) / area.
-    za, zb, zc = (dot3(zo[:, 0], e[:, 1], zo[:, 1], e[:, 2], zo[:, 2], e[:, 0]) * inv_area for e in (ea, dx, ec))
-    setup = torch.stack(
-        [*ea_row.unbind(1), *dx.unbind(1), *ec_canon.unbind(1), za, zb, zc,
-         tl[:, 0], ids.to(torch.float32), tl[:, 1], tl[:, 2]],
-        dim=1,
-    )
-    bbox = torch.stack([xmin[k], ymin[k], xmax[k], ymax[k]], dim=1)
-    return TriSetup(setup=setup.contiguous(), bbox=bbox.contiguous(), src=ids, flip=flip)
-
-
-def _tile_lists_plain(bbox: torch.Tensor, size: int) -> BinnedTris:
-    """S2's lists: every survivor in each DTILE_H x DTILE_W tile of the
-    padded map its bbox meets (bin_triangles' float test), ascending."""
-    wp, hp = _padded(size)
-    nc, nr = wp // DTILE_W, hp // DTILE_H
-    dev = bbox.device
-    tx0 = (torch.arange(nc, device=dev) * DTILE_W).to(torch.float32)
-    ty0 = (torch.arange(nr, device=dev) * DTILE_H).to(torch.float32)
-    xmin, ymin, xmax, ymax = (a[:, None] for a in bbox.unbind(dim=1))
-    cols = (xmax > tx0) & (xmin < tx0 + DTILE_W)   # (V, nc)
-    rows = (ymax > ty0) & (ymin < ty0 + DTILE_H)   # (V, nr)
-    hit = (rows[:, :, None] & cols[:, None, :]).reshape(bbox.shape[0], nr * nc)
-    _tile, tri = torch.nonzero(hit.T, as_tuple=True)
-    offsets = torch.zeros(nr * nc + 1, dtype=torch.int64, device=dev)
-    offsets[1:] = torch.cumsum(hit.sum(dim=0), 0)
-    return BinnedTris(offsets=offsets.to(torch.int32), ids=tri.to(torch.int32))
 
 
 def shadow_front_plain(sizes, front_is_cw, mvp, vis, tri_pos, tri_obj) -> List[MapFront]:
     """Plain version of shadow_front (S1 and S2's algorithm in PyTorch, any
-    device): each map's survivors in ascending slot id 4 t + s (S_ID and
-    src), each tile's list ascending."""
+    device): each map's candidates, FRONT-culled with sub-texel casters
+    dropped, the survivors in ascending slot id 4 t + s (S_ID and src),
+    each tile's list ascending."""
     _check(sizes, mvp, vis, tri_pos, tri_obj)
     out = []
     for m, size in enumerate(sizes):
         tri, cand = _candidates(mvp[m], vis[m], tri_pos, tri_obj)
-        tris = _setup_plain(tri, torch.nonzero(cand).flatten(), int(size), bool(front_is_cw))
-        out.append(MapFront(tris, _tile_lists_plain(tris.bbox, int(size)), *_padded(int(size))))
+        wp, hp = _padded(int(size))
+        tris = front_end.cull_setup(tri, cand, int(size), int(size), cull_mode=CullMode.FRONT,
+                                    front_is_cw=bool(front_is_cw), subpixel=True)
+        out.append(MapFront(tris, front_end.tile_lists(tris.bbox, wp // DTILE_W, hp // DTILE_H, 0), wp, hp))
     return out

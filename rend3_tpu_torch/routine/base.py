@@ -41,14 +41,16 @@ culling, a pixel-centre test, is off (base.py:1326-1329).
 Every buffer is sized from the frame's real counts, so the TPU build's
 survivor / flat-list / queue / peel caps, their growth and re-render loop
 and the program cache have no counterpart. The counts are read on the host
-where a `nonzero` or a pair total sizes a table (on the card the front end
-of each triangle set, ops/view_front.py: a clipped set's crossing
-triangles, a cull's survivor and pair totals; on the CPU its chain,
-transform.clip_triangles, geometry.cull_and_setup, geometry.bin_triangles;
-the plain raster versions' fragment count) and where a peel loop sizes
-itself (_cutout_peels and _blend_peels count theirs). Each such read, and each upload that
+where a `nonzero` or a pair total sizes a table (the front end of each
+triangle set, ops/view_front.py, and of the shadow maps,
+ops/shadow_front.py: a clipped set's crossing triangles, a cull's survivor
+and pair totals, every map's totals; the plain raster versions' fragment
+count) and where a peel loop sizes itself (_cutout_peels and _blend_peels
+count theirs). Each such read on the card, and each upload that
 synchronizes the stream, is a `sync::<site>` span of utils/profiling.py;
-each stage is a `graph::<stage>` span (BaseRenderGraph.stage).
+each stage is a `graph::<stage>` span (BaseRenderGraph.stage). The frame
+calls each op and never picks a device: an op launches its kernel on CUDA
+tensors and runs its plain version on CPU tensors.
 
 The reference forward backend (REND3_TPU_RASTER=reference,
 `default_raster_backend`) renders the JAX package's forward frame instead
@@ -99,7 +101,7 @@ from ..utils.profiling import scope as profiling_scope
 
 __all__ = [
     "BaseRenderGraph", "BaseRenderGraphSettings", "FrameRenderTarget", "StageTimer", "default_raster_backend",
-    "drive_frame", "raster_scene", "shadow_front_chain", "sky_directions",
+    "drive_frame", "raster_scene", "sky_directions",
 ]
 
 RASTER_BACKENDS = ("pallas", "binned_xla", "reference")
@@ -271,37 +273,6 @@ def drive_frame(steps, gather):
             rows = steps.send(gather(rows))
     except StopIteration as done:
         return done.value
-
-
-def shadow_front_chain(plan, front_cw, transforms, light_vp, shadow_visible, position, tri_vlocal, tri_obj,
-                       base0, tri_pos):
-    """Each plan entry's (caster table, tile lists, padded width, padded
-    height) for K2, as PyTorch ops on any device, a map at a time: the
-    light-space clip transform, the near clip, the FRONT cull and setup
-    and the binning of the view's front end, in the frame's contracted
-    forms. The CPU's shadow front end; on the card S1 / S2 compute the
-    same rows (ops/shadow_front.py)."""
-    eye = torch.eye(4, dtype=torch.float32, device=transforms.device)
-    out = []
-    for k, (_li, _off, size) in enumerate(plan):
-        _, smvp = transform_ops.object_uniforms(transforms, light_vp[k], eye)
-        svalid = shadow_visible[k][tri_obj.long()]
-        sclip = transform_ops.gather_tri_clip(position, tri_vlocal, tri_obj, base0, smvp, tri_pos=tri_pos,
-                                              contract=True)
-        sclipped = transform_ops.clip_triangles(sclip, svalid, contract=True)
-        swp = _round_up(size, def_ops.DTILE_W)
-        shp = _round_up(size, def_ops.DTILE_H)
-        stris = geom_ops.cull_and_setup(
-            sclipped.clip, sclipped.valid, size, size,
-            cull_mode=geom_ops.CullMode.FRONT, front_is_cw=front_cw,
-            subpixel=True,  # sub-texel casters can't mark any texel center
-            contract=True,
-        )
-        sbinned = geom_ops.bin_triangles(
-            stris, swp, shp, tile_h=def_ops.DTILE_H, tile_w=def_ops.DTILE_W
-        )
-        out.append((stris, sbinned, swp, shp))
-    return out
 
 
 class BaseRenderGraph:
@@ -621,19 +592,14 @@ class BaseRenderGraph:
                      base0, tri_pos):
         """Every map of the shadow plan (K2) and their PCF stack, from these
         inputs alone: (maps, stack_shadow_maps(maps)). Reads no cache. The
-        caster tables and tile lists of every map come from S1 / S2 on CUDA
-        tensors (ops/shadow_front.py: a few launches and one host read), and
-        from shadow_front_chain on the CPU."""
-        if transforms.is_cuda:
-            args = ([size for _li, _off, size in plan], front_cw,
-                    shadow_front_ops.light_mvp(transforms, light_vp, len(plan)), shadow_visible, tri_pos, tri_obj)
-            if self.captured is not None:
-                self.captured["shadow_front"] = args
-            fronts = shadow_front_ops.shadow_front(self._shadow_front_bufs, *args)
-            profiling.count("shadow_front.maps", len(plan))
-        else:
-            fronts = shadow_front_chain(plan, front_cw, transforms, light_vp, shadow_visible, position, tri_vlocal,
-                                        tri_obj, base0, tri_pos)
+        caster tables and tile lists of every map come from
+        ops/shadow_front.py's shadow_front (on the card S1 / S2: a few
+        launches and one host read)."""
+        args = ([size for _li, _off, size in plan], front_cw,
+                shadow_front_ops.light_mvp(transforms, light_vp, len(plan)), shadow_visible, tri_pos, tri_obj)
+        if self.captured is not None:
+            self.captured["shadow_front"] = args
+        fronts = shadow_front_ops.shadow_front(self._shadow_front_bufs, *args)
         smaps = []
         for k, ((_li, _off, size), (stris, sbinned, swp, shp)) in enumerate(zip(plan, fronts)):
             if self.captured is not None and k == 0:
@@ -644,65 +610,43 @@ class BaseRenderGraph:
 
     def _clip(self, f: _Frame) -> transform_ops.ClippedTris:
         f.mv, f.mvp = transform_ops.object_uniforms(f.transforms, f.view, f.proj)
-        return self._clip_table(f, f.tri_vlocal, f.tri_obj, "main", f.tri_pos)
+        return self._clip_table(f, f.tri_vlocal, f.tri_obj, "main")
 
-    def _clip_table(self, f: _Frame, tri_vlocal, tri_obj, site: str, tri_pos=None) -> transform_ops.ClippedTris:
+    def _clip_table(self, f: _Frame, tri_vlocal, tri_obj, site: str) -> transform_ops.ClippedTris:
         """The clipped table of one triangle set (the main set's, or the
-        blend set's): V1 on the card (ops/view_front.py: two launches, one
-        host read), the chain of gather_tri_clip and clip_triangles on the
-        CPU."""
+        blend set's): ops/view_front.py's clip (on the card V1: two
+        launches, one host read)."""
         args = (f.geo.position, tri_vlocal, tri_obj, f.bases, f.mvp, f.visible)
-        if view_front_ops.on_card(f.transforms):
-            table = view_front_ops.clip(*args)
-        else:
-            clip = transform_ops.gather_tri_clip(
-                f.geo.position, tri_vlocal, tri_obj, f.bases[:, 0], f.mvp, tri_pos=tri_pos, contract=True
-            )
-            table = transform_ops.clip_triangles(clip, f.visible[tri_obj.long()], contract=True)
+        table = view_front_ops.clip(*args)
         if self.captured is not None:
             self.captured.setdefault("view_clip", {})[site] = (args, table)
         return table
 
-    def _cull(self, f: _Frame, stage, table, valid, name: str, hiz=None):
-        """(survivor table, the card's cull) of the rows `valid` of a
-        clipped table, timed under `name`: V2 on the card (one host read of
-        the survivor and pair totals, counter view_front.tables), the chain's
-        cull_and_setup on the CPU (the cull None)."""
+    def _cull(self, f: _Frame, stage, table, valid, name: str, hiz=None) -> view_front_ops.Culled:
+        """The cull of the rows `valid` of a clipped table (its survivors in
+        .tris), timed under `name`: ops/view_front.py's cull (on the card V2:
+        one host read of the survivor and pair totals)."""
         with stage(name):
             kw = dict(cull_mode=geom_ops.CullMode.BACK, front_is_cw=f.front_cw, subpixel=f.subpixel, hiz=hiz,
                       y_range=f.y_range)
-            if view_front_ops.on_card(valid):
-                culled = view_front_ops.cull(table.clip, valid, f.width, f.height, wp=f.wp, hp=f.hp, y0=f.row0, **kw)
-                profiling.count("view_front.tables")
-                tris = culled.tris
-            else:
-                culled = None
-                tris = geom_ops.cull_and_setup(table.clip, valid, f.width, f.height, contract=True, **kw)
+            culled = view_front_ops.cull(table.clip, valid, f.width, f.height, wp=f.wp, hp=f.hp, y0=f.row0, **kw)
             if self.captured is not None:
-                self.captured.setdefault("view_cull", {})[name] = ((table.clip, valid, f.width, f.height), kw, tris)
-            return tris, culled
+                self.captured.setdefault("view_cull", {})[name] = (
+                    (table.clip, valid, f.width, f.height), kw, culled.tris)
+            return culled
 
-    def _planes_bin(self, f: _Frame, stage, tris, culled, table, tri_vlocal, tri_obj, names):
-        """Attribute planes and CSR tile lists of a survivor table, timed
-        under names[0] and names[1]: V3 and V4 after the card's cull, the
-        chain's attribute_planes and bin_triangles otherwise."""
+    def _planes_bin(self, f: _Frame, stage, culled, table, tri_vlocal, tri_obj, names):
+        """Attribute planes and CSR tile lists of a cull's survivors, timed
+        under names[0] and names[1]: ops/view_front.py's planes and tiles (on
+        the card V3 and V4)."""
         args = (table, tri_vlocal, tri_obj, f.bases, f.geo, f.mv, f.material_slots, f.width, f.height)
         with stage(names[0]):
-            if culled is not None:
-                planes = view_front_ops.planes(culled, *args)
-            else:
-                planes = def_ops.attribute_planes(
-                    tris, table.clip, table.bary, table.orig, *args[1:], contract=True,
-                )
+            planes = view_front_ops.planes(culled, *args)
         with stage(names[1]):
-            if culled is not None:
-                binned = view_front_ops.tiles(culled)
-            else:
-                binned = geom_ops.bin_triangles(
-                    tris, f.wp, f.hp, tile_h=def_ops.DTILE_H, tile_w=def_ops.DTILE_W, y0=f.row0
-                )
+            binned = view_front_ops.tiles(culled)
         if self.captured is not None:
-            self.captured.setdefault("view_planes", {})[names[0]] = (args, (f.wp, f.hp, f.row0), tris, planes, binned)
+            self.captured.setdefault("view_planes", {})[names[0]] = (
+                args, (f.wp, f.hp, f.row0), culled.tris, planes, binned)
         return planes, binned
 
     def _capture(self, key: str, value) -> None:
@@ -732,13 +676,14 @@ class BaseRenderGraph:
         Host reads: the cull's (one on the card, cull and binning one each
         on the CPU), and per sample the count's maximum plus, per peel, the `nonzero` of its candidate pixels and,
         when there are any, the count of those that failed the test."""
-        tris, culled = self._cull(f, stage, f.clipped, f.clipped.valid & cmask, "cut_setup", hiz=pyramid)
+        culled = self._cull(f, stage, f.clipped, f.clipped.valid & cmask, "cut_setup", hiz=pyramid)
+        tris = culled.tris
         st = self.last_stats
         st["cut_survivors"] = tris.count
         if tris.count == 0:
             return gbufs
         planes, binned = self._planes_bin(
-            f, stage, tris, culled, f.clipped, f.tri_vlocal, f.tri_obj, ("cut_planes", "cut_bin")
+            f, stage, culled, f.clipped, f.tri_vlocal, f.tri_obj, ("cut_planes", "cut_bin")
         )
         for si, sofs in enumerate(f.offsets):
             gbufs[si], peels, layers = self._cutout_sample(f, stage, tris, planes, binned, sofs, gbufs[si])
@@ -818,10 +763,11 @@ class BaseRenderGraph:
         with stage("blend_geom"):
             table = self._clip_table(f, f.blend_vlocal, f.blend_obj, "blend")
             # Timed as a whole under "blend_geom".
-            tris, culled = self._cull(f, _within, table, table.valid, "blend_geom")
+            culled = self._cull(f, _within, table, table.valid, "blend_geom")
             planes, binned = self._planes_bin(
-                f, _within, tris, culled, table, f.blend_vlocal, f.blend_obj, ("blend_geom",) * 2
+                f, _within, culled, table, f.blend_vlocal, f.blend_obj, ("blend_geom",) * 2
             )
+            tris = culled.tris
         st = self.last_stats
         st["blend_survivors"] = tris.count
         if tris.count == 0:
@@ -1058,10 +1004,9 @@ class BaseRenderGraph:
                 # First frame, or the triangle table changed size: predict all.
                 pm_tri = torch.ones(T, dtype=torch.bool, device=clipped.valid.device)
             pm = pm_tri[clipped.orig.long()]
-        tris, culled = self._cull(f, stage, clipped, opaque_valid if pm is None else opaque_valid & pm, "setup")
-        planes, binned = self._planes_bin(
-            f, stage, tris, culled, clipped, f.tri_vlocal, f.tri_obj, ("planes", "bin")
-        )
+        culled = self._cull(f, stage, clipped, opaque_valid if pm is None else opaque_valid & pm, "setup")
+        tris = culled.tris
+        planes, binned = self._planes_bin(f, stage, culled, clipped, f.tri_vlocal, f.tri_obj, ("planes", "bin"))
         if self.captured is not None and band is not None:
             # Each band's phase-1 inputs, by its first row.
             self.captured.setdefault("raster_band", {})[row0] = (tris, planes, binned, wp, hp, row0)
@@ -1099,11 +1044,12 @@ class BaseRenderGraph:
                 new_mask = torch.zeros(T, dtype=torch.bool, device=vis.device)
                 with profiling_scope("sync::hiz.visible"):
                     new_mask[clipped.orig.long()[vis]] = True
-            tris_r, culled_r = self._cull(f, stage, clipped, vis & ~pm, "resid")
+            culled_r = self._cull(f, stage, clipped, vis & ~pm, "resid")
+            tris_r = culled_r.tris
             st["resid_survivors"] = tris_r.count
             if tris_r.count:
                 planes_r, binned_r = self._planes_bin(
-                    f, stage, tris_r, culled_r, clipped, f.tri_vlocal, f.tri_obj, ("resid", "resid")
+                    f, stage, culled_r, clipped, f.tri_vlocal, f.tri_obj, ("resid", "resid")
                 )
                 for si, sofs in enumerate(offsets):
                     gbuf_r = raster_at(tris_r, planes_r, binned_r, sofs, "resid")

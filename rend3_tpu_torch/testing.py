@@ -514,6 +514,42 @@ def shadow_front_case(kind: str = "soup", device="cpu", seed: int = 0, n: Option
             t(np.zeros((n, 3), np.int32)), t(obj), t(np.zeros(n_obj, np.int32)), t(pos))
 
 
+def shadow_front_chain(plan, front_cw, transforms, light_vp, shadow_visible, position, tri_vlocal, tri_obj,
+                       base0, tri_pos):
+    """Each plan entry's (caster table, tile lists, padded width, padded
+    height) for K2, as PyTorch ops on any device, a map at a time: the
+    light-space clip transform, the near clip, the FRONT cull and setup
+    and the binning of the view's front end, in the frame's contracted
+    forms: the reference that shadow_front_plain's and the card's S1 / S2
+    tables (ops/shadow_front.py) are held to."""
+    import torch
+
+    from .ops import deferred as def_ops, geometry as geom_ops, transform as transform_ops
+    from .routine.base import _round_up
+
+    eye = torch.eye(4, dtype=torch.float32, device=transforms.device)
+    out = []
+    for k, (_li, _off, size) in enumerate(plan):
+        _, smvp = transform_ops.object_uniforms(transforms, light_vp[k], eye)
+        svalid = shadow_visible[k][tri_obj.long()]
+        sclip = transform_ops.gather_tri_clip(position, tri_vlocal, tri_obj, base0, smvp, tri_pos=tri_pos,
+                                              contract=True)
+        sclipped = transform_ops.clip_triangles(sclip, svalid, contract=True)
+        swp = _round_up(size, def_ops.DTILE_W)
+        shp = _round_up(size, def_ops.DTILE_H)
+        stris = geom_ops.cull_and_setup(
+            sclipped.clip, sclipped.valid, size, size,
+            cull_mode=geom_ops.CullMode.FRONT, front_is_cw=front_cw,
+            subpixel=True,  # sub-texel casters can't mark any texel center
+            contract=True,
+        )
+        sbinned = geom_ops.bin_triangles(
+            stris, swp, shp, tile_h=def_ops.DTILE_H, tile_w=def_ops.DTILE_W
+        )
+        out.append((stris, sbinned, swp, shp))
+    return out
+
+
 def shadow_front_diff(got, want) -> list:
     """Where shadow_front's maps (`got`, from S1 / S2) differ from
     shadow_front_plain's (`want`): per map, the rows put in slot order by

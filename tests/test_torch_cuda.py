@@ -79,8 +79,8 @@ from rend3_tpu_torch.ops import samplers as S
 from rend3_tpu_torch.ops import shadow as SH
 from rend3_tpu_torch.ops import shadow_front as SF
 from rend3_tpu_torch.overlay import OverlayRoutine, PaintJob
-from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget, raster_scene, shadow_front_chain
-from rend3_tpu_torch.testing import FrameRenderSettings, TestRunner
+from rend3_tpu_torch.routine.base import BaseRenderGraphSettings, FrameRenderTarget, raster_scene
+from rend3_tpu_torch.testing import FrameRenderSettings, TestRunner, shadow_front_chain
 from rend3_tpu_torch.utils import math as m3
 from rend3_tpu_torch.utils import profiling
 
@@ -1057,13 +1057,36 @@ def test_view_front_sites_match_plain(view_city, site):
                          (None, None, VF.planes_plain(tris, *args), VF.tiles_plain(tris, wp, hp, y0))) == []
 
 
+def _chain_front(monkeypatch):
+    """Puts the PyTorch chain in place of view_front's clip, cull, planes
+    and tiles, which the frame calls through the module."""
+    from rend3_tpu_torch.ops import transform as TR
+    from rend3_tpu_torch.ops import view_front as VF
+
+    def clip(positions, tri_vlocal, tri_obj, bases, mvp, visible):
+        c = TR.gather_tri_clip(positions, tri_vlocal, tri_obj, bases[:, 0], mvp, contract=True)
+        return TR.clip_triangles(c, visible[tri_obj.long()], contract=True)
+
+    def cull(clip_rows, valid, width, height, *, wp, hp, y0=0, **kw):
+        tris = G.cull_and_setup(clip_rows, valid, width, height, contract=True, **kw)
+        return VF.Culled(tris, None, None, None, 0, wp // D.DTILE_W, hp // D.DTILE_H, y0, None)
+
+    def planes(culled, table, *rest):
+        return D.attribute_planes(culled.tris, table.clip, table.bary, table.orig, *rest, contract=True)
+
+    def tiles(culled):
+        return G.bin_triangles(culled.tris, culled.n_cols * D.DTILE_W, culled.n_rows * D.DTILE_H, tile_h=D.DTILE_H,
+                               tile_w=D.DTILE_W, y0=culled.y0)
+
+    for name, fn in (("clip", clip), ("cull", cull), ("planes", planes), ("tiles", tiles)):
+        monkeypatch.setattr(VF, name, fn)
+
+
 def test_view_front_frame_matches_chain(view_city, monkeypatch):
     """The same two 1080p frames with the PyTorch chain in place of V1-V4
     on the card: both images bit for bit."""
-    from rend3_tpu_torch.ops import view_front as VF
-
     images, _cap = view_city
-    monkeypatch.setattr(VF, "on_card", lambda t: False)
+    _chain_front(monkeypatch)
     chain_images, _ = _view_city_frames()
     for got, want in zip(images, chain_images):
         assert np.array_equal(got, want)

@@ -9,8 +9,8 @@ sync:: spans, every one from SYNC_SITES; the shadow cache hits on a
 repeated frame and misses after an object moves (the object tables' cache
 with it: no bytes copied, then some).
 
-On the CPU a frame's front end is the chain (no view_front.tables, no
-kernel::V* span). On the card (marked cuda; skips without one): one frame
+On the CPU a frame's front end is the plain version (no view_front.tables,
+no kernel::V* span, none of the chain's reads). On the card (marked cuda; skips without one): one frame
 of each traffic kind (static, camera moving, objects moving) with
 PyTorch's sync debug mode on; every synchronizing call it warns of lies
 inside a sync:: span; a city frame builds its four front-end tables with
@@ -163,7 +163,7 @@ def test_device_trace_holds_every_program_span(city, tmp_path):
         _frame(runner, target)
     profiling.disable()
     names = set(profiling.stats().totals_ms)
-    assert {profiling.ROOT, "graph::clip", "graph::lighting", "sync::setup.survivors"} <= names
+    assert {profiling.ROOT, "graph::clip", "graph::lighting", "sync::hiz.visible"} <= names
     trace = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     ranges = {e["name"] for e in trace if e.get("ph") == "X"}
     assert names <= ranges, names - ranges
@@ -187,7 +187,7 @@ def test_static_frames_count_the_same_sync_sites(city, tmp_path):
     assert per_frame[0] == per_frame[1]
     assert sum(per_frame[0].values()) > 0
     assert set(per_frame[0]) <= SYNC_SITES, set(per_frame[0]) - SYNC_SITES
-    assert {"sync::setup.survivors", "sync::bin.pairs", "sync::cut.pixels", "sync::blend.pixels",
+    assert {"sync::hiz.visible", "sync::cut.layers", "sync::cut.pixels", "sync::blend.pixels",
             "sync::upload.uniforms"} <= set(per_frame[0])
 
 
@@ -212,8 +212,8 @@ def test_shadow_cache_hits_then_misses_after_a_move(city):
 
 
 def test_cpu_frame_counts_no_card_table(city):
-    """On the CPU the view's front end is the chain: no view_front.tables,
-    no kernel::V* span, and the chain's reads."""
+    """On the CPU the view's front end is the plain version: no
+    view_front.tables, no kernel::V* span, and none of the chain's reads."""
     runner, _keep, _objects, target = city
     profiling.enable()
     _frame(runner, target)
@@ -221,7 +221,9 @@ def test_cpu_frame_counts_no_card_table(city):
     s = profiling.stats()
     assert "view_front.tables" not in s.counters
     assert not VIEW_KERNEL_SPANS & set(s.counts)
-    assert s.counts["sync::setup.survivors"] >= 3 and s.counts["sync::clip.crossing"] == 2
+    assert not {"sync::setup.survivors", "sync::clip.crossing", "sync::bin.candidates", "sync::bin.pairs",
+                "sync::bin.tile_counts"} & set(s.counts)
+    assert s.counts["graph::setup"] == 1 and s.counts["sync::hiz.visible"] >= 1
 
 
 def _card_counts(runner, target):

@@ -1,5 +1,5 @@
 """S1 and S2's algorithm (ops/shadow_front.shadow_front_plain) against the
-shadow pass's PyTorch chain (routine.base.shadow_front_chain) on the CPU.
+shadow pass's PyTorch chain (testing.shadow_front_chain) on the CPU.
 
 On each case, map by map: the caster tables equal as multisets of rows
 (setup row and bbox, bit for bit, S_ID aside: the chain numbers rows by
@@ -9,7 +9,8 @@ Cases: the bench city (24 buildings, both lights at 256 texels) through a
 CPU frame, and testing.shadow_front_case's soups: the near-clip soup of
 test_torch_shadow_forms.py (about a third of its triangles crossing), one
 in which every triangle crosses, one no light sees (no survivor), and one
-whose first 90% of triangles cross nothing.
+whose first 90% of triangles cross nothing. On CPU tensors shadow_front
+returns the plain version's maps, which the CPU frame rasters.
 The card's S1 / S2 are held to the plain version in test_torch_cuda.py.
 """
 
@@ -22,6 +23,7 @@ from rend3_tpu_torch.ops import geometry as G
 from rend3_tpu_torch.ops import shadow_front as SF
 from rend3_tpu_torch.ops import transform as T
 from rend3_tpu_torch.routine import base as B
+from rend3_tpu_torch.testing import shadow_front_chain
 
 CASES = ("city", "soup", "all_crossing", "none", "mixed")
 
@@ -70,7 +72,7 @@ def _rows(tris: G.TriSetup) -> torch.Tensor:
 @pytest.mark.parametrize("case", CASES)
 def test_plain_matches_chain(city_inputs, case):
     inputs = _inputs(case, city_inputs)
-    chain = B.shadow_front_chain(*inputs)
+    chain = shadow_front_chain(*inputs)
     plain = _plain(inputs)
     assert len(chain) == len(plain) == 2
     for (ct, cb, w, h), pf in zip(chain, plain):
@@ -117,10 +119,19 @@ def test_plain_is_in_slot_order(city_inputs, case):
 
 
 def test_shadow_front_raises_on_cpu():
+    """shadow_front on CPU tensors returns shadow_front_plain's maps, row
+    for row, and launches nothing."""
     plan, cw, transforms, light_vp, vis, _p, _v, tri_obj, _b, tri_pos = testing.shadow_front_case("soup")
-    with pytest.raises(ValueError, match="CUDA"):
-        SF.shadow_front(SF.ShadowFrontBuffers(), [s for _l, _o, s in plan], cw,
-                        SF.light_mvp(transforms, light_vp, len(plan)), vis, tri_pos, tri_obj)
+    args = ([s for _l, _o, s in plan], cw, SF.light_mvp(transforms, light_vp, len(plan)), vis, tri_pos, tri_obj)
+    before = dict(SF.launches)
+    got = SF.shadow_front(SF.ShadowFrontBuffers(), *args)
+    assert SF.launches == before
+    want = SF.shadow_front_plain(*args)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert (g.width, g.height) == (w.width, w.height) and g.tris.count > 20
+        for a, b in zip((*g.tris, *g.binned), (*w.tris, *w.binned)):
+            assert torch.equal(a, b)
 
 
 def test_buffers_grow_only():

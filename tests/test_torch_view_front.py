@@ -11,8 +11,10 @@ tile's ids in order). Cases: testing.view_front_case's sets (the near-clip
 soup, the soup under a Hi-Z pyramid, a row band, MSAA's cull without the
 sub-pixel test, no object visible, one crossing triangle, no triangle),
 and each call site (main, residual, cutout, blend) of two CPU frames of
-the bench city with occlusion on, the camera moved between them. The card's
-kernels are held to the plain version in test_torch_cuda.py.
+the bench city with occlusion on, the camera moved between them: the CPU
+frame runs the plain version (view_front's clip, cull, planes and tiles on
+CPU tensors), and its tables equal the chain's on the site's inputs. The
+card's kernels are held to the plain version in test_torch_cuda.py.
 """
 
 import pytest
@@ -50,14 +52,23 @@ def _diff(got, want) -> list:
     return out
 
 
-def _chain(case):
-    positions, tri_vlocal, tri_obj, bases, mvp, visible = case["clip"]
+def _chain_clip(positions, tri_vlocal, tri_obj, bases, mvp, visible):
     clip = T.gather_tri_clip(positions, tri_vlocal, tri_obj, bases[:, 0], mvp, contract=True)
-    table = T.clip_triangles(clip, visible[tri_obj.long()], contract=True)
+    return T.clip_triangles(clip, visible[tri_obj.long()], contract=True)
+
+
+def _chain_planes(tris, table, tri_vlocal, tri_obj, bases, geo, model_view, material, width, height):
+    return D.attribute_planes(tris, table.clip, table.bary, table.orig, tri_vlocal, tri_obj, bases, geo, model_view,
+                              material, width, height, contract=True)
+
+
+def _chain(case):
+    _positions, tri_vlocal, tri_obj, bases, _mvp, _visible = case["clip"]
+    table = _chain_clip(*case["clip"])
     valid = table.valid & case["rows"][: table.valid.shape[0]]
     tris = G.cull_and_setup(table.clip, valid, case["width"], case["height"], contract=True, **case["cull"])
-    planes = D.attribute_planes(tris, table.clip, table.bary, table.orig, tri_vlocal, tri_obj, bases, case["geo"],
-                                case["model_view"], case["material"], case["width"], case["height"], contract=True)
+    planes = _chain_planes(tris, table, tri_vlocal, tri_obj, bases, case["geo"], case["model_view"],
+                           case["material"], case["width"], case["height"])
     binned = G.bin_triangles(tris, case["wp"], case["hp"], tile_h=D.DTILE_H, tile_w=D.DTILE_W, y0=case["y0"])
     return table, tris, planes, binned
 
@@ -133,30 +144,38 @@ def city_frames():
 
 @pytest.mark.parametrize("site", list(SITES))
 def test_plain_matches_chain_on_city(city_frames, site):
-    """Each call site of the city frame: the plain version on the frame's
-    inputs equals the chain's tables, which the frame rastered."""
+    """Each call site of the city frame: the tables the frame built (the
+    plain version's) and rastered equal the chain's on the site's
+    inputs."""
     clip_site = {"setup": "main", "blend_geom": "blend"}.get(site)
     if clip_site is not None:
         args, table = city_frames["view_clip"][clip_site]
-        assert _diff(VF.clip_plain(*args), table) == []
+        assert _diff(table, _chain_clip(*args)) == []
         if clip_site == "main":
             assert table.clip.shape[0] > args[2].shape[0]  # some crossing triangles
     (clip_rows, valid, width, height), kw, tris = city_frames["view_cull"][site]
-    assert _diff(VF.cull_plain(clip_rows, valid, width, height, **kw), tris) == []
+    assert _diff(tris, G.cull_and_setup(clip_rows, valid, width, height, contract=True, **kw)) == []
     assert (kw["hiz"] is not None) == (site == "cut_setup")
     assert tris.count > 0
     args, (wp, hp, y0), ptris, planes, binned = city_frames["view_planes"][SITES[site]]
     assert ptris is tris
-    assert _diff((VF.planes_plain(tris, *args),), (planes,)) == []
-    assert _diff(VF.tiles_plain(tris, wp, hp, y0), binned) == []
+    assert _diff((planes,), (_chain_planes(tris, *args),)) == []
+    assert _diff(binned, G.bin_triangles(tris, wp, hp, tile_h=D.DTILE_H, tile_w=D.DTILE_W, y0=y0)) == []
 
 
 def test_cpu_frame_builds_no_card_table(city_frames):
-    """On the CPU the frame runs the chain: none of V1-V4's launches, and
-    the sites' tables are the chain's types."""
+    """On the CPU the frame runs the plain version: none of V1-V4's
+    launches, and every site's tables equal the plain version's on its
+    inputs."""
     assert all(v == 0 for v in VF.launches.values())
-    assert not VF.on_card(torch.zeros(1))
-    assert isinstance(city_frames["view_cull"]["setup"][2], G.TriSetup)
+    for args, table in city_frames["view_clip"].values():
+        assert _diff(table, VF.clip_plain(*args)) == []
+    for (clip_rows, valid, width, height), kw, tris in city_frames["view_cull"].values():
+        assert _diff(tris, VF.cull_plain(clip_rows, valid, width, height, **kw)) == []
+    for args, (wp, hp, y0), tris, planes, binned in city_frames["view_planes"].values():
+        assert _diff((planes,), (VF.planes_plain(tris, *args),)) == []
+        assert _diff(binned, VF.tiles_plain(tris, wp, hp, y0)) == []
+    assert set(city_frames["view_cull"]) == set(SITES)
 
 
 def test_card_wrappers_refuse_wrong_inputs():
