@@ -67,9 +67,13 @@ wall time):
    pixels, a K4 launch of the skybox in every frame and both injected
    passes in every frame are checked, and the archetype with no routine
    must draw nothing (registering a routine for it then makes it draw);
-11. kernels: K1, K2 and K3 on the inputs captured in the flat frames, K4 and
-   K5 on those of the textured frames, K1's count and bound modes and K4
-   on the cutout alpha test on those of the representative frames, K1 at
+11. kernels: K1, K2 and K3 on the inputs captured in the flat frames (K3
+   on the shading chain's queries at the frame's D1 inputs,
+   lighting.chain_inputs), K4 (the same way) and K5 on those of the
+   textured frames, D1 (ops/lighting.py, csrc/deferred_shade.cu) on the
+   representative frame's opaque G-buffer and blend pixels, K1's count and
+   bound modes and K4 on the cutout alpha test on those of the
+   representative frames, K1 at
    an MSAA offset on those of the MSAA frames, K4 on the skybox query of
    the feature frame, K1 in every mode, K2 and K6 (at 1 and 4 samples) on
    the raster stress input (rend3_tpu_torch.testing.raster_stress_case),
@@ -99,10 +103,10 @@ wall time):
    testing.fma_stress_case at 2^24 rows (one call is one device kernel that
    makes no float64 tensor, testing.f1_call_trace), and at every call site
    of the representative frames (fp.capture: the largest call of each form
-   from each site, among them _shadow_coords, the texture query and the
-   clip); each form's row timed at its largest site in routine/base.py
-   (_shadow_coords), ops/transform.py (the clip transform) and
-   ops/geometry.py (setup), the fma row's library yardstick
+   from each site, among them the cutout alpha test's texture query and
+   the Hi-Z test); each form's row timed at its largest site in
+   ops/texture.py (the texture query), ops/transform.py (the clip
+   transform) and ops/geometry.py (setup), the fma row's library yardstick
    torch.addcmul(c, a, b) with whether its bits match;
 12. parity: the shadow golden scene, the textured-planes scene, the stacked
    cutout scene and the glass stack at 256x256, test_msaa's triangle at
@@ -111,16 +115,16 @@ wall time):
    u8, every shadow map bit for bit;
 13. framework: the app layer through its entry points at 1280x720 (the
    reference screenshots' size), each example's launches counted from
-   zero and each kernel it launched (K1-K5) held against its plain version
-   on the frame's captured inputs with phase 11's tolerances; every
+   zero and each kernel it launched (K1-K5, D1) held against its plain
+   version on the frame's captured inputs with phase 11's tolerances; every
    example frame is also rendered on the CPU and held to the card's within
    1 u8: the cube example through framework.render_single_frame, also
    against the JAX package's committed render cube.png (mae 0.005, SSIM
-   0.99; K1, K2 and K3 launched; the largest u8 difference and the pixels
+   0.99; K1, K2 and D1 launched; the largest u8 difference and the pixels
    more than 1 u8 off); the overlay example with OVERLAY_ON_DEVICE True
    and False (within 1 u8), and the overlay's bake, device pass and host
    compositor timed with CUDA events; textured_quad on a checker built in
-   memory (K4 launched); testing.GltfAnimationApp (testing.make_test_gltf()
+   memory (D1 launched); testing.GltfAnimationApp (testing.make_test_gltf()
    through gltf.loader.load_gltf, posed by anim.pose_animation_frame at t
    = 0, half the duration and the duration through framework.start) with
    its load, pose and frame times and each frame's peak memory above what
@@ -192,14 +196,15 @@ KERNEL_NAMES = (
     "raster_resolve", "raster_msaa", "raster_count", "raster_bound", "raster_band", "raster_depth", "pcf5", "bilinear",
     "gather", "raster_vis", "shadow_occ", "shadow_occ_lt", "probe_dot", "probe_reduce", "probe_lerp",
     "fma", "fma_dot3", "fma_ab_minus_cd", "shadow_setup", "shadow_tiles",
-    "view_clip", "view_setup", "view_planes", "view_tiles",
+    "view_clip", "view_setup", "view_planes", "view_tiles", "deferred_shade",
 )
 # F1's forms (ops/fp.py fma32, dot3, ab_minus_cd): every frame's clip,
 # setup and light-space products launch all three.
 F1_KERNELS = ("fma", "fma_dot3", "fma_ab_minus_cd")
-# The form every deferred frame on the card launches (the light-space
-# products, the texture queries): dot3 and ab_minus_cd left its front end
-# with V1-V4 (ab_minus_cd stays in the Hi-Z visibility mask, occlusion on).
+# The form a deferred frame with cutouts launches on the card (the alpha
+# test's texture queries): dot3 and ab_minus_cd left its front end with V1-V4
+# (ab_minus_cd stays in the Hi-Z visibility mask, occlusion on), the
+# light-space products and the shading's texture queries went into D1.
 F1_FRAME_KERNELS = ("fma",)
 # S1 and S2 (ops/shadow_front.py): every shadow pass on the card builds its
 # maps' caster tables and tile lists with them, then K2 rasters.
@@ -207,11 +212,12 @@ SHADOW_KERNELS = ("shadow_setup", "shadow_tiles")
 # V1-V4 (ops/view_front.py): every frame on the card builds its triangle
 # sets' front-end tables with them.
 VIEW_KERNELS = ("view_clip", "view_setup", "view_planes", "view_tiles")
-# The kernels each frame path must launch.
-FRAME_KERNELS = ("raster_resolve", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather",
-                 *F1_FRAME_KERNELS, *SHADOW_KERNELS, *VIEW_KERNELS)
-MSAA_KERNELS = ("raster_msaa", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear", "gather",
-                *F1_FRAME_KERNELS, *SHADOW_KERNELS, *VIEW_KERNELS)
+# The kernels each frame path must launch (K4: the cutout alpha test; D1:
+# the shading).
+FRAME_KERNELS = ("raster_resolve", "raster_count", "raster_bound", "raster_depth", "bilinear", "gather",
+                 "deferred_shade", *F1_FRAME_KERNELS, *SHADOW_KERNELS, *VIEW_KERNELS)
+MSAA_KERNELS = ("raster_msaa", "raster_count", "raster_bound", "raster_depth", "bilinear", "gather",
+                "deferred_shade", *F1_FRAME_KERNELS, *SHADOW_KERNELS, *VIEW_KERNELS)
 # The kernels the feature frame must launch at 1 / 4 samples (K4 also for
 # the skybox, K2 for the new pose's shadow maps).
 FEATURE_KERNELS = {1: FRAME_KERNELS, 4: MSAA_KERNELS}
@@ -261,10 +267,11 @@ def phase_build():
 
 
 def _counters():
-    from rend3_tpu_torch.ops import deferred, fp, probe_bf16, raster_binned, samplers, shadow, shadow_front, view_front
+    from rend3_tpu_torch.ops import (deferred, fp, lighting, probe_bf16, raster_binned, samplers, shadow, shadow_front,
+                                     view_front)
 
     return (deferred.launches, samplers.launches, raster_binned.launches, shadow.launches, probe_bf16.launches,
-            fp.launches, shadow_front.launches, view_front.launches)
+            fp.launches, shadow_front.launches, view_front.launches, lighting.launches)
 
 
 def _launch_counts():
@@ -373,8 +380,7 @@ def phase_slice(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
         raise AssertionError("moving a building did not invalidate the shadow map")
     log(f"launches during the three flat frames: {counts}")
     if cuda:
-        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", *F1_FRAME_KERNELS, *SHADOW_KERNELS,
-                                 *VIEW_KERNELS))
+        _check_launched(counts, ("raster_resolve", "raster_depth", "deferred_shade", *SHADOW_KERNELS, *VIEW_KERNELS))
     for img in (img1, img2, img3):
         _check_image(img, width, height)
     if not np.array_equal(img1, img2):
@@ -429,8 +435,7 @@ def phase_textured(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=600):
     log(f"launches during the three textured frames: {counts}")
     log(f"frame 2 survivors: main + resid = {s_on2} vs {s_off} with occlusion off")
     if cuda:
-        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", "bilinear", "gather", *F1_FRAME_KERNELS,
-                                 *SHADOW_KERNELS))
+        _check_launched(counts, ("raster_resolve", "raster_depth", "gather", "deferred_shade", *SHADOW_KERNELS))
     for img in (ref, img1, img2, img3):
         _check_image(img, width, height)
     if not s_on2 < s_off:
@@ -844,6 +849,90 @@ def _k4_check(label, a):
     return err
 
 
+# D1 against its plain version (the PyTorch chain) on the card, as
+# tests/test_torch_cuda.py holds it: NaN at the same places, every other
+# value bit for bit or within D1_REL where the device library's powf (the
+# sRGB decode of vertex colours) rounds otherwise under D1's --fmad=false
+# than in PyTorch's build, the u8 image within 1.
+D1_REL = 2e-6
+
+
+def _d1_check(label, args):
+    """D1 (lighting.light_gbuffer) against light_gbuffer_plain on one
+    call's captured arguments, within D1_REL and 1 u8. Returns the largest
+    relative difference."""
+    import torch
+
+    from rend3_tpu_torch.ops import blit
+    from rend3_tpu_torch.ops import lighting as L
+
+    def u8(img):
+        return blit.hdr_to_srgb_u8(blit.f16_roundtrip(img[None])[0]).to(torch.int32)
+
+    got = L.light_gbuffer(*args)
+    want = L.light_gbuffer_plain(*args).contiguous()
+    nan = torch.isnan(want)
+    diff = (got.view(torch.int32) != want.view(torch.int32)) & ~nan
+    rel = ((got - want).abs() / want.abs().clamp_min(1e-30))[diff]
+    rel_max = float(rel.max()) if rel.numel() else 0.0
+    d8 = int((u8(got) - u8(want)).abs().max())
+    hit = args[0].data[20] > 0
+    log(f"D1 ({label}): {tuple(got.shape[:2])} pixels, {int(hit.sum())} hit, slots {tuple(args[8])}, "
+        f"{0 if args[6] is None else len(getattr(args[6], 'plan', ()))} maps; {int(diff.sum())} of {diff.numel()} "
+        f"values differ from the chain (channels {[int(x) for x in diff.reshape(-1, 4).sum(0)]}), max rel "
+        f"{rel_max:.3g}, u8 max {d8}, NaN {int(nan.sum())}")
+    if not torch.equal(torch.isnan(got), nan) or rel_max > D1_REL or d8 > 1:
+        raise AssertionError(f"D1 ({label}) differs from its plain version beyond its tolerance")
+    return rel_max
+
+
+def _d1_bound(args):
+    """D1's bound at one call's arguments: the G-buffer channels it reads
+    (22 at a hit pixel, the hit flag and the background elsewhere), the
+    RGBA it writes, and the distinct texels (8 bytes each) and map texels
+    (4 bytes) the chain's valid queries touch, at 3.35 TB/s."""
+    import torch
+
+    from rend3_tpu_torch.ops import lighting as L
+    from rend3_tpu_torch.ops import samplers as S
+
+    g, bg = args[0].data, args[5]
+    hit = g[20] > 0
+    n, n_hit = hit.numel(), int(hit.sum())
+    moved = n_hit * 22 * 4 + (n - n_hit) * (4 + (16 if bg.stride(1) else 0)) + n * 16
+    ins = L.chain_inputs(*args)
+    if "bilinear" in ins:
+        atlas, bx, by, _fx, _fy, _wt, valid = ins["bilinear"]
+        aw = atlas.shape[1]
+        at = (by.long() * aw + bx.long())[valid]
+        taps = torch.cat([at, at + 1, at + aw, at + aw + 1])
+        moved += 8 * int(torch.unique(taps).numel())
+    if "pcf5" in ins:
+        stacked, bx, by, _fx, _fy, _ref, ok = ins["pcf5"]
+        at = (by.long() * stacked.shape[1] + bx.long())[ok]
+        taps = torch.cat([at + dy * stacked.shape[1] + dx for dx, dy in S.PCF5_OFFSETS])
+        moved += 4 * int(torch.unique(taps).numel())
+    return _bound(moved, 0)
+
+
+def _d1_row(args, timed):
+    """D1 on the representative frame's opaque G-buffer: checked, and its
+    phase-11 row, timed as its raw launch (the wrapper also computes the
+    per-light vectors with PyTorch ops)."""
+    from rend3_tpu_torch.ops import cuda_kernels
+    from rend3_tpu_torch.ops import lighting as L
+
+    err = _d1_check("representative, opaque", args)
+    tensors, ints = L.launch_args(*args, L.light_tensors(*args[2:5]))
+    bound = _d1_bound(args)
+    if timed:
+        log(f"D1 (representative, opaque): wrapper {_graph_ms(lambda: L.light_gbuffer(*args))} ms (device, graph of "
+            f"{DEVICE_CALLS} calls, the light vectors' PyTorch ops included)")
+    return ("deferred_shade", "rend3_tpu_torch/csrc/deferred_shade.cu", "rend3_tpu/ops/lighting.py:50",
+            lambda: L.light_gbuffer(*args), lambda: L.light_gbuffer_plain(*args), err, bound, None,
+            lambda: cuda_kernels.call("d1_deferred_shade", *tensors, ints=ints))
+
+
 def phase_visibility(graph, device="cuda"):
     """raster_scene (K6) at 1 and 4 samples over the opaque clipped table
     of `graph`'s last representative frame (occlusion plays no part:
@@ -1057,8 +1146,18 @@ def phase_kernels(paths, extra_rows=(), timed=True):
     if rcap["view_cull"]["setup"][2].setup.is_cuda:
         rows += _view_front_rows(rcap, paths["representative"][0], timed)
 
-    # K3: abs <= 1e-6. The maps are read only around valid queries (12 texels each).
-    args = cap["pcf5"]
+    # D1 on the representative frame's opaque G-buffer (sample 0), its blend
+    # pixels checked too.
+    from rend3_tpu_torch.ops import lighting as L
+
+    if rcap["deferred_shade"][0].data.is_cuda:
+        rows.append(_d1_row(rcap["deferred_shade"], timed))
+        _d1_check("representative, blend pixels", rcap["deferred_shade_blend"])
+
+    # K3: abs <= 1e-6, on the flat frame's shadow queries (D1 takes the same
+    # taps; lighting.chain_inputs gives the chain's K3 arguments). The maps
+    # are read only around valid queries (12 texels each).
+    args = L.chain_inputs(*cap["deferred_shade"])["pcf5"]
     k = S.sample_grid_pcf5(*args)
     p = S.sample_grid_pcf5_plain(*args)
     err3 = float((k - p).abs().max())
@@ -1070,9 +1169,10 @@ def phase_kernels(paths, extra_rows=(), timed=True):
     rows.append(("pcf5", "rend3_tpu_torch/csrc/pcf5.cu", "rend3_tpu/ops/mxu_gather.py:424",
                  lambda: S.sample_grid_pcf5(*args), lambda: S.sample_grid_pcf5_plain(*args), err3, b3, None))
 
-    # K4: exact or at most 1 ulp, on the textured frame's textures and on
-    # the representative frame's cutout alpha test.
-    a4 = tcap["bilinear"]
+    # K4: exact or at most 1 ulp, on the textured frame's texture queries
+    # (the chain's, as for K3) and on the representative frame's cutout
+    # alpha test.
+    a4 = L.chain_inputs(*tcap["deferred_shade"])["bilinear"]
     err4 = _k4_check("textures", a4)
     _k4_check("cutout alpha test", rcap["bilinear_cutout"])
     sky = paths["features"][0].captured["bilinear_sky"]
@@ -1327,14 +1427,14 @@ def _view_front_check(label, cap):
 
 F1_SOURCE = "rend3_tpu_torch/csrc/fma.cu"
 # No pallas_call emits an fma: the lines of the JAX frame whose sums
-# XLA:CPU contracts into each form (the light-space product, the clip
-# transform, the screen-space area).
-F1_REPLACES = {"fma": "rend3_tpu/routine/base.py:1663", "fma_dot3": "rend3_tpu/ops/transform.py:96",
+# XLA:CPU contracts into each form (the texture query, the clip transform,
+# the screen-space area).
+F1_REPLACES = {"fma": "rend3_tpu/ops/texture.py:518", "fma_dot3": "rend3_tpu/ops/transform.py:96",
                "fma_ab_minus_cd": "rend3_tpu/ops/geometry.py:121"}
 # Each form's timed row: the frame's largest call from this file of the
-# package (routine.base._shadow_coords, transform.gather_tri_clip,
-# geometry's setup).
-F1_TIMED_SITE = {"fma": "routine/base.py", "fma_dot3": "ops/transform.py", "fma_ab_minus_cd": "ops/geometry.py"}
+# package (texture.texture_queries for the cutout alpha test,
+# transform.gather_tri_clip, geometry's setup).
+F1_TIMED_SITE = {"fma": "ops/texture.py", "fma_dot3": "ops/transform.py", "fma_ab_minus_cd": "ops/geometry.py"}
 # f32 operations per output element (an fma counts two).
 F1_OPS = {"fma": 2, "fma_dot3": 5, "fma_ab_minus_cd": 3}
 F1_STRESS_ROWS = 1 << 24
@@ -1558,6 +1658,7 @@ def log_kernel_info():
     rows += [(name, "f1_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.F1_INSTANCES)]
     rows += [(name, "shadow_front_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.SHADOW_FRONT_INSTANCES)]
     rows += [(name, "view_front_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.VIEW_FRONT_INSTANCES)]
+    rows += [(name, "d1_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.D1_INSTANCES)]
     for label, fn, args in rows:
         info = cuda_kernels.kernel_info(fn, *args)
         log(f"{label}: {info['registers']} registers, {info['local_bytes']} local (spill) bytes, "
@@ -1817,10 +1918,12 @@ def _check_frame_kernels(label, cap):
     """Each kernel that an example frame launched, against its plain version
     on the inputs the frame captured, with phase 11's tolerances: K1 depth,
     hit and material bit-exact and the rest within 1 ulp, K2 and K5
-    bit-exact, K3 within 1e-6, K4 within 1 ulp. Returns the names checked."""
+    bit-exact, K3 within 1e-6, K4 within 1 ulp, D1 as _d1_check. Returns the
+    names checked."""
     import torch
 
     from rend3_tpu_torch.ops import deferred as D
+    from rend3_tpu_torch.ops import lighting as L
     from rend3_tpu_torch.ops import samplers as S
 
     checked = []
@@ -1840,9 +1943,15 @@ def _check_frame_kernels(label, cap):
     if any(table.clip.is_cuda for _args, table in cap.get("view_clip", {}).values()):
         _view_front_check(label, cap)
         checked += list(VIEW_KERNELS)
-    if "pcf5" in cap:
-        err = float((S.sample_grid_pcf5(*cap["pcf5"]) - S.sample_grid_pcf5_plain(*cap["pcf5"])).abs().max())
-        log(f"{label} K3: max abs err {err:.3g} over {int(cap['pcf5'][-1].sum())} valid queries")
+    for key in ("deferred_shade", "deferred_shade_blend"):
+        if key in cap and cap[key][0].data.is_cuda:
+            _d1_check(f"{label} {key}", cap[key])
+            checked.append("deferred_shade")
+    if "deferred_shade" in cap and isinstance(cap["deferred_shade"][6], L.ShadowMaps):
+        # K3 on the frame's shadow queries (where its routines' factors launch it).
+        args = L.chain_inputs(*cap["deferred_shade"])["pcf5"]
+        err = float((S.sample_grid_pcf5(*args) - S.sample_grid_pcf5_plain(*args)).abs().max())
+        log(f"{label} K3: max abs err {err:.3g} over {int(args[-1].sum())} valid queries")
         if not err <= 1e-6:
             raise AssertionError(f"{label} K3 differs from the plain version by {err}")
         checked.append("pcf5")
@@ -1953,7 +2062,7 @@ def _phase_framework(device, width, height, tmp):
     _app, (img,), counts = _example_frame("cube", cube.CubeExample, device, width, height)
     launches["cube"] = counts
     if cuda:
-        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", *SHADOW_KERNELS))
+        _check_launched(counts, ("raster_resolve", "raster_depth", "deferred_shade", *SHADOW_KERNELS))
     log(f"cube: K5 (gather) launches {counts['gather']}")
     _card_vs_cpu("cube", cube.CubeExample, [img], width, height)
     if (width, height) == (EXAMPLE_W, EXAMPLE_H):
@@ -2008,8 +2117,8 @@ def _phase_framework(device, width, height, tmp):
 
     _app, (img,), counts = _example_frame("textured_quad", quad, device, width, height)
     launches["textured_quad"] = counts
-    if cuda and counts["bilinear"] == 0:
-        raise AssertionError("textured_quad did not launch K4")
+    if cuda and counts["deferred_shade"] == 0:
+        raise AssertionError("textured_quad did not launch D1")
     _check_image(img, width, height)
     _card_vs_cpu("textured_quad", quad, [img], width, height)
 
@@ -2062,7 +2171,7 @@ def _phase_framework(device, width, height, tmp):
         if np.array_equal(a, b):
             raise AssertionError("two poses of the glTF scene rendered the same image")
     if cuda:
-        _check_launched(counts, ("raster_resolve", "raster_depth", "pcf5", "bilinear", *SHADOW_KERNELS))
+        _check_launched(counts, ("raster_resolve", "raster_depth", "deferred_shade", *SHADOW_KERNELS))
     _card_vs_cpu("glTF scene", Timed, big, width, height, frames=3, frame_dt=dt)
 
     # Profiling: both scopes in the chrome trace, and a device trace.
@@ -2167,7 +2276,9 @@ def phase_reference(device="cuda", width=WIDTH, height=HEIGHT, n_buildings=REFER
         f"O(triangles x pixels) by design), at {width}x{height}")
     dgraph, dimg, dms, dpeak, _ = _forward_city(device, width, height, n_buildings, 1, deferred=True)
     log(f"reference: deferred frame of the same scene {dms:.1f} ms (host, synchronized), peak {dpeak:.1f} MiB")
-    coords = dgraph.captured["shadow_coords"]
+    from rend3_tpu_torch.ops import lighting as L
+
+    coords = L.chain_inputs(*dgraph.captured["deferred_shade"])["shadow_coords"]
     cuda = torch.device(device).type == "cuda"
 
     _reset_launch_counts()
@@ -2245,9 +2356,9 @@ def phase_bench_host(device="cuda", n_objects=50_000):
 BAND_COUNTS = (2, 4, 8)
 # The kernels the banded frames must launch: K1 at every band's first row
 # past 0 ("raster_band") and band 0's K1 modes, K2 for the shadow maps
-# (rebuilt in the first banded frame of each scene), K3, K4, K5 and V1-V4.
-BAND_KERNELS = ("raster_band", "raster_resolve", "raster_count", "raster_bound", "raster_depth", "pcf5", "bilinear",
-                "gather", *F1_FRAME_KERNELS, *SHADOW_KERNELS, *VIEW_KERNELS)
+# (rebuilt in the first banded frame of each scene), K4, K5, D1 and V1-V4.
+BAND_KERNELS = ("raster_band", "raster_resolve", "raster_count", "raster_bound", "raster_depth", "bilinear", "gather",
+                "deferred_shade", *F1_FRAME_KERNELS, *SHADOW_KERNELS, *VIEW_KERNELS)
 
 
 def _peak_start(cuda):

@@ -1,6 +1,6 @@
 """Time this tree's kernels against other trees' on the same inputs.
 
-    python3 kernel_ab.py OTHER_DIR [OTHER_DIR ...] [K1 K2 P1 K5 K6 K7 P2 P3 F1]
+    python3 kernel_ab.py OTHER_DIR [OTHER_DIR ...] [K1 K2 P1 K5 K6 K7 P2 P3 F1 D1]
 
 Each OTHER_DIR holds another tree: another commit's, for example the
 parent's, unpacked with `git archive` into the ignored `_checkout/`, or a
@@ -15,8 +15,9 @@ and P3 run as raw launches through the tree's own `ops.cuda_kernels.call`
 (P3's wrapper reads the device on the host, so no CUDA graph takes it), on
 the C interface of P2 and P3, unchanged since their port; F1 through
 `ops.fp.fma32`, `dot3` and `ab_minus_cd` (a tree without F1 runs its
-float64 emulation there). The groups named (all nine by default) choose
-the cases. The inputs come from
+float64 emulation there); D1 as a raw launch through the tree's own
+`ops.lighting.launch_args` and `ops.cuda_kernels.call`, its arguments
+prepared once. The groups named (all ten by default) choose the cases. The inputs come from
 this tree on the card, as chip_smoke.py makes them, at 1920x1080:
 
 - K1 opaque and K2 (the 2048² map) from the flat city after a building
@@ -42,10 +43,12 @@ this tree on the card, as chip_smoke.py makes them, at 1920x1080:
   without and with init steps, the 128-lane sum without), and on P2 v3's
   (one step of 128-lane sums over 4,096 pixels) and v7's (bf16) inputs;
 - F1 at the representative frame's largest call of each form from
-  routine/base.py (_shadow_coords' light-space product), ops/texture.py
-  (the texture query), ops/transform.py (the clip transform) and
-  ops/geometry.py (setup), with torch.addcmul(c, a, b) as the fma's
-  library call.
+  ops/texture.py (the cutout alpha test's texture query),
+  ops/transform.py (the clip transform) and ops/geometry.py (setup), with
+  torch.addcmul(c, a, b) as the fma's library call;
+- D1 on the representative frame's opaque G-buffer and its blend pixels
+  (occlusion on), and on the flat city's opaque G-buffer (untextured, one
+  map).
 
 Every tree's outputs must equal this tree's bit for bit (NaN at the same
 places; K7 and K8 at hit pixels, the only ones where their values are
@@ -79,7 +82,7 @@ import sys
 import chip_smoke as cs
 
 WIDTH, HEIGHT = cs.WIDTH, cs.HEIGHT
-GROUPS = ("K1", "K2", "P1", "K5", "K6", "K7", "P2", "P3", "F1")
+GROUPS = ("K1", "K2", "P1", "K5", "K6", "K7", "P2", "P3", "F1", "D1")
 
 
 def load_other(root, name="rend3_other"):
@@ -217,8 +220,8 @@ def k5_case():
 
 
 # F1's cases: (form, fp's function, the call site's file in the package).
-F1_SITES = (("fma", "fma32", "routine/base.py"), ("fma", "fma32", "ops/texture.py"),
-            ("fma_dot3", "dot3", "ops/transform.py"), ("fma_ab_minus_cd", "ab_minus_cd", "ops/geometry.py"))
+F1_SITES = (("fma", "fma32", "ops/texture.py"), ("fma_dot3", "dot3", "ops/transform.py"),
+            ("fma_ab_minus_cd", "ab_minus_cd", "ops/geometry.py"))
 
 
 def f1_cases():
@@ -242,6 +245,41 @@ def f1_cases():
         shape = tuple(torch.broadcast_shapes(*(x.shape for x in xs)))
         cases[f"F1 {form} at {site} {shape}"] = ("fp", fname, xs, {}, lib, None, None)
     return cases
+
+
+def d1_raw(pkg):
+    """D1 in package `pkg` as a raw launch: light_gbuffer's arguments (this
+    tree's, its ShadowMaps rebuilt as the package's) turned into the C
+    arguments once a call site, then only the launch."""
+    import torch
+
+    lighting = importlib.import_module(f"{pkg}.ops.lighting")
+    ck = importlib.import_module(f"{pkg}.ops.cuda_kernels")
+    prepared = {}
+
+    def run(*args):
+        if id(args[0]) not in prepared:
+            shadows = args[6]
+            if shadows is not None and not isinstance(shadows, torch.Tensor):
+                shadows = lighting.ShadowMaps(*shadows)
+            a = (*args[:6], shadows, *args[7:])
+            prepared[id(args[0])] = lighting.launch_args(*a, lighting.light_tensors(*a[2:5]))
+        tensors, ints = prepared[id(args[0])]
+        ck.call("d1_deferred_shade", *tensors, ints=ints)
+        return tensors[2]
+
+    return run
+
+
+def d1_cases():
+    """D1 on the representative frame's opaque G-buffer and blend pixels
+    (occlusion on) and on the flat city's opaque G-buffer."""
+    rep = capture("representative", occlusion=True)
+    flat = capture("flat")
+    return {f"D1 {label}": ("lighting", d1_raw, cap[key], {}, None, None, None)
+            for label, cap, key in (("representative, opaque", rep, "deferred_shade"),
+                                    ("representative, blend pixels", rep, "deferred_shade_blend"),
+                                    ("flat city, opaque", flat, "deferred_shade"))}
 
 
 def emptied(lists, k):
@@ -454,6 +492,8 @@ def main(argv):
         cases.update(probe_cases(groups))
     if "F1" in groups:
         cases.update(f1_cases())
+    if "D1" in groups:
+        cases.update(d1_cases())
     other_cks = [(d, importlib.import_module(f"{pkg}.ops.cuda_kernels")) for d, pkg in others]
     if "P1" in groups or "K5" in groups:
         log_kernels(cuda_kernels, other_cks)
@@ -461,6 +501,11 @@ def main(argv):
         log_vis_occ_kernels(cuda_kernels, other_cks)
     if "P2" in groups or "P3" in groups:
         log_probe_kernels(cuda_kernels, other_cks)
+    if "D1" in groups:
+        for label, ck in [("this", cuda_kernels)] + other_cks:
+            ck.build(verbose=True)
+            for name, info in ptxas(ck.last_build["log"], r"d1_kernel").items():
+                cs.log(f"{label} D1 {name}: {json.dumps(info)}")
 
     def outputs(f, args, kw, mask):
         out = f(*args, **kw)

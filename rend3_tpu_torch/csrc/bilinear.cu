@@ -19,7 +19,9 @@
 //   - each column's two y-products are exact in f32 and summed once;
 //   - the x-lerp is (1-fx)*left + fx*right: two f32 products, one add
 //     (XLA:CPU does not contract this reduce into an fma).
-// Separate __fmul_rn / __fadd_rn under --fmad=false keep that order.
+// Separate __fmul_rn / __fadd_rn under --fmad=false keep that order. The
+// per-query arithmetic is samplers.cuh's bilinear_query, which D1
+// (deferred_shade.cu) shares.
 //
 // What bounds it on the H100: memory latency. A query reads 21 bytes of
 // inputs, four 8-byte texels (one load each, thanks to the interleaved
@@ -32,27 +34,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "samplers.cuh"
+
 namespace {
-
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
-
-// Round a finite f32 to the nearest bf16, ties to even, returned as f32.
-__device__ __forceinline__ float round_bf16(float v)
-{
-    uint32_t u = __float_as_uint(v);
-    u += 0x7FFFu + ((u >> 16) & 1u);
-    return __uint_as_float(u & 0xFFFF0000u);
-}
-
-__device__ __forceinline__ void texel(const uint2* __restrict__ atlas, size_t at, float t[4])
-{
-    const uint2 p = __ldg(atlas + at);
-    t[0] = bf16_lo(p.x);
-    t[1] = bf16_hi(p.x);
-    t[2] = bf16_lo(p.y);
-    t[3] = bf16_hi(p.y);
-}
 
 __global__ void __launch_bounds__(256) bilinear_kernel(
     const uint2* __restrict__ atlas, const int* __restrict__ bx, const int* __restrict__ by,
@@ -61,27 +45,8 @@ __global__ void __launch_bounds__(256) bilinear_kernel(
 {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= q) return;
-    const int x = bx[i], y = by[i];
-    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (valid[i] && x >= 0 && x + 1 < aw && y >= 0 && y + 1 < ah) {
-        const float w = wt[i], fxv = fx[i], fyv = fy[i];
-        const float wy0 = round_bf16(__fmul_rn(w, __fsub_rn(1.0f, fyv)));
-        const float wy1 = round_bf16(__fmul_rn(w, fyv));
-        const float gx = __fsub_rn(1.0f, fxv);
-        const size_t row0 = (size_t)y * aw + x, row1 = row0 + aw;
-        float t00[4], t01[4], t10[4], t11[4];
-        texel(atlas, row0, t00);
-        texel(atlas, row0 + 1, t01);
-        texel(atlas, row1, t10);
-        texel(atlas, row1 + 1, t11);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            const float left = __fadd_rn(__fmul_rn(t00[c], wy0), __fmul_rn(t10[c], wy1));
-            const float right = __fadd_rn(__fmul_rn(t01[c], wy0), __fmul_rn(t11[c], wy1));
-            // + 0: the JAX kernel sums into a zeroed block, so -0 reads +0.
-            v[c] = __fadd_rn(__fadd_rn(__fmul_rn(gx, left), __fmul_rn(fxv, right)), 0.0f);
-        }
-    }
+    float v[4];
+    bilinear_query(atlas, ah, aw, bx[i], by[i], fx[i], fy[i], wt[i], valid[i], v);
 #pragma unroll
     for (int c = 0; c < 4; ++c) out[(size_t)c * q + i] = v[c];
 }

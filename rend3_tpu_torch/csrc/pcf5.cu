@@ -16,7 +16,8 @@
 // version (ops/samplers.py), built with --fmad=false, so the two agree bit
 // for bit. The JAX kernel contracts some of these under XLA:CPU and skips
 // fully lit cells; both differ from this by rounding only (the tests hold
-// K3 to 1e-6).
+// K3 to 1e-6). The per-query arithmetic is samplers.cuh's pcf5_query, which
+// D1 (deferred_shade.cu) shares.
 //
 // What bounds it on the H100: memory. Per pixel it reads 6 inputs (25 bytes)
 // and writes 4 bytes; the 12 texel loads hit L1/L2, since neighbouring
@@ -28,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "samplers.cuh"
+
 namespace {
 
 __global__ void __launch_bounds__(256) pcf5_kernel(
@@ -37,38 +40,7 @@ __global__ void __launch_bounds__(256) pcf5_kernel(
 {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    const int x = bx[i], y = by[i];
-    if (!(valid[i] && x >= 0 && x < ws && y >= 0 && y < hs)) {
-        out[i] = 0.0f;
-        return;
-    }
-    const float r = ref[i];
-    // c[dy + 1][dx + 1]: the GE compare of texel (x + dx, y + dy); the four
-    // window corners are never read.
-    float c[4][4];
-#pragma unroll
-    for (int dy = -1; dy <= 2; ++dy) {
-#pragma unroll
-        for (int dx = -1; dx <= 2; ++dx) {
-            if ((dx == -1 || dx == 2) && (dy == -1 || dy == 2)) continue;
-            const int xx = x + dx, yy = y + dy;
-            const float v = (xx >= 0 && xx < ws && yy >= 0 && yy < hs) ? img[(size_t)yy * ws + xx] : 0.0f;
-            c[dy + 1][dx + 1] = (r >= v) ? 1.0f : 0.0f;
-        }
-    }
-    const float fxv = fx[i], fyv = fy[i];
-    const float gx = __fsub_rn(1.0f, fxv), gy = __fsub_rn(1.0f, fyv);
-    auto tap = [&](int ox, int oy) {
-        const float top = __fadd_rn(__fmul_rn(c[oy + 1][ox + 1], gx), __fmul_rn(c[oy + 1][ox + 2], fxv));
-        const float bot = __fadd_rn(__fmul_rn(c[oy + 2][ox + 1], gx), __fmul_rn(c[oy + 2][ox + 2], fxv));
-        return __fadd_rn(__fmul_rn(top, gy), __fmul_rn(bot, fyv));
-    };
-    float total = tap(0, 0);
-    total = __fadd_rn(total, tap(0, 1));
-    total = __fadd_rn(total, tap(0, -1));
-    total = __fadd_rn(total, tap(1, 0));
-    total = __fadd_rn(total, tap(-1, 0));
-    out[i] = __fmul_rn(total, 0.2f);
+    out[i] = pcf5_query(img, hs, ws, bx[i], by[i], fx[i], fy[i], ref[i], valid[i]);
 }
 
 }  // namespace

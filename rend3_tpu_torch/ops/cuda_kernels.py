@@ -39,8 +39,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG, "csrc")
 _BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("raster.cu", "pcf5.cu", "bilinear.cu", "gather.cu", "shadow_occ.cu", "probe_bf16.cu", "fma.cu",
-           "shadow_front.cu", "view_front.cu")
-HEADERS = ("kernel_info.cuh", "tile_lists.cuh", "front_end.cuh")
+           "shadow_front.cu", "view_front.cu", "deferred_shade.cu")
+HEADERS = ("kernel_info.cuh", "tile_lists.cuh", "front_end.cuh", "samplers.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "--fmad=false", "-lineinfo", "-Xcompiler", "-fPIC")
 
@@ -67,11 +67,12 @@ _SIGNATURES = {
     "v2_setup": (7, 2, 2),
     "v3_planes": (17, 7, 2),
     "v4_tiles": (4, 4, 0),
+    "d1_deferred_shade": (25, 18, 0),
 }
 # name -> int args of the kernel-info functions, which end with an int[5].
 _INFO_SIGNATURES = {"raster_kernel_info": 1, "p1_kernel_info": 2, "k5_kernel_info": 1, "occ_kernel_info": 1,
                     "p23_kernel_info": 1, "f1_kernel_info": 1, "shadow_front_kernel_info": 1,
-                    "view_front_kernel_info": 1}
+                    "view_front_kernel_info": 1, "d1_kernel_info": 1}
 
 _lib: Optional[ctypes.CDLL] = None
 last_build: dict = {}
@@ -196,6 +197,8 @@ SHADOW_FRONT_INSTANCES = ("S1 s1_kernel", "S2 scan_kernel", "S2 fill_kernel")
 # csrc/view_front.cu's kernels, by view_front_kernel_info's index.
 VIEW_FRONT_INSTANCES = ("V1 clip_count_kernel", "V1 clip_fill_kernel", "V2 cull_kernel", "V2 cull_scan_kernel",
                         "V2 setup_kernel", "V3 planes_kernel", "V4 tiles_kernel")
+# csrc/deferred_shade.cu's kernel, by d1_kernel_info's index.
+D1_INSTANCES = ("D1 d1_kernel",)
 
 
 def kernel_info(fn: str, *ints: int) -> dict:
@@ -208,7 +211,8 @@ def kernel_info(fn: str, *ints: int) -> dict:
     `p23_kernel_info(which)` for P23_INSTANCES[which], `f1_kernel_info(which)`
     for F1_INSTANCES[which], `shadow_front_kernel_info(which)` for
     SHADOW_FRONT_INSTANCES[which], `view_front_kernel_info(which)` for
-    VIEW_FRONT_INSTANCES[which]."""
+    VIEW_FRONT_INSTANCES[which], `d1_kernel_info(which)` for
+    D1_INSTANCES[which]."""
     lib = library()
     info = (ctypes.c_int * 5)()
     rc = getattr(lib, fn)(*ints, ctypes.cast(info, ctypes.c_void_p))

@@ -40,6 +40,7 @@ __all__ = [
     "srgb_scene_to_display",
     "srgb_display_to_scene",
     "albedo_alpha",
+    "light_vectors",
 ]
 
 PI = 3.14159265358979
@@ -525,21 +526,18 @@ def _shade_pixels(
     roughness = rough * rough
 
     v = -_normalize_p(view_pos)
-    view3 = uniforms.view[:3, :3]
+    dir_vectors, point_positions = light_vectors(dir_lights, point_lights, uniforms)
 
     color = emissive
     if shadow_values is None:
         iv = uniforms.inv_view
         world = [((iv[a, 0] * view_pos[0] + iv[a, 1] * view_pos[1]) + iv[a, 2] * view_pos[2]) + iv[a, 3]
                  for a in range(3)]
-    for i in range(dir_lights.mask.shape[0]):
+    for i, l in enumerate(dir_vectors):
         if shadow_values is None:
             shadow_value = _atlas_shadow(dir_lights, i, world, shadow_atlas)[None, :]
         else:
             shadow_value = shadow_values[i][None, :]
-        dvec = view3 @ (-dir_lights.direction[i])
-        dn = sqrt32((dvec * dvec).sum())
-        l = dvec / torch.where(dn == 0.0, torch.ones_like(dn), dn)
         contrib = surface_shading(
             l[:, None].expand(3, N), dir_lights.color[i][:, None],
             normal, f0, roughness, diffuse_color, v, shadow_value * ao,
@@ -549,9 +547,8 @@ def _shade_pixels(
         contrib = _finite_or_zero(contrib)
         color = color + torch.where(dir_lights.mask[i], contrib, torch.zeros_like(contrib))
 
-    for i in range(point_lights.mask.shape[0]):
-        lp4 = torch.cat([point_lights.position[i], torch.ones(1, device=dev)])
-        delta = (uniforms.view @ lp4)[:3][:, None] - view_pos
+    for i, lp in enumerate(point_positions):
+        delta = lp[:, None] - view_pos
         d = sqrt32(_sum_rows(delta * delta))
         s = _saturate(d / point_lights.radius[i])
         s2 = s * s
@@ -570,6 +567,23 @@ def _shade_pixels(
     out_rgb = torch.where(unlit, albedo[:3], lit_rgb)
     out_a = torch.where(unlit, albedo[3:4], lit_a)
     return out_rgb, out_a
+
+
+def light_vectors(dir_lights: DirLightArrays, point_lights: PointLightArrays, uniforms: FrameUniformsArrays):
+    """(each directional light's unit vector towards the light, each point
+    light's position), (3,) each, in view space: the per-light constants of
+    the lighting loop, by its own expressions."""
+    view3 = uniforms.view[:3, :3]
+    dirs = []
+    for i in range(dir_lights.mask.shape[0]):
+        dvec = view3 @ (-dir_lights.direction[i])
+        dn = sqrt32((dvec * dvec).sum())
+        dirs.append(dvec / torch.where(dn == 0.0, torch.ones_like(dn), dn))
+    points = []
+    for i in range(point_lights.mask.shape[0]):
+        lp4 = torch.cat([point_lights.position[i], torch.ones(1, device=uniforms.view.device)])
+        points.append((uniforms.view @ lp4)[:3])
+    return dirs, points
 
 
 def _atlas_shadow(dir_lights: DirLightArrays, i: int, world, atlas):

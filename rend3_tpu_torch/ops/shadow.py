@@ -26,7 +26,7 @@ from .geometry import S_EA, S_EB, S_EC, S_ZA, S_ZB, S_ZC, BinnedTris, TriSetup
 from .samplers import sample_grid, sample_grid_pcf5
 
 __all__ = [
-    "stack_shadow_maps", "resolve_shadow_pcf5", "PCF_OFFSETS", "N_OFF", "STILE_H", "STILE_W",
+    "stack_shadow_maps", "pcf5_queries", "resolve_shadow_pcf5", "PCF_OFFSETS", "N_OFF", "STILE_H", "STILE_W",
     "rect_lists", "cell_lists", "occlusion_from_lists", "shadow_occlusion", "shadow_occlusion_plain",
     "shadow_occlusion_lt", "shadow_occlusion_lt_plain", "occlusion_pairs", "pcf5_from_occlusion",
     "sample_shadow_map", "sample_shadow_maps",
@@ -56,19 +56,11 @@ def stack_shadow_maps(smaps: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, List
     return stacked, bases
 
 
-def resolve_shadow_pcf5(smaps, entries, stacked=None, capture=None):
-    """All PCF5 shadow resolves of a frame in one K3 launch.
-
-    smaps: list of (size, size) maps; entries: list of (map index, sx, sy,
-    ref, hit) per (G-buffer, light), each of one shape per entry (a padded
-    frame, or compacted pixels). stacked: optional (stacked, bases) from
-    stack_shadow_maps, built once with cached maps. capture: optional dict
-    that receives the K3 launch's inputs. The entries' queries are
-    flattened into one vector, so entries of any shapes share the launch.
-    Returns a list of factors shaped like each entry, 1.0 where the pixel
-    is invalid."""
-    if not entries:
-        return []
+def pcf5_queries(smaps, entries, stacked=None):
+    """K3's arguments for resolve_shadow_pcf5: every entry's queries
+    flattened into one vector (base texel floor(s - 0.5), its row moved to
+    the map's rows of the stack; valid where the pixel is hit and the base
+    texel lies in its own map)."""
     stacked, bases = stacked if stacked is not None else stack_shadow_maps(smaps)
     bxs, bys, fxs, fys, refs, oks = [], [], [], [], [], []
     for mi, sx, sy, ref, hit in entries:
@@ -84,10 +76,22 @@ def resolve_shadow_pcf5(smaps, entries, stacked=None, capture=None):
         fys.append((sy - 0.5) - yb)
         refs.append(ref.flatten())
         oks.append(hit.flatten() & (bx >= 0) & (bx < w_m) & (by >= 0) & (by < h_m))
+    return (stacked, *(torch.cat(xs).contiguous() for xs in (bxs, bys, fxs, fys, refs, oks)))
 
-    args = (stacked, *(torch.cat(xs).contiguous() for xs in (bxs, bys, fxs, fys, refs, oks)))
-    if capture is not None:
-        capture["pcf5"] = args
+
+def resolve_shadow_pcf5(smaps, entries, stacked=None):
+    """All PCF5 shadow resolves of a frame in one K3 launch.
+
+    smaps: list of (size, size) maps; entries: list of (map index, sx, sy,
+    ref, hit) per (G-buffer, light), each of one shape per entry (a padded
+    frame, or compacted pixels). stacked: optional (stacked, bases) from
+    stack_shadow_maps, built once with cached maps. The entries' queries
+    (pcf5_queries) are flattened into one vector, so entries of any shapes
+    share the launch. Returns a list of factors shaped like each entry, 1.0
+    where the pixel is invalid."""
+    if not entries:
+        return []
+    args = pcf5_queries(smaps, entries, stacked)
     ok_all = args[-1]
     pcf_all = sample_grid_pcf5(*args)
     # Invalid pixels read 0 from the sampler; they are lit (1.0).

@@ -11,9 +11,11 @@ On the device the atlas is kept in bf16 at rest, interleaved (AH, AW, 4),
 so one bilinear tap is one 8-byte load (the JAX package's default texel
 type, TEX_DOT_DTYPE, and its pre-tiled store are bf16 too).
 
-`sample_textures_grid` is the frame's sampler: it turns each active slot's
-per-pixel uv and gradients into two mip queries and runs them all through
-one launch of kernel K4 (samplers.sample_grid_bilinear). The TPU build's
+`sample_textures_grid` is the plain shading chain's sampler and the cutout
+alpha test's: it turns each active slot's per-pixel uv and gradients into
+two mip queries (`texture_queries`) and runs them all through one launch of
+kernel K4 (samplers.sample_grid_bilinear). On the card the frame's shading
+takes the same queries inside D1 (ops/lighting.py). The TPU build's
 one-hot MXU lookups of the rect and mip tables become index gathers.
 `sample_textures` is the scalar sampler, kept as the tests' oracle.
 
@@ -46,6 +48,7 @@ __all__ = [
     "ShelfState",
     "sample_textures",
     "sample_textures_grid",
+    "texture_queries",
     "sample_cube",
     "sample_cube_grid",
     "MAX_MIPS",
@@ -258,28 +261,21 @@ def sample_textures(tex: TextureArrays, slots, uv, duv, mflags) -> torch.Tensor:
     return torch.where((slots > 0)[:, None], out, torch.ones_like(out))
 
 
-def sample_textures_grid(
+def texture_queries(
     tex: TextureArrays,
     mtex: torch.Tensor,      # (NSLOT, N) 1-based texture ids
     coords: torch.Tensor,    # (2, N) uv
     duv,                     # (4, N) rows [du/dx, dv/dx, du/dy, dv/dy], or None
     mflags: torch.Tensor,    # (N,) material flags
     active_slots,            # slot indices to sample
-    *,
     hit: torch.Tensor = None,  # optional (N,) bool: sample only these pixels
-    capture: dict = None,      # optional: receives the K4 launch's inputs
 ):
-    """Deferred textureSampleGrad, planar (texture.py:416-557).
-
-    Every active slot's trilinear lookup becomes two mip queries (the mip
-    lerp weight rides in each query's weight), and all of them go through
-    one K4 launch; a slot's two results are summed. Returns a list of NSLOT
-    entries: (4, N) samples for active slots (1.0 where the slot holds no
-    texture) and None for inactive ones."""
+    """K4's arguments for sample_textures_grid (texture.py:416-557): every
+    active slot's trilinear lookup as two mip queries (the mip lerp weight
+    rides in each query's weight), slot i's at rows 2 i and 2 i + 1 of each
+    (2 * n_active, N) query tensor."""
     from .shade import MF  # local import to avoid a cycle
 
-    if not active_slots:
-        return [None] * NSLOT
     S = tex.rects.shape[0]
     N = coords.shape[1]
     u, v = coords[0], coords[1]
@@ -331,8 +327,29 @@ def sample_textures_grid(
             q_fy.append(torch.where(nearest, zero, yf - y0))
             q_wt.append(wt)
             q_valid.append(valid0 if k == 0 else (valid0 & ~nearest & (lf > 0.0)))
+    return (tex.atlas, *(torch.stack(a) for a in (q_bx, q_by, q_fx, q_fy, q_wt, q_valid)))
 
-    args = (tex.atlas, *(torch.stack(a) for a in (q_bx, q_by, q_fx, q_fy, q_wt, q_valid)))
+
+def sample_textures_grid(
+    tex: TextureArrays,
+    mtex: torch.Tensor,      # (NSLOT, N) 1-based texture ids
+    coords: torch.Tensor,    # (2, N) uv
+    duv,                     # (4, N) rows [du/dx, dv/dx, du/dy, dv/dy], or None
+    mflags: torch.Tensor,    # (N,) material flags
+    active_slots,            # slot indices to sample
+    *,
+    hit: torch.Tensor = None,  # optional (N,) bool: sample only these pixels
+    capture: dict = None,      # optional: receives the K4 launch's inputs
+):
+    """Deferred textureSampleGrad, planar (texture.py:416-557).
+
+    Every active slot's two mip queries (texture_queries) go through one K4
+    launch; a slot's two results are summed. Returns a list of NSLOT
+    entries: (4, N) samples for active slots (1.0 where the slot holds no
+    texture) and None for inactive ones."""
+    if not active_slots:
+        return [None] * NSLOT
+    args = texture_queries(tex, mtex, coords, duv, mflags, active_slots, hit)
     if capture is not None:
         capture["bilinear"] = args
     out = sample_grid_bilinear(*args)  # (4, 2 * n_active, N)

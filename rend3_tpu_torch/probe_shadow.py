@@ -5,10 +5,11 @@
 Port of tools/probe_shadow.py. Renders the representative bench scene
 (scenes.build_city_scene(representative=True)) at 1920x1080 on the card
 once, takes light 0's casters (the K2 setup table of its 2048² map) and the
-light-space coordinates of the frame's opaque pixels (the frame's own
-shadow coordinates), and prints the caster count, the per-tile list
-lengths of both list builders (mean / p50 / p90 / max), and the times of
-the list builders and of K7 and K8, then one JSON line. `run` is the part
+light-space coordinates of the frame's opaque pixels (the shading chain's
+shadow coordinates at the frame's own G-buffer), and prints the caster
+count, the per-tile list lengths of both list builders (mean / p50 / p90 /
+max), and the times of the list builders and of K7 and K8, then one JSON
+line. `run` is the part
 chip_smoke.py calls on a frame it rendered itself. Needs a CUDA device.
 """
 
@@ -20,6 +21,7 @@ import statistics
 
 import torch
 
+from .ops import lighting
 from .ops import shadow as shadow_ops
 
 __all__ = ["inputs", "run", "main"]
@@ -28,13 +30,25 @@ __all__ = ["inputs", "run", "main"]
 def inputs(captured):
     """Light 0's inputs from a graph's `captured` dict after a frame:
     (casters, sx, sy, hit, width, height, size, ref, in_bounds, factor),
-    sx / sy / hit / ref / in_bounds / factor over the padded frame (factor:
-    the frame's K3 shadow factor of light 0)."""
+    sx / sy / hit / ref / in_bounds / factor over sample 0's opaque pixels,
+    padded with pixels not hit to whole 32x128 tiles (factor: light 0's
+    shadow factor of the shading chain, K3 at the frame's own shadow
+    coordinates)."""
     stris, _binned, _w, _h = captured["raster_depth"]
-    (_k, sx, sy, ref, hit, in_bounds), factor, size = captured["shadow_light0"]
-    height, width = sx.shape
-    return (stris, sx.contiguous(), sy.contiguous(), hit.contiguous(), width, height, size,
-            ref, in_bounds, factor)
+    gbuf, _materials, dir_lights, _points, uniforms, _bg, shadows = captured["deferred_shade"][:7]
+    _k, sx, sy, ref, hit, in_bounds = lighting.shadow_coords(gbuf.data, uniforms.inv_view, dir_lights,
+                                                             shadows.plan)[0]
+    factor = lighting.shadow_factors(gbuf, dir_lights, uniforms, shadows)[0]
+    h, w = sx.shape
+    height, width = -(-h // shadow_ops.STILE_H) * shadow_ops.STILE_H, -(-w // shadow_ops.STILE_W) * shadow_ops.STILE_W
+
+    def pad(t, fill):
+        out = torch.full((height, width), fill, dtype=t.dtype, device=t.device)
+        out[:h, :w] = t
+        return out
+
+    return (stris, pad(sx, 0.0), pad(sy, 0.0), pad(hit, False), width, height, shadows.plan[0][2], pad(ref, 0.0),
+            pad(in_bounds, False), pad(factor, 1.0))
 
 
 def _lengths(binned):

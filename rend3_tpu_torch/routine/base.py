@@ -80,7 +80,6 @@ import torch
 from ..core.renderer import InstructionEvaluationOutput, Renderer
 from ..ops import blit as blit_ops
 from ..ops import deferred as def_ops
-from ..ops import fp as fp_ops
 from ..ops import geometry as geom_ops
 from ..ops import hi_z as hiz_ops
 from ..ops import lighting as light_ops
@@ -813,66 +812,6 @@ class BaseRenderGraph:
                 break
         return peels, n
 
-    def _shadow_coords(self, gbuf: torch.Tensor, f: _Frame, plan):
-        """Per plan entry (map index, sx, sy, ref, hit, in_bounds) at the
-        fragments of a (CH, H, W) G-buffer (the padded frame, or compacted
-        pixels as (CH, 1, N)): world reconstruct -> light NDC, with the
-        reference's atlas-space bounds expressions including the any()
-        quirk (opaque.wgsl:509-514, base.py:1642-1680). Both matrix
-        products take the form XLA:CPU gives the JAX frame's:
-        fma(m2, v2, fma(m0, v0, m1*v1)), then the translation added."""
-
-        def mat_img(m, rows, img):  # (rows, 3) of m x three image channels, all rows at once
-            col = [m[:rows, k].reshape(rows, *([1] * (img.dim() - 1))) for k in range(3)]
-            return fp_ops.fma32(col[2], img[2:3], fp_ops.fma32(col[0], img[0:1], col[1] * img[1:2]))
-
-        den = gbuf[def_ops.G_DEN]
-        invden = torch.where(den.abs() < 1e-30, torch.ones_like(den), 1.0 / den)
-        vp_img = gbuf[def_ops.G_VP : def_ops.G_VP + 3] * invden[None]
-        hitp = gbuf[def_ops.G_HIT] > 0.0
-        iv = f.uniforms.inv_view
-        world = mat_img(iv[:3, :3], 3, vp_img) + iv[:3, 3][:, None, None]
-        dl = f.dir_lights
-        out = []
-        for k, (_li, _off, size) in enumerate(plan):
-            vp = dl.view_proj[k]
-            ndc = mat_img(vp, 4, world) + vp[:, 3][:, None, None]
-            ndcw = torch.where(ndc[3] == 0.0, torch.ones_like(ndc[3]), ndc[3])
-            ndc_xyz = ndc[:3] / ndcw[None]
-            sx = (ndc_xyz[0] * 0.5 + 0.5) * size
-            sy = (0.5 - ndc_xyz[1] * 0.5) * size
-            ref = ndc_xyz[2]
-            flipped_x = ndc_xyz[0] * 0.5 + 0.5
-            flipped_y = ndc_xyz[1] * 0.5 + 0.5
-            border = dl.inv_resolution[k] * 1.5
-            tl_b = dl.atlas_offset[k] + border
-            tr_b = dl.atlas_offset[k] + dl.atlas_size[k] - border
-            in_bounds = (
-                ((flipped_x >= tl_b[0]) | (flipped_y >= tl_b[1]))
-                & ((flipped_x <= tr_b[0]) | (flipped_y <= tr_b[1]))
-                & (ref >= 0.0)
-                & (ref <= 1.0)
-            )
-            out.append((k, sx, sy, ref, hitp, in_bounds))
-        return out
-
-    def _shadow_values(self, coord_sets, smaps, stacked, L: int):
-        """(L, H, W) shadow factors for each G-buffer of `coord_sets` (one
-        _shadow_coords list each, any shape) through one K3 launch; 1.0
-        outside the light's bounds and for light slots without a map."""
-        entries = [(k, sx, sy, ref, hitp) for coords in coord_sets for (k, sx, sy, ref, hitp, _ib) in coords]
-        pcfs = iter(shadow_ops.resolve_shadow_pcf5(smaps, entries, stacked=stacked, capture=self.captured))
-        out = []
-        for coords in coord_sets:
-            svals = []
-            for *_c, ib in coords:
-                p = next(pcfs)
-                svals.append(torch.where(ib, p, torch.ones_like(p)))
-            while len(svals) < L:
-                svals.append(torch.ones_like(svals[0]))
-            out.append(torch.stack(svals))
-        return out
-
     # -- the frame ---------------------------------------------------------------
 
     def render_frame(
@@ -958,7 +897,7 @@ class BaseRenderGraph:
         row0, bh = (0, height) if band is None else band
         plan = eval_output.shadow_plan
         if self.captured is not None:
-            for key in ("raster_count", "raster_bound", "bilinear_cutout", "bilinear_sky"):
+            for key in ("raster_count", "raster_bound", "bilinear_cutout", "bilinear_sky", "deferred_shade_blend"):
                 self.captured.pop(key, None)
         st = self.last_stats
         for key in ("cut_survivors", "cut_peels", "cut_layers", "blend_survivors", "blend_peels", "blend_px"):
@@ -1073,49 +1012,31 @@ class BaseRenderGraph:
             backgrounds = [f.clear_color.expand(bh, width, 4)] * S
         peels_s = self._blend_peels(f, stage, gbufs) if f.blend_obj is not None else [[] for _ in offsets]
         # Each sample's blend peels' hit pixels, compacted into one
-        # (CH, 1, N) G-buffer that shares the opaque pixels' K3 launch and
-        # is lit in one pass.
+        # (CH, 1, N) G-buffer that is lit in one pass.
         bgbufs = [torch.cat([g for _pix, g in peels], dim=1)[:, None] if peels else None for peels in peels_s]
-        L = f.dir_lights.mask.shape[0]
-        dev = gbufs[0].device
-        if plan:
-            with stage("shadow_coords"):
-                coord_sets = [self._shadow_coords(g, f, plan) for g in gbufs]
-                coord_sets += [self._shadow_coords(b, f, plan) for b in bgbufs if b is not None]
-            with stage("pcf"):
-                svals = self._shadow_values(coord_sets, smaps, stacked, L)
-            if self.captured is not None:
-                # Light 0 at sample 0's opaque pixels (rend3_tpu_torch.probe_shadow).
-                self.captured["shadow_light0"] = (coord_sets[0][0], svals[0][0], plan[0][2])
-                self.captured["shadow_coords"] = coord_sets[0]  # every light, sample 0's opaque pixels
-            shadow_s = [sv[:, :bh, :width] for sv in svals[:S]]
-            rest = iter(svals[S:])
-            blend_sv = [None if b is None else next(rest) for b in bgbufs]
-        else:
-            shadow_s = [torch.ones(L, bh, width, dtype=torch.float32, device=dev)] * S
-            blend_sv = [None if b is None else torch.ones(L, *b.shape[1:], device=dev) for b in bgbufs]
-        # Lighting (timed as "textures" and "lighting") on each sample's
-        # cropped G-buffer: the padding pixels are never hit, so lighting
-        # them (as the JAX package's texture path does) changes nothing.
+        shadows = light_ops.ShadowMaps(plan, smaps, *stacked) if plan else None
+        # Each sample's cropped G-buffer is shaded in one pass (D1 on the
+        # card; timed as "lighting", and on the CPU also as "shadow_coords",
+        # "pcf" and "textures"): the padding pixels are never hit.
         imgs = []
         for si in range(S):
             gbuf = def_ops.GBuffer(gbufs[si][:, :bh, :width])
-            img = light_ops.light_gbuffer(
-                gbuf, f.materials, f.dir_lights, f.point_lights, f.uniforms, backgrounds[si], shadow_s[si],
-                textures=f.textures, active_tex_slots=f.active_tex_slots,
-                stage=stage, capture=self.captured,
-            )
+            args = (gbuf, f.materials, f.dir_lights, f.point_lights, f.uniforms, backgrounds[si], shadows,
+                    f.textures, f.active_tex_slots)
+            if si == 0 and self.captured is not None:
+                self.captured["deferred_shade"] = args
+            img = light_ops.light_gbuffer(*args, stage=stage)
             if f.extras:
                 with stage("routines"):
                     img = light_ops.apply_material_routines(
-                        img, gbuf, f.extras, f.dir_lights, f.point_lights, shadow_s[si] if plan else None,
+                        img, gbuf, f.extras, f.dir_lights, f.point_lights, _routine_factors(f, gbuf, shadows),
                         f.uniforms,
                     )
             if si > 0 or not self.injected_passes:
                 gbufs[si] = None  # the sample's G-buffer is no longer needed (passes get sample 0's)
             if peels_s[si]:
                 with stage("blend_shade"):
-                    img = self._blend_composite(f, peels_s[si], bgbufs[si], blend_sv[si], img)
+                    img = self._blend_composite(f, peels_s[si], bgbufs[si], shadows, img, si == 0)
             imgs.append(img)
         with stage("blit"):
             # f16 round trip per sample, then the resolve (base.py:2053-2054).
@@ -1234,22 +1155,22 @@ class BaseRenderGraph:
             out.append(bg.reshape(hp, wp, 4)[: f.bh, : f.width])
         return out
 
-    def _blend_composite(self, f: _Frame, peels, bgbuf, blend_sv, img):
+    def _blend_composite(self, f: _Frame, peels, bgbuf, shadows, img, capture: bool):
         """Light the compacted blend pixels (blend materials' texture slots,
         zero background), scatter each peel back, under-composite the peels
         front to back and the result over the opaque image
         (base.py:1931-2002)."""
         n_all = bgbuf.shape[2]
-        rgba = light_ops.light_gbuffer(
-            def_ops.GBuffer(bgbuf), f.materials, f.dir_lights, f.point_lights, f.uniforms,
-            torch.zeros(1, n_all, 4, device=bgbuf.device), blend_sv,
-            textures=f.textures, active_tex_slots=f.blend_tex_slots,
-        )
+        gbuf = def_ops.GBuffer(bgbuf)
+        args = (gbuf, f.materials, f.dir_lights, f.point_lights, f.uniforms,
+                torch.zeros(1, n_all, 4, device=bgbuf.device), shadows, f.textures, f.blend_tex_slots)
+        if capture and self.captured is not None:
+            self.captured["deferred_shade_blend"] = args
+        rgba = light_ops.light_gbuffer(*args)
         if f.extras:
             # Registered routines shade their peel pixels (alpha = rgba[:, 3]).
             rgba = light_ops.apply_material_routines(
-                rgba, def_ops.GBuffer(bgbuf), f.extras, f.dir_lights, f.point_lights,
-                blend_sv if f.plan else None, f.uniforms,
+                rgba, gbuf, f.extras, f.dir_lights, f.point_lights, _routine_factors(f, gbuf, shadows), f.uniforms,
             )
         rgba = rgba.reshape(n_all, 4)
         npx = f.hp * f.wp
@@ -1266,6 +1187,12 @@ class BaseRenderGraph:
         C = C.reshape(f.hp, f.wp, 3)[: f.bh, : f.width]
         A = A.reshape(f.hp, f.wp)[: f.bh, : f.width]
         return torch.cat([C + (1.0 - A)[..., None] * img[..., :3], (A + (1.0 - A) * img[..., 3])[..., None]], dim=-1)
+
+
+def _routine_factors(f: _Frame, gbuf, shadows):
+    """The (L, H, W) shadow factors of a G-buffer that registered routines
+    shade with (None without shadow maps)."""
+    return None if shadows is None else light_ops.shadow_factors(gbuf, f.dir_lights, f.uniforms, shadows)
 
 
 def _skybox_background(cube, slot: int, uniforms, width: int, height: int, offsets) -> torch.Tensor:

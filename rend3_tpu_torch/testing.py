@@ -665,6 +665,164 @@ def view_front_case(kind: str = "soup", device="cpu", seed: int = 0, n: Optional
 
 
 # ---------------------------------------------------------------------------
+# G-buffers for the deferred shade (ops/lighting.py light_gbuffer, D1)
+# ---------------------------------------------------------------------------
+
+# deferred_shade_case's kinds.
+DEFERRED_SHADE_KINDS = ("opaque", "blend", "no_texture", "no_plan", "factors")
+
+
+def deferred_shade_case(kind: str = "opaque", device="cpu", seed: int = 0) -> tuple:
+    """light_gbuffer's arguments (gbuf, materials, dir_lights, point_lights,
+    uniforms, background, shadows, textures, active_tex_slots) from a numpy
+    generator: a 72x128 G-buffer (85% hit; some den 0, material ids past
+    the table, zero and large uv gradients), 24 materials over every flag
+    and packing (one at roughness 0, texture ids in every slot), 5 mip-
+    chained textures with slot 4 not sampled (a material's id there reads
+    white), three directional lights (the third masked) and two 64² / 32²
+    maps with plan offsets that exercise the any() bounds, three point lights
+    (the third masked). Kinds: "opaque"; "blend" (1,500 compacted pixels as
+    (CH, 1, N), all hit, a zero background); "no_texture" (no atlas);
+    "no_plan" (no shadow maps, the lattice's shape: no texture either);
+    "factors" (precomputed (3, H, W) shadow factors, a background expanded
+    from one colour)."""
+    import types
+
+    import torch
+
+    from .ops import deferred as D
+    from .ops import lighting, shade, shadow
+    from .ops import texture as tex_ops
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    H, W = (1, 1500) if kind == "blend" else (72, 128)
+    M = 24
+    flag_bits = [1 << b for b in range(15)]
+    flags = np.array([sum(f for f in flag_bits if rng.random() < 0.35) for _ in range(M)], np.int32)
+    flags[:4] |= shade.MF.ALBEDO_ACTIVE
+    flags[4] = shade.MF.UNLIT | shade.MF.ALBEDO_ACTIVE
+    data = np.zeros((M, shade.PBR_DATA_SIZE), np.float32)
+    data[:, shade.PBR_UVT0 : shade.PBR_UVT0 + 6] = rng.uniform(-2.0, 2.0, (M, 6))
+    data[:, shade.PBR_ALBEDO : shade.PBR_ALBEDO + 4] = rng.uniform(0.1, 1.0, (M, 4))
+    data[:, shade.PBR_EMISSIVE : shade.PBR_EMISSIVE + 3] = rng.uniform(0.0, 0.05, (M, 3))
+    data[:, shade.PBR_ROUGHNESS] = rng.uniform(0.05, 1.0, M)
+    data[5, shade.PBR_ROUGHNESS] = 0.0
+    data[:, shade.PBR_METALLIC] = rng.uniform(0.0, 1.0, M)
+    data[:, shade.PBR_REFLECTANCE] = rng.uniform(0.2, 0.8, M)
+    data[:, shade.PBR_CLEAR_COAT] = np.where(rng.random(M) < 0.5, rng.uniform(0.1, 1.0, M), 0.0)
+    data[:, shade.PBR_CLEAR_COAT_ROUGHNESS] = rng.uniform(0.1, 0.9, M)
+    data[:, shade.PBR_AMBIENT_OCCLUSION] = rng.uniform(0.5, 1.0, M)
+    n_tex = 5
+    mtex = np.where(rng.random((M, tex_ops.NSLOT)) < 0.6, rng.integers(1, n_tex + 1, (M, tex_ops.NSLOT)), 0)
+    materials = shade.PbrMaterialTable(t(data), t(flags), t(mtex.astype(np.int32)))
+
+    textures, active = None, ()
+    if kind not in ("no_texture", "no_plan"):
+        texs = {}
+        for i, (th, tw) in enumerate(((16, 16), (8, 32), (8, 8), (32, 64), (4, 4))):
+            mips = []
+            while True:
+                mips.append(rng.uniform(0.0, 1.0, (th, tw, 4)).astype(np.float32))
+                if th == 1 and tw == 1:
+                    break
+                th, tw = max(th // 2, 1), max(tw // 2, 1)
+            texs[i] = types.SimpleNamespace(mips=mips)
+        atlas, rects, mip_counts, _state = tex_ops.build_texture_atlas_state(texs)
+        textures = tex_ops.TextureArrays(t(atlas).to(torch.bfloat16), t(rects), t(mip_counts))
+        active = (0, 1, 2, 3, 5, 6, 7, 8, 9)
+
+    g = np.zeros((D.GB_CH, H, W), np.float32)
+    den = rng.uniform(0.05, 1.0, (H, W)).astype(np.float32)
+    den[rng.random((H, W)) < 0.01] = 0.0
+    vp = np.stack([rng.uniform(-8, 8, (H, W)), rng.uniform(-8, 8, (H, W)), rng.uniform(1, 30, (H, W))])
+    g[D.G_DEPTH] = rng.uniform(0, 1, (H, W))
+    g[D.G_DEN] = den
+    g[D.G_VP : D.G_VP + 3] = vp * den
+    g[D.G_NRM : D.G_NRM + 3] = rng.standard_normal((3, H, W)) * den
+    g[D.G_TAN : D.G_TAN + 3] = rng.standard_normal((3, H, W)) * den
+    g[D.G_UV0 : D.G_UV0 + 2] = rng.uniform(-2, 3, (2, H, W)) * den
+    g[D.G_UV1 : D.G_UV1 + 2] = rng.uniform(-1, 1, (2, H, W)) * den
+    g[D.G_COL : D.G_COL + 4] = rng.uniform(0, 1, (4, H, W)) * den
+    g[D.G_MAT] = rng.integers(0, M + 2, (H, W))
+    g[D.G_HIT] = 1.0 if kind == "blend" else rng.random((H, W)) < 0.85
+    duv = rng.standard_normal((4, H, W)) * 10.0 ** rng.uniform(-4, 0, (1, H, W))
+    duv[:, rng.random((H, W)) < 0.05] = 0.0
+    g[D.G_DUV : D.G_DUV + 4] = duv
+
+    view = m3.look_at_lh([3.0, 4.0, -10.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]).astype(np.float32)
+    uniforms = shade.FrameUniformsArrays(
+        view=t(view), view_proj=t(view), origin_view_proj=t(view), inv_view=t(np.linalg.inv(view).astype(np.float32)),
+        inv_origin_view_proj=t(view), ambient=t(np.array([0.05, 0.04, 0.06, 1.0], np.float32)),
+    )
+    L = 3
+    lvp = np.zeros((L, 4, 4), np.float32)
+    lvp[:, :3, :3] = rng.uniform(-0.08, 0.08, (L, 3, 3))
+    lvp[:, :3, 3] = rng.uniform(-0.2, 0.2, (L, 3))
+    lvp[:, 2, 3] += 0.5
+    lvp[:, 3, 3] = 1.0
+    lvp[1, 3, :3] = rng.uniform(-0.01, 0.01, 3)  # a light with a projective w
+    dir_lights = shade.DirLightArrays(
+        view_proj=t(lvp), color=t(rng.uniform(0.5, 3.0, (L, 3)).astype(np.float32)),
+        direction=t(rng.standard_normal((L, 3)).astype(np.float32)),
+        inv_resolution=t(np.full((L, 2), 1 / 96, np.float32)),
+        atlas_offset=t(np.array([[0.0, 0.0], [2 / 3, 0.0], [0.0, 0.0]], np.float32)),
+        atlas_size=t(np.array([[2 / 3, 1.0], [1 / 3, 0.5], [1.0, 1.0]], np.float32)),
+        mask=t(np.array([True, True, False])),
+    )
+    point_lights = shade.PointLightArrays(
+        position=t(rng.uniform(-10, 10, (3, 3)).astype(np.float32)),
+        color=t(rng.uniform(1, 5, (3, 3)).astype(np.float32)),
+        radius=t(np.array([15.0, 40.0, 20.0], np.float32)), mask=t(np.array([True, True, False])),
+    )
+    shadows = None
+    if kind == "factors":
+        shadows = t(rng.uniform(0, 1, (L, H, W)).astype(np.float32))
+    elif kind != "no_plan":
+        maps = [t(np.where(rng.random((s, s)) < 0.2, 0.0, rng.uniform(0, 1, (s, s))).astype(np.float32))
+                for s in (64, 32)]
+        stacked, bases = shadow.stack_shadow_maps(maps)
+        shadows = lighting.ShadowMaps(((0, (0, 0), 64), (1, (64, 0), 32)), maps, stacked, bases)
+    if kind == "blend":
+        background = torch.zeros(1, W, 4, device=dev)
+    elif kind == "factors":
+        background = t(np.array([0.1, 0.2, 0.3, 1.0], np.float32)).expand(H, W, 4)
+    else:
+        background = t(rng.uniform(0, 1, (H, W, 4)).astype(np.float32))
+    return (D.GBuffer(t(g)), materials, dir_lights, point_lights, uniforms, background, shadows, textures, active)
+
+
+def deferred_shade_chain(calls) -> list:
+    """The images of several light_gbuffer calls (lists of its arguments)
+    the way the frame shaded before D1: every call's shadow coordinates,
+    then one K3 launch for all of them (shadow.resolve_shadow_pcf5), each
+    light's factor 1.0 outside its bounds and past the plan, then each
+    G-buffer lit with those factors (light_gbuffer_plain). The calls share
+    their ShadowMaps, or have none (or precomputed factors)."""
+    import torch
+
+    from .ops import lighting
+    from .ops import shadow as shadow_ops
+
+    shadows = next((c[6] for c in calls if isinstance(c[6], lighting.ShadowMaps)), None)
+    factors = [c[6] for c in calls]
+    if shadows is not None:
+        coord_sets = [lighting.shadow_coords(c[0].data, c[4].inv_view, c[2], shadows.plan) for c in calls]
+        entries = [(k, sx, sy, ref, hitp) for coords in coord_sets for (k, sx, sy, ref, hitp, _ib) in coords]
+        pcfs = iter(shadow_ops.resolve_shadow_pcf5(shadows.maps, entries, stacked=(shadows.stacked, shadows.bases)))
+        for i, (coords, c) in enumerate(zip(coord_sets, calls)):
+            svals = [torch.where(ib, p, torch.ones_like(p)) for (*_c, ib), p in zip(coords, pcfs)]
+            while len(svals) < c[2].mask.shape[0]:
+                svals.append(torch.ones_like(svals[0]))
+            factors[i] = torch.stack(svals)
+    return [lighting.light_gbuffer_plain(*c[:6], f, *c[7:]) for c, f in zip(calls, factors)]
+
+
+# ---------------------------------------------------------------------------
 # A stress input for the step-list lerp (P3's probe_lerp)
 # ---------------------------------------------------------------------------
 
@@ -888,13 +1046,13 @@ def f1_call_trace(calls):
 # ---------------------------------------------------------------------------
 
 # chip_smoke.py phase 11's kernel rows, by the TPU kernel each one ports (F1,
-# S1, S2 and V1-V4 port none: XLA ops of the JAX frame).
+# S1, S2, V1-V4 and D1 port none: XLA ops of the JAX frame).
 KERNEL_OF_ROW = {
     "raster_resolve": "K1", "raster_msaa": "K1", "raster_count": "K1", "raster_bound": "K1",
     "raster_depth": "K2", "pcf5": "K3", "bilinear": "K4", "gather": "K5", "raster_vis": "K6",
     "shadow_occ": "K7", "shadow_occ_lt": "K8", "probe_dot": "P1", "probe_reduce": "P2", "probe_lerp": "P3",
     "fma": "F1", "fma_dot3": "F1", "fma_ab_minus_cd": "F1", "shadow_setup": "S1", "shadow_tiles": "S2",
-    "view_clip": "V1", "view_setup": "V2", "view_planes": "V3", "view_tiles": "V4",
+    "view_clip": "V1", "view_setup": "V2", "view_planes": "V3", "view_tiles": "V4", "deferred_shade": "D1",
 }
 # Kernels redesigned for the H100 after their port; rule 2 does not take
 # them again. K8 came with K7: both are instances of one CUDA kernel
@@ -912,8 +1070,14 @@ KERNEL_OF_ROW = {
 # S1 at its CTA-wide appends. V4's first design (eight warps a CTA in turns,
 # a 32-lane scan of their rectangles a tile round) gave way to a warp a
 # block over its survivors' distinct tiles, timed against it in turns on
-# the city frames' four sets and a 200,000-triangle soup.
-REDESIGNED = frozenset({"K1", "K2", "P1", "K5", "K6", "K7", "K8", "P2", "P3", "F1", "S1", "S2", "V4"})
+# the city frames' four sets and a 200,000-triangle soup. D1's first design
+# (80 registers a thread, three 256-thread CTAs a SM) gave way to four CTAs
+# a SM (64 registers, 12 bytes spilled), timed against it in turns on the
+# representative frame's opaque G-buffer and blend pixels and the flat
+# city's G-buffer (a 16x16 tile and five CTAs a SM were no faster); it
+# stays over its bound at the arithmetic the chain's exact rounding asks
+# for, IEEE divisions and square roots in every normalize.
+REDESIGNED = frozenset({"K1", "K2", "P1", "K5", "K6", "K7", "K8", "P2", "P3", "F1", "S1", "S2", "V4", "D1"})
 
 
 def redesign_order(rows, frame_launches, redesigned=REDESIGNED):

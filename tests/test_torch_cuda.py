@@ -63,6 +63,13 @@ a row band, without the sub-pixel cull, nothing visible, one triangle, no
 triangle, 200,000 triangles), every table bit for bit and in order; each
 call site (main, residual, cutout, blend) of a 1080p city frame likewise;
 and the frame itself against the PyTorch chain's on the card, bit for bit.
+D1, the deferred shade (ops/lighting.py; csrc/deferred_shade.cu), against
+its plain version on the card: on testing.deferred_shade_case's G-buffers
+(every flag and packing, precomputed factors, no texture, no shadow plan)
+within D1_REL where powf rounds apart, and on the 1080p representative
+frame (opaque G-buffer, blend pixels, sample 0 at MSAA 4, and untextured
+with no plan) bit for bit; shade.gbuffers counts 2 G-buffers a city frame
+(8 at 4 samples); a refused D1 launch raises.
 """
 
 import numpy as np
@@ -70,9 +77,11 @@ import pytest
 import torch
 
 from rend3_tpu_torch import framework, probe_shadow, scenes, testing
+from rend3_tpu_torch.ops import blit
 from rend3_tpu_torch.ops import deferred as D
 from rend3_tpu_torch.ops import fp
 from rend3_tpu_torch.ops import geometry as G
+from rend3_tpu_torch.ops import lighting
 from rend3_tpu_torch.ops import raster as R
 from rend3_tpu_torch.ops import raster_binned as RB
 from rend3_tpu_torch.ops import samplers as S
@@ -193,7 +202,7 @@ def test_k2_matches_plain(captured):
 
 
 def test_k3_matches_plain(captured):
-    args = captured[0]["pcf5"]
+    args = lighting.chain_inputs(*captured[0]["deferred_shade"])["pcf5"]
     err = (S.sample_grid_pcf5(*args) - S.sample_grid_pcf5_plain(*args)).abs().max()
     assert float(err) <= 1e-6
 
@@ -1091,3 +1100,111 @@ def test_view_front_frame_matches_chain(view_city, monkeypatch):
     for got, want in zip(images, chain_images):
         assert np.array_equal(got, want)
     assert (images[1] != images[0]).any()
+
+
+# -- D1, the deferred shade (ops/lighting.py; csrc/deferred_shade.cu) ----------
+
+
+def _u8(img):
+    return blit.hdr_to_srgb_u8(blit.f16_roundtrip(img[None])[0]).to(torch.int32)
+
+
+def _d1_matches_chain(args, label, exact=False):
+    """D1 (light_gbuffer on the card) against its plain version on the card
+    (light_gbuffer_plain, the PyTorch chain): NaN at the same places and
+    every other value bit for bit (`exact`), or within D1_REL of the chain's
+    per channel where the two round powf apart: the sRGB decode of vertex
+    colours, ((e + 0.055) / 1.055) ** 2.4, is the one operator where the
+    device library's powf under D1's --fmad=false and PyTorch's build of it
+    (nvcc's default contraction) were seen to differ, by up to 4 ulp in the
+    lit colour (4.3e-7 relative, the card tests' synthetic G-buffers); the
+    u8 image within 1 either way."""
+    got = lighting.light_gbuffer(*args)
+    want = lighting.light_gbuffer_plain(*args).contiguous()
+    assert got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan), label
+    diff = (got.view(torch.int32) != want.view(torch.int32)) & ~nan
+    if exact:
+        assert not bool(diff.any()), f"{label}: {int(diff.sum())} of {diff.numel()} values differ"
+    elif bool(diff.any()):
+        rel = ((got - want).abs() / want.abs().clamp_min(1e-30))[diff]
+        assert float(rel.max()) <= D1_REL, f"{label}: {int(diff.sum())} values differ, max rel {float(rel.max())}"
+    assert int((_u8(got) - _u8(want)).abs().max()) <= 1, label
+    return got
+
+
+D1_REL = 2e-6
+
+
+@pytest.mark.parametrize("kind", testing.DEFERRED_SHADE_KINDS)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_d1_matches_chain(kind, seed):
+    """testing.deferred_shade_case's G-buffers: every flag and packing, all
+    sampled slots and one not sampled, two maps and the any() bounds,
+    precomputed factors, no textures and no plan (the lattice's shape)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _d1_matches_chain(testing.deferred_shade_case(kind, "cuda", seed), f"{kind} seed {seed}")
+
+
+@pytest.fixture(scope="module")
+def shade_city():
+    """The representative city (600 buildings) at 1920x1080 on the card, at
+    1 and 4 samples: each frame's captures (D1's inputs at sample 0's
+    opaque G-buffer and its blend pixels) and counters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    out = {}
+    for samples in (1, 4):
+        runner = TestRunner(device="cuda")
+        keep = scenes.build_city_scene(runner, n_buildings=600, representative=True)
+        scenes.set_bench_camera(runner, 1920, 1080)
+        graph = runner.base_graph
+        graph.captured = {}
+        runner.renderer.swap_instruction_buffers()
+        profiling.enable()
+        try:
+            graph.render_frame_tensor(runner.renderer.evaluate_instructions(), FrameRenderTarget(1920, 1080, samples),
+                                      BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0)))
+        finally:
+            profiling.disable()
+        torch.cuda.synchronize()
+        out[samples] = (graph.captured, profiling.stats().counters)
+        del keep
+    return out
+
+
+@pytest.mark.parametrize("case", ["opaque", "blend", "msaa4 sample 0", "untextured, no plan"])
+def test_d1_matches_chain_on_the_city(shade_city, case):
+    """The 1080p representative frame's opaque G-buffer and blend pixels,
+    sample 0 of its MSAA-4 frame, and its opaque G-buffer shaded without
+    textures or shadow maps (the lattice's shape): bit for bit (the city
+    has no vertex-colour sRGB material)."""
+    cap = shade_city[4 if case.startswith("msaa") else 1][0]
+    args = cap["deferred_shade_blend" if case == "blend" else "deferred_shade"]
+    if case.startswith("untextured"):
+        args = (*args[:6], None, None, ())
+    got = _d1_matches_chain(args, case, exact=True)
+    hit = args[0].data[D.G_HIT] > 0
+    assert int(hit.sum()) > (1000 if case == "blend" else 1_000_000)
+    assert torch.equal(got[~hit].view(torch.int32), args[5][~hit].contiguous().view(torch.int32))
+
+
+def test_d1_counts_the_gbuffers(shade_city):
+    """shade.gbuffers: a city frame shades its opaque G-buffer and its blend
+    pixels (2); at 4 samples each sample's two (8)."""
+    assert shade_city[1][1].get("shade.gbuffers", 0) == 2
+    assert shade_city[4][1].get("shade.gbuffers", 0) == 8
+
+
+def test_d1_launch_failure_raises():
+    """A D1 launch its C entry refuses (more maps than it takes) raises."""
+    from rend3_tpu_torch.ops import cuda_kernels
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = testing.deferred_shade_case("opaque", "cuda", 0)
+    tensors, ints = lighting.launch_args(*args, lighting.light_tensors(*args[2:5]))
+    with pytest.raises(RuntimeError):
+        cuda_kernels.call("d1_deferred_shade", *tensors, ints=(*ints[:-1], lighting.MAX_MAPS + 1))
