@@ -43,6 +43,10 @@ class SkeletonManager:
         # Monotonic version: bumped on any joint/skeleton mutation so the
         # shadow-map cache (routine/base.py) invalidates on skinning changes.
         self.version = 0
+        # Bumped only when the set of skeletons or their joint counts change:
+        # the skinning layout (ops/skin.py) is rebuilt against it, while a
+        # pose change moves `version` alone.
+        self.layout_version = 0
 
     def add(self, idx: int, skeleton: Skeleton, mesh_mgr) -> None:
         mesh_idx = skeleton.mesh.idx
@@ -73,15 +77,22 @@ class SkeletonManager:
         self.data[idx] = rec
         self.global_joint_count += len(skeleton.joint_matrices)
         self.version += 1
+        self.layout_version += 1
 
     def set_joint_matrices(self, idx: int, joint_matrices: np.ndarray) -> None:
         self.version += 1
         rec = self.data[idx]
-        rec.joint_matrices = np.asarray(joint_matrices, dtype=np.float32).reshape(-1, 4, 4)
+        mats = np.asarray(joint_matrices, dtype=np.float32).reshape(-1, 4, 4)
+        if len(mats) != len(rec.joint_matrices):
+            # Another joint count moves every later skeleton's joint base.
+            self.global_joint_count += len(mats) - len(rec.joint_matrices)
+            self.layout_version += 1
+        rec.joint_matrices = mats
         rec.dirty = True
 
     def remove(self, idx: int, mesh_mgr) -> None:
         self.version += 1
+        self.layout_version += 1
         rec = self.data.pop(idx)
         for name, (start, count) in rec.override_ranges.items():
             mesh_mgr.free_range(name, start, count)

@@ -31,7 +31,7 @@ from .ops.geometry import BinnedTris, TriSetup
 from .ops.raster import VisBuffer
 from .ops import texture as _texture
 from .ops.shade import DirLightArrays, PointLightArrays
-from .ops.skin import SkinInputs, direction_list
+from .ops.skin import SkinLayout, direction_list
 from .ops.texture import CubeArrays, TextureArrays
 
 __all__ = [
@@ -125,8 +125,9 @@ def cube_arrays(faces, sizes, device="cpu") -> CubeArrays:
     return _texture.cube_arrays(np.asarray(faces, np.float32), np.asarray(sizes, np.int32), device)
 
 
-def skin_inputs(si, device="cpu") -> SkinInputs:
-    """From any object with the JAX SkinInputs' fields (src_ids, src_ids_n,
+def skin_inputs(si, device="cpu") -> tuple:
+    """(SkinLayout, (J, 4, 4) f32 palette), apply_skinning's arguments, from
+    any object with the JAX SkinInputs' fields (src_ids, src_ids_n,
     src_ids_t, dst_ids, dst_ids_n, dst_ids_t, joint_ids, joint_weights,
     joint_matrices); the -1 normal and tangent rows are left out of their
     lists, as the port's build_skin_inputs does."""
@@ -134,12 +135,12 @@ def skin_inputs(si, device="cpu") -> SkinInputs:
         "src_ids", "src_ids_n", "src_ids_t", "dst_ids", "dst_ids_n", "dst_ids_t", "joint_ids", "joint_weights",
         "joint_matrices",
     )}
-    return SkinInputs(
+    layout = SkinLayout(
         src_ids=tensor(a["src_ids"], device, torch.int64),
         dst_ids=tensor(a["dst_ids"], device, torch.int64),
         joint_ids=tensor(a["joint_ids"], device, torch.int64),
         joint_weights=tensor(a["joint_weights"], device, torch.float32),
-        joint_matrices=tensor(a["joint_matrices"], device, torch.float32),
         normal=direction_list(a["src_ids_n"].astype(np.int64), a["dst_ids_n"].astype(np.int64), device),
         tangent=direction_list(a["src_ids_t"].astype(np.int64), a["dst_ids_t"].astype(np.int64), device),
     )
+    return layout, tensor(a["joint_matrices"], device, torch.float32)

@@ -298,9 +298,8 @@ class BaseRenderGraph:
         self._last_shadow_call = None
         # S1 / S2's device tables, kept across shadow passes.
         self._shadow_front_bufs = shadow_front_ops.ShadowFrontBuffers()
-        self._skin_key = None
-        self._skin = None
-        self._skinned = None
+        # Skinning's layout, palette and skinned arenas (ops/skin.py).
+        self._skinner = skin_ops.Skinner()
         # Registered per-archetype shading routines (routine/registry.py;
         # reference: the per-archetype vtable, material.rs:43-61). Objects
         # of archetypes other than PbrMaterial with no routine do not draw.
@@ -411,10 +410,11 @@ class BaseRenderGraph:
 
         # The host work that scales with the object count: the caches keyed
         # on the object version (each rebuilt and copied whole on any object
-        # change) and every object's sphere against the camera's frustum and
-        # each shadow camera's. Counters: the cached tables' bytes copied
-        # this frame (0 while the caches hold; the masks, copied every frame,
-        # are not counted), the live objects, those in the camera's frustum.
+        # change), the cutout mask and every object's sphere against the
+        # camera's frustum and each shadow camera's. Counters: the cached
+        # tables' bytes copied this frame (0 while the caches hold; the
+        # masks, copied every frame, are not counted), the live objects,
+        # those in the camera's frustum.
         with profiling_scope("upload::objects"):
             copied = 0
             if self._obj_tbl_key != om.version:
@@ -451,9 +451,11 @@ class BaseRenderGraph:
 
             # Cutout triangles: PBR objects whose material has an alpha
             # cutoff (base.py:990-1022); the mask over the triangle table is
-            # cached against the topology, object and material versions. None
-            # when the frame has no cutout triangle.
-            cut_key = (om.version, host.version, cut_archs)
+            # cached against what it reads: the topology (a rebuilt table
+            # clears the key), the materials and the archetypes' slots, not
+            # the transforms, so moving objects gather nothing per triangle.
+            # None when the frame has no cutout triangle.
+            cut_key = (host.version, cut_archs, gkey[1:])
             if self._cut_key != cut_key:
                 cutout_mat = host.data[:, shade_ops.PBR_ALPHA_CUTOUT] > 0.0
                 obj_cut = obj_pbr & cutout_mat[np.clip(om.material_slots, 0, len(cutout_mat) - 1)]
@@ -535,19 +537,9 @@ class BaseRenderGraph:
         cm = r.d2c_texture_manager
         f.cube = cm.evaluate() if skybox_slot is not None and cm.data else None
         f.skybox_slot = skybox_slot
-        f.geo = r.mesh_manager.evaluate()
-        skm = r.skeleton_manager
-        if skm.data:
-            # Skinning (base.py:944-948) rewrites the override ranges before
-            # any triangle corner is gathered; its work list is rebuilt per
-            # skeleton change, the skinned arenas per skeleton or mesh change.
-            if self._skin_key != skm.version:
-                self._skin = skin_ops.build_skin_inputs(skm, r.mesh_manager, dev)
-                self._skin_key = skm.version
-            key = (skm.version, r.mesh_manager.version, id(f.geo))
-            if self._skinned is None or self._skinned[0] != key:
-                self._skinned = (key, skin_ops.apply_skinning(f.geo, self._skin))
-            f.geo = self._skinned[1]
+        # Skinning (base.py:944-948) rewrites the override ranges before any
+        # triangle corner is gathered.
+        f.geo = self._skinner(r.mesh_manager.evaluate(), r.skeleton_manager, r.mesh_manager, dev)
         f.front_cw = r.handedness == Handedness.LEFT
         tri_gid = transform_ops.tri_global_ids(
             f.tri_vlocal, f.tri_obj, f.bases[:, 0], f.geo.position.shape[0]

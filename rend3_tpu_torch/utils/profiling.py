@@ -23,7 +23,9 @@ chrome://tracing trace (scene_viewer 'P'). Here:
 Span names: `Renderer::*` (the scene steps), `objects::evaluate` (inside
 evaluate_instructions: a run of object instructions applied),
 `BaseRenderGraph::*` (the frame and its upload), `upload::objects` (the
-upload's host work that scales with the object count), `graph::<stage>`
+upload's host work that scales with the object count), `skin::layout`,
+`skin::palette`, `skin::apply` (skinning's layout build, palette upload and
+blend, ops/skin.py), `graph::<stage>`
 (each stage of the frame), `sync::<site>` (a call that blocks the host
 until the device is done: its duration is the host's wait, its count the
 frame's device reads and stream-synchronizing uploads), `kernel::<name>`

@@ -7,7 +7,9 @@ every program span a CPU range in device_trace's trace.json, beside
 spans.json; two identical static frames of a small city count the same
 sync:: spans, every one from SYNC_SITES; the shadow cache hits on a
 repeated frame and misses after an object moves (the object tables' cache
-with it: no bytes copied, then some).
+with it: no bytes copied, then some); a frame with no skeleton counts every
+skinning counter 0 and opens no skinning span, a skinned one opens them
+inside the frame, the palette's copy under skin::palette.
 
 On the CPU a frame's front end is the plain version (no view_front.tables,
 no kernel::V* span, none of the chain's reads). On the card (marked cuda; skips without one): one frame
@@ -49,6 +51,9 @@ SYNC_SITES = {
 }
 # The view's front end on the card (ops/view_front.py): its kernels' spans.
 VIEW_KERNEL_SPANS = {"kernel::V1", "kernel::V2", "kernel::V3", "kernel::V4"}
+# Skinning's spans and counters (ops/skin.Skinner), the counters every frame.
+SKIN_SPANS = {"skin::layout", "skin::palette", "skin::apply"}
+SKIN_COUNTERS = {"skin.vertices", "skin.skeletons", "skin.layout_builds", "upload.skin_bytes"}
 SETTINGS = BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0))
 
 
@@ -209,6 +214,53 @@ def test_shadow_cache_hits_then_misses_after_a_move(city):
     shadow, c = counters()
     assert shadow == {"shadow_cache.hit": 2, "shadow_cache.miss": 1}
     assert c["objects.transforms"] == 1 and c["upload.object_bytes"] > 0
+
+
+def test_a_move_keeps_the_cutout_mask(city):
+    """The cutout mask over the triangle table reads the objects' materials,
+    not their transforms: a moved object copies the object tables again but
+    gathers no new mask."""
+    runner, _keep, objects, target = city
+    graph = runner.base_graph
+    _frame(runner, target)
+    mask = graph._cut_dev
+    assert mask is not None and bool(mask.any())
+    om = runner.renderer.object_manager
+    runner.renderer.set_object_transform(objects[1], m3.translation([-3.0, 2.0, 1.0]) @ m3.scale(2.0))
+    profiling.enable()
+    _frame(runner, target)
+    profiling.disable()
+    assert graph._cut_dev is mask
+    assert profiling.stats().counters["upload.object_bytes"] == om.transforms.nbytes + om.bases.nbytes + om.cap * 4
+
+
+def test_frame_without_skeletons_counts_no_skinning(city):
+    runner, _keep, _objects, target = city
+    profiling.enable()
+    _frame(runner, target)
+    profiling.disable()
+    s = profiling.stats()
+    assert {k: s.counters[k] for k in SKIN_COUNTERS} == dict.fromkeys(SKIN_COUNTERS, 0)
+    assert not SKIN_SPANS & set(s.counts)
+
+
+def test_skinned_frame_spans_nest_in_the_frame(tmp_path):
+    runner = TestRunner(device="cpu")
+    keep, _skeletons = scenes.skinned_columns(runner)
+    profiling.enable()
+    _frame(runner, FrameRenderTarget(32, 32, 1))
+    profiling.disable()
+    s = profiling.stats()
+    assert SKIN_SPANS <= set(s.counts) and s.counters["skin.layout_builds"] == 1
+    assert s.counters["skin.skeletons"] == 3 and s.counters["skin.vertices"] == 3 * 150
+    profiling.dump_chrome_trace(str(tmp_path / "trace.json"))
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())["traceEvents"] if e["ph"] == "X"]
+    by_name = {e["name"]: e for e in events}
+    for name in SKIN_SPANS:
+        assert by_name[name]["args"]["frame"] == 0, name
+    upload = [e for e in events if e["name"] == "sync::upload.skin"]
+    assert any(events[e["args"]["parent"]]["name"] == "skin::palette" for e in upload)
+    del keep
 
 
 def test_cpu_frame_counts_no_card_table(city):

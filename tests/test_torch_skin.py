@@ -12,7 +12,11 @@
   within 1 u8 level; then a new pose set through
   set_skeleton_joint_transforms: the port must re-raster its shadow map,
   and the new frame must again match JAX's.
-- The work list is rebuilt only when the skeletons change.
+- The layout is rebuilt only when the skeletons change: a pose change
+  uploads the palette alone (J x 64 bytes, skin.layout_builds unchanged) and
+  gives arenas equal bit for bit to a fresh build of layout and palette;
+  adding or removing a skeleton, or another joint count, rebuilds the
+  layout.
 """
 
 import numpy as np
@@ -29,6 +33,8 @@ from rend3_tpu_torch import interop, scenes
 from rend3_tpu_torch.ops import skin as PS
 from rend3_tpu_torch.routine.base import FrameRenderTarget
 from rend3_tpu_torch.testing import TestRunner
+from rend3_tpu_torch.types import Skeleton
+from rend3_tpu_torch.utils import profiling
 
 SIZE = 64
 
@@ -65,8 +71,7 @@ def test_apply_skinning_matches_jax():
     pm = pr.renderer.mesh_manager
     geo = pm.evaluate()
     before = {f: getattr(geo, f).clone() for f in ("position", "normal", "tangent")}
-    psi = PS.build_skin_inputs(pr.renderer.skeleton_manager, pm)
-    got = PS.apply_skinning(geo, psi)
+    got = PS.apply_skinning(geo, *PS.build_skin_inputs(pr.renderer.skeleton_manager, pm))
     skm = pr.renderer.skeleton_manager
     assert len(skm.data) == 3
     n_checked = 0
@@ -84,7 +89,7 @@ def test_apply_skinning_matches_jax():
     # The other attributes are the arenas themselves.
     assert got.uv0 is geo.uv0 and got.color0 is geo.color0
     # JAX's own work list, carried over, gives the same arenas.
-    again = PS.apply_skinning(geo, interop.skin_inputs(jsi))
+    again = PS.apply_skinning(geo, *interop.skin_inputs(jsi))
     for name in ("position", "normal", "tangent"):
         assert torch.equal(getattr(again, name), getattr(got, name))
     del keep, jkeep
@@ -106,10 +111,11 @@ def test_skinned_frames_match_jax_and_rebuild_shadows():
         images.append(got)
         if step == 0:
             state0, maps0 = graph._shadow_cache
-            skin0 = graph._skin
-    # The new pose re-rasters the shadow map and rebuilds the work list.
+            layout0, palette0 = graph._skinner.layout, graph._skinner.palette
+    # The new pose re-rasters the shadow map and uploads a new palette over
+    # the same layout.
     assert graph._shadow_cache[0] != state0 and graph._shadow_cache[1] is not maps0
-    assert graph._skin is not skin0
+    assert graph._skinner.layout is layout0 and graph._skinner.palette is not palette0
     assert not np.array_equal(images[0], images[1])
     del keep, jkeep
 
@@ -119,8 +125,89 @@ def test_static_pose_reuses_skinning_and_shadows():
     graph = pr.base_graph
     target = FrameRenderTarget(SIZE, SIZE, 1)
     a = graph.render_frame(_evaluate(pr), target)
-    skin, skinned, shadow = graph._skin, graph._skinned[1], graph._shadow_cache[1]
+    skin, skinned, shadow = graph._skinner.palette, graph._skinner.skinned[1], graph._shadow_cache[1]
     b = graph.render_frame(_evaluate(pr), target)
-    assert graph._skin is skin and graph._skinned[1] is skinned and graph._shadow_cache[1] is shadow
+    assert graph._skinner.palette is skin and graph._skinner.skinned[1] is skinned
+    assert graph._shadow_cache[1] is shadow
     np.testing.assert_array_equal(a, b)
+    del keep
+
+
+def _traced_skinning(pr, skinner, geo):
+    """One evaluate and one Skinner call, traced: (skinned arenas, counters)."""
+    profiling.enable()
+    try:
+        _evaluate(pr)
+        r = pr.renderer
+        out = skinner(geo, r.skeleton_manager, r.mesh_manager, "cpu")
+    finally:
+        profiling.disable()
+    return out, profiling.stats()
+
+
+def _assert_arenas_equal(got, want):
+    for name in ("position", "normal", "tangent"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+def test_pose_change_uploads_the_palette_alone():
+    pr, keep, sks = _port_scene()
+    r = pr.renderer
+    skinner = PS.Skinner()
+    geo = (_evaluate(pr), r.mesh_manager.evaluate())[1]
+    first, s0 = _traced_skinning(pr, skinner, geo)
+    skm = r.skeleton_manager
+    joints = sum(len(rec.joint_matrices) for rec in skm.data.values())
+    layout = skinner.layout
+    assert s0.counters["skin.layout_builds"] == 1 and s0.counters["skin.skeletons"] == 3
+    assert s0.counters["skin.vertices"] == 3 * 150
+    assert s0.counters["upload.skin_bytes"] == layout.nbytes + joints * 64
+    assert {"skin::layout", "skin::palette", "skin::apply"} <= set(s0.counts)
+    # A new pose: no layout, the palette's J x 64 bytes, arenas as a fresh build.
+    scenes.pose_columns(pr, sks, 0.7)
+    posed, s1 = _traced_skinning(pr, skinner, geo)
+    assert skinner.layout is layout and "skin::layout" not in s1.counts
+    assert s1.counters["skin.layout_builds"] == 0 and s1.counters["upload.skin_bytes"] == joints * 64
+    assert s1.counters["skin.vertices"] == 3 * 150
+    _assert_arenas_equal(posed, PS.apply_skinning(geo, *PS.build_skin_inputs(skm, r.mesh_manager)))
+    assert not torch.equal(posed.position, first.position)
+    # Nothing changed: nothing skinned or copied, the same arenas.
+    again, s2 = _traced_skinning(pr, skinner, geo)
+    assert again is posed and s2.counters["skin.vertices"] == 0 and s2.counters["upload.skin_bytes"] == 0
+    assert not {"skin::layout", "skin::palette", "skin::apply"} & set(s2.counts)
+    del keep
+
+
+def test_adding_or_removing_a_skeleton_rebuilds_the_layout():
+    pr, keep, sks = _port_scene()
+    r = pr.renderer
+    skinner = PS.Skinner()
+    _evaluate(pr)
+    skinner(r.mesh_manager.evaluate(), r.skeleton_manager, r.mesh_manager, "cpu")
+    layout = skinner.layout
+    skm = r.skeleton_manager
+    version = skm.layout_version
+    rec = skm.data[sks[0].idx]
+    extra = r.add_skeleton(Skeleton(mesh=rec.skeleton.mesh, joint_matrices=rec.joint_matrices))
+    geo = (_evaluate(pr), r.mesh_manager.evaluate())[1]
+    grown, s = _traced_skinning(pr, skinner, geo)
+    assert skm.layout_version == version + 1 and skinner.layout is not layout
+    assert s.counters["skin.layout_builds"] == 1 and s.counters["skin.skeletons"] == 4
+    assert skinner.layout.src_ids.shape[0] == 4 * 150
+    _assert_arenas_equal(grown, PS.apply_skinning(geo, *PS.build_skin_inputs(skm, r.mesh_manager)))
+    layout = skinner.layout
+    del extra  # the handle's last reference: a delete instruction
+    geo = (_evaluate(pr), r.mesh_manager.evaluate())[1]
+    shrunk, s = _traced_skinning(pr, skinner, geo)
+    assert skm.layout_version == version + 2 and skinner.layout is not layout
+    assert s.counters["skin.layout_builds"] == 1 and skinner.layout.src_ids.shape[0] == 3 * 150
+    _assert_arenas_equal(shrunk, PS.apply_skinning(geo, *PS.build_skin_inputs(skm, r.mesh_manager)))
+    # Another joint count for the first skeleton moves the later ones' joint
+    # bases: the layout is rebuilt with the palette.
+    rec = skm.data[sks[0].idx]
+    r.set_skeleton_joint_matrices(sks[0], np.concatenate([rec.joint_matrices, rec.joint_matrices[:1]]))
+    counted, s = _traced_skinning(pr, skinner, geo)
+    assert skm.layout_version == version + 3 and s.counters["skin.layout_builds"] == 1
+    assert skm.global_joint_count == sum(len(q.joint_matrices) for q in skm.data.values())
+    _assert_arenas_equal(counted, PS.apply_skinning(geo, *PS.build_skin_inputs(skm, r.mesh_manager)))
     del keep
