@@ -71,9 +71,10 @@ wall time):
    on the shading chain's queries at the frame's D1 inputs,
    lighting.chain_inputs), K4 (the same way) and K5 on those of the
    textured frames, D1 (ops/lighting.py, csrc/deferred_shade.cu) on the
-   representative frame's opaque G-buffer and blend pixels, K1's count and
-   bound modes and K4 on the cutout alpha test on those of the
-   representative frames, K1 at
+   representative frame's opaque G-buffer and blend pixels, C1 (the same
+   file) on its first cutout peel (timed as its raw launch) and on sample
+   0's at 4 samples, K1's count and bound modes on
+   those of the representative frames, K1 at
    an MSAA offset on those of the MSAA frames, K4 on the skybox query of
    the feature frame, K1 in every mode, K2 and K6 (at 1 and 4 samples) on
    the raster stress input (rend3_tpu_torch.testing.raster_stress_case),
@@ -103,9 +104,9 @@ wall time):
    testing.fma_stress_case at 2^24 rows (one call is one device kernel that
    makes no float64 tensor, testing.f1_call_trace), and at every call site
    of the representative frames (fp.capture: the largest call of each form
-   from each site, among them the cutout alpha test's texture query and
-   the Hi-Z test); each form's row timed at its largest site in
-   ops/texture.py (the texture query), ops/transform.py (the clip
+   from each site, among them the Hi-Z test); each form's row timed at its
+   largest site in ops/texture.py (the texture query, which the card's
+   frames no longer call: D1 and C1 took it), ops/transform.py (the clip
    transform) and ops/geometry.py (setup), the fma row's library yardstick
    torch.addcmul(c, a, b) with whether its bits match;
 12. parity: the shadow golden scene, the textured-planes scene, the stacked
@@ -115,7 +116,7 @@ wall time):
    u8, every shadow map bit for bit;
 13. framework: the app layer through its entry points at 1280x720 (the
    reference screenshots' size), each example's launches counted from
-   zero and each kernel it launched (K1-K5, D1) held against its plain
+   zero and each kernel it launched (K1-K5, D1, C1) held against its plain
    version on the frame's captured inputs with phase 11's tolerances; every
    example frame is also rendered on the CPU and held to the card's within
    1 u8: the cube example through framework.render_single_frame, also
@@ -196,31 +197,33 @@ KERNEL_NAMES = (
     "raster_resolve", "raster_msaa", "raster_count", "raster_bound", "raster_band", "raster_depth", "pcf5", "bilinear",
     "gather", "raster_vis", "shadow_occ", "shadow_occ_lt", "probe_dot", "probe_reduce", "probe_lerp",
     "fma", "fma_dot3", "fma_ab_minus_cd", "shadow_setup", "shadow_tiles",
-    "view_clip", "view_setup", "view_planes", "view_tiles", "deferred_shade",
+    "view_clip", "view_setup", "view_planes", "view_tiles", "deferred_shade", "cutout_alpha",
 )
 # F1's forms (ops/fp.py fma32, dot3, ab_minus_cd): every frame's clip,
 # setup and light-space products launch all three.
 F1_KERNELS = ("fma", "fma_dot3", "fma_ab_minus_cd")
-# The form a deferred frame with cutouts launches on the card (the alpha
-# test's texture queries): dot3 and ab_minus_cd left its front end with V1-V4
-# (ab_minus_cd stays in the Hi-Z visibility mask, occlusion on), the
-# light-space products and the shading's texture queries went into D1.
-F1_FRAME_KERNELS = ("fma",)
+# The form a deferred frame launches on the card with occlusion on: ab_minus_cd
+# in the Hi-Z visibility mask. dot3 and the rest of ab_minus_cd left its
+# front end with V1-V4, the light-space products and the shading's texture
+# queries went into D1, the cutout alpha test's texture queries (fma) into
+# C1.
+F1_FRAME_KERNELS = ("fma_ab_minus_cd",)
 # S1 and S2 (ops/shadow_front.py): every shadow pass on the card builds its
 # maps' caster tables and tile lists with them, then K2 rasters.
 SHADOW_KERNELS = ("shadow_setup", "shadow_tiles")
 # V1-V4 (ops/view_front.py): every frame on the card builds its triangle
 # sets' front-end tables with them.
 VIEW_KERNELS = ("view_clip", "view_setup", "view_planes", "view_tiles")
-# The kernels each frame path must launch (K4: the cutout alpha test; D1:
+# The kernels each frame path must launch (C1: the cutout alpha test; D1:
 # the shading).
-FRAME_KERNELS = ("raster_resolve", "raster_count", "raster_bound", "raster_depth", "bilinear", "gather",
+FRAME_KERNELS = ("raster_resolve", "raster_count", "raster_bound", "raster_depth", "cutout_alpha", "gather",
                  "deferred_shade", *F1_FRAME_KERNELS, *SHADOW_KERNELS, *VIEW_KERNELS)
-MSAA_KERNELS = ("raster_msaa", "raster_count", "raster_bound", "raster_depth", "bilinear", "gather",
+MSAA_KERNELS = ("raster_msaa", "raster_count", "raster_bound", "raster_depth", "cutout_alpha", "gather",
                 "deferred_shade", *F1_FRAME_KERNELS, *SHADOW_KERNELS, *VIEW_KERNELS)
-# The kernels the feature frame must launch at 1 / 4 samples (K4 also for
-# the skybox, K2 for the new pose's shadow maps).
-FEATURE_KERNELS = {1: FRAME_KERNELS, 4: MSAA_KERNELS}
+# The kernels the feature frame must launch at 1 / 4 samples: C1 also with
+# its registered cutout routine, K2 for the new pose's shadow maps, K4 and
+# F1's fma for the skybox.
+FEATURE_KERNELS = {1: (*FRAME_KERNELS, "bilinear", "fma"), 4: (*MSAA_KERNELS, "bilinear", "fma")}
 PROBE_KERNELS = ("probe_dot", "probe_reduce", "probe_lerp")
 # Buildings of the representative city in the reference phase (of 600): the
 # forward frame rasterizes and shades in O(triangles x pixels).
@@ -1062,10 +1065,88 @@ def phase_mapfree(graph, device="cuda"):
     return counts, rows
 
 
+def _c1_outputs(args):
+    """C1's (gbuf, done, bound, searching) on one peel's captured arguments
+    (the sample's G-buffer and done as they were before the test), the
+    G-buffer written into a copy."""
+    from rend3_tpu_torch.ops import cuda_kernels
+    from rend3_tpu_torch.ops import lighting as L
+
+    gc, gbuf, floor, done, materials, textures, active, extras = args
+    verdict = L.routine_verdict(gc, extras) if extras else None
+    tensors, ints = L.peel_launch_args(gc, gbuf.clone(), floor, done, materials, textures, active, verdict)
+    cuda_kernels.call("c1_cutout_peel", *tensors, ints=ints)
+    return tensors[1], tensors[4], tensors[5], int(tensors[6])
+
+
+def _c1_check(label, args):
+    """C1 against cutout_peel_step_plain on one peel's captured arguments
+    (with a registered cutout routine's verdict where the frame has one):
+    gbuf, done, bound and the searching count bit for bit. Returns the
+    plain version's outputs and its K4 queries."""
+    import torch
+
+    from rend3_tpu_torch.ops import lighting as L
+
+    gc, gbuf, floor, done, materials, textures, active, extras = args
+    cap = {}
+    want = L.cutout_peel_step_plain(gc, gbuf.clone(), floor, done, materials, textures, active, extras, cap)
+    got = _c1_outputs(args)
+    same = [torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                        w.view(torch.int32) if w.dtype == torch.float32 else w) for g, w in zip(got[:3], want[:3])]
+    log(f"C1 ({label}): {gc.shape[1]}x{gc.shape[2]} pixels, {len(extras)} routines, "
+        f"{int((~done & (gc[20] > 0)).sum())} hit and searching, "
+        f"{int((want[0] != gbuf).any(0).sum())} replaced, {want[3]} still searching; gbuf / done / bound bit for bit "
+        f"{same}, count {got[3]} (chain {want[3]})")
+    if not all(same) or got[3] != want[3]:
+        raise AssertionError(f"C1 ({label}) differs from its plain version")
+    return want, cap.get("bilinear")
+
+
+def _c1_bound(args, want, queries):
+    """C1's bound at one peel (no routine): 18 bytes a pixel (depth, hit,
+    floor and done read; done and bound written), 36 more a candidate (the
+    9 channels the alpha test reads), 200 a replaced pixel (25 channels
+    read and written) and the distinct texels (8 bytes each) of the chain's
+    K4 queries, at 3.35 TB/s."""
+    import torch
+
+    gc, gbuf, floor, done = args[:4]
+    n = done.numel()
+    cand = int((~done & (gc[20] > 0) & (gc[0] > floor)).sum())
+    replaced = int((want[0] != gbuf).any(0).sum())
+    moved = 18 * n + 36 * cand + 200 * replaced
+    if queries is not None:
+        atlas, bx, by, _fx, _fy, _wt, valid = queries
+        aw = atlas.shape[1]
+        at = (by.long() * aw + bx.long())[valid]
+        moved += 8 * int(torch.unique(torch.cat([at, at + 1, at + aw, at + aw + 1])).numel())
+    return _bound(moved, 0)
+
+
+def _c1_row(args):
+    """C1 on the representative frame's first cutout peel: checked, and its
+    phase-11 row, timed as its raw launch (the wrapper reads the count on
+    the host), on a G-buffer copy it writes the same pixels of at every
+    call."""
+    from rend3_tpu_torch.ops import cuda_kernels
+    from rend3_tpu_torch.ops import lighting as L
+
+    want, queries = _c1_check("representative, first peel", args)
+    gc, gbuf, floor, done, materials, textures, active, _extras = args
+    bound = _c1_bound(args, want, queries)
+    tensors, ints = L.peel_launch_args(gc, gbuf.clone(), floor, done, materials, textures, active)
+    scratch = gbuf.clone()
+    return ("cutout_alpha", "rend3_tpu_torch/csrc/deferred_shade.cu", "rend3_tpu/ops/lighting.py:203",
+            lambda: L.cutout_peel_step(gc, scratch, floor, done, materials, textures, active),
+            lambda: L.cutout_peel_step_plain(gc, gbuf, floor, done, materials, textures, active), 0.0, bound,
+            None, lambda: cuda_kernels.call("c1_cutout_peel", *tensors, ints=ints))
+
+
 def phase_kernels(paths, extra_rows=(), timed=True):
     """Each kernel against its plain version on the captured 1080p inputs:
     K1-K3 from the flat frames, K4 and K5 from the textured ones, K1's
-    count and bound modes and K4 on the cutout alpha test from the
+    count and bound modes and C1 (the cutout alpha test) from the
     representative ones, K1 at an MSAA offset from the MSAA ones; then the
     rows of `extra_rows` (K6-K8, checked by their phases), all timed.
     `paths` maps each path's name to its (graph, launch counts); a row's
@@ -1153,6 +1234,16 @@ def phase_kernels(paths, extra_rows=(), timed=True):
     if rcap["deferred_shade"][0].data.is_cuda:
         rows.append(_d1_row(rcap["deferred_shade"], timed))
         _d1_check("representative, blend pixels", rcap["deferred_shade_blend"])
+    # C1 on the representative frame's first cutout peel (sample 0); at
+    # sample 0 of the MSAA frames and on the feature frame (a registered
+    # cutout routine's verdict) checked too.
+    if rcap["cutout_peel"][0].is_cuda:
+        rows.append(_c1_row(rcap["cutout_peel"]))
+        _c1_check("representative at 4 samples, sample 0's first peel", paths["msaa"][0].captured["cutout_peel"])
+        fcap = paths["features"][0].captured["cutout_peel"]
+        if not fcap[7]:
+            raise AssertionError("the feature frame's cutout peel has no registered routine")
+        _c1_check("feature city, a registered cutout routine, first peel", fcap)
 
     # K3: abs <= 1e-6, on the flat frame's shadow queries (D1 takes the same
     # taps; lighting.chain_inputs gives the chain's K3 arguments). The maps
@@ -1174,7 +1265,8 @@ def phase_kernels(paths, extra_rows=(), timed=True):
     # alpha test.
     a4 = L.chain_inputs(*tcap["deferred_shade"])["bilinear"]
     err4 = _k4_check("textures", a4)
-    _k4_check("cutout alpha test", rcap["bilinear_cutout"])
+    if "bilinear_cutout" in rcap:  # the chain's alpha test (the CPU; on the card C1 took it)
+        _k4_check("cutout alpha test", rcap["bilinear_cutout"])
     sky = paths["features"][0].captured["bilinear_sky"]
     _k4_check("skybox", sky)
     if timed:
@@ -1432,8 +1524,8 @@ F1_SOURCE = "rend3_tpu_torch/csrc/fma.cu"
 F1_REPLACES = {"fma": "rend3_tpu/ops/texture.py:518", "fma_dot3": "rend3_tpu/ops/transform.py:96",
                "fma_ab_minus_cd": "rend3_tpu/ops/geometry.py:121"}
 # Each form's timed row: the frame's largest call from this file of the
-# package (texture.texture_queries for the cutout alpha test,
-# transform.gather_tri_clip, geometry's setup).
+# package (texture.texture_queries, the chain's texture and alpha-test
+# queries; transform.gather_tri_clip; geometry's setup).
 F1_TIMED_SITE = {"fma": "ops/texture.py", "fma_dot3": "ops/transform.py", "fma_ab_minus_cd": "ops/geometry.py"}
 # f32 operations per output element (an fma counts two).
 F1_OPS = {"fma": 2, "fma_dot3": 5, "fma_ab_minus_cd": 3}
@@ -1646,7 +1738,7 @@ def log_kernel_info():
     K7 / K8's occ_kernel, of P1's dot_kernel at the probes' K = 72, of
     K5's gather_kernel for the four Hi-Z taps, of P2's reduce_kernel, of
     P3's lerp_kernel (x-lerp and 128-lane sum), of F1's nine instances,
-    of S1 / S2's three kernels and of V1-V4's seven."""
+    of S1 / S2's three kernels, of V1-V4's seven, of D1 and of C1."""
     from rend3_tpu_torch.ops import cuda_kernels
 
     rows = [(f"{'vis' if name.startswith('K6') else 'tiles'}_kernel {name}", "raster_kernel_info", (i,))
@@ -1659,6 +1751,7 @@ def log_kernel_info():
     rows += [(name, "shadow_front_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.SHADOW_FRONT_INSTANCES)]
     rows += [(name, "view_front_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.VIEW_FRONT_INSTANCES)]
     rows += [(name, "d1_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.D1_INSTANCES)]
+    rows += [(name, "c1_kernel_info", (i,)) for i, name in enumerate(cuda_kernels.C1_INSTANCES)]
     for label, fn, args in rows:
         info = cuda_kernels.kernel_info(fn, *args)
         log(f"{label}: {info['registers']} registers, {info['local_bytes']} local (spill) bytes, "
@@ -1918,8 +2011,8 @@ def _check_frame_kernels(label, cap):
     """Each kernel that an example frame launched, against its plain version
     on the inputs the frame captured, with phase 11's tolerances: K1 depth,
     hit and material bit-exact and the rest within 1 ulp, K2 and K5
-    bit-exact, K3 within 1e-6, K4 within 1 ulp, D1 as _d1_check. Returns the
-    names checked."""
+    bit-exact, K3 within 1e-6, K4 within 1 ulp, D1 as _d1_check, C1 as
+    _c1_check. Returns the names checked."""
     import torch
 
     from rend3_tpu_torch.ops import deferred as D
@@ -1947,6 +2040,9 @@ def _check_frame_kernels(label, cap):
         if key in cap and cap[key][0].data.is_cuda:
             _d1_check(f"{label} {key}", cap[key])
             checked.append("deferred_shade")
+    if "cutout_peel" in cap and cap["cutout_peel"][0].is_cuda:
+        _c1_check(f"{label} first cutout peel", cap["cutout_peel"])
+        checked.append("cutout_alpha")
     if "deferred_shade" in cap and isinstance(cap["deferred_shade"][6], L.ShadowMaps):
         # K3 on the frame's shadow queries (where its routines' factors launch it).
         args = L.chain_inputs(*cap["deferred_shade"])["pcf5"]
@@ -2356,9 +2452,10 @@ def phase_bench_host(device="cuda", n_objects=50_000):
 BAND_COUNTS = (2, 4, 8)
 # The kernels the banded frames must launch: K1 at every band's first row
 # past 0 ("raster_band") and band 0's K1 modes, K2 for the shadow maps
-# (rebuilt in the first banded frame of each scene), K4, K5, D1 and V1-V4.
-BAND_KERNELS = ("raster_band", "raster_resolve", "raster_count", "raster_bound", "raster_depth", "bilinear", "gather",
-                "deferred_shade", *F1_FRAME_KERNELS, *SHADOW_KERNELS, *VIEW_KERNELS)
+# (rebuilt in the first banded frame of each scene), C1, K4 (the feature
+# frame's skybox), K5, D1 and V1-V4.
+BAND_KERNELS = ("raster_band", "raster_resolve", "raster_count", "raster_bound", "raster_depth", "cutout_alpha",
+                "bilinear", "gather", "deferred_shade", *F1_FRAME_KERNELS, *SHADOW_KERNELS, *VIEW_KERNELS)
 
 
 def _peak_start(cuda):
@@ -2672,7 +2769,7 @@ def phase_bench(device="cuda", width=WIDTH, height=HEIGHT, cities=None, line=Tru
     called three times, each image bit for bit the second warm-up frame's;
     the third call under a stage hook that logs each stage's peak memory.
     The heavy city's kernels (K1 in its opaque, count and bound modes, K2,
-    K3, K4 on the textures and the cutout alpha test, K5) are held against
+    K3, K4 on the textures, C1 on the cutout alpha test, K5) are held against
     their plain versions on its captured inputs. Returns the launch counts
     over the cities' frames."""
     import torch

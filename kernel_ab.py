@@ -1,6 +1,6 @@
 """Time this tree's kernels against other trees' on the same inputs.
 
-    python3 kernel_ab.py OTHER_DIR [OTHER_DIR ...] [K1 K2 P1 K5 K6 K7 P2 P3 F1 D1]
+    python3 kernel_ab.py OTHER_DIR [OTHER_DIR ...] [K1 K2 P1 K5 K6 K7 P2 P3 F1 D1 C1]
 
 Each OTHER_DIR holds another tree: another commit's, for example the
 parent's, unpacked with `git archive` into the ignored `_checkout/`, or a
@@ -17,7 +17,9 @@ the C interface of P2 and P3, unchanged since their port; F1 through
 `ops.fp.fma32`, `dot3` and `ab_minus_cd` (a tree without F1 runs its
 float64 emulation there); D1 as a raw launch through the tree's own
 `ops.lighting.launch_args` and `ops.cuda_kernels.call`, its arguments
-prepared once. The groups named (all ten by default) choose the cases. The inputs come from
+prepared once; C1 likewise through the tree's own
+`ops.lighting.peel_launch_args`. The groups named (all eleven by default)
+choose the cases. The inputs come from
 this tree on the card, as chip_smoke.py makes them, at 1920x1080:
 
 - K1 opaque and K2 (the 2048² map) from the flat city after a building
@@ -48,7 +50,9 @@ this tree on the card, as chip_smoke.py makes them, at 1920x1080:
   torch.addcmul(c, a, b) as the fma's library call;
 - D1 on the representative frame's opaque G-buffer and its blend pixels
   (occlusion on), and on the flat city's opaque G-buffer (untextured, one
-  map).
+  map);
+- C1 on the representative frame's first cutout peel (occlusion on), at 1
+  sample and at sample 0 of 4.
 
 Every tree's outputs must equal this tree's bit for bit (NaN at the same
 places; K7 and K8 at hit pixels, the only ones where their values are
@@ -82,7 +86,7 @@ import sys
 import chip_smoke as cs
 
 WIDTH, HEIGHT = cs.WIDTH, cs.HEIGHT
-GROUPS = ("K1", "K2", "P1", "K5", "K6", "K7", "P2", "P3", "F1", "D1")
+GROUPS = ("K1", "K2", "P1", "K5", "K6", "K7", "P2", "P3", "F1", "D1", "C1")
 
 
 def load_other(root, name="rend3_other"):
@@ -280,6 +284,33 @@ def d1_cases():
             for label, cap, key in (("representative, opaque", rep, "deferred_shade"),
                                     ("representative, blend pixels", rep, "deferred_shade_blend"),
                                     ("flat city, opaque", flat, "deferred_shade"))}
+
+
+def c1_raw(pkg):
+    """C1 in package `pkg` as a raw launch: a captured peel's arguments
+    turned into the C arguments once a case (the G-buffer a copy it writes
+    the same pixels of at every call), then only the launch. Returns the
+    G-buffer, done and bound."""
+    lighting = importlib.import_module(f"{pkg}.ops.lighting")
+    ck = importlib.import_module(f"{pkg}.ops.cuda_kernels")
+    prepared = {}
+
+    def run(gc, gbuf, floor, done, materials, textures, active, _extras):
+        if id(gc) not in prepared:
+            prepared[id(gc)] = lighting.peel_launch_args(gc, gbuf.clone(), floor, done, materials, textures, active)
+        tensors, ints = prepared[id(gc)]
+        ck.call("c1_cutout_peel", *tensors, ints=ints)
+        return tensors[1], tensors[4], tensors[5]
+
+    return run
+
+
+def c1_cases():
+    """C1 on the representative frame's first cutout peel (occlusion on), at
+    1 sample and at sample 0 of 4."""
+    return {f"C1 {label}": ("lighting", c1_raw, capture("representative", samples=s, occlusion=True)["cutout_peel"],
+                            {}, None, None, None)
+            for label, s in (("representative, first peel", 1), ("representative at 4 samples, sample 0", 4))}
 
 
 def emptied(lists, k):
@@ -494,6 +525,8 @@ def main(argv):
         cases.update(f1_cases())
     if "D1" in groups:
         cases.update(d1_cases())
+    if "C1" in groups:
+        cases.update(c1_cases())
     other_cks = [(d, importlib.import_module(f"{pkg}.ops.cuda_kernels")) for d, pkg in others]
     if "P1" in groups or "K5" in groups:
         log_kernels(cuda_kernels, other_cks)
@@ -501,11 +534,12 @@ def main(argv):
         log_vis_occ_kernels(cuda_kernels, other_cks)
     if "P2" in groups or "P3" in groups:
         log_probe_kernels(cuda_kernels, other_cks)
-    if "D1" in groups:
-        for label, ck in [("this", cuda_kernels)] + other_cks:
-            ck.build(verbose=True)
-            for name, info in ptxas(ck.last_build["log"], r"d1_kernel").items():
-                cs.log(f"{label} D1 {name}: {json.dumps(info)}")
+    for group, pattern in (("D1", r"d1_kernel"), ("C1", r"c1_kernel")):
+        if group in groups:
+            for label, ck in [("this", cuda_kernels)] + other_cks:
+                ck.build(verbose=True)
+                for name, info in ptxas(ck.last_build["log"], pattern).items():
+                    cs.log(f"{label} {group} {name}: {json.dumps(info)}")
 
     def outputs(f, args, kw, mask):
         out = f(*args, **kw)

@@ -1,6 +1,8 @@
 // D1: the deferred shade of a G-buffer in one launch: each hit pixel's
 // shadow coordinates and PCF5 factor per shadow map, its texture samples and
 // the PBR lighting of opaque.wgsl; the background where no fragment hit.
+// C1 (at the end of this file): the alpha test of one cutout depth peel in
+// one launch, on D1's albedo path.
 //
 // Replaces no Pallas kernel. The JAX frame shades with XLA ops around its K3
 // and K4 sampling (rend3_tpu/ops/lighting.py:50-142 light_gbuffer, the
@@ -66,12 +68,12 @@
 namespace {
 
 // G-buffer channels (ops/deferred.py).
-constexpr int G_DEN = 1, G_VP = 2, G_NRM = 5, G_TAN = 8, G_UV0 = 11, G_COL = 15, G_MAT = 19, G_HIT = 20,
+constexpr int GB_CH = 25, G_DEPTH = 0, G_DEN = 1, G_VP = 2, G_NRM = 5, G_TAN = 8, G_UV0 = 11, G_COL = 15, G_MAT = 19, G_HIT = 20,
               G_DUV = 21;
 // Material data layout (ops/shade.py PBR_*).
 constexpr int PBR_UVT0 = 0, PBR_ALBEDO = 18, PBR_EMISSIVE = 22, PBR_ROUGHNESS = 25, PBR_METALLIC = 26,
               PBR_REFLECTANCE = 27, PBR_CLEAR_COAT = 28, PBR_CLEAR_COAT_ROUGHNESS = 29,
-              PBR_AMBIENT_OCCLUSION = 31, PBR_DATA_SIZE = 33;
+              PBR_AMBIENT_OCCLUSION = 31, PBR_ALPHA_CUTOUT = 32, PBR_DATA_SIZE = 33;
 // Texture slots (ops/shade.py TEX_*) and the atlas's mips (ops/texture.py).
 constexpr int NSLOT = 10, MAX_MIPS = 14;
 constexpr int TEX_ALBEDO = 0, TEX_NORMAL = 1, TEX_ROUGHNESS = 2, TEX_METALLIC = 3, TEX_REFLECTANCE = 4,
@@ -495,6 +497,131 @@ __global__ void __launch_bounds__(256, 4) d1_kernel(const ShadeParams p)
 // 32x8 pixels a CTA; compacted pixels (fewer than 8 rows) 256 a CTA row.
 dim3 d1_block(int h) { return h >= 8 ? dim3(32, 8) : dim3(256, 1); }
 
+
+// C1: one cutout depth peel's alpha test (routine/base.py _cutout_sample,
+// ops/lighting.py cutout_peel_step) in one launch.
+//
+// Replaces no Pallas kernel. The JAX frame tests each peel's candidate
+// pixels with XLA ops around K4 (rend3_tpu/ops/lighting.py:203-289
+// cutout_alpha_pass, the peel loop at rend3_tpu/routine/base.py:1480-1557);
+// the port ran about 200 PyTorch ops a peel and two blocking reads: the
+// candidates' `nonzero`, a gather of their G-buffer columns, the material
+// gathers and texture queries around one K4 launch, a scatter, the count of
+// the failed, and three full-frame selects (one over all 25 channels). The
+// plain version is that chain (ops/lighting.py cutout_peel_step_plain),
+// which the CPU runs.
+//
+// Per pixel of the peel's (GB_CH, n) G-buffer gc, in the chain's
+// expressions:
+//   1. candidate = !done & hit & depth > floor, the floor the opaque depth
+//      of the loop's start where it hit, else -1 (below every hit's
+//      reverse-Z depth), never read from the sample's G-buffer, which an
+//      earlier peel may have written;
+//   2. a candidate's verdict: a registered cutout routine's where the
+//      optional verdict array holds one (1 fails, 2 passes; its Python
+//      alpha ran before the launch, ops/lighting.py routine_verdict), else
+//      the alpha, albedo_alpha's product: D1's albedo texture alpha
+//      (tex_sample: the mip select, fma(uu, rw, -0.5), K4's taps), x the
+//      vertex alpha where ALBEDO_BLEND, 1 unless ALBEDO_ACTIVE, x the
+//      factor's alpha; it passes where cutoff <= 0 or alpha >= cutoff;
+//   3. a passing fragment's 25 channels copied into the sample's G-buffer
+//      in place (no other pixel of it is written);
+//   4. done = !(candidate & failed); bound = depth where the pixel still
+//      searches, else +0;
+//   5. the still searching pixels counted: a warp's count, then one atomic
+//      add a warp (an integer sum, so the order cannot change it).
+// The numerics are D1's (the same functions), so the alpha equals the
+// chain's bit for bit; the sRGB powf, where D1 parts from the chain, reads
+// only RGB.
+//
+// What bounds it on the H100: memory. Every pixel reads its depth, hit,
+// floor and done flag and writes done and bound (18 bytes);
+// a candidate reads 9 more channels (36 bytes) and its texels, a passing one
+// reads and writes 25 channels (200 bytes). A 1920x1088 peel with the
+// Bistro proxy's foliage is about 40 MB, 0.012 ms at 3.35 TB/s, near the
+// launch floor. Design: one thread a pixel, 256 a CTA, every access a 32-bit
+// (or byte) lane of a coalesced row, 32 registers, eight CTAs a SM. Four
+// pixels a thread, the full-frame reads and writes as float4 and uchar4
+// vectors (48 registers, five CTAs a SM), was a third slower: 0.0251 against
+// 0.0188 ms on the Bistro proxy's first 1080p peel (H100 80GB HBM3, 700 W,
+// timed in turns).
+
+struct CutParams {
+    ShadeParams t;         // the material table and, with t.slots bit TEX_ALBEDO, the albedo textures
+    const float* gc;       // the peel's G-buffer (GB_CH, n), channel stride n
+    float* gbuf;           // the sample's G-buffer (GB_CH, n), written where a fragment passes
+    const float* depth_floor;  // (n,) the loop's opaque depth where it hit, else -1
+    const uint8_t* done;   // (n,) the pixels no longer searching
+    const uint8_t* verdict;  // (n,) or null: a routine's verdict (0 none, 1 fails, 2 passes)
+    uint8_t* done_out;     // (n,) written
+    float* bound;          // (n,) written
+    unsigned* searching;   // one counter, added to
+    int n;
+};
+
+// cutout_alpha_pass at a candidate pixel i: does its fragment pass?
+__device__ __forceinline__ bool alpha_passes(const CutParams& c, int i)
+{
+    const ShadeParams& p = c.t;
+    auto G = [&](int ch) { return __ldg(c.gc + (size_t)ch * c.n + i); };
+    const float den = G(G_DEN);
+    const float inv = fabsf(den) < 1e-30f ? 1.0f : fmul(fdiv(1.0f, den), 1.0f);
+    const long long mraw = (long long)nearbyintf(G(G_MAT));
+    const int mi = (int)min(max(mraw, 0LL), (long long)(p.m - 1));
+    const float* md = p.mdata + (size_t)mi * PBR_DATA_SIZE;
+    auto M = [&](int k) { return __ldg(md + k); };
+    const int flags = __ldg(p.mflags + mi);
+    float a = 1.0f;
+    const int slv = p.slots ? __ldg(p.mtex + (size_t)mi * NSLOT + TEX_ALBEDO) : 0;
+    if (slv > 0) {
+        const float u0 = fmul(G(G_UV0), inv), v0 = fmul(G(G_UV0 + 1), inv);
+        const float u = fadd(fadd(fmul(M(PBR_UVT0), u0), fmul(M(PBR_UVT0 + 1), v0)), M(PBR_UVT0 + 2));
+        const float v = fadd(fadd(fmul(M(PBR_UVT0 + 3), u0), fmul(M(PBR_UVT0 + 4), v0)), M(PBR_UVT0 + 5));
+        const float duv[4] = {G(G_DUV), G(G_DUV + 1), G(G_DUV + 2), G(G_DUV + 3)};
+        float t[4];
+        tex_sample(p, TEX_ALBEDO, slv, u, v, duv, (flags & MF_NEAREST) != 0, t);
+        a = t[3];
+    }
+    if (flags & MF_ALBEDO_BLEND) a = fmul(a, fmul(G(G_COL + 3), inv));
+    if (!(flags & MF_ALBEDO_ACTIVE)) a = 1.0f;
+    a = fmul(a, M(PBR_ALBEDO + 3));
+    const float cutoff = M(PBR_ALPHA_CUTOUT);
+    return cutoff <= 0.0f || a >= cutoff;
+}
+
+// Steps 1-3 at pixel i given its depth and hit: true where it still searches.
+__device__ __forceinline__ bool peel_pixel(const CutParams& c, int i, float depth, bool hit, float depth_floor,
+                                           bool done)
+{
+    if (done || !hit || !(depth > depth_floor)) return false;
+    const uint8_t v = c.verdict ? __ldg(c.verdict + i) : 0;
+    if (v ? v == 1 : !alpha_passes(c, i)) return true;
+#pragma unroll 5
+    for (int ch = 0; ch < GB_CH; ++ch) c.gbuf[(size_t)ch * c.n + i] = __ldg(c.gc + (size_t)ch * c.n + i);
+    return false;
+}
+
+// Step 5: lane 0 of each warp adds the warp's count.
+__device__ __forceinline__ void count_searching(const CutParams& c, unsigned k)
+{
+    k = __reduce_add_sync(0xffffffffu, k);
+    if ((threadIdx.x & 31) == 0 && k) atomicAdd(c.searching, k);
+}
+
+__global__ void __launch_bounds__(256) c1_kernel(const CutParams c)
+{
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    bool fail = false;
+    if (i < c.n) {
+        const float depth = __ldg(c.gc + (size_t)G_DEPTH * c.n + i);
+        fail = peel_pixel(c, i, depth, __ldg(c.gc + (size_t)G_HIT * c.n + i) > 0.0f, __ldg(c.depth_floor + i),
+                          __ldg(c.done + i) != 0);
+        c.done_out[i] = !fail;
+        c.bound[i] = fail ? depth : 0.0f;
+    }
+    count_searching(c, fail);
+}
+
 }  // namespace
 
 extern "C" {
@@ -581,6 +708,52 @@ int d1_kernel_info(int which, void* info)
 {
     if (which != 0) return (int)cudaErrorInvalidValue;
     return kernel_info(d1_kernel, 256, 0, (int*)info);
+}
+
+// C1 over one peel: n pixels. Device tensors: gc (GB_CH, n) f32, gbuf
+// (GB_CH, n) f32, depth_floor (n,) f32, done (n,) u8, done_out (n,) u8, bound
+// (n,) f32, searching (1,) u32 (added to), verdict (n,) u8 or null, mdata,
+// mflags, mtex (see ShadeParams), then atlas, rects, mipc (null unless the
+// albedo slot is sampled). Ints: n, m, ah, aw, s, slots (1: the albedo slot
+// sampled, else 0). Returns cudaGetLastError() after the launch.
+int c1_cutout_peel(const void* gc, void* gbuf, const void* depth_floor, const void* done, void* done_out,
+                   void* bound, void* searching, const void* verdict, const void* mdata, const void* mflags,
+                   const void* mtex, const void* atlas, const void* rects, const void* mipc, int n, int m, int ah,
+                   int aw, int s, int slots, void* stream)
+{
+    if (n < 0 || m < 1 || (slots != 0 && slots != 1) || (slots && (!atlas || s < 1)) || !searching)
+        return (int)cudaErrorInvalidValue;
+    if (n == 0) return (int)cudaGetLastError();
+    CutParams c = {};
+    c.t.mdata = (const float*)mdata;
+    c.t.mflags = (const int*)mflags;
+    c.t.mtex = (const int*)mtex;
+    c.t.atlas = (const uint2*)atlas;
+    c.t.rects = (const float*)rects;
+    c.t.mipc = (const int*)mipc;
+    c.t.m = m;
+    c.t.ah = ah;
+    c.t.aw = aw;
+    c.t.s = s;
+    c.t.slots = slots << TEX_ALBEDO;
+    c.gc = (const float*)gc;
+    c.gbuf = (float*)gbuf;
+    c.depth_floor = (const float*)depth_floor;
+    c.done = (const uint8_t*)done;
+    c.verdict = (const uint8_t*)verdict;
+    c.done_out = (uint8_t*)done_out;
+    c.bound = (float*)bound;
+    c.searching = (unsigned*)searching;
+    c.n = n;
+    c1_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(c);
+    return (int)cudaGetLastError();
+}
+
+// Registers, spills, shared memory and resident CTAs per SM of c1_kernel.
+int c1_kernel_info(int which, void* info)
+{
+    if (which != 0) return (int)cudaErrorInvalidValue;
+    return kernel_info(c1_kernel, 256, 0, (int*)info);
 }
 
 }  // extern "C"

@@ -68,11 +68,12 @@ _SIGNATURES = {
     "v3_planes": (17, 7, 2),
     "v4_tiles": (4, 4, 0),
     "d1_deferred_shade": (25, 18, 0),
+    "c1_cutout_peel": (14, 6, 0),
 }
 # name -> int args of the kernel-info functions, which end with an int[5].
 _INFO_SIGNATURES = {"raster_kernel_info": 1, "p1_kernel_info": 2, "k5_kernel_info": 1, "occ_kernel_info": 1,
                     "p23_kernel_info": 1, "f1_kernel_info": 1, "shadow_front_kernel_info": 1,
-                    "view_front_kernel_info": 1, "d1_kernel_info": 1}
+                    "view_front_kernel_info": 1, "d1_kernel_info": 1, "c1_kernel_info": 1}
 
 _lib: Optional[ctypes.CDLL] = None
 last_build: dict = {}
@@ -199,6 +200,8 @@ VIEW_FRONT_INSTANCES = ("V1 clip_count_kernel", "V1 clip_fill_kernel", "V2 cull_
                         "V2 setup_kernel", "V3 planes_kernel", "V4 tiles_kernel")
 # csrc/deferred_shade.cu's kernel, by d1_kernel_info's index.
 D1_INSTANCES = ("D1 d1_kernel",)
+# csrc/deferred_shade.cu's C1 kernel, by c1_kernel_info's index.
+C1_INSTANCES = ("C1 c1_kernel",)
 
 
 def kernel_info(fn: str, *ints: int) -> dict:
@@ -212,7 +215,7 @@ def kernel_info(fn: str, *ints: int) -> dict:
     for F1_INSTANCES[which], `shadow_front_kernel_info(which)` for
     SHADOW_FRONT_INSTANCES[which], `view_front_kernel_info(which)` for
     VIEW_FRONT_INSTANCES[which], `d1_kernel_info(which)` for
-    D1_INSTANCES[which]."""
+    D1_INSTANCES[which], `c1_kernel_info(which)` for C1_INSTANCES[which]."""
     lib = library()
     info = (ctypes.c_int * 5)()
     rc = getattr(lib, fn)(*ints, ctypes.cast(info, ctypes.c_void_p))

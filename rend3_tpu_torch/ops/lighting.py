@@ -18,7 +18,12 @@ light_gbuffer shades a G-buffer with the hand-written kernel D1
 (csrc/deferred_shade.cu, one launch) on CUDA tensors, and with its plain
 version, light_gbuffer_plain, on CPU tensors: shadow_coords and
 shadow.resolve_shadow_pcf5 (K3), texture.sample_textures_grid (K4) and
-shade._shade_pixels, the chain D1 computes in one pass.
+shade._shade_pixels, the chain D1 computes in one pass. cutout_peel_step,
+one cutout peel's alpha test with its replace, done and bound updates,
+runs the hand-written kernel C1 (the same file, on D1's albedo path) on
+CUDA tensors, with a registered cutout routine's verdict computed before
+it (routine_verdict), and its plain version, cutout_peel_step_plain (the
+chain around cutout_alpha_pass), on CPU tensors.
 """
 
 from __future__ import annotations
@@ -49,11 +54,12 @@ from .shade import (
 )
 
 __all__ = ["light_gbuffer", "light_gbuffer_plain", "ShadowMaps", "shadow_coords", "shadow_factors",
-           "chain_inputs", "light_tensors", "launch_args", "cutout_alpha_pass", "apply_material_routines",
-           "launches", "MAX_MAPS"]
+           "chain_inputs", "light_tensors", "launch_args", "cutout_alpha_pass", "cutout_peel_step",
+           "cutout_peel_step_plain", "routine_verdict", "peel_launch_args", "apply_material_routines", "launches",
+           "MAX_MAPS"]
 
-# D1's launches (its plain version's runs do not count).
-launches = {"deferred_shade": 0}
+# D1's and C1's launches (their plain versions' runs do not count).
+launches = {"deferred_shade": 0, "cutout_alpha": 0}
 # Shadow maps one D1 launch takes (csrc/deferred_shade.cu kMaxMaps).
 MAX_MAPS = 16
 
@@ -169,12 +175,7 @@ def _check(gbuf, materials, dir_lights, point_lights, uniforms, background, shad
     _need("background", background, torch.float32, (H, W, 4))
     if background.stride(2) != 1:
         raise ValueError(f"background: each pixel's 4 channels must be contiguous, got strides {background.stride()}")
-    M = materials.data.shape[0]
-    _need("materials.data", materials.data, torch.float32, (None, PBR_DATA_SIZE))
-    _need("materials.flags", materials.flags, torch.int32, (M,))
-    _need("materials.textures", materials.textures, torch.int32, (M, tex_ops.NSLOT))
-    if M < 1:
-        raise ValueError("materials: the table needs a row")
+    tables = [background, *_material_tables(materials, textures)]
     L = dir_lights.mask.shape[0]
     for name, want in (("view_proj", (L, 4, 4)), ("color", (L, 3)), ("direction", (L, 3)),
                        ("inv_resolution", (L, 2)), ("atlas_offset", (L, 2)), ("atlas_size", (L, 2))):
@@ -187,7 +188,7 @@ def _check(gbuf, materials, dir_lights, point_lights, uniforms, background, shad
     _need("uniforms.view", uniforms.view, torch.float32, (4, 4))
     _need("uniforms.inv_view", uniforms.inv_view, torch.float32, (4, 4))
     _need("uniforms.ambient", uniforms.ambient, torch.float32, (4,))
-    tables = [background, *materials, *dir_lights, *point_lights, uniforms.view, uniforms.inv_view, uniforms.ambient]
+    tables += [*dir_lights, *point_lights, uniforms.view, uniforms.inv_view, uniforms.ambient]
     if isinstance(shadows, ShadowMaps):
         if not (len(shadows.plan) == len(shadows.maps) == len(shadows.bases)):
             raise ValueError("shadows: one map and one stack row a plan entry")
@@ -202,15 +203,32 @@ def _check(gbuf, materials, dir_lights, point_lights, uniforms, background, shad
         if W > 1 and shadows.stride(2) != 1:
             raise ValueError(f"shadow factors: rows must be contiguous, got strides {shadows.stride()}")
         tables.append(shadows)
+    _same_device("light_gbuffer", g, tables)
+
+
+def _material_tables(materials, textures) -> list:
+    """Checks the material table and the texture arrays (or None) D1 and C1
+    read; returns their tensors. Raises ValueError."""
+    M = materials.data.shape[0]
+    _need("materials.data", materials.data, torch.float32, (None, PBR_DATA_SIZE))
+    _need("materials.flags", materials.flags, torch.int32, (M,))
+    _need("materials.textures", materials.textures, torch.int32, (M, tex_ops.NSLOT))
+    if M < 1:
+        raise ValueError("materials: the table needs a row")
+    tables = list(materials)
     if textures is not None:
         S = textures.rects.shape[0]
         _need("textures.atlas", textures.atlas, torch.bfloat16, (None, None, 4))
         _need("textures.rects", textures.rects, torch.float32, (S, tex_ops.MAX_MIPS, 4))
         _need("textures.mip_counts", textures.mip_counts, torch.int32, (S,))
         tables += list(textures)
+    return tables
+
+
+def _same_device(name: str, g: torch.Tensor, tables) -> None:
     for t in tables:
         if t.device != g.device:
-            raise ValueError(f"light_gbuffer: inputs on {t.device} and {g.device}")
+            raise ValueError(f"{name}: inputs on {t.device} and {g.device}")
 
 
 def light_gbuffer_plain(
@@ -473,3 +491,132 @@ def cutout_alpha_pass(
             sel, e_data, e_flags = _extra_rows(midx_raw, base, count, data, flags)
             ok = torch.where(sel, routine.alpha(pixels, e_data, e_flags) >= routine.alpha_cutoff, ok)
     return ok.reshape(H, W)
+
+
+def _check_peel(gc, gbuf, floor, done, materials, textures) -> None:
+    """cutout_peel_step's inputs: the shapes, dtypes and layouts C1 reads,
+    on one device. Raises ValueError."""
+    _need("gc", gc, torch.float32, (D.GB_CH, None, None))
+    _CH, H, W = gc.shape
+    _need("gbuf", gbuf, torch.float32, (D.GB_CH, H, W))
+    _need("floor", floor, torch.float32, (H, W))
+    _need("done", done, torch.bool, (H, W))
+    for name, t in (("gc", gc), ("gbuf", gbuf), ("floor", floor), ("done", done)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous, got strides {t.stride()}")
+    if D.GB_CH * H * W >= 2**31:
+        raise ValueError(f"cutout_peel_step: the {H}x{W} G-buffer passes 2^31 values")
+    _same_device("cutout_peel_step", gc, [gbuf, floor, done, *_material_tables(materials, textures)])
+
+
+def cutout_peel_step_plain(gc, gbuf, floor, done, materials, textures, active_tex_slots, extras=(), capture=None):
+    """Plain version of C1 (cutout_peel_step's arguments): the chain in
+    PyTorch ops on any device. Reads the candidates' pixels with a
+    `nonzero`, tests them with cutout_alpha_pass and, where any failed,
+    reads their count; returns new gbuf, done and bound tensors and the
+    count."""
+    CH, H, W = gc.shape
+    chit = gc[D.G_HIT] > 0.0
+    cdepth = gc[D.G_DEPTH]
+    nearer = cdepth > floor
+    # The alpha test decides only where a pixel still searches and the
+    # fragment is nearer than the opaque one.
+    with profiling_scope("sync::cut.pixels"):
+        pix = torch.nonzero((~done & chit & nearer).flatten()).flatten()
+    passed = torch.zeros(H * W, dtype=torch.bool, device=gc.device)
+    searching = 0
+    if pix.numel():
+        ok = cutout_alpha_pass(
+            D.GBuffer(gc.reshape(CH, -1)[:, pix][:, None]), materials, textures, active_tex_slots, extras=extras,
+            capture=capture,
+        ).flatten()
+        passed[pix] = ok
+        with profiling_scope("sync::cut.searching"):
+            searching = pix.numel() - int(ok.sum())
+    passed = passed.reshape(H, W)
+    # replace = ~done & chit & pass & nearer, which is `passed`.
+    gbuf = torch.where(passed[None], gc, gbuf)
+    done = done | ~chit | passed | (chit & ~nearer)
+    bound = torch.where(done, torch.zeros_like(cdepth), cdepth)
+    return gbuf, done, bound, searching
+
+
+def routine_verdict(gc: torch.Tensor, extras) -> torch.Tensor:
+    """The registered cutout routines' alpha test over a (GB_CH, H, W)
+    G-buffer, as cutout_alpha_pass applies it: (H, W) uint8, 0 where no
+    routine's material range holds the pixel (the albedo alpha decides), 1
+    where a routine fails it, 2 where it passes (the later routine where
+    ranges overlap). PyTorch ops, no host read."""
+    g, inv_den, H, W = _flat(D.GBuffer(gc))
+    pixels = _pixels(g, inv_den)
+    midx = torch.round(g[D.G_MAT]).long()
+    verdict = torch.zeros(H * W, dtype=torch.uint8, device=gc.device)
+    for base, count, routine, data, flags in extras:
+        sel, e_data, e_flags = _extra_rows(midx, base, count, data, flags)
+        ok = routine.alpha(pixels, e_data, e_flags) >= routine.alpha_cutoff
+        verdict = torch.where(sel, 1 + ok.to(torch.uint8), verdict)
+    return verdict.reshape(H, W)
+
+
+def cutout_peel_step(
+    gc: torch.Tensor,               # (GB_CH, H, W) the peel's G-buffer (K1's)
+    gbuf: torch.Tensor,             # (GB_CH, H, W) the sample's G-buffer so far
+    floor: torch.Tensor,            # (H, W) the loop's opaque depth where it hit, else -1
+    done: torch.Tensor,             # (H, W) bool: pixels no longer searching
+    materials: PbrMaterialTable,
+    textures,                       # texture.TextureArrays, or None
+    active_tex_slots,
+    *,
+    extras=(),                      # [(base, count, routine, data, flags)] cutout routines
+    capture=None,                   # optional dict: the chain's K4 inputs
+):
+    """One cutout depth peel's alpha test (base.py:1480-1557): the
+    candidates (~done & hit & depth > floor; a hit's reverse-Z depth is at
+    least 0, so -1 takes any) are alpha-tested (cutout_alpha_pass); a
+    passing fragment replaces the pixel of `gbuf`; done becomes done | ~hit
+    | passed | (hit & ~nearer); bound is the depth where a pixel still
+    searches, else 0. Returns (gbuf, done, bound, searching), searching the
+    count of candidates that failed (one host read).
+
+    On CUDA tensors one launch of C1 (csrc/deferred_shade.cu), which writes
+    gbuf in place and returns it with a new done and bound: `floor` must
+    not be a view of gbuf. A registered cutout routine's alpha (`extras`, a
+    Python callable) is computed over the peel by routine_verdict first,
+    and C1 takes its verdict where the routine's range holds the material.
+    On CPU tensors cutout_peel_step_plain, which returns new tensors.
+    Counters: cut.c1_peels, cut.chain_peels. Raises ValueError on inputs C1
+    does not take (the chain takes the same)."""
+    _check_peel(gc, gbuf, floor, done, materials, textures)
+    if gc.device.type == "cpu":
+        profiling.count("cut.chain_peels")
+        return cutout_peel_step_plain(gc, gbuf, floor, done, materials, textures, active_tex_slots, extras, capture)
+    from . import cuda_kernels
+
+    verdict = routine_verdict(gc, extras) if extras else None
+    with profiling_scope("kernel::C1"):
+        tensors, ints = peel_launch_args(gc, gbuf, floor, done, materials, textures, active_tex_slots, verdict)
+        cuda_kernels.call("c1_cutout_peel", *tensors, ints=ints)
+        launches["cutout_alpha"] += 1
+    profiling.count("cut.c1_peels")
+    with profiling_scope("sync::cut.searching"):
+        searching = int(tensors[6])
+    return gbuf, tensors[4], tensors[5], searching
+
+
+def peel_launch_args(gc, gbuf, floor, done, materials, textures, active_tex_slots, verdict=None):
+    """C1's C arguments (tensors, ints) for cutout_peel_step's checked
+    arguments on the card, with routine_verdict's (H, W) uint8 or None; the
+    fifth to seventh tensors are the new done, bound and zeroed counter."""
+    n = gc.shape[1] * gc.shape[2]
+    slots = int(textures is not None and TEX_ALBEDO in tuple(active_tex_slots))
+    tex = textures if slots else (None, None, None)
+
+    def c(t):
+        return None if t is None else t.contiguous()
+
+    tensors = (gc, gbuf, floor, done, torch.empty_like(done), torch.empty_like(floor),
+               torch.zeros(1, dtype=torch.int32, device=gc.device), c(verdict), c(materials.data),
+               c(materials.flags), c(materials.textures), c(tex[0]), c(tex[1]), c(tex[2]))
+    ints = (n, materials.data.shape[0], *(tex[0].shape[:2] if slots else (0, 0)), tex[1].shape[0] if slots else 0,
+            slots)
+    return tensors, ints

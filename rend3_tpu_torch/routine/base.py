@@ -13,7 +13,7 @@ here each stage is a function over torch tensors on the renderer's device:
     samples + visibility test (K5) -> residual setup / planes / bin,
     G-buffer per sample (K1) and merge] -> [cutout peels: Hi-Z-tested setup
     (K5), planes, bin, then per sample K1 count and bound modes and the
-    alpha test (K4)] -> [skybox where no fragment hit (K4)] -> [blend peels:
+    alpha test (C1; the CPU's chain on K4)] -> [skybox where no fragment hit (K4)] -> [blend peels:
     shared geometry, per sample K1 count and bound modes, compacted hit
     pixels] -> shadow coordinates -> PCF (K3, every sample's opaque and
     blend pixels in one launch) -> per sample textures (K4), lighting,
@@ -622,8 +622,11 @@ class BaseRenderGraph:
                       y_range=f.y_range)
             culled = view_front_ops.cull(table.clip, valid, f.width, f.height, wp=f.wp, hp=f.hp, y0=f.row0, **kw)
             if self.captured is not None:
+                # The pyramid's first level may be a view of a G-buffer that
+                # the cutout peels write: keep its values of this call.
+                kept = dict(kw, hiz=None if hiz is None else [m.clone() for m in hiz])
                 self.captured.setdefault("view_cull", {})[name] = (
-                    (table.clip, valid, f.width, f.height), kw, culled.tris)
+                    (table.clip, valid, f.width, f.height), kept, culled.tris)
             return culled
 
     def _planes_bin(self, f: _Frame, stage, culled, table, tri_vlocal, tri_obj, names):
@@ -664,9 +667,15 @@ class BaseRenderGraph:
         largest, which gives the same images below its cap). The loop also
         stops once no pixel is still searching behind a failed fragment.
 
+        `pyramid` is read by the cut_setup cull alone: on the card the peels
+        write the samples' G-buffers in place, and the pyramid's first level
+        may be a view of sample 0's depth, so it is stale once they start.
+
         Host reads: the cull's (one on the card, cull and binning one each
-        on the CPU), and per sample the count's maximum plus, per peel, the `nonzero` of its candidate pixels and,
-        when there are any, the count of those that failed the test."""
+        on the CPU), and per sample the count's maximum plus, per peel, the
+        count of the candidates that failed the test (on the CPU also the
+        `nonzero` of the candidates, and the count only when there are
+        any)."""
         culled = self._cull(f, stage, f.clipped, f.clipped.valid & cmask, "cut_setup", hiz=pyramid)
         tris = culled.tris
         st = self.last_stats
@@ -683,18 +692,22 @@ class BaseRenderGraph:
         return gbufs
 
     def _cutout_sample(self, f: _Frame, stage, tris, planes, binned, sofs, gbuf):
-        """One sample's cutout peel loop; returns (gbuf, peels, layers)."""
+        """One sample's cutout peel loop; returns (gbuf, peels, layers).
+        Each peel's alpha test is ops/lighting.py's cutout_peel_step (on
+        the card C1: one launch, gbuf written in place, one host read)."""
         wp, hp = f.wp, f.hp
-        odepth = gbuf[def_ops.G_DEPTH]
-        ohit = gbuf[def_ops.G_HIT] > 0.0
-        done = torch.zeros_like(ohit)
+        done = torch.zeros_like(gbuf[def_ops.G_HIT], dtype=torch.bool)
         bound = None
         peels = layers = 0
         while True:
             with stage("cut_raster"):
                 if peels == 0:
-                    # Strict, matching `nearer` below.
-                    floor = torch.where(ohit, odepth, torch.full_like(odepth, -1.0))
+                    # The opaque depth where a fragment hit, else -1 (below
+                    # every hit's depth): made before any peel writes gbuf,
+                    # and the alpha test's only read of the opaque result.
+                    # Strict, matching the test's depth > floor.
+                    odepth = gbuf[def_ops.G_DEPTH]
+                    floor = torch.where(gbuf[def_ops.G_HIT] > 0.0, odepth, torch.full_like(odepth, -1.0))
                     self._capture("raster_count", (tris, planes, binned, wp, hp, floor, True))
                     g, counts = def_ops.raster_resolve(
                         tris, planes, binned, wp, hp, sofs=sofs, count_floor=floor, count_strict=True, y0=f.row0
@@ -707,31 +720,18 @@ class BaseRenderGraph:
                 gc = g.data
             peels += 1
             with stage("cut_alpha"):
-                chit = gc[def_ops.G_HIT] > 0.0
-                cdepth = gc[def_ops.G_DEPTH]
-                nearer = ~ohit | (cdepth > odepth)
-                # The alpha test decides only where a pixel still searches
-                # and the fragment is nearer than the opaque one.
-                with profiling_scope("sync::cut.pixels"):
-                    pix = torch.nonzero((~done & chit & nearer).flatten()).flatten()
-                passed = torch.zeros(hp * wp, dtype=torch.bool, device=gc.device)
-                searching = 0
-                if pix.numel():
-                    cap = {} if self.captured is not None else None
-                    ok = light_ops.cutout_alpha_pass(
-                        def_ops.GBuffer(gc.reshape(def_ops.GB_CH, -1)[:, pix][:, None]),
-                        f.materials, f.textures, f.active_tex_slots, extras=f.cut_extras, capture=cap,
-                    ).flatten()
-                    if cap:
-                        self._capture("bilinear_cutout", cap["bilinear"])
-                    passed[pix] = ok
-                    with profiling_scope("sync::cut.searching"):
-                        searching = pix.numel() - int(ok.sum())
-                passed = passed.reshape(hp, wp)
-                # replace = ~done & chit & pass & nearer, which is `passed`.
-                gbuf = torch.where(passed[None], gc, gbuf)
-                done = done | ~chit | passed | (chit & ~nearer)
-                bound = torch.where(done, torch.zeros_like(cdepth), cdepth)
+                cap = None
+                if self.captured is not None:
+                    cap = {}
+                    if "cutout_peel" not in self.captured:  # the test's inputs, before it writes them
+                        self.captured["cutout_peel"] = (gc, gbuf.clone(), floor, done.clone(), f.materials,
+                                                        f.textures, f.active_tex_slots, f.cut_extras)
+                gbuf, done, bound, searching = light_ops.cutout_peel_step(
+                    gc, gbuf, floor, done, f.materials, f.textures, f.active_tex_slots, extras=f.cut_extras,
+                    capture=cap,
+                )
+                if cap:
+                    self._capture("bilinear_cutout", cap["bilinear"])
             if searching == 0 or peels >= layers:
                 break
         return gbuf, peels, layers
@@ -889,7 +889,8 @@ class BaseRenderGraph:
         row0, bh = (0, height) if band is None else band
         plan = eval_output.shadow_plan
         if self.captured is not None:
-            for key in ("raster_count", "raster_bound", "bilinear_cutout", "bilinear_sky", "deferred_shade_blend"):
+            for key in ("raster_count", "raster_bound", "bilinear_cutout", "cutout_peel", "bilinear_sky",
+                        "deferred_shade_blend"):
                 self.captured.pop(key, None)
         st = self.last_stats
         for key in ("cut_survivors", "cut_peels", "cut_layers", "blend_survivors", "blend_peels", "blend_px"):
@@ -996,6 +997,7 @@ class BaseRenderGraph:
             self._prev_visible_mask = new_mask
         if cmask is not None:
             gbufs = self._cutout_peels(f, stage, cmask, pyramid, gbufs)
+            pyramid = None  # the peels may have written its first level (_cutout_peels)
         f.plan = plan
         if f.cube is not None:
             with stage("skybox"):

@@ -822,6 +822,122 @@ def deferred_shade_chain(calls) -> list:
     return [lighting.light_gbuffer_plain(*c[:6], f, *c[7:]) for c, f in zip(calls, factors)]
 
 
+CUTOUT_PEEL_KINDS = ("textured", "no_texture", "no_albedo_slot", "routines")
+
+
+def cutout_peel_case(kind: str = "textured", device="cpu", seed: int = 0, height: int = 72, width: int = 128,
+                     peels: int = 3) -> dict:
+    """Inputs of a cutout peel loop's alpha tests (lighting.cutout_peel_step)
+    from a numpy generator: "gcs", one (GB_CH, height, width) G-buffer a peel
+    (70% hit; some den 0, material ids past either end of the table, zero
+    and large uv gradients); the sample's "gbuf", "ohit" (60%) and "odepth"
+    (some hit fragments behind it), and from them the frame's "floor" (the
+    opaque depth where ohit, else -1); a first "done" (20% already done); 12
+    materials: the cutoff above, at and below 0 with NEAREST, ALBEDO_BLEND
+    (vertex alpha), ALBEDO_ACTIVE off, no albedo texture and a negative
+    texture id; "textures" (3 mip-chained textures of random alpha),
+    "active" and "extras". Kinds: "textured" (the albedo slot sampled);
+    "no_texture" (no atlas); "no_albedo_slot" (an atlas, but the albedo slot
+    not among the active ones); "routines" (as "textured", with a registered
+    cutout routine over global slots 12 and 13, past the table, whose alpha
+    is uv0's v, negated in slot 13, against 0.3)."""
+    import types
+
+    import torch
+
+    from .ops import deferred as D
+    from .ops import shade
+    from .ops import texture as tex_ops
+    from .routine.registry import MaterialRoutine
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+
+    def t(a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    H, W, M = height, width, 12
+    MF = shade.MF
+    flags = np.full(M, MF.ALBEDO_ACTIVE, np.int32)
+    flags[[1, 5, 9]] |= MF.NEAREST
+    flags[[2, 5, 6, 10]] |= MF.ALBEDO_BLEND
+    flags[[3, 7]] &= ~MF.ALBEDO_ACTIVE
+    data = np.zeros((M, shade.PBR_DATA_SIZE), np.float32)
+    data[:, shade.PBR_UVT0 : shade.PBR_UVT0 + 6] = rng.uniform(-2.0, 2.0, (M, 6))
+    data[:, shade.PBR_ALBEDO : shade.PBR_ALBEDO + 4] = rng.uniform(0.3, 1.0, (M, 4))
+    data[:, shade.PBR_ALPHA_CUTOUT] = [0.5, 0.4, 0.6, 0.5, 0.0, 0.3, 0.5, 0.7, -0.5, 0.5, 0.45, 0.5]
+    mtex = np.zeros((M, tex_ops.NSLOT), np.int32)
+    mtex[:, shade.TEX_ALBEDO] = [1, 2, 3, 1, 2, 3, 0, 2, 1, 3, 2, -1]
+    mtex[:, shade.TEX_NORMAL] = rng.integers(0, 4, M)
+    materials = shade.PbrMaterialTable(t(data), t(flags), t(mtex))
+
+    textures, active = None, ()
+    if kind != "no_texture":
+        texs = {}
+        for i, (th, tw) in enumerate(((16, 16), (8, 32), (32, 64))):
+            mips = []
+            while True:
+                mips.append(rng.uniform(0.0, 1.0, (th, tw, 4)).astype(np.float32))
+                if th == 1 and tw == 1:
+                    break
+                th, tw = max(th // 2, 1), max(tw // 2, 1)
+            texs[i] = types.SimpleNamespace(mips=mips)
+        atlas, rects, mip_counts, _state = tex_ops.build_texture_atlas_state(texs)
+        textures = tex_ops.TextureArrays(t(atlas).to(torch.bfloat16), t(rects), t(mip_counts))
+        active = (shade.TEX_ALBEDO, shade.TEX_NORMAL) if kind in ("textured", "routines") else (shade.TEX_NORMAL,)
+
+    def gbuffer():
+        g = rng.standard_normal((D.GB_CH, H, W)).astype(np.float32)
+        den = rng.uniform(0.05, 1.0, (H, W)).astype(np.float32)
+        den[rng.random((H, W)) < 0.01] = 0.0
+        g[D.G_DEPTH] = rng.uniform(0, 1, (H, W))
+        g[D.G_DEN] = den
+        g[D.G_UV0 : D.G_UV0 + 2] = rng.uniform(-2, 3, (2, H, W)) * den
+        g[D.G_COL : D.G_COL + 4] = rng.uniform(0, 1, (4, H, W)) * den
+        g[D.G_MAT] = rng.integers(-1, M + 2, (H, W))
+        g[D.G_HIT] = rng.random((H, W)) < 0.7
+        duv = rng.standard_normal((4, H, W)) * 10.0 ** rng.uniform(-4, 0, (1, H, W))
+        duv[:, rng.random((H, W)) < 0.05] = 0.0
+        g[D.G_DUV : D.G_DUV + 4] = duv
+        return t(g)
+
+    gbuf = gbuffer()
+    ohit = gbuf[D.G_HIT] > 0.6
+    odepth = t(rng.uniform(0.0, 0.8, (H, W)).astype(np.float32))
+    extras = ()
+    if kind == "routines":
+        routine = MaterialRoutine(object, shade=None, transparency="cutout", alpha_cutoff=0.3,
+                                  alpha=lambda px, md, mf: md[:, 0] * px.uv0[:, 1])
+        extras = [(M, 2, routine, t(np.array([[1.0, 0, 0, 0], [-1.0, 0, 0, 0]], np.float32)),
+                   t(np.zeros(2, np.int32)))]
+    return dict(
+        gcs=[gbuffer() for _ in range(peels)], gbuf=gbuf, ohit=ohit, odepth=odepth,
+        floor=torch.where(ohit, odepth, torch.full_like(odepth, -1.0)), done=t(rng.random((H, W)) < 0.2),
+        materials=materials, textures=textures, active=active, extras=extras,
+    )
+
+
+def run_cutout_peels(step, case: dict, retest: bool = False) -> list:
+    """The peels of a cutout_peel_case through `step` (cutout_peel_step's
+    arguments and results, the case's extras by keyword), in the frame's
+    order: each peel takes the previous one's gbuf and done. With
+    `retest`, every peel after the first starts again from the case's first
+    done, so pixels that passed in an earlier peel are tested again against
+    the opaque depth of the loop's start (which a step that read it from the
+    written gbuf would get wrong). Returns a list of (gbuf, done, bound,
+    searching), one a peel, the tensors cloned (a step may write its inputs
+    in place)."""
+    gbuf, done = case["gbuf"].clone(), case["done"].clone()
+    out = []
+    for k, gc in enumerate(case["gcs"]):
+        if retest and k:
+            done = case["done"].clone()
+        gbuf, done, bound, searching = step(gc, gbuf, case["floor"], done, case["materials"], case["textures"],
+                                            case["active"], extras=case["extras"])
+        out.append((gbuf.clone(), done.clone(), bound.clone(), int(searching)))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # A stress input for the step-list lerp (P3's probe_lerp)
 # ---------------------------------------------------------------------------
@@ -1046,13 +1162,14 @@ def f1_call_trace(calls):
 # ---------------------------------------------------------------------------
 
 # chip_smoke.py phase 11's kernel rows, by the TPU kernel each one ports (F1,
-# S1, S2, V1-V4 and D1 port none: XLA ops of the JAX frame).
+# S1, S2, V1-V4, D1 and C1 port none: XLA ops of the JAX frame).
 KERNEL_OF_ROW = {
     "raster_resolve": "K1", "raster_msaa": "K1", "raster_count": "K1", "raster_bound": "K1",
     "raster_depth": "K2", "pcf5": "K3", "bilinear": "K4", "gather": "K5", "raster_vis": "K6",
     "shadow_occ": "K7", "shadow_occ_lt": "K8", "probe_dot": "P1", "probe_reduce": "P2", "probe_lerp": "P3",
     "fma": "F1", "fma_dot3": "F1", "fma_ab_minus_cd": "F1", "shadow_setup": "S1", "shadow_tiles": "S2",
     "view_clip": "V1", "view_setup": "V2", "view_planes": "V3", "view_tiles": "V4", "deferred_shade": "D1",
+    "cutout_alpha": "C1",
 }
 # Kernels redesigned for the H100 after their port; rule 2 does not take
 # them again. K8 came with K7: both are instances of one CUDA kernel
@@ -1076,8 +1193,11 @@ KERNEL_OF_ROW = {
 # representative frame's opaque G-buffer and blend pixels and the flat
 # city's G-buffer (a 16x16 tile and five CTAs a SM were no faster); it
 # stays over its bound at the arithmetic the chain's exact rounding asks
-# for, IEEE divisions and square roots in every normalize.
-REDESIGNED = frozenset({"K1", "K2", "P1", "K5", "K6", "K7", "K8", "P2", "P3", "F1", "S1", "S2", "V4", "D1"})
+# for, IEEE divisions and square roots in every normalize. C1 came with two
+# designs, one thread a pixel and four pixels a thread on 16- and 4-byte
+# vectors, timed in turns on the representative frame's first 1080p peel
+# at 1 and 4 samples; the first, a third faster, stays.
+REDESIGNED = frozenset({"K1", "K2", "P1", "K5", "K6", "K7", "K8", "P2", "P3", "F1", "S1", "S2", "V4", "D1", "C1"})
 
 
 def redesign_order(rows, frame_launches, redesigned=REDESIGNED):

@@ -69,7 +69,17 @@ its plain version on the card: on testing.deferred_shade_case's G-buffers
 within D1_REL where powf rounds apart, and on the 1080p representative
 frame (opaque G-buffer, blend pixels, sample 0 at MSAA 4, and untextured
 with no plan) bit for bit; shade.gbuffers counts 2 G-buffers a city frame
-(8 at 4 samples); a refused D1 launch raises.
+(8 at 4 samples); a refused D1 launch raises. C1, the cutout alpha test of
+a peel (ops/lighting.py cutout_peel_step; csrc/deferred_shade.cu), against
+its plain version on the card: on
+testing.cutout_peel_case's peels at 128x72 and at a 1920x1088 peel, three
+chained, and again with passed pixels tested in later peels (which shows a
+kernel reading the opaque depth from the G-buffer it writes), gbuf, done,
+bound and the count bit for bit; the 1080p representative frame at 1 and
+4 samples through C1 bit for bit against the frame through the chain, with
+its counters and spans; a registered cutout routine's frame through C1
+(the routine's verdict computed before it) against the chain; a refused
+C1 launch raises.
 """
 
 import numpy as np
@@ -1208,3 +1218,161 @@ def test_d1_launch_failure_raises():
     tensors, ints = lighting.launch_args(*args, lighting.light_tensors(*args[2:5]))
     with pytest.raises(RuntimeError):
         cuda_kernels.call("d1_deferred_shade", *tensors, ints=(*ints[:-1], lighting.MAX_MAPS + 1))
+
+
+# -- C1, the cutout alpha test of a peel (ops/lighting.py; csrc/deferred_shade.cu)
+
+
+def _c1_matches_plain(case, retest):
+    got = testing.run_cutout_peels(lighting.cutout_peel_step, case, retest)
+    want = testing.run_cutout_peels(lighting.cutout_peel_step_plain, case, retest)
+    for k, ((gb, dn, bd, n), (wgb, wdn, wbd, wn)) in enumerate(zip(got, want)):
+        assert torch.equal(gb.view(torch.int32), wgb.view(torch.int32)), f"peel {k}: gbuf"
+        assert torch.equal(dn, wdn), f"peel {k}: done"
+        assert torch.equal(bd.view(torch.int32), wbd.view(torch.int32)), f"peel {k}: bound"
+        assert n == wn, f"peel {k}: {n} still searching, the chain {wn}"
+    assert all(n > 0 for *_t, n in want) and not torch.equal(want[0][0], case["gbuf"])
+
+
+@pytest.mark.parametrize("retest", [False, True], ids=["chained", "retest"])
+@pytest.mark.parametrize("kind", testing.CUTOUT_PEEL_KINDS)
+def test_c1_matches_plain(kind, retest):
+    """testing.cutout_peel_case at 128x72, three chained peels (NEAREST,
+    ALBEDO_BLEND, no cutoff, untextured materials, misses, fragments behind
+    the opaque depth, pixels already done), gbuf, done, bound and the count
+    bit for bit; `retest` tests passed pixels again in later peels, which
+    shows a kernel that read the opaque depth from the G-buffer it wrote."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _c1_matches_plain(testing.cutout_peel_case(kind, "cuda", seed=4), retest)
+
+
+@pytest.mark.parametrize("retest", [False, True], ids=["chained", "retest"])
+def test_c1_matches_plain_at_1080p(retest):
+    """The same at a 1920x1088 peel (the padded 1080p frame's)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _c1_matches_plain(testing.cutout_peel_case("textured", "cuda", seed=5, height=1088, width=1920), retest)
+
+
+@pytest.fixture(scope="module")
+def c1_frames():
+    """The representative city at 1920x1080 on the card, at 1 and 4
+    samples, rendered through C1 and through the chain (cutout_peel_step's
+    plain version patched in) after two frames that settle the carried
+    occlusion mask: (image, last_stats, counters, span counts) of each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rend3_tpu_torch.routine import base
+
+    out = {}
+    for samples in (1, 4):
+        runner = TestRunner(device="cuda")
+        keep = scenes.build_city_scene(runner, n_buildings=600, representative=True)
+        scenes.set_bench_camera(runner, 1920, 1080)
+        graph = runner.base_graph
+
+        def frame():
+            runner.renderer.swap_instruction_buffers()
+            return graph.render_frame(runner.renderer.evaluate_instructions(), FrameRenderTarget(1920, 1080, samples),
+                                      BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0)))
+
+        frame()
+        frame()
+        for path in ("C1", "chain"):
+            op = lighting.cutout_peel_step
+            if path == "chain":
+                base.light_ops.cutout_peel_step = lambda *a, extras=(), capture=None: (
+                    lighting.cutout_peel_step_plain(*a, extras, capture))
+            profiling.enable()
+            try:
+                img = frame()
+            finally:
+                profiling.disable()
+                base.light_ops.cutout_peel_step = op
+            s = profiling.stats()
+            out[samples, path] = (img, dict(graph.last_stats), dict(s.counters), dict(s.counts))
+        del keep
+    return out
+
+
+@pytest.mark.parametrize("samples", [1, 4])
+def test_c1_frame_matches_the_chain(c1_frames, samples):
+    """The frame through C1 equals the frame through the chain bit for
+    bit, with the same peels and layers; C1 ran every peel (cut.c1_peels,
+    the kernel::C1 span; at 1 sample as many as the frame's peels), no
+    peel took the chain, and the chain's candidate read is gone."""
+    img, stats, counters, spans = c1_frames[samples, "C1"]
+    want, want_stats, _c, want_spans = c1_frames[samples, "chain"]
+    assert np.array_equal(img, want)
+    for key in ("cut_survivors", "cut_peels", "cut_layers"):
+        assert stats[key] == want_stats[key], key
+    assert stats["cut_peels"] >= 1 and counters.get("cut.c1_peels", 0) >= stats["cut_peels"]
+    if samples == 1:
+        assert counters["cut.c1_peels"] == stats["cut_peels"]
+    assert spans["kernel::C1"] == counters["cut.c1_peels"] == spans["sync::cut.searching"]
+    assert "cut.chain_peels" not in counters and "sync::cut.pixels" not in spans
+    assert want_spans.get("sync::cut.pixels", 0) == counters["cut.c1_peels"]
+
+
+def test_c1_registered_routine_frame():
+    """A frame of scenes.feature_city (a registered cutout routine, whose
+    alpha is a Python callable) runs C1 on every peel, with the routine's
+    verdict computed before it, and equals the frame through the chain bit
+    for bit with the same peels and layers."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rend3_tpu_torch.routine import base
+
+    runner = TestRunner(device="cuda")
+    keep, info = scenes.feature_city(runner, n_buildings=48, sky_size=64, n_columns=4)
+    scenes.set_bench_camera(runner, 512, 256)
+    graph = runner.base_graph
+    verdicts = []
+    verdict = lighting.routine_verdict
+
+    def frame():
+        runner.renderer.swap_instruction_buffers()
+        return graph.render_frame(runner.renderer.evaluate_instructions(), FrameRenderTarget(512, 256, 1),
+                                  BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0)), info["sky"].idx)
+
+    frame()
+    out = {}
+    for path in ("C1", "chain"):
+        op = base.light_ops.cutout_peel_step
+        if path == "chain":
+            base.light_ops.cutout_peel_step = lambda *a, extras=(), capture=None: (
+                lighting.cutout_peel_step_plain(*a, extras, capture))
+        before = lighting.launches["cutout_alpha"]
+        lighting.routine_verdict = lambda gc, extras: verdicts.append(path) or verdict(gc, extras)
+        profiling.enable()
+        try:
+            img = frame()
+        finally:
+            profiling.disable()
+            base.light_ops.cutout_peel_step = op
+            lighting.routine_verdict = verdict
+        out[path] = (img, dict(graph.last_stats), dict(profiling.stats().counters),
+                     lighting.launches["cutout_alpha"] - before)
+    img, stats, counters, launched = out["C1"]
+    want, want_stats, _c, chain_launched = out["chain"]
+    peels = stats["cut_peels"]
+    assert peels >= 1 and counters.get("cut.c1_peels") == launched == peels and "cut.chain_peels" not in counters
+    assert chain_launched == 0 and verdicts == ["C1"] * peels
+    for key in ("cut_survivors", "cut_peels", "cut_layers"):
+        assert stats[key] == want_stats[key], key
+    assert np.array_equal(img, want) and (img[..., :3] > 0).any()
+    del keep
+
+
+def test_c1_launch_failure_raises():
+    """A C1 launch its C entry refuses (a slot flag other than 0 or 1) raises."""
+    from rend3_tpu_torch.ops import cuda_kernels
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = testing.cutout_peel_case("textured", "cuda", seed=0, height=8, width=16, peels=1)
+    tensors, ints = lighting.peel_launch_args(case["gcs"][0], case["gbuf"], case["floor"], case["done"],
+                                              case["materials"], case["textures"], case["active"])
+    with pytest.raises(RuntimeError):
+        cuda_kernels.call("c1_cutout_peel", *tensors, ints=(*ints[:-1], 2))

@@ -8,6 +8,14 @@ package on the CPU.
   1 ulp (as test_torch_raster.py states why).
 - cutout_alpha_pass against JAX's, bit for bit, on a G-buffer of random
   textured and untextured cutout pixels.
+- cutout_peel_step (on the CPU its plain version) against the peel loop's
+  body as the frame wrote it inline before C1, bit for bit in gbuf, done,
+  bound and the searching count, over three chained peels of
+  testing.cutout_peel_case (NEAREST, ALBEDO_BLEND, no cutoff, untextured
+  materials, misses, fragments behind the opaque depth, pixels already
+  done), also with done reset after the first peel (passed pixels tested
+  again) and with a registered cutout routine; the inputs it refuses; its
+  counter; routine_verdict against cutout_alpha_pass's routine override.
 - The three scenes of tests/test_cutout.py through the port: each equal to
   the JAX render within 1 u8 (JAX converges its peel caps first), and to
   the analytic np.where composite those tests hold JAX to.
@@ -34,7 +42,7 @@ from rend3_tpu.ops import shade as JS
 from rend3_tpu.ops import texture as JT
 from rend3_tpu.routine.pbr import material as jax_material
 from rend3_tpu.utils import math as jax_m3
-from rend3_tpu_torch import interop, scenes, types
+from rend3_tpu_torch import interop, scenes, testing, types
 from rend3_tpu_torch.ops import deferred as PD
 from rend3_tpu_torch.ops import lighting as PL
 from rend3_tpu_torch.ops import shade as PS
@@ -263,6 +271,102 @@ def test_cutout_alpha_pass_registered_routines_match_jax():
     want = np.asarray(want)
     np.testing.assert_array_equal(got.numpy(), want)
     assert 0.2 < want.mean() < 0.9  # both outcomes occur
+
+
+# ---------------------------------------------------------------------------
+# cutout_peel_step
+# ---------------------------------------------------------------------------
+
+
+def _inline_peel(gc, gbuf, ohit, odepth, done, materials, textures, active, extras=()):
+    """The peel loop's alpha test as routine/base.py wrote it inline."""
+    hp, wp = gc.shape[1:]
+    chit = gc[PD.G_HIT] > 0.0
+    cdepth = gc[PD.G_DEPTH]
+    nearer = ~ohit | (cdepth > odepth)
+    pix = torch.nonzero((~done & chit & nearer).flatten()).flatten()
+    passed = torch.zeros(hp * wp, dtype=torch.bool, device=gc.device)
+    searching = 0
+    if pix.numel():
+        ok = PL.cutout_alpha_pass(
+            PD.GBuffer(gc.reshape(PD.GB_CH, -1)[:, pix][:, None]), materials, textures, active, extras=extras,
+        ).flatten()
+        passed[pix] = ok
+        searching = pix.numel() - int(ok.sum())
+    passed = passed.reshape(hp, wp)
+    gbuf = torch.where(passed[None], gc, gbuf)
+    done = done | ~chit | passed | (chit & ~nearer)
+    bound = torch.where(done, torch.zeros_like(cdepth), cdepth)
+    return gbuf, done, bound, searching
+
+
+@pytest.mark.parametrize("kind", testing.CUTOUT_PEEL_KINDS)
+@pytest.mark.parametrize("retest", [False, True], ids=["chained", "retest"])
+def test_cutout_peel_step_matches_the_inline_loop(kind, retest):
+    """The step on the case's floor against the inline body on its opaque
+    hit and depth, from which the floor is made."""
+    case = testing.cutout_peel_case(kind, "cpu", seed=3)
+    got = testing.run_cutout_peels(PL.cutout_peel_step, case, retest)
+    want = testing.run_cutout_peels(
+        lambda gc, gbuf, _floor, done, *a, extras: _inline_peel(gc, gbuf, case["ohit"], case["odepth"], done, *a,
+                                                                extras=extras),
+        case, retest,
+    )
+    for k, ((gb, dn, bd, n), (wgb, wdn, wbd, wn)) in enumerate(zip(got, want)):
+        assert torch.equal(gb.view(torch.int32), wgb.view(torch.int32)), k
+        assert torch.equal(dn, wdn) and torch.equal(bd.view(torch.int32), wbd.view(torch.int32)) and n == wn, k
+    searching = [n for *_t, n in want]
+    assert all(n > 0 for n in searching)  # every peel fails some candidates
+    assert not torch.equal(want[0][0], case["gbuf"])  # and passes some
+    if retest:
+        assert searching[1] > searching[0] // 2  # done reset: the passed pixels are candidates again
+
+
+@pytest.mark.parametrize("fault", ["done_uint8", "gc_strided", "gbuf_shape", "floor_f64", "floor_device"])
+def test_cutout_peel_step_refuses(fault):
+    """Inputs C1 does not take raise ValueError on every device."""
+    case = testing.cutout_peel_case("textured", "cpu", seed=0, height=8, width=16, peels=1)
+    args = dict(gc=case["gcs"][0], gbuf=case["gbuf"], floor=case["floor"], done=case["done"])
+    if fault == "done_uint8":
+        args["done"] = args["done"].to(torch.uint8)
+    elif fault == "gc_strided":
+        args["gc"] = torch.cat([args["gc"], args["gc"]], dim=2)[:, :, ::2]
+    elif fault == "gbuf_shape":
+        args["gbuf"] = args["gbuf"][:, :4]
+    elif fault == "floor_f64":
+        args["floor"] = args["floor"].double()
+    else:
+        args["floor"] = args["floor"].to("meta")
+    with pytest.raises(ValueError):
+        PL.cutout_peel_step(*args.values(), case["materials"], case["textures"], case["active"])
+
+
+def test_cutout_peel_step_counts_chain_peels():
+    """On the CPU every peel takes the chain: cut.chain_peels, no cut.c1_peels."""
+    from rend3_tpu_torch.utils import profiling
+
+    case = testing.cutout_peel_case("textured", "cpu", seed=1, height=8, width=16)
+    profiling.enable()
+    try:
+        testing.run_cutout_peels(PL.cutout_peel_step, case)
+        counters = dict(profiling.stats().counters)
+    finally:
+        profiling.disable()
+    assert counters.get("cut.chain_peels") == 3 and "cut.c1_peels" not in counters
+
+
+def test_routine_verdict_is_the_alpha_pass_override():
+    """routine_verdict over a peel, where nonzero, takes the place of the
+    albedo alpha test as cutout_alpha_pass's routine override does: both
+    verdicts occur, exactly on the pixels of the routine's slots."""
+    case = testing.cutout_peel_case("routines", "cpu", seed=2)
+    gc = case["gcs"][0]
+    args = (PD.GBuffer(gc), case["materials"], case["textures"], case["active"])
+    verdict = PL.routine_verdict(gc, case["extras"])
+    got = torch.where(verdict > 0, verdict == 2, PL.cutout_alpha_pass(*args))
+    assert torch.equal(got, PL.cutout_alpha_pass(*args, extras=case["extras"]))
+    in_range = (torch.round(gc[PD.G_MAT]) >= 12) & (torch.round(gc[PD.G_MAT]) < 14)
+    assert torch.equal(verdict > 0, in_range) and (verdict == 1).any() and (verdict == 2).any()
 
 
 # ---------------------------------------------------------------------------
