@@ -584,15 +584,19 @@ def cutout_peel_step(
     Python callable) is computed over the peel by routine_verdict first,
     and C1 takes its verdict where the routine's range holds the material.
     On CPU tensors cutout_peel_step_plain, which returns new tensors.
-    Counters: cut.c1_peels, cut.chain_peels. Raises ValueError on inputs C1
-    does not take (the chain takes the same)."""
+    Counters: cut.c1_peels, cut.chain_peels; span routines::verdict around
+    a verdict. Raises ValueError on inputs C1 does not take (the chain
+    takes the same)."""
     _check_peel(gc, gbuf, floor, done, materials, textures)
     if gc.device.type == "cpu":
         profiling.count("cut.chain_peels")
         return cutout_peel_step_plain(gc, gbuf, floor, done, materials, textures, active_tex_slots, extras, capture)
     from . import cuda_kernels
 
-    verdict = routine_verdict(gc, extras) if extras else None
+    verdict = None
+    if extras:
+        with profiling_scope("routines::verdict"):
+            verdict = routine_verdict(gc, extras)
     with profiling_scope("kernel::C1"):
         tensors, ints = peel_launch_args(gc, gbuf, floor, done, materials, textures, active_tex_slots, verdict)
         cuda_kernels.call("c1_cutout_peel", *tensors, ints=ints)

@@ -229,6 +229,8 @@ class StageTimer:
 
 # Span names of the graph's stages, by stage (built once each).
 _STAGE_SPANS: Dict[str, str] = {}
+# The span of a registered pass, by its stage.
+_PASS_SPANS = {"hdr": "passes::hdr", "srgb": "passes::srgb"}
 # The stage of work timed as a part of its caller's stage: none of its own.
 _WITHIN = nullcontext()
 
@@ -999,8 +1001,14 @@ class BaseRenderGraph:
             gbufs = self._cutout_peels(f, stage, cmask, pyramid, gbufs)
             pyramid = None  # the peels may have written its first level (_cutout_peels)
         f.plan = plan
+        # The extension features' counters, every frame (0 where one did not
+        # run): K4's sky queries, the registered archetypes drawn, the
+        # passes run (counted where they run).
+        profiling.count("sky.queries", S * hp * wp if f.cube is not None else 0)
+        profiling.count("routines.archetypes", len(f.extras))
+        profiling.count("passes.run", 0)
         if f.cube is not None:
-            with stage("skybox"):
+            with stage("skybox"), profiling_scope("sky::background"):
                 backgrounds = self._skybox(f, gbufs)
         else:
             backgrounds = [f.clear_color.expand(bh, width, 4)] * S
@@ -1022,10 +1030,7 @@ class BaseRenderGraph:
             img = light_ops.light_gbuffer(*args, stage=stage)
             if f.extras:
                 with stage("routines"):
-                    img = light_ops.apply_material_routines(
-                        img, gbuf, f.extras, f.dir_lights, f.point_lights, _routine_factors(f, gbuf, shadows),
-                        f.uniforms,
-                    )
+                    img = _apply_routines(f, img, gbuf, shadows)
             if si > 0 or not self.injected_passes:
                 gbufs[si] = None  # the sample's G-buffer is no longer needed (passes get sample 0's)
             if peels_s[si]:
@@ -1051,9 +1056,10 @@ class BaseRenderGraph:
                 wants_row0 = len(inspect.signature(fn).parameters) >= 4
             except (TypeError, ValueError):
                 wants_row0 = False
-            with stage("passes"):
+            with stage("passes"), profiling_scope(_PASS_SPANS[pstage]):
                 gbuf = None if gbuf0 is None else def_ops.GBuffer(gbuf0)
                 img = fn(img, gbuf, uniforms, *((row0,) if wants_row0 else ()))
+            profiling.count("passes.run")
         return img
 
     # -- the forward frame (REND3_TPU_RASTER=reference) ---------------------
@@ -1163,9 +1169,7 @@ class BaseRenderGraph:
         rgba = light_ops.light_gbuffer(*args)
         if f.extras:
             # Registered routines shade their peel pixels (alpha = rgba[:, 3]).
-            rgba = light_ops.apply_material_routines(
-                rgba, gbuf, f.extras, f.dir_lights, f.point_lights, _routine_factors(f, gbuf, shadows), f.uniforms,
-            )
+            rgba = _apply_routines(f, rgba, gbuf, shadows)
         rgba = rgba.reshape(n_all, 4)
         npx = f.hp * f.wp
         C = torch.zeros(npx, 3, device=bgbuf.device)
@@ -1183,10 +1187,17 @@ class BaseRenderGraph:
         return torch.cat([C + (1.0 - A)[..., None] * img[..., :3], (A + (1.0 - A) * img[..., 3])[..., None]], dim=-1)
 
 
-def _routine_factors(f: _Frame, gbuf, shadows):
-    """The (L, H, W) shadow factors of a G-buffer that registered routines
-    shade with (None without shadow maps)."""
-    return None if shadows is None else light_ops.shadow_factors(gbuf, f.dir_lights, f.uniforms, shadows)
+def _apply_routines(f: _Frame, img, gbuf, shadows):
+    """The registered routines over a G-buffer's pixels (the opaque image's,
+    or the blend peels'): the (L, H, W) shadow factors they shade with (None
+    without shadow maps; span routines::shadows), then their shading (span
+    routines::shade)."""
+    with profiling_scope("routines::shadows"):
+        factors = None if shadows is None else light_ops.shadow_factors(gbuf, f.dir_lights, f.uniforms, shadows)
+    with profiling_scope("routines::shade"):
+        img = light_ops.apply_material_routines(img, gbuf, f.extras, f.dir_lights, f.point_lights, factors,
+                                                f.uniforms)
+    return img
 
 
 def _skybox_background(cube, slot: int, uniforms, width: int, height: int, offsets) -> torch.Tensor:

@@ -25,7 +25,10 @@ evaluate_instructions: a run of object instructions applied),
 `BaseRenderGraph::*` (the frame and its upload), `upload::objects` (the
 upload's host work that scales with the object count), `skin::layout`,
 `skin::palette`, `skin::apply` (skinning's layout build, palette upload and
-blend, ops/skin.py), `graph::<stage>`
+blend, ops/skin.py), `sky::background` (the skybox's K4 queries),
+`routines::shadows`, `routines::shade` and `routines::verdict` (registered
+material routines' shadow factors, shading and cutout alpha test),
+`passes::hdr` and `passes::srgb` (a registered pass), `graph::<stage>`
 (each stage of the frame), `sync::<site>` (a call that blocks the host
 until the device is done: its duration is the host's wait, its count the
 frame's device reads and stream-synchronizing uploads), `kernel::<name>`

@@ -9,7 +9,10 @@ sync:: spans, every one from SYNC_SITES; the shadow cache hits on a
 repeated frame and misses after an object moves (the object tables' cache
 with it: no bytes copied, then some); a frame with no skeleton counts every
 skinning counter 0 and opens no skinning span, a skinned one opens them
-inside the frame, the palette's copy under skin::palette.
+inside the frame, the palette's copy under skin::palette; a city frame
+counts every extension-feature counter 0 and opens none of their spans, a
+frame of scenes.feature_city counts its sky queries, archetypes and passes
+and opens their spans (a routine shade call at least) inside the frame.
 
 On the CPU a frame's front end is the plain version (no view_front.tables,
 no kernel::V* span, none of the chain's reads). On the card (marked cuda; skips without one): one frame
@@ -17,8 +20,11 @@ of each traffic kind (static, camera moving, objects moving) with
 PyTorch's sync debug mode on; every synchronizing call it warns of lies
 inside a sync:: span; a city frame builds its four front-end tables with
 V1-V4 (view_front.tables 4, the kernel::V1-V4 spans, two crossing reads
-and four totals reads), a frame of the cube lattice two. Run it
-there with python3 -m pytest tests/test_torch_profiling.py --noconftest -q.
+and four totals reads), a frame of the cube lattice two; the feature
+counters read 0 on a city frame and count a feature frame's (a cutout
+routine's verdict under routines::verdict), and the feature spans add no
+sync:: site to either frame. Run it there with python3 -m pytest
+tests/test_torch_profiling.py --noconftest -q.
 """
 
 import json
@@ -55,6 +61,10 @@ VIEW_KERNEL_SPANS = {"kernel::V1", "kernel::V2", "kernel::V3", "kernel::V4"}
 SKIN_SPANS = {"skin::layout", "skin::palette", "skin::apply"}
 SKIN_COUNTERS = {"skin.vertices", "skin.skeletons", "skin.layout_builds", "upload.skin_bytes"}
 SETTINGS = BaseRenderGraphSettings(ambient_color=(0.08, 0.08, 0.1, 1.0))
+# The extension features' spans (the verdict's on the card only) and
+# counters, the counters every frame.
+FEATURE_SPANS = {"sky::background", "routines::shadows", "routines::shade", "passes::hdr", "passes::srgb"}
+FEATURE_COUNTERS = {"sky.queries", "routines.archetypes", "passes.run"}
 
 
 @pytest.fixture(autouse=True)
@@ -263,6 +273,58 @@ def test_skinned_frame_spans_nest_in_the_frame(tmp_path):
     del keep
 
 
+def test_city_frame_counts_no_feature(city):
+    runner, _keep, _objects, target = city
+    profiling.enable()
+    _frame(runner, target)
+    profiling.disable()
+    s = profiling.stats()
+    assert {k: s.counters[k] for k in FEATURE_COUNTERS} == dict.fromkeys(FEATURE_COUNTERS, 0)
+    assert not (FEATURE_SPANS | {"routines::verdict"}) & set(s.counts)
+
+
+def _feature_city(device, width, height):
+    runner = TestRunner(device=device)
+    keep, extra = scenes.feature_city(runner, n_buildings=12 if device == "cpu" else 48, sky_size=16, n_columns=2)
+    scenes.set_bench_camera(runner, width, height)
+    return runner, keep, extra, FrameRenderTarget(width, height, 1)
+
+
+def _feature_frame(runner, extra, target):
+    runner.renderer.swap_instruction_buffers()
+    ev = runner.renderer.evaluate_instructions()
+    return runner.base_graph.render_frame_tensor(ev, target, SETTINGS, skybox_slot=extra["sky"].idx)
+
+
+def _feature_counts(s, target) -> None:
+    """A feature frame's counters and spans: K4's sky queries over the
+    padded frame, three archetypes, a routine shade call at least, both
+    passes once."""
+    from rend3_tpu_torch.ops import deferred
+
+    hp, wp = (-(-v // t) * t for v, t in ((target.height, deferred.DTILE_H), (target.width, deferred.DTILE_W)))
+    assert s.counters["sky.queries"] == hp * wp
+    assert s.counters["routines.archetypes"] == 3 and s.counts["routines::shade"] >= 1
+    assert s.counters["passes.run"] == 2
+    assert FEATURE_SPANS <= set(s.counts) and s.counts["passes::hdr"] == s.counts["passes::srgb"] == 1
+
+
+def test_feature_frame_counts_and_spans(tmp_path):
+    runner, keep, extra, target = _feature_city("cpu", 128, 64)
+    profiling.enable()
+    _feature_frame(runner, extra, target)
+    profiling.disable()
+    s = profiling.stats()
+    _feature_counts(s, target)
+    assert "routines::verdict" not in s.counts  # on the CPU the chain tests the routine's alpha itself
+    profiling.dump_chrome_trace(str(tmp_path / "trace.json"))
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())["traceEvents"] if e["ph"] == "X"]
+    for e in events:
+        if e["name"] in FEATURE_SPANS:
+            assert e["args"]["frame"] == 0, e["name"]
+    del keep
+
+
 def test_cpu_frame_counts_no_card_table(city):
     """On the CPU the view's front end is the plain version: no
     view_front.tables, no kernel::V* span, and none of the chain's reads."""
@@ -369,3 +431,53 @@ def test_every_card_sync_is_inside_a_sync_span():
                          if span is None or not span.startswith("sync::")]
     del keep
     assert not any(outside.values()), {k: v[:3] for k, v in outside.items() if v}
+
+
+def _sync_sites(runner, render) -> dict:
+    """{sync:: site: calls} of one frame."""
+    profiling.enable()
+    render()
+    profiling.disable()
+    torch.cuda.synchronize()
+    return {k: v for k, v in profiling.stats().counts.items() if k.startswith("sync::")}
+
+
+@pytest.mark.cuda
+def test_card_feature_counters_and_syncs(monkeypatch):
+    """On the card the feature counters read 0 on a city frame and count
+    the feature frame's sky, routines (the cutout routine's verdict under
+    routines::verdict) and passes; the new spans hold no
+    host read: a frame's sync:: sites are the same with the spans as with
+    them replaced by no-ops, on the city and on the feature city."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rend3_tpu_torch.ops import lighting
+    from rend3_tpu_torch.routine import base
+
+    runner = TestRunner(device="cuda")
+    keep = scenes.build_city_scene(runner, n_buildings=48, seed=7, representative=True)
+    scenes.set_bench_camera(runner, 512, 256)
+    target = FrameRenderTarget(512, 256, 1)
+    s = _card_counts(runner, target)
+    assert {k: s.counters[k] for k in FEATURE_COUNTERS} == dict.fromkeys(FEATURE_COUNTERS, 0)
+    assert not (FEATURE_SPANS | {"routines::verdict"}) & set(s.counts)
+    feat, fkeep, extra, ftarget = _feature_city("cuda", 512, 256)
+    _feature_frame(feat, extra, ftarget)
+    profiling.enable()
+    _feature_frame(feat, extra, ftarget)
+    profiling.disable()
+    torch.cuda.synchronize()
+    s = profiling.stats()
+    _feature_counts(s, ftarget)
+    assert s.counts["routines::verdict"] >= 1
+    frames = {"city": lambda: _frame(runner, target), "features": lambda: _feature_frame(feat, extra, ftarget)}
+    with_spans = {k: _sync_sites(None, f) for k, f in frames.items()}
+    new = FEATURE_SPANS | {"routines::verdict"}
+    for mod in (base, lighting):
+        orig = mod.profiling_scope
+        monkeypatch.setattr(mod, "profiling_scope",
+                            lambda name, orig=orig: profiling._OFF if name in new else orig(name))
+    without = {k: _sync_sites(None, f) for k, f in frames.items()}
+    assert with_spans == without and all(with_spans.values())
+    del keep, fkeep
+
